@@ -1,0 +1,113 @@
+"""Port model packing against the JAX package: the compiled-model snapshot,
+put_model on every plan and model field, the numpy converters, and the
+port's import isolation from JAX and MuJoCo."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from torch_parity import REPO, load_export_tool
+from track_mjx_tpu.physics import model as jm
+from track_mjx_tpu_torch.physics import model as tm
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module")
+def export_tool():
+    return load_export_tool()
+
+
+@pytest.fixture(scope="module")
+def live_model(export_tool):
+    return export_tool.rodent_model()
+
+
+def test_snapshot_equals_fresh_export(export_tool, live_model):
+    fresh = export_tool.snapshot_arrays(live_model)
+    with np.load(tm.RODENT_SNAPSHOT) as z:
+        assert sorted(z.files) == sorted(fresh)
+        for name, arr in fresh.items():
+            assert z[name].dtype == arr.dtype, name
+            np.testing.assert_array_equal(z[name], arr, err_msg=name)
+
+
+def _assert_plan_equal(a, b):
+    for f in dataclasses.fields(jm.PhysicsPlan):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if f.name == "pair_groups":
+            assert len(x) == len(y)
+            for gx, gy in zip(x, y):
+                assert gx[:2] == gy[:2]
+                np.testing.assert_array_equal(gx[2], gy[2])
+                np.testing.assert_array_equal(gx[3], gy[3])
+        elif f.name == "body_levels":
+            assert len(x) == len(y)
+            for lx, ly in zip(x, y):
+                np.testing.assert_array_equal(lx, ly)
+        elif isinstance(x, np.ndarray):
+            np.testing.assert_array_equal(x, y, err_msg=f.name)
+        else:
+            assert x == y, f.name
+
+
+@pytest.mark.parametrize("source", ["snapshot", "live"])
+def test_put_model_matches_jax(live_model, source):
+    jplan, jmodel = jm.put_model(live_model)
+    m = tm.load_snapshot() if source == "snapshot" else live_model
+    plan, model = tm.put_model(m)
+    assert [f.name for f in dataclasses.fields(tm.PhysicsPlan)] == [
+        f.name for f in dataclasses.fields(jm.PhysicsPlan)
+    ]
+    _assert_plan_equal(plan, jplan)
+    assert [f.name for f in dataclasses.fields(tm.Model)] == [
+        f.name for f in dataclasses.fields(jm.Model)
+    ]
+    for f in dataclasses.fields(tm.Model):
+        got = getattr(model, f.name)
+        assert got.dtype == torch.float32, f.name
+        np.testing.assert_array_equal(got.numpy(), np.asarray(getattr(jmodel, f.name)), err_msg=f.name)
+    # the slice's workload: rodent, CG 5/5, Euler, 30 condim-3 pyramids
+    assert (plan.nq, plan.nv, plan.nu, plan.na, plan.ntendon, plan.nsensor) == (74, 73, 38, 38, 8, 4)
+    assert (plan.ncon, plan.nlimit, plan.nefc) == (30, 67, 187)
+    assert (plan.solver, plan.iterations, plan.ls_iterations, plan.integrator) == (1, 5, 5, 0)
+    assert float(model.opt_timestep) == pytest.approx(0.002)
+
+
+def test_numpy_converters_round_trip(live_model):
+    jplan, jmodel = jm.put_model(live_model)
+    plan, model = tm.put_model(tm.load_snapshot())
+    leaves = {f.name: np.asarray(getattr(jmodel, f.name)) for f in dataclasses.fields(jm.Model)}
+    conv = tm.model_from_numpy(leaves)
+    for f in dataclasses.fields(tm.Model):
+        assert torch.equal(getattr(conv, f.name), getattr(model, f.name)), f.name
+
+    jdata = jax.vmap(lambda _: jm.make_data(jplan, jmodel))(np.arange(3))
+    data = tm.make_data(plan, model, 3)
+    conv = tm.data_from_numpy({f.name: np.asarray(getattr(jdata, f.name)) for f in dataclasses.fields(jm.Data)})
+    assert [f.name for f in dataclasses.fields(tm.Data)] == [f.name for f in dataclasses.fields(jm.Data)]
+    for f in dataclasses.fields(tm.Data):
+        assert torch.equal(getattr(conv, f.name), getattr(data, f.name)), f.name
+
+
+def test_port_imports_neither_jax_nor_mujoco():
+    code = (
+        "import sys\n"
+        "import track_mjx_tpu_torch.physics.forward\n"
+        "import track_mjx_tpu_torch.ops.cg_solver_kernel\n"
+        "bad = [m for m in ('jax', 'flax', 'mujoco', 'yaml', 'h5py', 'track_mjx_tpu') if m in sys.modules]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"

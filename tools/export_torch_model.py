@@ -1,0 +1,91 @@
+"""Exports the rodent's compiled model as the snapshot the torch port loads.
+
+Usage: python tools/export_torch_model.py [out.npz]
+
+Builds the rodent exactly as envs/task/tracking.py does for the
+rodent-full-clips workload (the Rodent walker with the config's
+walker_config, then opt.solver / iterations / ls_iterations / timestep from
+env_args and a dense jacobian) and writes the MjModel fields and `opt`
+scalars that `put_model` reads, and no others, to
+track_mjx_tpu_torch/assets/rodent_full_clips.npz. The fields are found by
+running the JAX package's put_model on a proxy that records every attribute
+it reads, so the snapshot follows put_model if that changes. This tool needs
+mujoco and the JAX package; the port that reads the snapshot needs neither.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DEFAULT_OUT = os.path.join(REPO, "track_mjx_tpu_torch", "assets", "rodent_full_clips.npz")
+CONFIG = "rodent-full-clips"
+
+
+class _Recorder:
+    """Forwards attribute reads to a MjModel (or its opt struct) and records
+    the names read."""
+
+    def __init__(self, obj, prefix: str, names: set):
+        self._obj, self._prefix, self._names = obj, prefix, names
+
+    def __getattr__(self, name):
+        val = getattr(self._obj, name)
+        if name == "opt":
+            return _Recorder(val, "opt.", self._names)
+        self._names.add(self._prefix + name)
+        return val
+
+
+def rodent_model():
+    """The rodent MjModel as the rodent-full-clips tracking env compiles it."""
+    sys.path.insert(0, REPO)
+    from track_mjx_tpu.envs.task.tracking import _SOLVER_IDS
+    from track_mjx_tpu.envs.walker.rodent import Rodent
+    from track_mjx_tpu.utils.config import load_config
+
+    cfg = load_config(CONFIG)
+    w = cfg.walker_config
+    walker = Rodent(
+        list(w.joint_names),
+        list(w.body_names),
+        list(w.end_eff_names),
+        torque_actuators=w.torque_actuators,
+        rescale_factor=w.rescale_factor,
+    )
+    args = cfg.env_config.env_args
+    m = walker._mj_model
+    m.opt.solver = _SOLVER_IDS[args.solver.lower()]
+    m.opt.iterations = args.iterations
+    m.opt.ls_iterations = args.ls_iterations
+    m.opt.timestep = args.mj_model_timestep
+    m.opt.jacobian = 0  # dense
+    return m
+
+
+def snapshot_arrays(m) -> dict:
+    """{field: array} for every MjModel field and opt scalar put_model reads."""
+    from track_mjx_tpu.physics import model as pm
+
+    names: set = set()
+    pm.put_model(_Recorder(m, "", names))
+    out = {}
+    for name in sorted(names):
+        obj = m.opt if name.startswith("opt.") else m
+        out[name] = np.array(getattr(obj, name.split(".")[-1]))
+    return out
+
+
+def main(argv):
+    out = argv[1] if len(argv) > 1 else DEFAULT_OUT
+    arrays = snapshot_arrays(rodent_model())
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    np.savez_compressed(out, **arrays)
+    print(f"wrote {len(arrays)} fields, {os.path.getsize(out)} bytes to {out}")
+
+
+if __name__ == "__main__":
+    main(sys.argv)

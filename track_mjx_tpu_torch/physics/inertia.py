@@ -1,0 +1,27 @@
+"""Joint-space inertia: composite rigid body -> dense qM and crb_buf.
+
+Port of track_mjx_tpu/physics/inertia.py `crb`. qM = anc-masked buf @ cdof^T,
+symmetrized, plus diag(armature); `crb_buf` is exported so the fused CG
+solve can rebuild qM from the (nv, 6) factors itself. The port has no
+standalone factor_m/solve_m: the only supported solve (fused scalar CG)
+factors inside its kernel.
+"""
+
+from __future__ import annotations
+
+from track_mjx_tpu_torch.ops import spatial
+from track_mjx_tpu_torch.ops.cg_solver_kernel import assemble_qm
+from track_mjx_tpu_torch.physics.com import subtree_mask
+from track_mjx_tpu_torch.physics.model import Data, Model, PhysicsPlan, static_tensor
+
+
+def crb(plan: PhysicsPlan, model: Model, data: Data) -> Data:
+    """Composite-rigid-body mass matrix (mj_crb parity, dense layout)."""
+    like = data.qpos
+    mask = static_tensor(plan, ("crb", "subtree_mask"), like, lambda: subtree_mask(plan))
+    dof_body = static_tensor(plan, ("crb", "dof_bodyid"), like, lambda: plan.dof_bodyid)
+    anc = static_tensor(plan, ("crb", "anc"), like, lambda: plan.ancestry_mask)
+    crb_inert = mask @ data.cinert  # [B, nbody, 10]
+    buf = spatial.inert_mul(crb_inert[:, dof_body], data.cdof)  # [B, nv, 6]
+    qm = assemble_qm(buf, data.cdof, anc, model.dof_armature)
+    return data.replace(qM=qm, crb_buf=buf)
