@@ -1,4 +1,4 @@
-"""Smoke run of the torch port's rodent physics control step on one NVIDIA GPU.
+"""Smoke run of the torch port's physics control steps on one NVIDIA GPU.
 
 Usage (from the repository root, on a machine with a CUDA device and nvcc):
 
@@ -7,18 +7,30 @@ Usage (from the repository root, on a machine with a CUDA device and nvcc):
 It imports nothing of JAX. Phases, each of which raises on failure:
 
 1. Device: requires CUDA, prints the card's name and power limit as
-   nvidia-smi reports them, builds csrc/cg_solve.cu for sm_90a.
-2. Kernel against plain: 4096 contact-rich rodent states (the main path's
-   batch) made on the card with the port's forward stages go through the
-   CUDA kernel and its plain PyTorch version; each output's error is held
-   to a bar. Then both are timed on the same inputs with CUDA events.
-3. Main path: the rodent-full-clips snapshot, 4096 envs, 1 warm-up and 5
-   timed control steps of forward.n_step(..., 10). Every substep must launch
-   the kernel once (60 launches), the state must stay finite and contacts
-   must be active. For 64 of those envs, the warm-up control step and one
-   substep from the state after it are repeated on the CPU (plain version)
-   from the same state and controls and compared.
-4. Prints the kernels' JSON line and, last, {"ok": true, "device": {...}}.
+   nvidia-smi reports them, builds csrc/cg_solve.cu and csrc/ell_cg_solve.cu
+   for sm_90a in one nvcc call.
+2. Rodent kernel against plain: 4096 contact-rich rodent states (the main
+   path's batch) made on the card with the port's forward stages go through
+   the cg_solve kernel and its plain PyTorch version; each output's error is
+   held to a bar. Then both are timed on the same inputs with CUDA events.
+3. Rodent main path: the rodent-full-clips snapshot, 4096 envs, 1 warm-up
+   and 5 timed control steps of forward.n_step(..., 10). Every substep must
+   launch cg_solve once (60 launches), the state must stay finite and
+   contacts must be active. For 64 of those envs, the warm-up control step
+   and one substep from the state after it are repeated on the CPU (plain
+   version) from the same state and controls and compared.
+4. Fly kernel against plain: 4096 contact-rich fly states; at one
+   iteration with one Newton step every output of ell_cg_solve is held to
+   the JAX package's bars, at the workload's 4/4 the kernel is held by its
+   optimality gap against a converged (60/15) plain solve. Both are timed
+   at 4/4.
+5. Fly main path: the fly-mc-intention snapshot, 4096 envs, 1 warm-up and 3
+   timed control steps; ell_cg_solve must launch once per substep (40
+   launches), the state must stay finite and contacts must be active. For 64
+   envs the warm-up control step and one substep after it are repeated on
+   the CPU in float32 and in float64; the card must be as close to the
+   float64 run as the CPU's float32 run is.
+6. Prints the kernels' JSON line and, last, {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -35,14 +47,21 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 N_ENVS = 4096
 N_CPU = 64
 SUBSTEPS = 10
-CONTROL_STEPS = 5  # timed, after one warm-up control step
 SEED = 0
+# One NVIDIA H100 SXM (data sheet): HBM bytes/s and float32 (non-tensor-core)
+# FLOP/s at the full 700 W; the least time a kernel could take is the larger
+# of its bytes and its operations over these.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+
+# --- rodent
+RODENT_CONTROL_STEPS = 5  # timed, after one warm-up control step
 # Controls are drawn from CTRL_SCALE * U(-1, 1). At full scale, U(-1, 1)
 # drawn afresh each control step drives a share of rodents non-finite within
 # a few control steps, in the JAX package as in the port (PERF.md): the
 # torque actuators are strong for the light segments. This amplitude keeps
 # every env finite over the run.
-CTRL_SCALE = 0.2
+RODENT_CTRL_SCALE = 0.2
 # Kernel against plain, relative to max(1, max |plain|): the bars of the
 # JAX package's kernel parity test (tests/test_cg_kernel_parity.py).
 KERNEL_REL = {
@@ -66,9 +85,56 @@ STEP_REL = {"qpos_max": 1e-2, "qvel_median": 1e-3}
 # qvel = qvel + h qacc_eff.
 SUBSTEP_REL = {"qacc": 1e-4, "qacc_eff": 1e-3, "efc_force": 1e-3, "qvel": 1e-3}
 
+# --- fly
+FLY_CONTROL_STEPS = 3  # timed, after one warm-up control step
+# Actions go to the actuators as controls (ctrlrange +-10); a policy's
+# actions lie in [-1, 1], and U(-1, 1) keeps every fly finite (PERF.md).
+FLY_CTRL_SCALE = 1.0
+# Kernel against plain at iterations=1, relative to max(1, max |plain|):
+# the bars of the JAX package's elliptic one-iteration test
+# (tests/test_cg_kernel_parity.py); qacc_eff carries qfrc_constraint's. The
+# linesearch takes one Newton step (ls_iterations=0): with more, once Newton
+# has converged to an ulp the sign of phi' is roundoff and the f32 bracket
+# doubles, halves or refuses the step, on 5.5% of 512 envs between kernel
+# and plain on an NVIDIA H100, and as often between the plain version in
+# f32 and in f64 (PERF.md). The bracket is held at 4/4 by the optimality gap.
+FLY_KERNEL_REL = {
+    "qacc_smooth": 5e-5,
+    "qacc": 2e-4,
+    "efc_force": 1e-3,
+    "qfrc_constraint": 1e-3,
+    "qacc_eff": 1e-3,
+}
+# Card against CPU for the fly. The elliptic linesearch is a knife edge in
+# f32: once Newton has converged to an ulp the sign of phi' is roundoff and
+# the bracket doubles, halves or refuses the step, so f32 runs part by O(1)
+# on single envs within a substep and on most envs within a control step
+# (on the CPU, float32 against float64 over the warm-up control step of 64
+# envs: median env qpos 3.5e-2, qvel 0.22; PERF.md). So the card and the
+# CPU are both held against a float64 CPU run of the same envs, and the
+# card's error must stay within FLY_VS_F64 times the CPU float32 run's (on
+# the median env; on the worst env for qacc_smooth, which precedes the
+# solve), plus FLY_F64_FLOOR.
+FLY_VS_F64 = 3.0
+FLY_F64_FLOOR = 1e-6
+# The optimality-gap bound gap <= 2 gap_ref + 1e-3 |cost*| of the JAX
+# package's objective test holds per env on its 6 states; over thousands of
+# envs the same knife edge puts about 1% of the envs of either solve over
+# the other's bound (on an NVIDIA H100 at 4/4 on 4096 states: 43 envs of the
+# kernel over the plain version's bound, 28 the other way, summed gaps
+# within 1.3%). The bound must hold on all but GAP_SHARE of the envs (at
+# least one env may miss it), and the summed gap may exceed the reference's
+# by at most GAP_SUM.
+GAP_SHARE = 0.02
+GAP_SUM = 1.1
+
 
 def _rel(a, b) -> float:
     return float((a - b).abs().max() / max(1.0, float(b.abs().max())))
+
+
+def _per_env(a, b):
+    return (a - b).abs().amax(1) / b.abs().amax(1).clamp(min=1.0)
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -83,160 +149,421 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def solve_flops(n: int, nl: int, nc: int, rows_per_con: int, its: int, ls: int) -> int:
+    """Floating-point operations of one env's fused solve as the kernels
+    compute it (a multiply-add counts 2): qM and J builds, two Cholesky
+    factorizations (n^3 / 3 each), its + 3 (L L^T)^-1 applies (2 n^2 each),
+    the J, J^T and M products, and the linesearch's row passes (about 6
+    operations per limit or pyramid row and 60 per cone block)."""
+    e = nl + rows_per_con * nc
+    qm = 6 * n * (n + 1)
+    jb = nc * n * (36 + (8 if rows_per_con == 4 else 0)) + nl * n
+    factor = 2 * n**3 // 3
+    applies = (its + 3) * 2 * n * n
+    if rows_per_con == 4:  # incremental jar / M dx: 2 J, 1 M, 1 J^T per iteration
+        mv_j, mv_jt, mv_m = 2 + its, 1 + its + 1, 1 + its
+        row_pass = (ls + 1) * 6 * e
+    else:  # fresh jar / M (x - smooth): 2 J, 2 M, 1 J^T per iteration
+        mv_j, mv_jt, mv_m = 2 + 2 * its, 1 + its + 1, 1 + 2 * its
+        row_pass = (ls + 3) * (6 * nl + 60 * nc)
+    return (qm + jb + factor + applies + 2 * e * n * (mv_j + mv_jt) + 2 * n * n * mv_m
+            + its * row_pass)
+
+
+def bound_ms(inputs: dict, out, flops_per_env: int) -> tuple[float, str]:
+    """The least time the card could take for the solve: every input read
+    once, every output written once, over the HBM rate, against the
+    operations over the float32 rate; returns (ms, what bounds it)."""
+    nbytes = sum(t.numel() * t.element_size() for t in inputs.values())
+    nbytes += sum(t.numel() * t.element_size() for t in out)
+    bsz = inputs["qfrc_smooth"].shape[0]
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = bsz * flops_per_env / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes > t_ops else (t_ops, "operations")
+
+
+def card_name() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+class Phases:
+    def __init__(self, card: str, device: str = "cuda"):
+        from track_mjx_tpu_torch.ops import cg_solver_kernel as tk
+        from track_mjx_tpu_torch.physics import forward as tf
+        from track_mjx_tpu_torch.physics import model as tm
+        from track_mjx_tpu_torch.physics import solver as ts
+
+        self.tk, self.tf, self.tm, self.ts = tk, tf, tm, ts
+        self.card = card
+        self.dev = torch.device(device)
+        self.gen = torch.Generator(device=self.dev)
+        self.gen.manual_seed(SEED)
+
+    def uniform(self, shape, lo, hi):
+        return lo + (hi - lo) * torch.rand(shape, generator=self.gen, device=self.dev)
+
+    def solver_inputs(self, plan, model, qpos, qvel, ctrl, warm, inputs_of):
+        tf, tm = self.tf, self.tm
+        d = tm.make_data(plan, model, qpos.shape[0]).replace(
+            qpos=qpos, qvel=qvel, ctrl=ctrl, qacc_warmstart=warm
+        )
+        d, efc = tf.fwd_position(plan, model, d)
+        d = tf.fwd_velocity(plan, model, d)
+        d = tf.fwd_actuation(plan, model, d)
+        d = tf.fwd_acceleration(plan, model, d)
+        return inputs_of(plan, model, d, efc)
+
+    def main_path(self, plan, model, op, control_steps, ctrl_scale, reset_noise=0.001):
+        """Warm-up + timed control steps of n_step(..., 10) on N_ENVS envs;
+        returns the start, the controls, the state after the warm-up, the
+        final state and the measurements."""
+        tf, tm = self.tf, self.tm
+        data = tm.make_data(plan, model, N_ENVS)
+        qpos = data.qpos.clone()
+        qpos[:, 7:] += self.uniform((N_ENVS, plan.nq - 7), -reset_noise, reset_noise)
+        data = data.replace(qpos=qpos)
+        ctrls = [ctrl_scale * self.uniform((N_ENVS, plan.nu), -1.0, 1.0)
+                 for _ in range(1 + control_steps)]
+        start = tf.slim_data(data)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        op.launches = 0  # the kernel of this path; launches below are the path's
+        active = 0
+        data = tf.n_step(plan, model, data.replace(ctrl=ctrls[0]), SUBSTEPS)
+        torch.cuda.synchronize()
+        after_warmup = tf.slim_data(data)
+        active += int((data.contact_dist < 0).sum())
+        t0 = time.perf_counter()
+        for c in range(1, 1 + control_steps):
+            data = tf.n_step(plan, model, data.replace(ctrl=ctrls[c]), SUBSTEPS)
+            active += int((data.contact_dist < 0).sum())
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = op.launches
+        peak = torch.cuda.max_memory_allocated()
+        expected = (1 + control_steps) * SUBSTEPS
+        assert launches == expected, f"{op.__name__} launched {launches} times, expected {expected}"
+        for name in ("qpos", "qvel", "act", "qacc", "qacc_eff", "efc_force", "sensordata", "xpos"):
+            t = getattr(data, name)
+            assert t.shape[0] == N_ENVS and torch.isfinite(t).all(), f"{name} is not finite"
+        assert active > 0, "no contact is active"
+        env_steps = control_steps * N_ENVS / seconds
+        print(f"main path: {N_ENVS} envs x {control_steps} control steps x {SUBSTEPS} substeps in "
+              f"{seconds:.3f} s: {env_steps:.1f} env-steps/s, {env_steps * SUBSTEPS:.1f} env-substeps/s; "
+              f"{op.__name__} launches {launches}; active contacts/env at the control steps' ends "
+              f"{active / N_ENVS / (1 + control_steps):.2f}; peak memory {peak} B ({self.card})")
+        return start, ctrls, after_warmup, data, launches
+
+    def cpu_warmup(self, name, start, ctrl0):
+        """The warm-up control step of the first N_CPU envs on the CPU."""
+        tf, tm = self.tf, self.tm
+        cpu_plan, cpu_model = tm.put_model(tm.load_snapshot(name), device="cpu")
+        cpu = tm.make_data(cpu_plan, cpu_model, N_CPU).replace(
+            **{k: getattr(start, k)[:N_CPU].cpu() for k in ("time", "qpos", "qvel", "act", "qacc_warmstart")},
+            ctrl=ctrl0[:N_CPU].cpu(),
+        )
+        return cpu_plan, cpu_model, tf.n_step(cpu_plan, cpu_model, cpu, SUBSTEPS)
+
+    def one_substep(self, plan, model, cpu_plan, cpu_model, after_warmup):
+        tf = self.tf
+        slim = tf.SlimData(**{f: getattr(after_warmup, f)[:N_CPU] for f in tf._CARRY_FIELDS})
+        card_sub = tf.step(plan, model, tf.expand_slim(plan, model, slim))
+        cpu_sub = tf.step(cpu_plan, cpu_model, tf.expand_slim(
+            cpu_plan, cpu_model, tf.SlimData(**{f: getattr(slim, f).cpu() for f in tf._CARRY_FIELDS})))
+        return slim, card_sub, cpu_sub
+
+    # -----------------------------------------------------------------------
+    # rodent
+    # -----------------------------------------------------------------------
+
+    def rodent_states(self, plan, model):
+        """Contact-rich rodent solver inputs: feet dropped into the floor,
+        joints perturbed, random qvel, ctrl and warmstart
+        (tests/test_cg_kernel_parity.py)."""
+        qpos = model.qpos0.expand(N_ENVS, plan.nq).clone()
+        qpos[:, 2] -= self.uniform((N_ENVS,), 0.008, 0.016)
+        qpos[:, 7:] += self.uniform((N_ENVS, plan.nq - 7), -0.08, 0.08)
+        return self.solver_inputs(
+            plan, model, qpos,
+            self.uniform((N_ENVS, plan.nv), -0.5, 0.5),
+            self.uniform((N_ENVS, plan.nu), -0.5, 0.5),
+            self.uniform((N_ENVS, plan.nv), -1.0, 1.0),
+            self.ts.solve_inputs,
+        )
+
+    def rodent(self) -> dict:
+        tk, tm = self.tk, self.tm
+        plan, model = tm.put_model(tm.load_snapshot("rodent-full-clips"), device=self.dev)
+        its, ls = plan.iterations, plan.ls_iterations
+        print(f"rodent: nq={plan.nq} nv={plan.nv} nu={plan.nu} ncon={plan.ncon} "
+              f"nefc={plan.nefc} cg {its}/{ls} dt={float(model.opt_timestep)}")
+
+        # kernel against plain on contact-rich states
+        inputs = self.rodent_states(plan, model)
+        before = tk.cg_solve.launches
+        kernel = tk.cg_solve(**inputs, iterations=its, ls_iterations=ls)
+        torch.cuda.synchronize()
+        assert tk.cg_solve.launches == before + 1, "the wrapper did not launch the kernel"
+        plain = tk.cg_solve_plain(**inputs, iterations=its, ls_iterations=ls)
+        torch.cuda.synchronize()
+        rich = float((plain.efc_force != 0).any(dim=1).float().mean())
+        print(f"{N_ENVS} states, share with active constraint rows {rich:.3f}")
+        assert rich > 0.9, "states are not contact-rich"
+        max_abs = 0.0
+        for name, bar in KERNEL_REL.items():
+            a, b = getattr(kernel, name), getattr(plain, name)
+            assert torch.isfinite(a).all(), f"kernel {name} not finite"
+            err = _rel(a, b)
+            abs_err = float((a - b).abs().max())
+            max_abs = max(max_abs, abs_err)
+            print(f"cg_solve vs plain {name}: max rel err {err:.3e} (bar {bar:.0e}), "
+                  f"max abs err {abs_err:.3e}, max |plain| {float(b.abs().max()):.3e}")
+            assert err < bar, f"kernel {name} disagrees with plain: {err:.3e} >= {bar:.0e}"
+
+        kernel_ms = _time_ms(lambda: tk.cg_solve(**inputs, iterations=its, ls_iterations=ls), 20)
+        plain_ms = _time_ms(lambda: tk.cg_solve_plain(**inputs, iterations=its, ls_iterations=ls), 3)
+        nc, nl = inputs["fq"].shape[1], inputs["lim1h"].shape[0]
+        b_ms, b_by = bound_ms(inputs, kernel, solve_flops(plan.nv, nl, nc, 4, its, ls))
+        print(f"cg_solve at B={N_ENVS}: kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by}) ({self.card})")
+        del inputs, kernel, plain
+
+        # main path
+        start, ctrls, after_warmup, _, launches = self.main_path(
+            plan, model, tk.cg_solve, RODENT_CONTROL_STEPS, RODENT_CTRL_SCALE
+        )
+        cpu_plan, cpu_model, cpu = self.cpu_warmup("rodent-full-clips", start, ctrls[0])
+        errs = {}
+        for name in ("qpos", "qvel"):
+            per_env = _per_env(getattr(after_warmup, name)[:N_CPU].cpu(), getattr(cpu, name))
+            errs[name] = (float(per_env.median()), float(per_env.max()))
+            print(f"card vs CPU, one control step, {N_CPU} envs, {name}: per-env rel err "
+                  f"median {errs[name][0]:.3e} max {errs[name][1]:.3e}")
+        assert errs["qpos"][1] < STEP_REL["qpos_max"], f"card and CPU qpos differ: {errs['qpos']}"
+        assert errs["qvel"][0] < STEP_REL["qvel_median"], f"card and CPU qvel differ: {errs['qvel']}"
+
+        _, card_sub, cpu_sub = self.one_substep(plan, model, cpu_plan, cpu_model, after_warmup)
+        worst = {}
+        for name, bar in SUBSTEP_REL.items():
+            worst[name] = float(_per_env(getattr(card_sub, name).cpu(), getattr(cpu_sub, name)).max())
+            print(f"card vs CPU, one substep, {N_CPU} envs, {name}: per-env rel err "
+                  f"max {worst[name]:.3e} (bar {bar:.0e})")
+        for name, bar in SUBSTEP_REL.items():
+            assert worst[name] < bar, f"card and CPU {name} differ after one substep: {worst[name]:.3e}"
+
+        return {
+            "name": "cg_solve",
+            "route": "cuda",
+            "source": "track_mjx_tpu_torch/csrc/cg_solve.cu",
+            "replaces": "track_mjx_tpu/ops/cg_solver_kernel.py:146",
+            "launches": launches,
+            "max_abs_err": max_abs,
+            "ms": kernel_ms,
+            "plain_ms": plain_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,  # no single PyTorch call computes the fused solve
+        }
+
+    # -----------------------------------------------------------------------
+    # fly
+    # -----------------------------------------------------------------------
+
+    def ell_objective(self, inputs, x, nl):
+        """Per-env objective of the elliptic solve in float64: 0.5 dx M dx
+        with dx = x - qacc_smooth, plus the limit rows' and cone blocks'
+        costs at jar = J x - aref."""
+        tk = self.tk
+        f64 = {k: v.double() for k, v in inputs.items()}
+        qm = tk.assemble_qm(f64["buf"], f64["cdof"], f64["anc"], f64["arm"])
+        j = tk.build_j_ell(f64["fq"], f64["sw"], f64["ll"], f64["dm"], f64["lim1h"])
+        smooth = torch.linalg.solve(qm, f64["qfrc_smooth"][..., None])[..., 0]
+        x = x.double()
+        dx = x - smooth
+        jar = (j @ x[..., None])[..., 0] - f64["aref"]
+        bsz = x.shape[0]
+        d = f64["D"]
+        jar_s, u = jar[:, :nl], jar[:, nl:].reshape(bsz, -1, 3)
+        cs = 0.5 * torch.where(jar_s < 0, d[:, :nl] * jar_s**2, torch.zeros_like(jar_s)).sum(1)
+        p = -torch.sqrt(d[:, nl:].reshape(bsz, -1, 3)) * u
+        t = torch.sqrt(torch.clamp(p[..., 1] ** 2 + p[..., 2] ** 2, min=1e-24))
+        mu = f64["mu"]
+        bottom, top = mu * p[..., 0] >= t, p[..., 0] <= -mu * t
+        quad = 0.5 * (p * p).sum(-1)
+        mid = quad - 0.5 * (t - mu * p[..., 0]) ** 2 / (1 + mu * mu)
+        cb = torch.where(bottom, quad, torch.where(top, torch.zeros_like(quad), mid)).sum(1)
+        return 0.5 * (dx * (qm @ dx[..., None])[..., 0]).sum(1) + cs + cb
+
+    def gap_check(self, inputs, qacc, qacc_ref, nl, what):
+        """Optimality gaps against a converged plain solve (60/15): the JAX
+        package's objective-parity bound gap <= 2 gap_ref + 1e-3 |cost*| on
+        all but GAP_SHARE of the envs, and the summed gap within GAP_SUM of
+        the reference's. The mirrored count (the reference over the bound
+        set by `qacc`) is printed beside it."""
+        star = self.tk.ell_cg_solve_plain(**inputs, iterations=60, ls_iterations=15)
+        cost_star = self.ell_objective(inputs, star.qacc, nl)
+        gap = self.ell_objective(inputs, qacc, nl) - cost_star
+        gap_ref = self.ell_objective(inputs, qacc_ref, nl) - cost_star
+        over = int((gap > 2.0 * gap_ref + 1e-3 * cost_star.abs()).sum())
+        mirrored = int((gap_ref > 2.0 * gap + 1e-3 * cost_star.abs()).sum())
+        ratio = float(gap.sum() / gap_ref.sum())
+        allowed = max(1, int(GAP_SHARE * gap.numel()))
+        print(f"{what}: envs over the gap bound {over} of {gap.numel()} (allowed {allowed}; "
+              f"reference over the mirrored bound {mirrored}); summed gap / reference {ratio:.4f} "
+              f"(bar {GAP_SUM})")
+        assert over <= allowed, f"{what}: {over} envs over the optimality-gap bound"
+        assert ratio <= GAP_SUM, f"{what}: summed optimality gap {ratio:.4f} x the reference's"
+
+    def fly_states(self, plan, model):
+        """Contact-rich fly solver inputs in the manner of
+        tests/test_cg_kernel_parity.py: legs dropped into the floor, joints
+        perturbed, random qvel, ctrl and warmstart; the last quarter are
+        static drops warm-started at a converged plain solve, which puts cone
+        blocks in the static-friction zone."""
+        ts = self.ts
+        n_static = N_ENVS // 4
+        qpos = model.qpos0.expand(N_ENVS, plan.nq).clone()
+        qpos[:, 2] -= self.uniform((N_ENVS,), 0.02, 0.12)
+        qpos[:, 7:] += self.uniform((N_ENVS, plan.nq - 7), -0.10, 0.10)
+        qvel = self.uniform((N_ENVS, plan.nv), -2.0, 2.0)
+        ctrl = self.uniform((N_ENVS, plan.nu), -0.3, 0.3)
+        warm = self.uniform((N_ENVS, plan.nv), -5.0, 5.0)
+        s = slice(N_ENVS - n_static, N_ENVS)
+        qpos[s] = model.qpos0
+        qpos[s, 7:] += self.uniform((n_static, plan.nq - 7), -0.02, 0.02)
+        qpos[s, 2] -= self.uniform((n_static,), 0.02, 0.04)
+        qvel[s] = 0.0
+        ctrl[s] = 0.0
+        warm[s] = 0.0
+        inputs = self.solver_inputs(plan, model, qpos, qvel, ctrl, warm, ts.ell_solve_inputs)
+        static = {k: (v[s] if v.dim() and v.shape[0] == N_ENVS else v) for k, v in inputs.items()}
+        warm[s] = self.tk.ell_cg_solve_plain(**static, iterations=60, ls_iterations=15).qacc
+        inputs["warm"] = warm.contiguous()
+        return inputs
+
+    def fly(self) -> dict:
+        tk, tf, tm = self.tk, self.tf, self.tm
+        plan, model = tm.put_model(tm.load_snapshot("fly-mc-intention"), device=self.dev)
+        its, ls = plan.iterations, plan.ls_iterations
+        nl, nc = plan.nlimit, plan.ncon
+        print(f"fly: nq={plan.nq} nv={plan.nv} nu={plan.nu} ncon={plan.ncon} (elliptic "
+              f"{plan.ncon_ell}) nefc={plan.nefc} cg {its}/{ls} dt={float(model.opt_timestep)}")
+
+        # kernel against plain
+        inputs = self.fly_states(plan, model)
+        before = tk.ell_cg_solve.launches
+        kernel1 = tk.ell_cg_solve(**inputs, iterations=1, ls_iterations=0)
+        torch.cuda.synchronize()
+        assert tk.ell_cg_solve.launches == before + 1, "the wrapper did not launch the kernel"
+        plain1 = tk.ell_cg_solve_plain(**inputs, iterations=1, ls_iterations=0)
+        rich = float((plain1.efc_force != 0).any(dim=1).float().mean())
+        print(f"{N_ENVS} fly states, share with active constraint rows {rich:.3f}")
+        assert rich > 0.9, "states are not contact-rich"
+        max_abs = 0.0
+        for name, bar in FLY_KERNEL_REL.items():
+            a, b = getattr(kernel1, name), getattr(plain1, name)
+            assert torch.isfinite(a).all(), f"kernel {name} not finite"
+            err = _rel(a, b)
+            abs_err = float((a - b).abs().max())
+            max_abs = max(max_abs, abs_err)
+            per_env = _per_env(a, b)
+            print(f"ell_cg_solve vs plain, 1 iteration, 1 Newton step, {name}: max rel err {err:.3e} (bar {bar:.0e}), "
+                  f"max abs err {abs_err:.3e}, max |plain| {float(b.abs().max()):.3e}; per env "
+                  f"median {float(per_env.median()):.3e} max {float(per_env.max()):.3e}")
+            assert err < bar, f"kernel {name} disagrees with plain: {err:.3e} >= {bar:.0e}"
+
+        kernel = tk.ell_cg_solve(**inputs, iterations=its, ls_iterations=ls)
+        plain = tk.ell_cg_solve_plain(**inputs, iterations=its, ls_iterations=ls)
+        err = _rel(kernel.qacc_smooth, plain.qacc_smooth)
+        print(f"ell_cg_solve vs plain, {its}/{ls}: qacc_smooth max rel err {err:.3e} "
+              f"(bar {FLY_KERNEL_REL['qacc_smooth']:.0e})")
+        assert err < FLY_KERNEL_REL["qacc_smooth"], "kernel qacc_smooth disagrees with plain"
+        for name in FLY_KERNEL_REL:
+            assert torch.isfinite(getattr(kernel, name)).all(), f"kernel {name} not finite"
+        self.gap_check(inputs, kernel.qacc, plain.qacc, nl, f"ell_cg_solve vs plain, {its}/{ls}")
+
+        kernel_ms = _time_ms(lambda: tk.ell_cg_solve(**inputs, iterations=its, ls_iterations=ls), 20)
+        plain_ms = _time_ms(lambda: tk.ell_cg_solve_plain(**inputs, iterations=its, ls_iterations=ls), 3)
+        b_ms, b_by = bound_ms(inputs, kernel, solve_flops(plan.nv, nl, nc, 3, its, ls))
+        print(f"ell_cg_solve at B={N_ENVS}: kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by}) ({self.card})")
+        del inputs, kernel, plain, kernel1, plain1
+
+        # main path
+        start, ctrls, after_warmup, _, launches = self.main_path(
+            plan, model, tk.ell_cg_solve, FLY_CONTROL_STEPS, FLY_CTRL_SCALE
+        )
+        cpu_plan, cpu_model, cpu = self.cpu_warmup("fly-mc-intention", start, ctrls[0])
+        model64 = tm.Model(**{f: getattr(cpu_model, f).double() for f in tm.Model.__dataclass_fields__})
+        cpu64 = tf.n_step(cpu_plan, model64, tm.make_data(cpu_plan, model64, N_CPU).replace(
+            **{k: getattr(start, k)[:N_CPU].cpu().double()
+               for k in ("time", "qpos", "qvel", "act", "qacc_warmstart")},
+            ctrl=ctrls[0][:N_CPU].cpu().double(),
+        ), SUBSTEPS)
+
+        def versus_f64(what, name, card_t, cpu_t, ref, stat):
+            card_e = _per_env(card_t.cpu().double(), ref)
+            cpu_e = _per_env(cpu_t.double(), ref)
+            pick = (lambda e: float(e.median())) if stat == "median" else (lambda e: float(e.max()))
+            bar = FLY_VS_F64 * pick(cpu_e) + FLY_F64_FLOOR
+            print(f"fly, {what}, {N_CPU} envs, {name} against float64 CPU: per-env rel err, card "
+                  f"median {float(card_e.median()):.3e} max {float(card_e.max()):.3e}; CPU float32 "
+                  f"median {float(cpu_e.median()):.3e} max {float(cpu_e.max()):.3e}; "
+                  f"bar on the card's {stat} {bar:.3e}")
+            assert pick(card_e) <= bar, f"card {name} further from float64 than the CPU ({what})"
+
+        for name in ("qpos", "qvel"):
+            versus_f64("one control step", name, getattr(after_warmup, name)[:N_CPU],
+                       getattr(cpu, name), getattr(cpu64, name), "median")
+        _, card_sub, cpu_sub = self.one_substep(plan, model, cpu_plan, cpu_model, after_warmup)
+        slim64 = tf.SlimData(**{f: getattr(after_warmup, f)[:N_CPU].cpu().double() for f in tf._CARRY_FIELDS})
+        sub64 = tf.step(cpu_plan, model64, tf.expand_slim(cpu_plan, model64, slim64))
+        versus_f64("one substep", "qacc_smooth", card_sub.qacc_smooth, cpu_sub.qacc_smooth,
+                   sub64.qacc_smooth, "max")
+        for name in ("qacc", "qacc_eff", "efc_force", "qvel"):
+            versus_f64("one substep", name, getattr(card_sub, name), getattr(cpu_sub, name),
+                       getattr(sub64, name), "median")
+
+        return {
+            "name": "ell_cg_solve",
+            "route": "cuda",
+            "source": "track_mjx_tpu_torch/csrc/ell_cg_solve.cu",
+            "replaces": "track_mjx_tpu/ops/cg_solver_kernel.py:725",
+            "launches": launches,
+            "max_abs_err": max_abs,
+            "ms": kernel_ms,
+            "plain_ms": plain_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,  # no single PyTorch call computes the fused solve
+        }
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device (torch.cuda.is_available() is False)")
     sys.path.insert(0, REPO)
     from track_mjx_tpu_torch.ops import cg_solver_kernel as tk
     from track_mjx_tpu_torch.physics import forward as tf
-    from track_mjx_tpu_torch.physics import model as tm
-    from track_mjx_tpu_torch.physics import solver as ts
 
-    # 1. device and build
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    card = card_name()
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     path, build_s, log = tk.build_library()
-    print(f"built {os.path.relpath(path, REPO)} from {os.path.relpath(tk.SOURCE, REPO)} "
-          f"with nvcc for sm_90a in {build_s:.1f} s")
+    print(f"built {os.path.relpath(path, REPO)} from "
+          f"{', '.join(os.path.relpath(s, REPO) for s in tk.SOURCES)} with nvcc for sm_90a "
+          f"in {build_s:.1f} s")
     for line in log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
     tf.set_full_f32()
-    dev = torch.device("cuda")
-    plan, model = tm.put_model(tm.load_snapshot(), device=dev)
-    its, ls = plan.iterations, plan.ls_iterations
-    print(f"rodent: nq={plan.nq} nv={plan.nv} nu={plan.nu} ncon={plan.ncon} "
-          f"nefc={plan.nefc} cg {its}/{ls} dt={float(model.opt_timestep)}")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED)
-
-    def uniform(shape, lo, hi):
-        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
-
-    # 2. kernel against plain on contact-rich states
-    def solver_inputs(bsz):
-        d = tm.make_data(plan, model, bsz)
-        qpos = d.qpos.clone()
-        qpos[:, 2] -= uniform((bsz,), 0.008, 0.016)
-        qpos[:, 7:] += uniform((bsz, plan.nq - 7), -0.08, 0.08)
-        d = d.replace(
-            qpos=qpos,
-            qvel=uniform((bsz, plan.nv), -0.5, 0.5),
-            ctrl=uniform((bsz, plan.nu), -0.5, 0.5),
-            qacc_warmstart=uniform((bsz, plan.nv), -1.0, 1.0),
-        )
-        d, efc = tf.fwd_position(plan, model, d)
-        d = tf.fwd_velocity(plan, model, d)
-        d = tf.fwd_actuation(plan, model, d)
-        d = tf.fwd_acceleration(plan, model, d)
-        return ts.solve_inputs(plan, model, d, efc)
-
-    inputs = solver_inputs(N_ENVS)
-    before = tk.cg_solve.launches
-    kernel = tk.cg_solve(**inputs, iterations=its, ls_iterations=ls)
-    torch.cuda.synchronize()
-    assert tk.cg_solve.launches == before + 1, "the wrapper did not launch the kernel"
-    plain = tk.cg_solve_plain(**inputs, iterations=its, ls_iterations=ls)
-    torch.cuda.synchronize()
-    rich = float((plain.efc_force != 0).any(dim=1).float().mean())
-    print(f"{N_ENVS} states, share with active constraint rows {rich:.3f}")
-    assert rich > 0.9, "states are not contact-rich"
-    max_abs = 0.0
-    for name, bar in KERNEL_REL.items():
-        a, b = getattr(kernel, name), getattr(plain, name)
-        assert torch.isfinite(a).all(), f"kernel {name} not finite"
-        err = _rel(a, b)
-        abs_err = float((a - b).abs().max())
-        max_abs = max(max_abs, abs_err)
-        print(f"kernel vs plain {name}: max rel err {err:.3e} (bar {bar:.0e}), "
-              f"max abs err {abs_err:.3e}, max |plain| {float(b.abs().max()):.3e}")
-        assert err < bar, f"kernel {name} disagrees with plain: {err:.3e} >= {bar:.0e}"
-
-    kernel_ms = _time_ms(lambda: tk.cg_solve(**inputs, iterations=its, ls_iterations=ls), 20)
-    plain_ms = _time_ms(lambda: tk.cg_solve_plain(**inputs, iterations=its, ls_iterations=ls), 3)
-    print(f"cg_solve at B={N_ENVS}: kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms ({card})")
-    del inputs, kernel, plain
-
-    # 3. main path: 1 warm-up + 5 timed control steps of n_step(..., 10)
-    data = tm.make_data(plan, model, N_ENVS)
-    qpos = data.qpos.clone()
-    qpos[:, 7:] += uniform((N_ENVS, plan.nq - 7), -0.001, 0.001)  # reset noise
-    data = data.replace(qpos=qpos)
-    ctrls = [CTRL_SCALE * uniform((N_ENVS, plan.nu), -1.0, 1.0) for _ in range(1 + CONTROL_STEPS)]
-    start = tf.slim_data(data)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    tk.cg_solve.launches = 0
-    data = tf.n_step(plan, model, data.replace(ctrl=ctrls[0]), SUBSTEPS)
-    torch.cuda.synchronize()
-    after_warmup = tf.slim_data(data)
-    t0 = time.perf_counter()
-    for c in range(1, 1 + CONTROL_STEPS):
-        data = tf.n_step(plan, model, data.replace(ctrl=ctrls[c]), SUBSTEPS)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = tk.cg_solve.launches
-    peak = torch.cuda.max_memory_allocated()
-    expected = (1 + CONTROL_STEPS) * SUBSTEPS
-    assert launches == expected, f"cg_solve launched {launches} times, expected {expected}"
-    for name in ("qpos", "qvel", "act", "qacc", "qacc_eff", "efc_force", "sensordata", "xpos"):
-        t = getattr(data, name)
-        assert t.shape[0] == N_ENVS and torch.isfinite(t).all(), f"{name} is not finite"
-    active = (data.contact_dist < 0).sum(dim=1)
-    assert active.sum() > 0, "no contact is active"
-    env_steps = CONTROL_STEPS * N_ENVS / seconds
-    print(f"main path: {N_ENVS} envs x {CONTROL_STEPS} control steps x {SUBSTEPS} substeps in "
-          f"{seconds:.3f} s: {env_steps:.1f} env-steps/s, {env_steps * SUBSTEPS:.1f} env-substeps/s; "
-          f"kernel launches {launches}; active contacts/env {float(active.float().mean()):.2f}; "
-          f"peak memory {peak} B ({card})")
-
-    # the warm-up control step of the first N_CPU envs, again on the CPU
-    cpu_plan, cpu_model = tm.put_model(tm.load_snapshot())
-    cpu = tm.make_data(cpu_plan, cpu_model, N_CPU).replace(
-        **{k: getattr(start, k)[:N_CPU].cpu() for k in ("time", "qpos", "qvel", "act", "qacc_warmstart")},
-        ctrl=ctrls[0][:N_CPU].cpu(),
-    )
-    cpu = tf.n_step(cpu_plan, cpu_model, cpu, SUBSTEPS)
-    errs = {}
-    for name in ("qpos", "qvel"):
-        a, b = getattr(after_warmup, name)[:N_CPU].cpu(), getattr(cpu, name)
-        per_env = (a - b).abs().amax(1) / b.abs().amax(1).clamp(min=1.0)
-        errs[name] = (float(per_env.median()), float(per_env.max()))
-        print(f"card vs CPU, one control step, {N_CPU} envs, {name}: per-env rel err "
-              f"median {errs[name][0]:.3e} max {errs[name][1]:.3e}")
-    assert errs["qpos"][1] < STEP_REL["qpos_max"], f"card and CPU qpos differ: {errs['qpos']}"
-    assert errs["qvel"][0] < STEP_REL["qvel_median"], f"card and CPU qvel differ: {errs['qvel']}"
-
-    # one substep of the same envs from the state after the warm-up step
-    slim = tf.SlimData(**{f: getattr(after_warmup, f)[:N_CPU] for f in tf._CARRY_FIELDS})
-    card_sub = tf.step(plan, model, tf.expand_slim(plan, model, slim))
-    cpu_sub = tf.step(cpu_plan, cpu_model, tf.expand_slim(
-        cpu_plan, cpu_model, tf.SlimData(**{f: getattr(slim, f).cpu() for f in tf._CARRY_FIELDS})))
-    worst = {}
-    for name, bar in SUBSTEP_REL.items():
-        a, b = getattr(card_sub, name).cpu(), getattr(cpu_sub, name)
-        per_env = (a - b).abs().amax(1) / b.abs().amax(1).clamp(min=1.0)
-        worst[name] = float(per_env.max())
-        print(f"card vs CPU, one substep, {N_CPU} envs, {name}: per-env rel err "
-              f"max {worst[name]:.3e} (bar {bar:.0e})")
-    for name, bar in SUBSTEP_REL.items():
-        assert worst[name] < bar, f"card and CPU {name} differ after one substep: {worst[name]:.3e}"
-
-    # 4. results
-    print(json.dumps({"kernels": [{
-        "name": "cg_solve",
-        "route": "cuda",
-        "source": "track_mjx_tpu_torch/csrc/cg_solve.cu",
-        "replaces": "track_mjx_tpu/ops/cg_solver_kernel.py:146",
-        "launches": launches,
-        "max_abs_err": max_abs,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]}))
+    phases = Phases(card)
+    kernels = [phases.rodent(), phases.fly()]
+    print(card)
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

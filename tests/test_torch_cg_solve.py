@@ -114,8 +114,8 @@ def test_plain_matches_unfused_jax(case, output):
 
 def test_solve_matches_jax_solve(case):
     tf.set_full_f32()
-    plan, model = tm.put_model(tm.load_snapshot())
-    data = tm.data_from_numpy(case["data"])
+    plan, model = tm.put_model(tm.load_snapshot(), device="cpu")
+    data = tm.data_from_numpy(case["data"], device="cpu")
     e = case["efc"]
     t = lambda k: torch.tensor(e[k])
     efc = EfcData(

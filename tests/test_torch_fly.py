@@ -1,0 +1,468 @@
+"""The port's fly physics against the JAX package (and MuJoCo C where the JAX
+suite checks against it), on the fly-mc-intention model: the compiled-model
+snapshot, each forward stage on contact-rich states (with the inertia-box
+fluid drag and the elliptic cone rows), the plain elliptic solve against the
+JAX kernel in interpret mode, the exact blocked substitution, and one step
+from a gentle start. On a CUDA machine the elliptic kernel is held against
+its plain version."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import mujoco
+import numpy as np
+import pytest
+import torch
+
+import torch_parity
+from torch_parity import SOLVE_REL, STAGE_REL, assert_close, assert_plan_equal
+from track_mjx_tpu.ops import batched_linalg as jlinalg
+from track_mjx_tpu.ops import cg_solver_kernel as jk
+from track_mjx_tpu.physics import forward as jf
+from track_mjx_tpu.physics import model as jm
+from track_mjx_tpu.physics import sensors as jsens
+from track_mjx_tpu.physics import solver as jsolver
+from track_mjx_tpu_torch.ops import batched_linalg as tlinalg
+from track_mjx_tpu_torch.ops import cg_solver_kernel as tk
+from track_mjx_tpu_torch.physics import actuation, collision, com, constraint, inertia
+from track_mjx_tpu_torch.physics import forward as tf
+from track_mjx_tpu_torch.physics import kinematics, passive, rne, sensors
+from track_mjx_tpu_torch.physics import model as tm
+from track_mjx_tpu_torch.physics import solver as tsolver
+
+torch.set_num_threads(1)
+CONFIG = "fly-mc-intention"
+N_ENVS = 6
+OUTS = ("qacc_smooth", "qacc", "efc_force", "qfrc_constraint", "qacc_eff")
+# iterations=1: iterate-level bars of tests/test_cg_kernel_parity.py
+# (elliptic, one iteration); qacc_eff carries qfrc_constraint's bar
+ONE_ITER_REL = {
+    "qacc_smooth": 5e-5,
+    "qacc": 2e-4,
+    "efc_force": 1e-3,
+    "qfrc_constraint": 1e-3,
+    "qacc_eff": 1e-3,
+}
+
+
+@pytest.fixture(scope="module")
+def live():
+    return torch_parity.load_export_tool().workload_model(CONFIG)
+
+
+@pytest.fixture(scope="module")
+def ref(live):
+    """JAX forward on contact-rich fly states (the last two static drops,
+    warm-started at MuJoCo C's qacc so cone blocks reach the static-friction
+    zone), the JAX elliptic kernel in interpret mode at 1 and at 4/4
+    iterations, and the unfused JAX solve at 60/15 (converged)."""
+    m = live
+    jplan, jmodel = jm.put_model(m)
+    assert jsolver.fused_elliptic_cg(jplan) and jsolver.fused_euler(jplan)
+    qpos, qvel, ctrl, warm = torch_parity.contact_rich_fly_states(m, N_ENVS, seed=7)
+
+    def run(qpos, qvel, ctrl, warm):
+        with jax.default_matmul_precision("highest"):
+            d = jm.make_data(jplan, jmodel).replace(
+                qpos=qpos, qvel=qvel, ctrl=ctrl, qacc_warmstart=warm
+            )
+            d, efc = jf.fwd_position(jplan, jmodel, d)
+            d = jf.fwd_velocity(jplan, jmodel, d)
+            d = jf.fwd_actuation(jplan, jmodel, d)
+            d = jf.fwd_acceleration(jplan, jmodel, d)
+            mu_t = efc.ell_mu * jax.lax.rsqrt(jnp.maximum(jmodel.opt_impratio, 1e-12))
+            star = jsolver._elliptic_cg_single(
+                60, 15, jplan.ncon_ell, d.qM, efc.J, efc.aref, efc.D, mu_t,
+                d.qfrc_smooth, warm, jmodel.opt_tolerance,
+            )
+            d = jsolver.solve(jplan, jmodel, d, efc)
+            d = jsens.sensor(jplan, jmodel, d)
+        return d, efc, mu_t, star
+
+    d, efc, mu_t, star = jax.jit(jax.vmap(run))(qpos, qvel, ctrl, warm)
+    dm, lim1h = jsolver._jb_static(jplan)
+    f32 = lambda x: np.ascontiguousarray(x, np.float32)
+    hd = f32(np.broadcast_to(m.opt.timestep * m.dof_damping, (N_ENVS, m.nv)))
+    inputs = dict(
+        buf=f32(d.crb_buf), cdof=f32(d.cdof), fq=f32(efc.jb_fq), sw=f32(efc.jb_sw),
+        ll=f32(efc.jb_ll), mu=f32(mu_t), aref=f32(efc.aref), D=f32(efc.D),
+        qfrc_smooth=f32(d.qfrc_smooth), warm=warm, hd=hd,
+        anc=f32(jplan.ancestry_mask), arm=f32(jmodel.dof_armature), dm=f32(dm), lim1h=f32(lim1h),
+    )
+    scale = np.maximum((inputs["buf"] * inputs["cdof"]).sum((-2, -1)) + inputs["arm"].sum(), 1e-12)
+    inputs["tolscale"] = f32(np.float32(m.opt.tolerance) * scale)
+
+    def interp(iterations):
+        out = jk._ell_cg_solve_tpu(
+            d.qM, efc.J, efc.aref, efc.D, mu_t, d.qfrc_smooth, warm,
+            jnp.asarray(m.opt.tolerance, jnp.float32), hd=jnp.asarray(hd),
+            crb=(d.crb_buf, d.cdof, jnp.asarray(inputs["anc"]), jmodel.dof_armature),
+            jb=(efc.jb_fq, efc.jb_sw, efc.jb_ll, inputs["dm"], inputs["lim1h"]),
+            jb_nl=jplan.nlimit, ns=jplan.nlimit, ncon_ell=jplan.ncon_ell,
+            iterations=iterations, ls_iterations=jplan.ls_iterations, interpret=True,
+        )
+        return dict(zip(OUTS, (np.asarray(a) for a in out)))
+
+    data = {f.name: np.asarray(getattr(d, f.name)) for f in dataclasses.fields(jm.Data)}
+    efc_np = {
+        k: np.asarray(getattr(efc, k))
+        for k in ("J", "aref", "D", "pos", "active_row", "ell_mu", "jb_sw", "jb_fq", "jb_ll")
+    }
+    tf.set_full_f32()
+    plan, model = tm.put_model(tm.load_snapshot(CONFIG), device="cpu")
+    return dict(
+        plan=plan, model=model, data=data, efc=efc_np, inputs=inputs, mu_t=np.asarray(mu_t),
+        interp1=interp(1), interp=interp(jplan.iterations),
+        star=tuple(np.asarray(a) for a in star), iters=(jplan.iterations, jplan.ls_iterations),
+    )
+
+
+def _port_data(ref):
+    return tm.data_from_numpy(ref["data"], device="cpu")
+
+
+def _plain(ref, iterations):
+    args = {k: torch.tensor(v) for k, v in ref["inputs"].items()}
+    before = tk.ell_cg_solve.launches
+    out = tk.ell_cg_solve(**args, iterations=iterations, ls_iterations=ref["iters"][1])
+    assert tk.ell_cg_solve.launches == before, "a CPU call must not count a kernel launch"
+    return out
+
+
+def test_fly_snapshot_equals_fresh_export(live):
+    fresh = torch_parity.load_export_tool().snapshot_arrays(live)
+    with np.load(tm.SNAPSHOTS[CONFIG]) as z:
+        assert sorted(z.files) == sorted(fresh)
+        for name, arr in fresh.items():
+            assert z[name].dtype == arr.dtype, name
+            np.testing.assert_array_equal(z[name], arr, err_msg=name)
+
+
+def test_fly_put_model_matches_jax(live):
+    jplan, jmodel = jm.put_model(live)
+    plan, model = tm.put_model(tm.load_snapshot(CONFIG), device="cpu")
+    assert_plan_equal(plan, jplan)
+    for f in dataclasses.fields(tm.Model):
+        np.testing.assert_array_equal(
+            getattr(model, f.name).numpy(), np.asarray(getattr(jmodel, f.name)), err_msg=f.name
+        )
+    # the slice's workload: 27 condim-3 elliptic contacts + 36 limit rows,
+    # CG 4/4, Euler, dt 2e-4, inertia-box fluid drag
+    assert (plan.nq, plan.nv, plan.nu, plan.na) == (43, 42, 36, 0)
+    assert (plan.ncon, plan.ncon_ell, plan.nlimit, plan.nefc) == (27, 27, 36, 117)
+    assert (plan.solver, plan.iterations, plan.ls_iterations, plan.integrator) == (1, 4, 4, 0)
+    assert plan.fluid_active and plan.cone == tm.CONE_ELLIPTIC
+    assert [(t1, t2, len(g1)) for t1, t2, g1, _ in plan.pair_groups] == [
+        (tm.GEOM_PLANE, tm.GEOM_CAPSULE, 6), (tm.GEOM_CAPSULE, tm.GEOM_CAPSULE, 15)
+    ]
+    assert float(model.opt_timestep) == pytest.approx(2e-4)
+    assert tsolver.fused_elliptic_cg(plan) and tsolver.fused_euler(plan)
+
+
+STAGES = {
+    "kinematics": (
+        kinematics.kinematics,
+        ("xpos", "xquat", "xmat", "xipos", "ximat", "xanchor", "xaxis",
+         "geom_xpos", "geom_xmat", "site_xpos", "site_xmat"),
+    ),
+    "com_pos": (com.com_pos, ("subtree_com", "cinert", "cdof")),
+    "crb": (inertia.crb, ("qM", "crb_buf")),
+    "com_vel": (com.com_vel, ("cvel", "cdof_dot")),
+    "passive": (passive.passive, ("qfrc_spring", "qfrc_damper", "qfrc_passive")),
+    "rne": (rne.rne, ("qfrc_bias",)),
+    "actuation": (actuation.actuation, ("actuator_force", "qfrc_actuator")),
+    "sensors": (sensors.sensor, ("sensordata",)),
+    "fwd_acceleration": (tf.fwd_acceleration, ("qfrc_smooth",)),
+}
+
+
+@pytest.mark.parametrize("stage", sorted(STAGES))
+def test_fly_stage_matches_jax(ref, stage):
+    fn, fields = STAGES[stage]
+    got = fn(ref["plan"], ref["model"], _port_data(ref))
+    for f in fields:
+        assert_close(f, getattr(got, f), ref["data"][f], STAGE_REL)
+    if stage == "passive":  # the fluid drag is present in these states
+        fluid = passive.fluid(ref["plan"], ref["model"], _port_data(ref))
+        assert float(fluid.abs().max()) > 1e-6
+
+
+def test_fly_collision_matches_jax(ref):
+    plan, model = ref["plan"], ref["model"]
+    got, contact = collision.collide(plan, model, _port_data(ref))
+    for f in ("contact_dist", "contact_pos", "contact_frame"):
+        assert_close(f, getattr(got, f), ref["data"][f], STAGE_REL)
+    # both pair types (plane-capsule, capsule-capsule) carry a nonzero margin
+    assert float(contact.includemargin.max()) > 0
+    assert (ref["data"]["contact_dist"] < 0).any(axis=1).all()
+
+
+def test_fly_elliptic_rows_match_jax(ref):
+    plan, model, efc = ref["plan"], ref["model"], ref["efc"]
+    d = _port_data(ref)
+    _, contact = collision.collide(plan, model, d)
+    got = constraint.make_constraint(plan, model, d, contact)
+    for name in ("aref", "D", "pos", "jb_sw", "jb_fq", "jb_ll"):
+        assert_close(name, getattr(got, name), efc[name], STAGE_REL)
+    np.testing.assert_array_equal(got.active_row.numpy(), efc["active_row"])
+    np.testing.assert_array_equal(got.ell_mu.numpy(), efc["ell_mu"][0])
+    assert got.jb_mu is None
+    # the dense J rebuilt from the compact operands equals JAX's efc.J
+    dm, lim1h = (torch.tensor(t, dtype=torch.float32) for t in tsolver._jb_static(plan))
+    j = tk.build_j_ell(got.jb_fq, got.jb_sw, got.jb_ll, dm, lim1h)
+    assert_close("J", j, efc["J"], STAGE_REL)
+    assert np.abs(efc["J"][:, plan.nlimit:]).max() > 0  # active cone rows
+    # the solver's operands: mu_t = mu_1 / sqrt(impratio), tol * trace(M), h damping
+    inputs = tsolver.ell_solve_inputs(plan, model, d, got)
+    for name in ("mu", "tolscale", "hd", "aref", "D"):
+        assert_close(name, inputs[name], ref["inputs"][name], STAGE_REL)
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+def test_fly_qfrc_passive_matches_mujoco(live, seed):
+    """qfrc_passive (spring + damper + fluid) against MuJoCo C at realistic
+    link velocities, as tests/test_fly.py holds the JAX package."""
+    m = live
+    rng = np.random.RandomState(seed)
+    qpos = m.qpos0.copy()
+    qpos[2] -= 0.002
+    qpos[7:] += rng.uniform(-0.05, 0.05, m.nq - 7)
+    qvel = rng.uniform(-30.0, 30.0, m.nv)
+    md = mujoco.MjData(m)
+    md.qpos[:], md.qvel[:] = qpos, qvel
+    mujoco.mj_forward(m, md)
+    tf.set_full_f32()
+    plan, model = tm.put_model(tm.load_snapshot(CONFIG), device="cpu")
+    d = tm.make_data(plan, model, 1).replace(
+        qpos=torch.tensor(qpos[None], dtype=torch.float32),
+        qvel=torch.tensor(qvel[None], dtype=torch.float32),
+    )
+    d, _ = tf.fwd_position(plan, model, d)
+    d = tf.fwd_velocity(plan, model, d)
+    got = d.qfrc_passive[0].double().numpy()
+    want = md.qfrc_passive
+    assert np.abs(want).max() > 0.01  # the fluid term is present
+    err = np.abs(got - want).max() / max(np.abs(want).max(), 1e-6)
+    assert err < 1e-4, f"qfrc_passive rel err {err:.2e}"
+
+
+def _assert_gap_bound(ref, got_qacc, want_qacc, envs):
+    """The optimality gap against the converged (60/15) solve, on `envs`:
+    gap_got <= 2 gap_want + 1e-3 |cost*| (tests/test_cg_kernel_parity.py)."""
+    d, efc = ref["data"], ref["efc"]
+    cost = lambda x: torch_parity.ell_objective_f64(
+        d["qM"][envs], efc["J"][envs], efc["aref"][envs], efc["D"][envs], ref["mu_t"][envs],
+        ref["star"][0][envs], x[envs], ref["plan"].nlimit,
+    )
+    cost_star = cost(ref["star"][1])
+    gap_got = cost(np.asarray(got_qacc)) - cost_star
+    gap_want = cost(np.asarray(want_qacc)) - cost_star
+    assert np.all(gap_got <= 2.0 * gap_want + 1e-3 * np.abs(cost_star)), (gap_got, gap_want)
+
+
+@pytest.mark.parametrize("output", OUTS)
+def test_ell_plain_matches_jax_kernel_one_iteration(ref, output):
+    """Iterate-level parity at iterations=1 on the sliding envs. The two
+    static envs (MuJoCo-C warmstart, cone blocks at zone boundaries) are
+    knife edges for the safeguarded linesearch even at one iteration: on
+    the last one the JAX kernel's f32 bracket lands 14% above the float64
+    solve's objective, which the plain version meets to 1e-7. They are held
+    to the optimality gap instead, as the JAX package's own J-build test
+    holds them (tests/test_cg_kernel_parity.py)."""
+    out = _plain(ref, 1)
+    sliding = slice(0, N_ENVS - 2)
+    assert_close(
+        output, getattr(out, output)[sliding], ref["interp1"][output][sliding], ONE_ITER_REL[output]
+    )
+    if output == "qacc":
+        _assert_gap_bound(ref, out.qacc.numpy(), ref["interp1"]["qacc"], slice(N_ENVS - 2, N_ENVS))
+    if output == "efc_force":  # contact-rich: every env has active rows
+        assert (np.abs(ref["interp1"][output]).max(axis=1) > 0).all()
+
+
+def test_ell_plain_matches_jax_kernel_by_optimality_gap(ref):
+    """At the workload's 4/4 iterate-level parity is not a valid check
+    (tests/test_cg_kernel_parity.py): near convergence the linesearch's
+    bracket decisions flip with summation order. The plain version must
+    solve as well as the JAX kernel, judged by the optimality gap against a
+    converged (60/15) solve."""
+    its, _ = ref["iters"]
+    out = _plain(ref, its)
+    assert_close("qacc_smooth", out.qacc_smooth, ref["interp"]["qacc_smooth"], SOLVE_REL["qacc_smooth"])
+    _assert_gap_bound(ref, out.qacc.numpy(), ref["interp"]["qacc"], slice(None))
+
+
+def test_ell_solve_runs_the_elliptic_op(ref):
+    """solve() routes the fly's plan through ell_cg_solve and fills every
+    output, qacc_eff included (fused Euler)."""
+    plan, model = ref["plan"], ref["model"]
+    d = _port_data(ref)
+    _, contact = collision.collide(plan, model, d)
+    efc = constraint.make_constraint(plan, model, d, contact)
+    got = tsolver.solve(plan, model, d, efc)
+    want = tk.ell_cg_solve(**tsolver.ell_solve_inputs(plan, model, d, efc),
+                           iterations=plan.iterations, ls_iterations=plan.ls_iterations)
+    for name in OUTS:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    with pytest.raises(NotImplementedError):
+        tsolver.solve_inputs(plan, model, d, efc)
+
+
+def test_ell_wrapper_rejects_bad_arguments(ref):
+    good = {k: torch.tensor(v) for k, v in ref["inputs"].items()}
+
+    def call(**override):
+        return tk.ell_cg_solve(**dict(good, **override), iterations=1, ls_iterations=1)
+
+    with pytest.raises(ValueError, match="mu shape"):
+        call(mu=good["mu"][..., None].expand(-1, -1, 2).contiguous())
+    with pytest.raises(ValueError, match="aref shape"):
+        call(aref=torch.zeros(N_ENVS, ref["plan"].nlimit + 4 * ref["plan"].ncon))
+    with pytest.raises(TypeError, match="float32"):
+        call(warm=good["warm"].double())
+    with pytest.raises(ValueError, match="contiguous"):
+        call(sw=good["sw"].transpose(1, 2).contiguous().transpose(1, 2))
+    # on the CPU the plain version also runs in float64 (a reference solve)
+    f64 = {k: v.double() for k, v in good.items()}
+    out = tk.ell_cg_solve(**f64, iterations=1, ls_iterations=1)
+    assert out.qacc.dtype == torch.float64
+    assert torch.equal(out.qacc, tk.ell_cg_solve_plain(**f64, iterations=1, ls_iterations=1).qacc)
+
+
+@pytest.mark.parametrize("n", [8, 23, 42])
+def test_blocked_substitution_matches_jax_and_numpy(n):
+    """The exact panel substitution against the JAX package's cho_solve
+    kernel (blocked_substitution, interpret mode) and np.linalg.solve."""
+    rng = np.random.RandomState(n)
+    g = rng.randn(5, n, n).astype(np.float32)
+    a = g @ np.swapaxes(g, 1, 2) + n * np.eye(n, dtype=np.float32)
+    rhs = rng.randn(5, n).astype(np.float32)
+    l = tlinalg.factor(torch.tensor(a))
+    got = tlinalg.blocked_substitution(l, torch.tensor(rhs)).numpy()
+    jax_x = np.asarray(jlinalg._cho_solve_tpu(jnp.asarray(l.numpy()), jnp.asarray(rhs), interpret=True))
+    np.testing.assert_allclose(got, jax_x, rtol=2e-5, atol=2e-6)
+    want = np.linalg.solve(a.astype(np.float64), rhs.astype(np.float64)[..., None])[..., 0]
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
+
+
+def _gentle_start(m, n, rng, dz):
+    """qpos0 moved by dz along z, small joint offsets, velocities and
+    controls, zero warmstart; float32 numpy arrays."""
+    qpos = np.tile(m.qpos0, (n, 1))
+    qpos[:, 2] += dz
+    qpos[:, 7:] += rng.uniform(-0.01, 0.01, (n, m.nq - 7))
+    return {
+        k: np.asarray(v, np.float32)
+        for k, v in dict(
+            qpos=qpos,
+            qvel=rng.uniform(-0.05, 0.05, (n, m.nv)),
+            ctrl=rng.uniform(-0.05, 0.05, (n, m.nu)),
+            qacc_warmstart=np.zeros((n, m.nv)),
+        ).items()
+    }
+
+
+@pytest.fixture(scope="module")
+def step_ref(live):
+    """JAX step and n_step(10) from gentle fly starts: "airborne" (lifted
+    5 cm, no contact within 10 substeps) and "contact" (legs 2-4 mm into the
+    floor), with the contact start's solve operands and a converged (60/15)
+    solve of its first substep."""
+    m = live
+    jplan, jmodel = jm.put_model(m)
+    rng = np.random.RandomState(11)
+    starts = {
+        "airborne": _gentle_start(m, 4, rng, 0.05),
+        "contact": _gentle_start(m, 4, rng, -rng.uniform(0.002, 0.004, (4,))),
+    }
+
+    def run(qpos, qvel, ctrl, warm):
+        d = jm.make_data(jplan, jmodel).replace(qpos=qpos, qvel=qvel, ctrl=ctrl, qacc_warmstart=warm)
+        dd, efc = jf.fwd_position(jplan, jmodel, d)
+        dd = jf.fwd_acceleration(jplan, jmodel, jf.fwd_actuation(jplan, jmodel, jf.fwd_velocity(jplan, jmodel, dd)))
+        mu_t = efc.ell_mu * jax.lax.rsqrt(jnp.maximum(jmodel.opt_impratio, 1e-12))
+        star = jsolver._elliptic_cg_single(
+            60, 15, jplan.ncon_ell, dd.qM, efc.J, efc.aref, efc.D, mu_t,
+            dd.qfrc_smooth, warm, jmodel.opt_tolerance,
+        )
+        solve = (dd.qM, efc.J, efc.aref, efc.D, mu_t, star[0], star[1])
+        return jf.step(jplan, jmodel, d), jf.n_step(jplan, jmodel, d, 10), solve
+
+    as_np = lambda d: {f.name: np.asarray(getattr(d, f.name)) for f in dataclasses.fields(jm.Data)}
+    jrun = jax.jit(jax.vmap(run))
+    out = {}
+    for name, start in starts.items():
+        one, many, solve = jrun(
+            *(start[k] for k in ("qpos", "qvel", "ctrl", "qacc_warmstart"))
+        )
+        out[name] = (start, as_np(one), as_np(many), tuple(np.asarray(a) for a in solve))
+    return out
+
+
+def _port_steps(start, n):
+    tf.set_full_f32()
+    plan, model = tm.put_model(tm.load_snapshot(CONFIG), device="cpu")
+    data = tm.make_data(plan, model, len(start["qpos"])).replace(
+        **{k: torch.tensor(v) for k, v in start.items()}
+    )
+    return tf.step(plan, model, data) if n == 1 else tf.n_step(plan, model, data, n)
+
+
+STEP_FIELDS = ("qpos", "qvel", "time", "qacc_warmstart", "qacc", "qacc_smooth", "qacc_eff",
+               "qfrc_passive", "qfrc_constraint", "efc_force", "sensordata", "xpos", "cvel")
+# measured: 3.5e-7 after one substep and 6.2e-5 after ten (sensordata)
+STEP_BARS = {1: 1e-4, 10: 1e-3}
+
+
+@pytest.mark.parametrize("n", [1, 10])
+def test_fly_airborne_step_matches_jax(step_ref, n):
+    """Without contact the elliptic solve has nothing to project and the
+    step is held at the iterate level: fluid drag, limits, the fused op's
+    smooth and Euler solves, the integrator and the sensors."""
+    start, one, many, _ = step_ref["airborne"]
+    want = one if n == 1 else many
+    got = _port_steps(start, n)
+    for name in STEP_FIELDS:
+        assert_close(f"{name} after {n}", getattr(got, name), want[name], STEP_BARS[n])
+    assert not (want["contact_dist"] < 0).any()
+
+
+def test_fly_contact_step_matches_jax(step_ref):
+    """One substep from a gentle contact start. Everything up to the solve
+    is held at the iterate level; the solve itself by its optimality gap,
+    because at 4/4 the safeguarded linesearch is a knife edge in f32: once
+    Newton has converged to within an ulp, the sign of phi' is roundoff and
+    the bracket either doubles or halves the step, so two f32 solves of the
+    same system (JAX's own unfused path and its kernel among them) part by
+    O(1) on the iterate."""
+    start, one, _, (qm, j, aref, d_rows, mu_t, smooth, star) = step_ref["contact"]
+    got = _port_steps(start, 1)
+    for name in ("time", "qacc_smooth", "qfrc_passive", "xpos", "cvel"):
+        assert_close(name, getattr(got, name), one[name], STEP_BARS[1])
+    assert (one["contact_dist"] < 0).any(axis=1).all()
+    assert (one["efc_force"] != 0).any(axis=1).all()
+    cost = lambda x: torch_parity.ell_objective_f64(qm, j, aref, d_rows, mu_t, smooth, x, 36)
+    cost_star = cost(star)
+    gap_port = cost(got.qacc.numpy()) - cost_star
+    gap_jax = cost(one["qacc"]) - cost_star
+    assert np.all(gap_port <= 2.0 * gap_jax + 1e-3 * np.abs(cost_star)), (gap_port, gap_jax)
+    assert np.isfinite(got.qpos.numpy()).all() and np.isfinite(got.qvel.numpy()).all()
+
+
+@pytest.mark.cuda
+def test_cuda_ell_kernel_matches_plain(ref):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    # one iteration, one Newton step: with more linesearch steps the f32
+    # bracket is a knife edge between any two f32 solves (PERF.md)
+    cpu = tk.ell_cg_solve(
+        **{k: torch.tensor(v) for k, v in ref["inputs"].items()}, iterations=1, ls_iterations=0
+    )
+    args = {k: torch.tensor(v).cuda() for k, v in ref["inputs"].items()}
+    before = tk.ell_cg_solve.launches
+    gpu = tk.ell_cg_solve(**args, iterations=1, ls_iterations=0)
+    torch.cuda.synchronize()
+    assert tk.ell_cg_solve.launches == before + 1
+    for name in OUTS:
+        assert_close(name, getattr(gpu, name).cpu(), getattr(cpu, name), ONE_ITER_REL[name])

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import REPO, load_export_tool
+from torch_parity import REPO, assert_plan_equal, load_export_tool
 from track_mjx_tpu.physics import model as jm
 from track_mjx_tpu_torch.physics import model as tm
 
@@ -26,46 +26,27 @@ def export_tool():
 
 @pytest.fixture(scope="module")
 def live_model(export_tool):
-    return export_tool.rodent_model()
+    return export_tool.workload_model("rodent-full-clips")
 
 
 def test_snapshot_equals_fresh_export(export_tool, live_model):
     fresh = export_tool.snapshot_arrays(live_model)
-    with np.load(tm.RODENT_SNAPSHOT) as z:
+    with np.load(tm.SNAPSHOTS["rodent-full-clips"]) as z:
         assert sorted(z.files) == sorted(fresh)
         for name, arr in fresh.items():
             assert z[name].dtype == arr.dtype, name
             np.testing.assert_array_equal(z[name], arr, err_msg=name)
 
 
-def _assert_plan_equal(a, b):
-    for f in dataclasses.fields(jm.PhysicsPlan):
-        x, y = getattr(a, f.name), getattr(b, f.name)
-        if f.name == "pair_groups":
-            assert len(x) == len(y)
-            for gx, gy in zip(x, y):
-                assert gx[:2] == gy[:2]
-                np.testing.assert_array_equal(gx[2], gy[2])
-                np.testing.assert_array_equal(gx[3], gy[3])
-        elif f.name == "body_levels":
-            assert len(x) == len(y)
-            for lx, ly in zip(x, y):
-                np.testing.assert_array_equal(lx, ly)
-        elif isinstance(x, np.ndarray):
-            np.testing.assert_array_equal(x, y, err_msg=f.name)
-        else:
-            assert x == y, f.name
-
-
 @pytest.mark.parametrize("source", ["snapshot", "live"])
 def test_put_model_matches_jax(live_model, source):
     jplan, jmodel = jm.put_model(live_model)
     m = tm.load_snapshot() if source == "snapshot" else live_model
-    plan, model = tm.put_model(m)
+    plan, model = tm.put_model(m, device="cpu")
     assert [f.name for f in dataclasses.fields(tm.PhysicsPlan)] == [
         f.name for f in dataclasses.fields(jm.PhysicsPlan)
     ]
-    _assert_plan_equal(plan, jplan)
+    assert_plan_equal(plan, jplan)
     assert [f.name for f in dataclasses.fields(tm.Model)] == [
         f.name for f in dataclasses.fields(jm.Model)
     ]
@@ -82,18 +63,42 @@ def test_put_model_matches_jax(live_model, source):
 
 def test_numpy_converters_round_trip(live_model):
     jplan, jmodel = jm.put_model(live_model)
-    plan, model = tm.put_model(tm.load_snapshot())
+    plan, model = tm.put_model(tm.load_snapshot(), device="cpu")
     leaves = {f.name: np.asarray(getattr(jmodel, f.name)) for f in dataclasses.fields(jm.Model)}
-    conv = tm.model_from_numpy(leaves)
+    conv = tm.model_from_numpy(leaves, device="cpu")
     for f in dataclasses.fields(tm.Model):
         assert torch.equal(getattr(conv, f.name), getattr(model, f.name)), f.name
 
     jdata = jax.vmap(lambda _: jm.make_data(jplan, jmodel))(np.arange(3))
     data = tm.make_data(plan, model, 3)
-    conv = tm.data_from_numpy({f.name: np.asarray(getattr(jdata, f.name)) for f in dataclasses.fields(jm.Data)})
+    conv = tm.data_from_numpy(
+        {f.name: np.asarray(getattr(jdata, f.name)) for f in dataclasses.fields(jm.Data)}, device="cpu"
+    )
     assert [f.name for f in dataclasses.fields(tm.Data)] == [f.name for f in dataclasses.fields(jm.Data)]
     for f in dataclasses.fields(tm.Data):
         assert torch.equal(getattr(conv, f.name), getattr(data, f.name)), f.name
+
+
+@pytest.mark.parametrize("entry", ["put_model", "model_from_numpy", "data_from_numpy"])
+def test_default_device_is_the_card(entry):
+    """An entry point called without a device targets the card; with no
+    card it raises instead of running on the CPU."""
+    call = {
+        "put_model": lambda: tm.put_model(tm.load_snapshot())[1],
+        "model_from_numpy": lambda: tm.model_from_numpy(
+            {f.name: np.zeros(1) for f in dataclasses.fields(tm.Model)}
+        ),
+        "data_from_numpy": lambda: tm.data_from_numpy(
+            {f.name: np.zeros(1) for f in dataclasses.fields(tm.Data)}
+        ),
+    }[entry]
+    if torch.cuda.is_available():
+        out = call()
+        for f in dataclasses.fields(out):
+            assert getattr(out, f.name).device.type == "cuda", f.name
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
 
 
 def test_port_imports_neither_jax_nor_mujoco():

@@ -60,12 +60,12 @@ def ref(rodent_full_clips_model):
         for k in ("J", "aref", "D", "pos", "active_row", "jb_sw", "jb_fq", "jb_ll", "jb_mu")
     }
     tf.set_full_f32()
-    plan, model = tm.put_model(tm.load_snapshot())
+    plan, model = tm.put_model(tm.load_snapshot(), device="cpu")
     return plan, model, data, efc
 
 
 def _port_data(data):
-    return tm.data_from_numpy(data)
+    return tm.data_from_numpy(data, device="cpu")
 
 
 def _check(name_fields, got, data):

@@ -58,7 +58,7 @@ def ref():
 
 def _port_run(start, n):
     tf.set_full_f32()
-    plan, model = tm.put_model(tm.load_snapshot())
+    plan, model = tm.put_model(tm.load_snapshot(), device="cpu")
     data = tm.make_data(plan, model, N_ENVS).replace(
         **{k: torch.tensor(v) for k, v in start.items()}
     )
@@ -88,7 +88,7 @@ def test_step_matches_jax(ref, n):
 
 def test_slim_round_trip():
     tf.set_full_f32()
-    plan, model = tm.put_model(tm.load_snapshot())
+    plan, model = tm.put_model(tm.load_snapshot(), device="cpu")
     data = tm.make_data(plan, model, 2)
     data = data.replace(qvel=torch.ones_like(data.qvel), qM=torch.ones_like(data.qM))
     full = tf.expand_slim(plan, model, tf.slim_data(data))

@@ -1,28 +1,35 @@
-"""Exports the rodent's compiled model as the snapshot the torch port loads.
+"""Exports a workload's compiled model as the snapshot the torch port loads.
 
-Usage: python tools/export_torch_model.py [out.npz]
+Usage: python tools/export_torch_model.py [--config NAME] [--out FILE.npz]
 
-Builds the rodent exactly as envs/task/tracking.py does for the
-rodent-full-clips workload (the Rodent walker with the config's
-walker_config, then opt.solver / iterations / ls_iterations / timestep from
-env_args and a dense jacobian) and writes the MjModel fields and `opt`
-scalars that `put_model` reads, and no others, to
-track_mjx_tpu_torch/assets/rodent_full_clips.npz. The fields are found by
-running the JAX package's put_model on a proxy that records every attribute
-it reads, so the snapshot follows put_model if that changes. This tool needs
-mujoco and the JAX package; the port that reads the snapshot needs neither.
+NAME is rodent-full-clips (the default) or fly-mc-intention. The walker is
+built exactly as envs/task/tracking.py builds it for that workload (the
+Rodent or Fly walker with the config's walker_config, then opt.solver /
+iterations / ls_iterations / timestep from env_args and a dense jacobian),
+and the MjModel fields and `opt` scalars that `put_model` reads, and no
+others, are written to track_mjx_tpu_torch/assets/<name>.npz (dashes become
+underscores). The fields are found by running the JAX package's put_model on
+a proxy that records every attribute it reads, so the snapshot follows
+put_model if that changes. This tool needs mujoco and the JAX package; the
+port that reads the snapshot needs neither.
 """
 
 from __future__ import annotations
 
+import argparse
 import os
 import sys
 
 import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-DEFAULT_OUT = os.path.join(REPO, "track_mjx_tpu_torch", "assets", "rodent_full_clips.npz")
-CONFIG = "rodent-full-clips"
+CONFIGS = ("rodent-full-clips", "fly-mc-intention")
+
+
+def default_out(config: str) -> str:
+    return os.path.join(
+        REPO, "track_mjx_tpu_torch", "assets", config.replace("-", "_") + ".npz"
+    )
 
 
 class _Recorder:
@@ -40,16 +47,20 @@ class _Recorder:
         return val
 
 
-def rodent_model():
-    """The rodent MjModel as the rodent-full-clips tracking env compiles it."""
+def workload_model(config: str):
+    """The walker's MjModel as the `config` tracking env compiles it."""
+    if config not in CONFIGS:
+        raise ValueError(f"unknown config {config!r}; choose from {CONFIGS}")
     sys.path.insert(0, REPO)
     from track_mjx_tpu.envs.task.tracking import _SOLVER_IDS
+    from track_mjx_tpu.envs.walker.fly import Fly
     from track_mjx_tpu.envs.walker.rodent import Rodent
     from track_mjx_tpu.utils.config import load_config
 
-    cfg = load_config(CONFIG)
+    cfg = load_config(config)
     w = cfg.walker_config
-    walker = Rodent(
+    walker_cls = Fly if config == "fly-mc-intention" else Rodent
+    walker = walker_cls(
         list(w.joint_names),
         list(w.body_names),
         list(w.end_eff_names),
@@ -80,9 +91,13 @@ def snapshot_arrays(m) -> dict:
 
 
 def main(argv):
-    out = argv[1] if len(argv) > 1 else DEFAULT_OUT
-    arrays = snapshot_arrays(rodent_model())
-    os.makedirs(os.path.dirname(out), exist_ok=True)
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", choices=CONFIGS, default="rodent-full-clips")
+    ap.add_argument("--out", default=None, help="default: the port's assets/<config>.npz")
+    args = ap.parse_args(argv[1:])
+    out = args.out or default_out(args.config)
+    arrays = snapshot_arrays(workload_model(args.config))
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
     np.savez_compressed(out, **arrays)
     print(f"wrote {len(arrays)} fields, {os.path.getsize(out)} bytes to {out}")
 

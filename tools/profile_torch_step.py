@@ -1,13 +1,15 @@
-"""Where the time of the torch port's rodent control step goes, on one device.
+"""Where the time of the torch port's control step goes, on one device.
 
 Usage (from the repository root):
 
-    python3 tools/profile_torch_step.py [--envs 4096] [--reps 5] [--out FILE]
+    python3 tools/profile_torch_step.py [--config rodent-full-clips] [--envs 4096]
+        [--reps 5] [--out FILE]
 
-It loads the rodent-full-clips snapshot, puts `--envs` envs at rest (with
-reset noise) and runs one warm-up control step of `forward.n_step(..., 10)`
-with controls 0.2 x U(-1, 1), as chip_smoke.py does. Then it measures, from
-that state:
+It loads the `--config` snapshot (rodent-full-clips or fly-mc-intention),
+puts `--envs` envs at rest (with reset noise) and runs one warm-up control
+step of `forward.n_step(..., 10)` with controls drawn as chip_smoke.py draws
+them (0.2 x U(-1, 1) for the rodent, U(-1, 1) for the fly). Then it
+measures, from that state:
 
 - each forward stage of one substep, timed on the host clock between two
   device synchronizations, median over `--stage-reps` substeps;
@@ -49,7 +51,7 @@ from track_mjx_tpu_torch.physics import sensors as _sensors  # noqa: E402
 from track_mjx_tpu_torch.physics import solver as _solver  # noqa: E402
 
 SUBSTEPS = 10
-CTRL_SCALE = 0.2  # as chip_smoke.py
+CTRL_SCALE = {"rodent-full-clips": 0.2, "fly-mc-intention": 1.0}  # as chip_smoke.py
 
 
 def _stages(plan, model, data):
@@ -90,6 +92,7 @@ def _stages(plan, model, data):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", choices=sorted(CTRL_SCALE), default="rodent-full-clips")
     ap.add_argument("--envs", type=int, default=4096)
     ap.add_argument("--reps", type=int, default=5, help="timed control steps")
     ap.add_argument("--stage-reps", type=int, default=3, help="substeps timed stage by stage")
@@ -111,12 +114,13 @@ def main() -> None:
         ).stdout.strip().splitlines()[0]
     print(card)
     tf.set_full_f32()
-    plan, model = tm.put_model(tm.load_snapshot(), device=dev)
+    plan, model = tm.put_model(tm.load_snapshot(args.config), device=dev)
+    scale = CTRL_SCALE[args.config]
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
 
     def ctrl():
-        return CTRL_SCALE * (2.0 * torch.rand((args.envs, plan.nu), generator=gen, device=dev) - 1.0)
+        return scale * (2.0 * torch.rand((args.envs, plan.nu), generator=gen, device=dev) - 1.0)
 
     data = tm.make_data(plan, model, args.envs)
     qpos = data.qpos.clone()
@@ -153,6 +157,7 @@ def main() -> None:
 
     summary = {
         "card": card,
+        "config": args.config,
         "torch": torch.__version__,
         "envs": args.envs,
         "substeps": SUBSTEPS,

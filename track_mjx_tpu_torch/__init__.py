@@ -3,6 +3,7 @@
 The JAX package `track_mjx_tpu` is the reference; this package mirrors its
 module names (`ops/quaternion.py`, `physics/forward.py`, ...) with batch-first
 torch tensors in place of per-env functions under `jax.vmap`. It imports
-torch and numpy only. The physics path's one hand-written kernel, the fused
-smooth + CG + Euler constraint solve, is CUDA C++ under `csrc/`.
+torch and numpy only. The physics path's hand-written kernels, the fused
+smooth + CG + Euler constraint solves (pyramidal and elliptic friction
+cones), are CUDA C++ under `csrc/`.
 """

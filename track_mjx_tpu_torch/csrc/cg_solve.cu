@@ -24,164 +24,24 @@
 // shared-memory pass over the 8 warp sums, in a fixed order so every thread
 // sees the same value and branches uniformly).
 //
-// C interface (bound with ctypes): cg_solve_f32 launches on the given
-// stream and returns cudaGetLastError(); cg_solve_smem_bytes gives the
-// dynamic shared memory one CTA needs.
+// The factorization, the panel inverses, the substitution, the reductions
+// and the matrix-vector products are shared with the elliptic kernel
+// (cholesky.cuh). C interface (bound with ctypes): cg_solve_f32 launches on
+// the given stream and returns cudaGetLastError(); cg_solve_smem_bytes
+// gives the dynamic shared memory one CTA needs.
 
 #include <cuda_runtime.h>
+
+#include "cholesky.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kPanel = 8;
-constexpr float kEps = 1e-12f;
 
 __host__ __device__ inline long smem_floats(int n, int e) {
   // J, qM, L, panel inverses, 5 row vectors, 10 dof vectors, reduction scratch
   return (long)e * n + 2L * n * n + (long)n * kPanel + 5L * e + 10L * n + 4L * kWarps;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Block-wide sums of K per-thread partials; every thread gets the totals.
-template <int K>
-__device__ __forceinline__ void block_sum(float (&v)[K], float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < K; ++k) v[k] = warp_sum(v[k]);
-  __syncthreads();  // red may still be read by the previous reduction
-  if (lane == 0) {
-#pragma unroll
-    for (int k = 0; k < K; ++k) red[k * kWarps + warp] = v[k];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += red[k * kWarps + w];
-    v[k] = s;
-  }
-}
-
-// In-place right-looking Cholesky of the n x n matrix in L (row-major).
-// On exit the lower triangle holds the factor; the strict upper triangle is
-// left as it was and never read.
-__device__ void factor(float* L, int n) {
-  for (int j = 0; j < n; ++j) {
-    __syncthreads();
-    const float rs = rsqrtf(L[j * n + j]);
-    __syncthreads();  // every thread has read the pivot before it is scaled
-    for (int i = j + threadIdx.x; i < n; i += kThreads) L[i * n + j] *= rs;
-    __syncthreads();
-    const int m = n - j - 1;
-    for (int t = threadIdx.x; t < m * m; t += kThreads) {
-      const int i = j + 1 + t / m, k = j + 1 + t % m;
-      if (k <= i) L[i * n + k] -= L[i * n + j] * L[k * n + j];
-    }
-  }
-  __syncthreads();
-}
-
-// dinv[(p0 + r) * kPanel + c] = inv(L[p0:p0+m, p0:p0+m])[r][c] for every
-// panel; one warp per panel, lane c solves column c by forward substitution.
-__device__ void invert_diag_blocks(const float* L, float* dinv, int n) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int npan = (n + kPanel - 1) / kPanel;
-  for (int pi = warp; pi < npan; pi += kWarps) {
-    const int p0 = pi * kPanel, m = min(kPanel, n - p0);
-    if (lane < kPanel) {
-      const int c = lane;
-      float x[kPanel];
-#pragma unroll
-      for (int r = 0; r < kPanel; ++r) {
-        x[r] = 0.f;
-        if (r < m) {
-          float s = 0.f;
-#pragma unroll
-          for (int k = 0; k < r; ++k) s += L[(p0 + r) * n + p0 + k] * x[k];
-          x[r] = ((r == c ? 1.f : 0.f) - s) / L[(p0 + r) * n + p0 + r];
-          dinv[(p0 + r) * kPanel + c] = c < m ? x[r] : 0.f;
-        }
-      }
-    }
-  }
-  __syncthreads();
-}
-
-// Solves L L^T x = b into out; y is scratch. b may be global or shared but
-// must not alias out or y.
-__device__ void chosolve(const float* L, const float* dinv, const float* b,
-                         float* out, float* y, int n) {
-  for (int i = threadIdx.x; i < n; i += kThreads) out[i] = b[i];
-  __syncthreads();
-  for (int p0 = 0; p0 < n; p0 += kPanel) {  // forward: L y = b
-    const int m = min(kPanel, n - p0);
-    if (threadIdx.x < m) {
-      const int r = threadIdx.x;
-      float s = 0.f;
-      for (int c = 0; c < m; ++c) s += dinv[(p0 + r) * kPanel + c] * out[p0 + c];
-      y[p0 + r] = s;
-    }
-    __syncthreads();
-    for (int i = p0 + m + threadIdx.x; i < n; i += kThreads) {
-      float s = 0.f;
-      for (int c = 0; c < m; ++c) s += L[i * n + p0 + c] * y[p0 + c];
-      out[i] -= s;
-    }
-    __syncthreads();
-  }
-  for (int p0 = ((n - 1) / kPanel) * kPanel; p0 >= 0; p0 -= kPanel) {  // L^T x = y
-    const int m = min(kPanel, n - p0);
-    if (threadIdx.x < m) {
-      const int c = threadIdx.x;
-      float s = 0.f;
-      for (int r = 0; r < m; ++r) s += dinv[(p0 + r) * kPanel + c] * y[p0 + r];
-      out[p0 + c] = s;
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < p0; i += kThreads) {
-      float s = 0.f;
-      for (int r = 0; r < m; ++r) s += L[(p0 + r) * n + i] * out[p0 + r];
-      y[i] -= s;
-    }
-    __syncthreads();
-  }
-}
-
-// y[r] = (J x)[r] - sub[r] (sub may be null). Thread per row; the row
-// stride n is odd for the rodent, so rows fall in distinct banks.
-__device__ void matv_j(const float* J, const float* x, const float* sub, float* y,
-                       int e, int n) {
-  for (int r = threadIdx.x; r < e; r += kThreads) {
-    float s = 0.f;
-    for (int d = 0; d < n; ++d) s += J[r * n + d] * x[d];
-    y[r] = sub ? s - sub[r] : s;
-  }
-}
-
-// y[d] = base[d] - (J^T f)[d] (base may be null: y = J^T f).
-__device__ void matv_jt(const float* J, const float* f, const float* base, float* y,
-                        int e, int n) {
-  for (int d = threadIdx.x; d < n; d += kThreads) {
-    float s = 0.f;
-    for (int r = 0; r < e; ++r) s += J[r * n + d] * f[r];
-    y[d] = base ? base[d] - s : s;
-  }
-}
-
-// y = M v.
-__device__ void matv_m(const float* M, const float* v, float* y, int n) {
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    float s = 0.f;
-    for (int j = 0; j < n; ++j) s += M[i * n + j] * v[j];
-    y[i] = s;
-  }
 }
 
 __device__ __forceinline__ float force_of(float jar, float d) {
@@ -238,20 +98,7 @@ cg_solve_kernel(const float* __restrict__ g_buf, const float* __restrict__ g_cdo
   const float tolscale = g_tolscale[b];
 
   // 1. qM = anc-masked buf cdof^T mirrored to the upper triangle + diag(arm)
-  for (int t = tid; t < n * n; t += kThreads) {
-    const int i = t / n, j = t % n;
-    float v = 0.f;
-    const int lo = anc[i * n + j] != 0.f ? i : (anc[j * n + i] != 0.f ? j : -1);
-    if (lo >= 0) {
-      const int hi = lo == i ? j : i;
-      float s = 0.f;
-#pragma unroll
-      for (int k = 0; k < 6; ++k) s += buf[lo * 6 + k] * cdof[hi * 6 + k];
-      v = s;
-    }
-    if (i == j) v += arm[i];
-    M[t] = v;
-  }
+  assemble_qm<kThreads>(buf, cdof, anc, arm, M, n);
   // 2. J in efc row order: limit rows, then per contact +t1, -t1, +t2, -t2
   for (int t = tid; t < nl * n; t += kThreads) J[t] = lim1h[t] * ll[t / n];
   for (int t = tid; t < nc * n; t += kThreads) {
@@ -284,9 +131,9 @@ cg_solve_kernel(const float* __restrict__ g_buf, const float* __restrict__ g_cdo
   for (int t = tid; t < n * n; t += kThreads) L[t] = M[t];
 
   // 3. factor M, solve qacc_smooth
-  factor(L, n);
-  invert_diag_blocks(L, dinv, n);
-  chosolve(L, dinv, qfs, smooth, sy, n);
+  factor<kThreads>(L, n);
+  invert_diag_blocks<kThreads>(L, dinv, n);
+  chosolve<kThreads>(L, dinv, qfs, smooth, sy, n);
 
   // 4. warm start vs smooth start: the cheaper per env. cost(smooth) has no
   // quadratic term; both candidates' jar and M dx are kept for reuse.
@@ -295,9 +142,9 @@ cg_solve_kernel(const float* __restrict__ g_buf, const float* __restrict__ g_cdo
     v1[i] = v0[i] - smooth[i];
   }
   __syncthreads();
-  matv_m(M, v1, mdx, n);             // M (warm - smooth)
-  matv_j(J, v0, aref, jar, e, n);    // jar of warm
-  matv_j(J, smooth, aref, ev, e, n); // jar of smooth
+  matv_m<kThreads>(M, v1, mdx, n);                // M (warm - smooth)
+  matv_j<kThreads>(J, n, v0, aref, jar, e, n);    // jar of warm
+  matv_j<kThreads>(J, n, smooth, aref, ev, e, n); // jar of smooth
   __syncthreads();
   {
     float s[3] = {0.f, 0.f, 0.f};
@@ -306,7 +153,7 @@ cg_solve_kernel(const float* __restrict__ g_buf, const float* __restrict__ g_cdo
       if (jar[r] < 0.f) s[1] += Dr[r] * jar[r] * jar[r];
       if (ev[r] < 0.f) s[2] += Dr[r] * ev[r] * ev[r];
     }
-    block_sum<3>(s, red);
+    block_sum<kThreads>(s, red);
     const bool take_warm = 0.5f * s[0] + 0.5f * s[1] < 0.5f * s[2];
     if (take_warm) {
       for (int i = tid; i < n; i += kThreads) x[i] = v0[i];
@@ -321,24 +168,24 @@ cg_solve_kernel(const float* __restrict__ g_buf, const float* __restrict__ g_cdo
   __syncthreads();
   for (int r = tid; r < e; r += kThreads) ev[r] = force_of(jar[r], Dr[r]);
   __syncthreads();
-  matv_jt(J, ev, mdx, grad, e, n);  // grad = M dx - J^T force
+  matv_jt<kThreads>(J, n, ev, mdx, grad, e, n);  // grad = M dx - J^T force
   __syncthreads();
-  chosolve(L, dinv, grad, mgrad, sy, n);
+  chosolve<kThreads>(L, dinv, grad, mgrad, sy, n);
   for (int i = tid; i < n; i += kThreads) p[i] = -mgrad[i];
   float imp = 1.f;
   __syncthreads();
 
   // 5. PR-CG with Newton linesearch; converged envs take zero-length steps
   for (int it = 0; it < iterations; ++it) {
-    matv_m(M, p, mp, n);
-    matv_j(J, p, nullptr, jp, e, n);
+    matv_m<kThreads>(M, p, mp, n);
+    matv_j<kThreads>(J, n, p, nullptr, jp, e, n);
     __syncthreads();
     float pm[2] = {0.f, 0.f};
     for (int i = tid; i < n; i += kThreads) {
       pm[0] += p[i] * mp[i];
       pm[1] += mp[i] * (x[i] - smooth[i]);
     }
-    block_sum<2>(pm, red);
+    block_sum<kThreads>(pm, red);
     const float pmp = pm[0], dmx = pm[1];
     float alpha = 0.f;
     for (int ls = 0; ls <= ls_iterations; ++ls) {
@@ -350,7 +197,7 @@ cg_solve_kernel(const float* __restrict__ g_buf, const float* __restrict__ g_cdo
           s[1] += Dr[r] * jp[r] * jp[r];
         }
       }
-      block_sum<2>(s, red);
+      block_sum<kThreads>(s, red);
       const float d1 = alpha * pmp + dmx + s[0];
       const float d2 = fmaxf(pmp + s[1], kEps);
       alpha = alpha - d1 / d2;
@@ -365,16 +212,16 @@ cg_solve_kernel(const float* __restrict__ g_buf, const float* __restrict__ g_cdo
       ev[r] = force_of(jar[r], Dr[r]);
     }
     __syncthreads();
-    matv_jt(J, ev, mdx, v0, e, n);  // new gradient
+    matv_jt<kThreads>(J, n, ev, mdx, v0, e, n);  // new gradient
     __syncthreads();
-    chosolve(L, dinv, v0, v1, sy, n);  // new preconditioned gradient
+    chosolve<kThreads>(L, dinv, v0, v1, sy, n);  // new preconditioned gradient
     float s[3] = {0.f, 0.f, 0.f};
     for (int i = tid; i < n; i += kThreads) {
       s[0] += v0[i] * (v1[i] - mgrad[i]);
       s[1] += grad[i] * mgrad[i];
       s[2] += v0[i] * v0[i];
     }
-    block_sum<3>(s, red);
+    block_sum<kThreads>(s, red);
     const float beta = fmaxf(0.f, s[0] / fmaxf(s[1], kEps));
     for (int i = tid; i < n; i += kThreads) {
       p[i] = -v1[i] + beta * p[i];
@@ -391,16 +238,16 @@ cg_solve_kernel(const float* __restrict__ g_buf, const float* __restrict__ g_cdo
     o_force[b * e + r] = ev[r];
   }
   __syncthreads();
-  matv_jt(J, ev, nullptr, v0, e, n);
+  matv_jt<kThreads>(J, n, ev, nullptr, v0, e, n);
   __syncthreads();
 
   // 7. Euler: factor M + diag(hd), solve qacc_eff from qfrc_smooth + qfrc
   for (int t = tid; t < n * n; t += kThreads) L[t] = M[t] + (t / n == t % n ? hd[t / n] : 0.f);
   for (int i = tid; i < n; i += kThreads) v1[i] = qfs[i] + v0[i];
   __syncthreads();
-  factor(L, n);
-  invert_diag_blocks(L, dinv, n);
-  chosolve(L, dinv, v1, mp, sy, n);
+  factor<kThreads>(L, n);
+  invert_diag_blocks<kThreads>(L, dinv, n);
+  chosolve<kThreads>(L, dinv, v1, mp, sy, n);
 
   for (int i = tid; i < n; i += kThreads) {
     o_smooth[b * n + i] = smooth[i];

@@ -1,12 +1,15 @@
 """Batched small-matrix Cholesky routines in plain PyTorch, [B, n, n].
 
 Port of the device routines of track_mjx_tpu/ops/batched_linalg.py that the
-fused CG solve runs: `factor` (factor_in_place, the right-looking Cholesky
+fused CG solves run: `factor` (factor_in_place, the right-looking Cholesky
 with c = row * rsqrt(diag)), `invert_diag_blocks` (inverses of the 8x8
-diagonal panels of L) and `blocked_substitution_pinv` (L L^T x = b by panel
-substitution through those inverses). They are the arithmetic of the CUDA
-kernel in csrc/cg_solve.cu, written as batched torch ops, and serve as that
-kernel's plain version (ops/cg_solver_kernel.cg_solve_plain).
+diagonal panels of L), `blocked_substitution_pinv` (L L^T x = b by panel
+substitution through those inverses; the scalar solve) and
+`blocked_substitution` (the exact panel-8 forward and back substitution; the
+elliptic solve). They are the arithmetic of the CUDA device routines in
+csrc/cholesky.cuh, written as batched torch ops, and serve as the plain
+versions of the kernels (ops/cg_solver_kernel.cg_solve_plain and
+ell_cg_solve_plain).
 """
 
 from __future__ import annotations
@@ -73,4 +76,32 @@ def blocked_substitution_pinv(
         out[:, p0 : p0 + m] = xp
         if p0 > 0:
             y[:, :p0] -= (l[:, p0 : p0 + m, :p0] * xp[:, :, None]).sum(1)
+    return out
+
+
+def blocked_substitution(l: torch.Tensor, b: torch.Tensor, panel: int = PANEL) -> torch.Tensor:
+    """Solves L L^T x = b for [B, n, n] lower factors and [B, n] right-hand
+    sides by panel forward and back substitution: within a panel each row is
+    solved in turn, (r_j - sum_{k<j} L_jk y_k) / L_jj, then one update takes
+    the panel's solution out of the remaining right-hand side. Reads only
+    the lower triangle of `l`."""
+    n = l.shape[-1]
+    out = b.clone()
+    y = torch.zeros_like(b)
+    for p0 in range(0, n, panel):
+        m = min(panel, n - p0)
+        lpan = l[:, p0 : p0 + m, p0 : p0 + m]
+        for jj in range(m):
+            s = (lpan[:, jj, :jj] * y[:, p0 : p0 + jj]).sum(-1)
+            y[:, p0 + jj] = (out[:, p0 + jj] - s) / lpan[:, jj, jj]
+        if p0 + m < n:
+            out[:, p0 + m :] -= (l[:, p0 + m :, p0 : p0 + m] * y[:, None, p0 : p0 + m]).sum(-1)
+    for p0 in reversed(range(0, n, panel)):
+        m = min(panel, n - p0)
+        lpan = l[:, p0 : p0 + m, p0 : p0 + m]
+        for jj in range(m - 1, -1, -1):
+            s = (lpan[:, jj + 1 :, jj] * out[:, p0 + jj + 1 : p0 + m]).sum(-1)
+            out[:, p0 + jj] = (y[:, p0 + jj] - s) / lpan[:, jj, jj]
+        if p0 > 0:
+            y[:, :p0] -= (l[:, p0 : p0 + m, :p0] * out[:, p0 : p0 + m, None]).sum(1)
     return out

@@ -1,32 +1,45 @@
-"""Fused smooth + CG + Euler constraint solve: CUDA kernel, wrapper, plain version.
+"""Fused smooth + CG + Euler constraint solves: CUDA kernels, wrappers, plain versions.
 
-Replaces the TPU kernel track_mjx_tpu/ops/cg_solver_kernel.py::_cg_kernel,
-launched through `_cg_solve_tpu` in its production configuration (qM built
-from the CRB factors, J built from the compact per-contact operands, Euler
-implicit-damping solve fused). Per env it builds qM and J, factors qM,
-solves qacc_smooth, picks the cheaper of the warm and smooth starts, runs
-`iterations` M-preconditioned Polak-Ribiere CG steps with an
-`ls_iterations` Newton linesearch (jar and M dx advance by incremental axpy
-updates, as MuJoCo's mj_solCG does), extracts force and qfrc, and solves
-qacc_eff = (M + diag(hd))^-1 (qfrc_smooth + qfrc) from a second factor.
+Two kernels, one per friction-cone type, built together from csrc/ into one
+library:
 
-On the H100 the kernel (csrc/cg_solve.cu) is bound by a serial dependency
-chain per env, not by bytes or flops: 2 factorizations and about 7
-(L L^T)^-1 applies, each a chain of dependent steps separated by block
-barriers, over operands (J 187x73, qM and L 73x73, about 104 KB for the
-rodent) that live in shared memory for the whole solve. The design keeps
-one env per CTA with everything in shared memory, so device memory is read
-once (the compact operands) and written once (the outputs); the triangular
-solves use the 8x8 panel-diagonal inverses so an apply is about 2n/8 panel
-steps instead of 2n row steps. The CTA is 256 threads and two CTAs share an
-SM; shortening the chain further (warp-level panels, fewer barriers) is
-later work.
+`cg_solve` (csrc/cg_solve.cu) replaces the TPU kernel
+track_mjx_tpu/ops/cg_solver_kernel.py::_cg_kernel, launched through
+`_cg_solve_tpu`, in its production configuration (qM built from the CRB
+factors, J built from the compact per-contact operands, Euler
+implicit-damping solve fused): unilateral limit and pyramid rows, the
+rodent. Per env it builds qM and J, factors qM, solves qacc_smooth, picks
+the cheaper of the warm and smooth starts, runs `iterations`
+M-preconditioned Polak-Ribiere CG steps with an `ls_iterations` Newton
+linesearch (jar and M dx advance by incremental axpy updates, as MuJoCo's
+mj_solCG does), extracts force and qfrc, and solves qacc_eff = (M +
+diag(hd))^-1 (qfrc_smooth + qfrc) from a second factor. The substitutions go
+through the 8x8 panel-diagonal inverses.
 
-`cg_solve` is the wrapper: it checks its arguments, runs the plain version
-for CPU tensors and launches the kernel for CUDA tensors, raising if the
-build or the launch fails. `cg_solve.launches` counts kernel launches.
-`cg_solve_plain` is the same computation in batched torch; the tests and
-chip_smoke.py compare the kernel with it.
+`ell_cg_solve` (csrc/ell_cg_solve.cu) replaces `_ell_cg_kernel`, launched
+through `_ell_cg_solve_tpu`, in the same configuration: limit rows plus one
+(normal, t1, t2) elliptic cone block per contact, the fly. Force, cost and
+linesearch curvature follow the three-zone cone projection; the linesearch
+is the safeguarded, bracketed Newton search that never accepts a step that
+raises the cost. It keeps the JAX kernel's numerics on purpose: the exact
+panel substitution (no panel inverses), and jar = J x - aref and M (x -
+smooth) recomputed from x every iteration with M read directly, because the
+bracket decisions (d1 < 0) flip under reassociation.
+
+On the H100 both kernels are bound by a serial dependency chain per env, not
+by bytes or flops: factorizations and (L L^T)^-1 applies are chains of
+dependent steps separated by block barriers, over operands (J, qM, L) that
+live in shared memory for the whole solve. The design keeps one env per CTA
+with everything in shared memory, so device memory is read once (the
+compact operands) and written once (the outputs). Shortening the chain
+(warp-level panels, fewer barriers) is later work.
+
+`cg_solve` and `ell_cg_solve` are the wrappers: they check their arguments,
+run the plain version for CPU tensors and launch the kernel for CUDA
+tensors, raising if the build or the launch fails. `<wrapper>.launches`
+counts kernel launches. `cg_solve_plain` and `ell_cg_solve_plain` are the
+same computations in batched torch; the tests and chip_smoke.py compare the
+kernels with them.
 """
 
 from __future__ import annotations
@@ -44,6 +57,7 @@ from typing import NamedTuple
 import torch
 
 from track_mjx_tpu_torch.ops.batched_linalg import (
+    blocked_substitution,
     blocked_substitution_pinv,
     factor,
     invert_diag_blocks,
@@ -51,7 +65,9 @@ from track_mjx_tpu_torch.ops.batched_linalg import (
 
 _EPS = 1e-12
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "cg_solve.cu")
+CSRC = os.path.join(_PKG_DIR, "csrc")
+# compiled together, in one nvcc call, into one library
+SOURCES = tuple(os.path.join(CSRC, f) for f in ("cg_solve.cu", "ell_cg_solve.cu"))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -81,13 +97,18 @@ def assemble_qm(buf, cdof, anc, armature) -> torch.Tensor:
     return lower + lower.transpose(-1, -2) - torch.diag_embed(diag) + torch.diag(armature)
 
 
+def _jfr(fq, sw, dm) -> torch.Tensor:
+    """Frame-projected contact rows [B, nc, 3, n]:
+    jfr[c, k, d] = (sum_j fq[c, k, j] sw[d, j]) dm[c, d]."""
+    return torch.einsum("bckj,bdj->bckd", fq, sw) * dm[None, :, None, :]
+
+
 def build_j(fq, sw, ll, mu, dm, lim1h) -> torch.Tensor:
     """Dense J [B, nl + 4 nc, n] in efc row order from the compact operands:
     limit rows lim1h * ll, then per contact the pyramid rows
-    jfr0 + mu0 jfr1, jfr0 - mu0 jfr1, jfr0 + mu1 jfr2, jfr0 - mu1 jfr2 with
-    jfr[k][c, d] = (sum_j fq[c, k, j] sw[d, j]) dm[c, d]."""
+    jfr0 + mu0 jfr1, jfr0 - mu0 jfr1, jfr0 + mu1 jfr2, jfr0 - mu1 jfr2."""
     bsz = fq.shape[0]
-    jfr = torch.einsum("bckj,bdj->bckd", fq, sw) * dm[None, :, None, :]
+    jfr = _jfr(fq, sw, dm)
     m0, m1 = mu[..., 0, None], mu[..., 1, None]
     j0, j1, j2 = jfr[:, :, 0], jfr[:, :, 1], jfr[:, :, 2]
     pyr = torch.stack([j0 + m0 * j1, j0 - m0 * j1, j0 + m1 * j2, j0 - m1 * j2], dim=2)
@@ -181,6 +202,182 @@ def cg_solve_plain(
     return CGOut(smooth, x, force, qfrc, eff)
 
 
+def build_j_ell(fq, sw, ll, dm, lim1h) -> torch.Tensor:
+    """Dense J [B, nl + 3 nc, n] in efc row order from the compact operands:
+    limit rows lim1h * ll, then per contact the cone block's rows jfr0, jfr1,
+    jfr2 (normal, t1, t2), the frame-projected rows themselves."""
+    bsz = fq.shape[0]
+    lim = lim1h[None] * ll[:, :, None]
+    return torch.cat([lim, _jfr(fq, sw, dm).reshape(bsz, -1, sw.shape[1])], dim=1)
+
+
+class _Cones(NamedTuple):
+    """Per-env cone constants: D and sqrt(D) of each block's rows [B, nc, 3],
+    effective friction mu = mu_1 / sqrt(impratio) and 1 + mu^2 [B, nc]."""
+
+    d: torch.Tensor
+    sq: torch.Tensor
+    mu: torch.Tensor
+    mu2p1: torch.Tensor
+
+    def zones(self, u):
+        """Zone geometry of cone blocks u [B, nc, 3] (jar of the block rows):
+        p = -sqrt(D) u, tangential norm t, bottom (inside the cone, static
+        friction), top (separating), and s* for the middle zone."""
+        p = -self.sq * u
+        p_n, p_t1, p_t2 = p.unbind(-1)
+        t = torch.sqrt(torch.clamp(p_t1 * p_t1 + p_t2 * p_t2, min=_EPS * _EPS))
+        bottom = self.mu * p_n >= t
+        top = p_n <= -self.mu * t
+        s_star = (p_n + self.mu * t) / self.mu2p1
+        return p, t, bottom, top, s_star
+
+    def force(self, u):
+        """Cone projection force of the blocks [B, nc, 3]."""
+        p, t, bottom, top, s_star = self.zones(u)
+        coef = self.mu * s_star / t
+        sq_n, sq_t1, sq_t2 = self.sq.unbind(-1)
+        mid = torch.stack(
+            [sq_n * s_star, sq_t1 * coef * p[..., 1], sq_t2 * coef * p[..., 2]], dim=-1
+        )
+        zero = torch.zeros_like(u)
+        return torch.where(bottom[..., None], -self.d * u, torch.where(top[..., None], zero, mid))
+
+    def cost(self, u):
+        """Summed cone cost of the blocks [B]."""
+        p, t, bottom, top, _ = self.zones(u)
+        quad = 0.5 * (p * p).sum(-1)
+        mid = quad - 0.5 * (t - self.mu * p[..., 0]) ** 2 / self.mu2p1
+        return torch.where(bottom, quad, torch.where(top, torch.zeros_like(quad), mid)).sum(-1)
+
+
+def ell_cg_solve_plain(
+    buf, cdof, fq, sw, ll, mu, aref, D, qfrc_smooth, warm, hd, tolscale,
+    anc, arm, dm, lim1h, *, iterations: int, ls_iterations: int,
+) -> CGOut:
+    """The elliptic kernel's computation in batched torch (any device)."""
+    bsz, nl, nc = fq.shape[0], lim1h.shape[0], fq.shape[1]
+    qm = assemble_qm(buf, cdof, anc, arm)
+    j = build_j_ell(fq, sw, ll, dm, lim1h)
+    l = factor(qm)
+    d_s = D[:, :nl]
+    d_b = D[:, nl:].reshape(bsz, nc, 3)
+    cones = _Cones(d=d_b, sq=torch.sqrt(d_b), mu=mu, mu2p1=1.0 + mu * mu)
+    big = torch.finfo(D.dtype).max
+
+    def chosolve(b):
+        return blocked_substitution(l, b)
+
+    def matv_j(x):
+        return (j @ x[..., None])[..., 0]
+
+    def matv_jt(f):
+        return (f[:, None, :] @ j)[:, 0]
+
+    def matv_m(v):
+        return (qm @ v[..., None])[..., 0]
+
+    def split(v):
+        return v[:, :nl], v[:, nl:].reshape(bsz, nc, 3)
+
+    def force_of(jar):
+        jar_s, u = split(jar)
+        f_s = torch.where(jar_s < 0, -d_s * jar_s, torch.zeros_like(jar_s))
+        return torch.cat([f_s, cones.force(u).reshape(bsz, -1)], dim=1)
+
+    def cost_rows(jar):
+        jar_s, u = split(jar)
+        cs = 0.5 * torch.where(jar_s < 0, d_s * jar_s * jar_s, torch.zeros_like(jar_s)).sum(-1)
+        return cs + cones.cost(u)
+
+    def linesearch(x, p, jarx):
+        """Safeguarded Newton on phi(alpha): keeps a bracket [lo, hi] with
+        phi'(lo) < 0 <= phi'(hi); a Newton step outside it falls back to
+        bisection, or to doubling while no upper end is known; a step that
+        does not lower phi is refused."""
+        mp = matv_m(p)
+        pmp = (p * mp).sum(-1)
+        dmx = (mp * (x - smooth)).sum(-1)
+        jp = matv_j(p)
+        jp_s, jp_b = split(jp)
+        q = -cones.sq * jp_b
+        q_n, q_t1, q_t2 = q.unbind(-1)
+        qq = q_n * q_n + q_t1 * q_t1 + q_t2 * q_t2
+        qq_t = q_t1 * q_t1 + q_t2 * q_t2
+        h_bot = (cones.d * jp_b * jp_b).sum(-1)
+
+        def phi_derivs(alpha):
+            jar = jarx + alpha[:, None] * jp
+            jar_s, u = split(jar)
+            active = jar_s < 0
+            zero = torch.zeros_like(jar_s)
+            d1 = alpha * pmp + dmx + torch.where(active, d_s * jar_s * jp_s, zero).sum(-1)
+            d2 = pmp + torch.where(active, d_s * jp_s * jp_s, zero).sum(-1)
+            d1 = d1 - (jp_b * cones.force(u)).sum((-2, -1))
+            pb, t, bottom, top, _ = cones.zones(u)
+            t_p = (pb[..., 1] * q_t1 + pb[..., 2] * q_t2) / t
+            t_pp = torch.clamp(qq_t - t_p * t_p, min=0.0) / t
+            h_mid = qq - ((t_p - cones.mu * q_n) ** 2 + (t - cones.mu * pb[..., 0]) * t_pp) / cones.mu2p1
+            h = torch.where(bottom, h_bot, torch.where(top, torch.zeros_like(h_mid), h_mid))
+            return d1, torch.clamp(d2 + h.sum(-1), min=_EPS)
+
+        d1, d2 = phi_derivs(torch.zeros_like(pmp))
+        alpha = torch.clamp(-d1 / d2, min=0.0)
+        lo, hi = torch.zeros_like(pmp), torch.full_like(pmp, big)
+        for _ in range(ls_iterations):
+            d1, d2 = phi_derivs(alpha)
+            neg = d1 < 0
+            lo = torch.where(neg, torch.maximum(lo, alpha), lo)
+            hi = torch.where(neg, hi, torch.minimum(hi, alpha))
+            newton = alpha - d1 / d2
+            fallback = torch.where(hi < big, 0.5 * (lo + hi), 2.0 * alpha + 1e-9)
+            alpha = torch.where((newton > lo) & (newton < hi), newton, fallback)
+        dphi = (
+            0.5 * alpha * alpha * pmp
+            + alpha * dmx
+            + cost_rows(jarx + alpha[:, None] * jp)
+            - cost_rows(jarx)
+        )
+        return torch.where(dphi < 0, alpha, torch.zeros_like(alpha))
+
+    smooth = chosolve(qfrc_smooth)
+    # warm vs smooth start, the cheaper per env; cost(smooth) has no
+    # quadratic term
+    jar_warm = matv_j(warm) - aref
+    dxw = warm - smooth
+    mdxw = matv_m(dxw)
+    cost_warm = 0.5 * (dxw * mdxw).sum(-1) + cost_rows(jar_warm)
+    jar_sm = matv_j(smooth) - aref
+    take_warm = (cost_warm < cost_rows(jar_sm))[:, None]
+    x = torch.where(take_warm, warm, smooth)
+    jar = torch.where(take_warm, jar_warm, jar_sm)
+    mdx = torch.where(take_warm, mdxw, torch.zeros_like(mdxw))
+    grad = mdx - matv_jt(force_of(jar))
+    mgrad = chosolve(grad)
+    p = -mgrad
+    imp = torch.ones_like(tolscale)
+
+    for _ in range(iterations):
+        # converged envs freeze by taking zero-length steps
+        alpha = linesearch(x, p, jar) * imp
+        x = x + alpha[:, None] * p
+        # jar and M (x - smooth) afresh from x, not by increments
+        jar = matv_j(x) - aref
+        gradn = matv_m(x - smooth) - matv_jt(force_of(jar))
+        mgradn = chosolve(gradn)
+        num = (gradn * (mgradn - mgrad)).sum(-1)
+        den = torch.clamp((grad * mgrad).sum(-1), min=_EPS)
+        beta = torch.clamp(num / den, min=0.0)
+        p = -mgradn + beta[:, None] * p
+        grad, mgrad = gradn, mgradn
+        imp = imp * (torch.sqrt((gradn * gradn).sum(-1)) > tolscale).to(imp.dtype)
+
+    force = force_of(jar)
+    qfrc = matv_jt(force)
+    eff = blocked_substitution(factor(qm + torch.diag_embed(hd)), qfrc_smooth + qfrc)
+    return CGOut(smooth, x, force, qfrc, eff)
+
+
 # ---------------------------------------------------------------------------
 # CUDA build and launch
 # ---------------------------------------------------------------------------
@@ -197,15 +394,21 @@ def _nvcc() -> str:
 
 
 def library_path() -> str:
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"libcg_solve_{digest}.so")
+    """Where the library built from the current csrc/ (every file in it, so
+    a change to a shared header rebuilds) and NVCC_FLAGS lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in sorted(os.listdir(CSRC)):
+        h.update(name.encode())
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libtorch_kernels_{h.hexdigest()[:16]}.so")
 
 
 def build_library() -> tuple[str, float, str]:
-    """Compiles csrc/cg_solve.cu for sm_90a into build/torch_kernels/ unless
-    a library built from the same source and flags is there. Returns (path,
-    build seconds, nvcc output); raises if nvcc fails."""
+    """Compiles the csrc/ kernels for sm_90a, in one nvcc call, into one
+    library under build/torch_kernels/ unless a library built from the same
+    sources and flags is there. Returns (path, build seconds, nvcc output);
+    raises if nvcc fails."""
     path = library_path()
     if os.path.exists(path):
         return path, 0.0, ""
@@ -214,7 +417,7 @@ def build_library() -> tuple[str, float, str]:
     os.close(fd)
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE], capture_output=True, text=True
+        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *SOURCES], capture_output=True, text=True
     )
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
@@ -227,61 +430,73 @@ def build_library() -> tuple[str, float, str]:
 @functools.lru_cache(maxsize=1)
 def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build_library()[0])
-    lib.cg_solve_f32.argtypes = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    lib.cg_solve_f32.restype = ctypes.c_int
-    lib.cg_solve_smem_bytes.argtypes = [ctypes.c_int] * 3
-    lib.cg_solve_smem_bytes.restype = ctypes.c_long
+    for fn in (lib.cg_solve_f32, lib.ell_cg_solve_f32):
+        fn.argtypes = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    for fn in (lib.cg_solve_smem_bytes, lib.ell_cg_solve_smem_bytes):
+        fn.argtypes = [ctypes.c_int] * 3
+        fn.restype = ctypes.c_long
     return lib
 
 
-def _check(buf, cdof, fq, sw, ll, mu, aref, D, qfrc_smooth, warm, hd, tolscale,
-           anc, arm, dm, lim1h):
-    """Validates devices, dtypes, shapes and contiguity; returns (B, n, nl, nc)."""
-    named = dict(buf=buf, cdof=cdof, fq=fq, sw=sw, ll=ll, mu=mu, aref=aref, D=D,
-                 qfrc_smooth=qfrc_smooth, warm=warm, hd=hd, tolscale=tolscale,
-                 anc=anc, arm=arm, dm=dm, lim1h=lim1h)
+_ARG_NAMES = ("buf", "cdof", "fq", "sw", "ll", "mu", "aref", "D", "qfrc_smooth", "warm",
+              "hd", "tolscale", "anc", "arm", "dm", "lim1h")
+
+
+def _check(op: str, args, rows_per_con: int):
+    """Validates devices, dtypes, shapes and contiguity of a solve's
+    arguments (in _ARG_NAMES order); returns (B, n, nl, nc)."""
+    named = dict(zip(_ARG_NAMES, args))
+    qfrc_smooth, fq, lim1h = named["qfrc_smooth"], named["fq"], named["lim1h"]
+    for name, t in named.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{op}: {name} must be a tensor")
     bsz, n = qfrc_smooth.shape[0], qfrc_smooth.shape[-1]
     nc, nl = fq.shape[1], lim1h.shape[0]
-    e = nl + 4 * nc
+    e = nl + rows_per_con * nc
+    mu_shape = (bsz, nc, 2) if rows_per_con == 4 else (bsz, nc)
     want = dict(
         buf=(bsz, n, 6), cdof=(bsz, n, 6), fq=(bsz, nc, 3, 6), sw=(bsz, n, 6),
-        ll=(bsz, nl), mu=(bsz, nc, 2), aref=(bsz, e), D=(bsz, e),
+        ll=(bsz, nl), mu=mu_shape, aref=(bsz, e), D=(bsz, e),
         qfrc_smooth=(bsz, n), warm=(bsz, n), hd=(bsz, n), tolscale=(bsz,),
         anc=(n, n), arm=(n,), dm=(nc, n), lim1h=(nl, n),
     )
-    device = buf.device
+    device = named["buf"].device
+    # float32; a CPU call may run in float64 instead (a reference solve)
+    dtype = torch.float64 if device.type == "cpu" and named["buf"].dtype == torch.float64 else torch.float32
     for name, t in named.items():
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"cg_solve: {name} must be a tensor")
         if t.device != device:
-            raise ValueError(f"cg_solve: {name} on {t.device}, buf on {device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"cg_solve: {name} must be float32, got {t.dtype}")
+            raise ValueError(f"{op}: {name} on {t.device}, buf on {device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{op}: {name} must be {dtype} like buf (float32, or float64 on the CPU), got {t.dtype}")
         if tuple(t.shape) != want[name]:
-            raise ValueError(f"cg_solve: {name} shape {tuple(t.shape)}, expected {want[name]}")
+            raise ValueError(f"{op}: {name} shape {tuple(t.shape)}, expected {want[name]}")
         if not t.is_contiguous():
-            raise ValueError(f"cg_solve: {name} must be contiguous")
+            raise ValueError(f"{op}: {name} must be contiguous")
     if bsz == 0 or n == 0:
-        raise ValueError("cg_solve: empty batch or model")
+        raise ValueError(f"{op}: empty batch or model")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{op}: unsupported device {device}")
     return bsz, n, nl, nc
 
 
-def _launch(args, bsz, n, nl, nc, iterations, ls_iterations) -> CGOut:
+def _launch(op: str, args, bsz, n, nl, nc, rows_per_con, iterations, ls_iterations) -> CGOut:
     lib = load_library()
-    smem = lib.cg_solve_smem_bytes(n, nl, nc)
+    smem = getattr(lib, f"{op}_smem_bytes")(n, nl, nc)
     if smem > 227 * 1024:
-        raise ValueError(f"cg_solve: model needs {smem} B of shared memory per env (max 232448)")
+        raise ValueError(f"{op}: model needs {smem} B of shared memory per env (max 232448)")
     like = args[0]
+
+    def empty(cols):
+        return torch.empty((bsz, cols), dtype=like.dtype, device=like.device)
+
     out = CGOut(
-        qacc_smooth=torch.empty((bsz, n), dtype=like.dtype, device=like.device),
-        qacc=torch.empty((bsz, n), dtype=like.dtype, device=like.device),
-        efc_force=torch.empty((bsz, nl + 4 * nc), dtype=like.dtype, device=like.device),
-        qfrc_constraint=torch.empty((bsz, n), dtype=like.dtype, device=like.device),
-        qacc_eff=torch.empty((bsz, n), dtype=like.dtype, device=like.device),
+        qacc_smooth=empty(n), qacc=empty(n), efc_force=empty(nl + rows_per_con * nc),
+        qfrc_constraint=empty(n), qacc_eff=empty(n),
     )
     with torch.cuda.device(like.device):
         stream = torch.cuda.current_stream(like.device).cuda_stream
-        err = lib.cg_solve_f32(
+        err = getattr(lib, f"{op}_f32")(
             *[t.data_ptr() for t in args],
             out.qacc_smooth.data_ptr(), out.qacc.data_ptr(),
             out.qfrc_constraint.data_ptr(), out.qacc_eff.data_ptr(),
@@ -289,8 +504,7 @@ def _launch(args, bsz, n, nl, nc, iterations, ls_iterations) -> CGOut:
             bsz, n, nl, nc, iterations, ls_iterations, stream,
         )
     if err != 0:
-        raise RuntimeError(f"cg_solve: CUDA kernel launch failed with cudaError {err}")
-    cg_solve.launches += 1
+        raise RuntimeError(f"{op}: CUDA kernel launch failed with cudaError {err}")
     return out
 
 
@@ -298,21 +512,48 @@ def cg_solve(
     buf, cdof, fq, sw, ll, mu, aref, D, qfrc_smooth, warm, hd, tolscale,
     anc, arm, dm, lim1h, *, iterations: int, ls_iterations: int,
 ) -> CGOut:
-    """Fused smooth + CG + Euler solve of a batch of envs.
+    """Fused smooth + CG + Euler solve of a batch of envs, pyramidal rows.
 
     Per env: buf, cdof, sw [B, n, 6]; fq [B, nc, 3, 6]; ll [B, nl];
     mu [B, nc, 2]; aref, D [B, nl + 4 nc]; qfrc_smooth, warm, hd [B, n];
     tolscale [B]. Static: anc (n, n) 0/1, arm (n,), dm (nc, n),
     lim1h (nl, n). All float32 and contiguous on one device. CPU tensors run
-    `cg_solve_plain`; CUDA tensors launch the kernel or raise."""
+    `cg_solve_plain` (in float64 too, as a reference); CUDA tensors launch
+    the kernel or raise."""
     args = (buf, cdof, fq, sw, ll, mu, aref, D, qfrc_smooth, warm, hd, tolscale,
             anc, arm, dm, lim1h)
-    bsz, n, nl, nc = _check(*args)
+    bsz, n, nl, nc = _check("cg_solve", args, 4)
     if buf.device.type == "cpu":
         return cg_solve_plain(*args, iterations=iterations, ls_iterations=ls_iterations)
-    if buf.device.type != "cuda":
-        raise ValueError(f"cg_solve: unsupported device {buf.device}")
-    return _launch(args, bsz, n, nl, nc, iterations, ls_iterations)
+    out = _launch("cg_solve", args, bsz, n, nl, nc, 4, iterations, ls_iterations)
+    cg_solve.launches += 1
+    return out
 
 
 cg_solve.launches = 0
+
+
+def ell_cg_solve(
+    buf, cdof, fq, sw, ll, mu, aref, D, qfrc_smooth, warm, hd, tolscale,
+    anc, arm, dm, lim1h, *, iterations: int, ls_iterations: int,
+) -> CGOut:
+    """Fused smooth + elliptic CG + Euler solve of a batch of envs: limit
+    rows, then one (normal, t1, t2) cone block per contact, in efc order.
+
+    Per env: buf, cdof, sw [B, n, 6]; fq [B, nc, 3, 6]; ll [B, nl];
+    mu [B, nc] (mu_1 / sqrt(impratio) of each block); aref, D
+    [B, nl + 3 nc]; qfrc_smooth, warm, hd [B, n]; tolscale [B]. Static: anc
+    (n, n) 0/1, arm (n,), dm (nc, n), lim1h (nl, n). All float32 and
+    contiguous on one device. CPU tensors run `ell_cg_solve_plain` (in
+    float64 too, as a reference); CUDA tensors launch the kernel or raise."""
+    args = (buf, cdof, fq, sw, ll, mu, aref, D, qfrc_smooth, warm, hd, tolscale,
+            anc, arm, dm, lim1h)
+    bsz, n, nl, nc = _check("ell_cg_solve", args, 3)
+    if buf.device.type == "cpu":
+        return ell_cg_solve_plain(*args, iterations=iterations, ls_iterations=ls_iterations)
+    out = _launch("ell_cg_solve", args, bsz, n, nl, nc, 3, iterations, ls_iterations)
+    ell_cg_solve.launches += 1
+    return out
+
+
+ell_cg_solve.launches = 0

@@ -5,7 +5,8 @@ on the host (PhysicsPlan.pair_groups), so every step has ncon contact slots;
 an inactive contact carries a positive distance and draws no force. Pair
 types: plane-sphere, plane-capsule, plane-ellipsoid, plane-box,
 sphere-sphere, sphere-capsule, capsule-capsule (the rodent uses
-plane-capsule and plane-ellipsoid).
+plane-capsule and plane-ellipsoid, the fly plane-capsule and
+capsule-capsule, with nonzero margins).
 """
 
 from __future__ import annotations

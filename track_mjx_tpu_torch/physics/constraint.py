@@ -1,15 +1,18 @@
-"""Constraint rows: joint limits and condim-3 pyramidal contacts.
+"""Constraint rows: joint limits and condim-3 contacts, pyramidal or elliptic.
 
-Port of track_mjx_tpu/physics/constraint.py for the row structure the fused
-CG solve takes: [joint-limit rows | contact-major pyramid rows (+t1, -t1, +t2,
--t2)]. Rows are emitted as the compact J operands `jb_*` plus per-row aref,
-D, pos and activity; the dense J is never built on the step path, because
-the solve assembles it itself (ops/cg_solver_kernel.build_j rebuilds it from
-the same operands). Impedance/reference math follows MuJoCo's soft-constraint
-model (mj_makeImpedance / mj_referenceConstraint).
+Port of track_mjx_tpu/physics/constraint.py for the two row structures the
+fused CG solves take: [joint-limit rows | contact-major pyramid rows (+t1,
+-t1, +t2, -t2)] (opt.cone pyramidal, the rodent) and [joint-limit rows |
+per-contact (normal, t1, t2) cone blocks] (opt.cone elliptic, the fly). Rows
+are emitted as the compact J operands `jb_*` plus per-row aref, D, pos and
+activity; the dense J is never built on the step path, because the solve
+assembles it itself (ops/cg_solver_kernel.build_j and build_j_ell rebuild it
+from the same operands). Impedance/reference math follows MuJoCo's
+soft-constraint model (mj_makeImpedance / mj_referenceConstraint); elliptic
+friction rows reuse the normal row's impedance, aref_fric = -b jv, and
+D_fric_i = D_normal impratio (mu_i / mu_1)^2 (mj_instantiateContact).
 
-Equality, frictionloss, condim-1/4/6 and elliptic rows raise
-NotImplementedError.
+Equality, frictionloss and condim-1/4/6 rows raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -26,13 +29,15 @@ from track_mjx_tpu_torch.physics.model import Data, Model, PhysicsPlan, static_t
 
 @dataclasses.dataclass(frozen=True)
 class EfcData:
-    """Constraint rows, batch-first. nefc = nlimit + 4 * ncon.
+    """Constraint rows, batch-first. nefc = nlimit + 4 * ncon (pyramidal) or
+    nlimit + 3 * ncon (elliptic).
 
-    J[limit l] = jb_ll[l] * onehot(dofadr_l); J[contact c, direction k] =
-    (frame[c,k] . s[d] + (pos x frame)[c,k] . w[d]) * diff_mask[c, d] with
-    jb_sw = [s | w], s = cdof_lin - cdof_ang x root_com, w = cdof_ang, and
-    jb_fq = [frame | pos x frame] zeroed for inactive contacts; pyramid rows
-    are jfr0 +/- mu_i jfr_{i+1}."""
+    J[limit l] = jb_ll[l] * onehot(dofadr_l); the frame-projected contact row
+    jfr[c, k, d] = (frame[c,k] . s[d] + (pos x frame)[c,k] . w[d]) *
+    diff_mask[c, d] with jb_sw = [s | w], s = cdof_lin - cdof_ang x root_com,
+    w = cdof_ang, and jb_fq = [frame | pos x frame] zeroed for inactive
+    contacts. Pyramid rows are jfr0 +/- mu_i jfr_{i+1}; an elliptic cone
+    block's rows are jfr0, jfr1, jfr2 themselves."""
 
     aref: torch.Tensor  # [B, nefc]
     D: torch.Tensor  # [B, nefc]
@@ -41,7 +46,8 @@ class EfcData:
     jb_sw: torch.Tensor  # [B, nv, 6]
     jb_fq: torch.Tensor  # [B, ncon, 3, 6]
     jb_ll: torch.Tensor  # [B, nlimit] side * active
-    jb_mu: torch.Tensor  # [ncon, 2] tangential friction
+    jb_mu: torch.Tensor | None  # [ncon, 2] tangential friction (pyramidal)
+    ell_mu: torch.Tensor | None = None  # [ncon] mu_1 of each cone block (elliptic)
 
 
 def _jb_supported(plan: PhysicsPlan) -> bool:
@@ -52,6 +58,18 @@ def _jb_supported(plan: PhysicsPlan) -> bool:
         and plan.ne == 0
         and plan.nf == 0
         and plan.ncon_ell == 0
+        and np.all(plan.contact_condim == 3)
+    )
+
+
+def _jb_supported_ell(plan: PhysicsPlan) -> bool:
+    """True when the plan's rows are exactly [joint limits | per-contact
+    (normal, t1, t2) elliptic cone blocks], every contact condim 3."""
+    return bool(
+        plan.ncon > 0
+        and plan.ne == 0
+        and plan.nf == 0
+        and plan.ncon_ell == plan.ncon
         and np.all(plan.contact_condim == 3)
     )
 
@@ -110,11 +128,12 @@ def contact_diff_mask(plan: PhysicsPlan) -> np.ndarray:
 def make_constraint(
     plan: PhysicsPlan, model: Model, data: Data, contact: Contact
 ) -> EfcData:
-    """Assembles the limit and pyramid rows (C row order: limits, contacts)."""
-    if not _jb_supported(plan):
+    """Assembles the limit and contact rows (C row order: limits, contacts)."""
+    elliptic = _jb_supported_ell(plan)
+    if not (elliptic or _jb_supported(plan)):
         raise NotImplementedError(
-            "only [joint limits | condim-3 pyramidal contacts] rows are ported; "
-            "equality, frictionloss, condim 1/4/6 and elliptic rows are not"
+            "only [joint limits | condim-3 contacts] rows are ported, pyramidal "
+            "or elliptic; equality, frictionloss and condim 1/4/6 rows are not"
         )
     like = data.qpos
     bsz = like.shape[0]
@@ -179,29 +198,46 @@ def make_constraint(
     k, b, imp = _kbi(model, contact.solref, contact.solimp, pos)
     invweight_n = model.body_invweight0[body1, 0] + model.body_invweight0[body2, 0]
 
-    jvn = jv3[..., 0]
-    jv = torch.stack(
-        [
-            jvn + mu[:, 0] * jv3[..., 1],
-            jvn - mu[:, 0] * jv3[..., 1],
-            jvn + mu[:, 1] * jv3[..., 2],
-            jvn - mu[:, 1] * jv3[..., 2],
-        ],
-        dim=-1,
-    )  # [B, ncon, 4]
-    jv = torch.where(active[..., None], jv, 0.0)
-    aref = -b[..., None] * jv - (k * imp * pos)[..., None]
-    aref = torch.where(active[..., None], aref, 0.0)
-    # C regularizes every pyramid row with the first friction coefficient
-    mu0 = mu[:, 0:1]
-    invweight_pyr = invweight_n[:, None] * (1.0 + mu0**2) * 2.0 * mu0**2 / model.opt_impratio
-    impg = imp[..., None]
-    D = (impg / torch.clamp((1.0 - impg) * invweight_pyr, min=1e-12)).expand(-1, -1, 4)
+    if elliptic:
+        # one (normal, t1, t2) block per contact; friction rows have no
+        # position term and reuse the normal row's impedance
+        jv = torch.where(active[..., None], jv3, 0.0)
+        aref = -b[..., None] * jv
+        aref = torch.cat([aref[..., :1] - (k * imp * pos)[..., None], aref[..., 1:]], dim=-1)
+        aref = torch.where(active[..., None], aref, 0.0)
+        d_n = imp / torch.clamp((1.0 - imp) * invweight_n, min=1e-12)
+        mu1 = torch.clamp(mu[:, 0], min=1e-12)
+        d_f = d_n[..., None] * model.opt_impratio * (mu / mu1[:, None]) ** 2
+        D = torch.cat([d_n[..., None], d_f], dim=-1)
+        zero = torch.zeros_like(pos)
+        rows_pos = torch.stack([pos, zero, zero], dim=-1).reshape(bsz, -1)
+        per = 3
+    else:
+        jvn = jv3[..., 0]
+        jv = torch.stack(
+            [
+                jvn + mu[:, 0] * jv3[..., 1],
+                jvn - mu[:, 0] * jv3[..., 1],
+                jvn + mu[:, 1] * jv3[..., 2],
+                jvn - mu[:, 1] * jv3[..., 2],
+            ],
+            dim=-1,
+        )  # [B, ncon, 4]
+        jv = torch.where(active[..., None], jv, 0.0)
+        aref = -b[..., None] * jv - (k * imp * pos)[..., None]
+        aref = torch.where(active[..., None], aref, 0.0)
+        # C regularizes every pyramid row with the first friction coefficient
+        mu0 = mu[:, 0:1]
+        invweight_pyr = invweight_n[:, None] * (1.0 + mu0**2) * 2.0 * mu0**2 / model.opt_impratio
+        impg = imp[..., None]
+        D = (impg / torch.clamp((1.0 - impg) * invweight_pyr, min=1e-12)).expand(-1, -1, 4)
+        rows_pos = pos.repeat_interleave(4, dim=1)
+        per = 4
 
     arefs.append(aref.reshape(bsz, -1))
     ds.append(D.reshape(bsz, -1))
-    poss.append(pos.repeat_interleave(4, dim=1))
-    acts.append(active.repeat_interleave(4, dim=1))
+    poss.append(rows_pos)
+    acts.append(active.repeat_interleave(per, dim=1))
 
     return EfcData(
         aref=torch.cat(arefs, dim=1),
@@ -211,5 +247,6 @@ def make_constraint(
         jb_sw=jb_sw,
         jb_fq=jb_fq,
         jb_ll=jb_ll,
-        jb_mu=mu,
+        jb_mu=None if elliptic else mu,
+        ell_mu=mu1 if elliptic else None,
     )

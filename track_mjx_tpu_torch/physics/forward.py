@@ -86,7 +86,7 @@ def fwd_actuation(plan: PhysicsPlan, model: Model, data: Data) -> Data:
 
 
 def fwd_acceleration(plan: PhysicsPlan, model: Model, data: Data) -> Data:
-    # qacc_smooth comes from the fused solve (the only solve ported)
+    # qacc_smooth comes from the fused solve (the only solves ported)
     return data.replace(qfrc_smooth=data.qfrc_passive - data.qfrc_bias + data.qfrc_actuator)
 
 

@@ -5,10 +5,15 @@ numpy code; `Model` and `Data` are dataclasses of torch tensors instead of JAX
 pytrees. `Model` leaves are unbatched and shared by every env; `Data` leaves
 are batch-first, [B, ...].
 
-`put_model` reads either a live `mujoco.MjModel` or the compiled-model
-snapshot that `tools/export_torch_model.py` writes (`load_snapshot`), so the
-port runs where MuJoCo is not installed. MuJoCo enum values are plain int
-constants here.
+`put_model` reads either a live `mujoco.MjModel` or a compiled-model
+snapshot that `tools/export_torch_model.py` writes (`load_snapshot`; one per
+workload config: rodent-full-clips, fly-mc-intention), so the port runs
+where MuJoCo is not installed. MuJoCo enum values are plain int constants
+here.
+
+Tensors go to the CUDA device unless the caller names another one: a CPU run
+passes `device="cpu"`, and a call that names no device on a machine without
+a card raises.
 """
 
 from __future__ import annotations
@@ -36,9 +41,23 @@ EQ_CONNECT, EQ_WELD, EQ_JOINT, EQ_TENDON = 0, 1, 2, 3
 OBJ_BODY, OBJ_SITE = 1, 6
 WRAP_JOINT = 1
 
-RODENT_SNAPSHOT = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "assets", "rodent_full_clips.npz"
-)
+_ASSETS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "assets")
+# workload config name -> compiled-model snapshot
+SNAPSHOTS = {
+    name: os.path.join(_ASSETS, name.replace("-", "_") + ".npz")
+    for name in ("rodent-full-clips", "fly-mc-intention")
+}
+
+
+def _device(device) -> torch.device:
+    """`device` as a torch.device; raises for a CUDA device when there is no
+    card, so that no caller runs on the CPU without asking for it."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: pass device='cpu' to run the port on the CPU"
+        )
+    return device
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -260,13 +279,16 @@ class Data:
 # ---------------------------------------------------------------------------
 
 
-def load_snapshot(path: str = RODENT_SNAPSHOT) -> Any:
-    """Loads a compiled-model snapshot (.npz written by
-    tools/export_torch_model.py) as an object with MjModel's attribute names:
-    `m.nv`, `m.body_parentid`, `m.opt.timestep`, ... Sizes and scalar options
-    come back as Python numbers, array fields as numpy arrays."""
+def load_snapshot(name: str = "rodent-full-clips") -> Any:
+    """Loads the compiled-model snapshot of workload config `name` (a key of
+    SNAPSHOTS; .npz written by tools/export_torch_model.py) as an object with
+    MjModel's attribute names: `m.nv`, `m.body_parentid`, `m.opt.timestep`,
+    ... Sizes and scalar options come back as Python numbers, array fields as
+    numpy arrays."""
+    if name not in SNAPSHOTS:
+        raise ValueError(f"no snapshot for {name!r}; have {sorted(SNAPSHOTS)}")
     snap = types.SimpleNamespace(opt=types.SimpleNamespace())
-    with np.load(path, allow_pickle=False) as z:
+    with np.load(SNAPSHOTS[name], allow_pickle=False) as z:
         for key in z.files:
             val = z[key]
             val = val.item() if val.ndim == 0 else val
@@ -407,10 +429,11 @@ def _transmission_matrices(m, tendon_moment, tendon_len_mat):
     return len_mat, len_const, moment, gear0
 
 
-def put_model(m, device: torch.device | str = "cpu") -> tuple[PhysicsPlan, Model]:
+def put_model(m, device: torch.device | str = "cuda") -> tuple[PhysicsPlan, Model]:
     """Packs a compiled model (a `mujoco.MjModel` or a `load_snapshot`
     result) into (PhysicsPlan, Model) with float32 Model tensors on
     `device`."""
+    device = _device(device)
     if m.nflex:
         raise NotImplementedError("flex not supported")
     eq_connect, eq_weld, eq_joint, eq_tendon = [], [], [], []
@@ -708,6 +731,7 @@ def make_data(plan: PhysicsPlan, model: Model, batch_size: int) -> Data:
 
 
 def _from_numpy(cls, leaves: Mapping[str, Any], device):
+    device = _device(device)
     return cls(
         **{
             f.name: torch.as_tensor(np.array(leaves[f.name]), dtype=torch.float32, device=device)
@@ -716,13 +740,13 @@ def _from_numpy(cls, leaves: Mapping[str, Any], device):
     )
 
 
-def model_from_numpy(leaves: Mapping[str, Any], device: torch.device | str = "cpu") -> Model:
+def model_from_numpy(leaves: Mapping[str, Any], device: torch.device | str = "cuda") -> Model:
     """float32 Model from a mapping of field name -> array (e.g. the JAX
     package's Model leaves converted with np.asarray)."""
     return _from_numpy(Model, leaves, device)
 
 
-def data_from_numpy(leaves: Mapping[str, Any], device: torch.device | str = "cpu") -> Data:
+def data_from_numpy(leaves: Mapping[str, Any], device: torch.device | str = "cuda") -> Data:
     """Batch-first float32 Data from a mapping of field name -> [B, ...]
     array (e.g. the leaves of a vmapped JAX Data converted with np.asarray)."""
     return _from_numpy(Data, leaves, device)

@@ -1,16 +1,23 @@
-"""Passive forces: joint springs and dof dampers (mj_passive).
+"""Passive forces: joint springs, dof dampers and fluid drag (mj_passive).
 
-Port of track_mjx_tpu/physics/passive.py without the fluid model: the rodent
-sets no density, viscosity or wind, and a plan with fluid forces raises
-NotImplementedError.
+Port of track_mjx_tpu/physics/passive.py. Fluid forces use MuJoCo's
+inertia-box model (mj_inertiaBoxFluidModel): each body with mass is its
+equivalent-inertia box; viscous and quadratic (density) drag wrenches are
+computed in the body inertia frame and mapped to qfrc through the com-frame
+dof axes. The fly depends on it (fruitfly_force_fast.xml sets density
+0.00128 and viscosity 0.000185, cgs); the per-geom ellipsoid model is
+rejected by put_model.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 
 from track_mjx_tpu_torch.ops import quaternion as quat
+from track_mjx_tpu_torch.physics.constraint import dof_body_mask
 from track_mjx_tpu_torch.physics.model import (
     JNT_BALL,
     JNT_FREE,
@@ -23,10 +30,71 @@ from track_mjx_tpu_torch.physics.model import (
 )
 
 
+_MINVAL = 1e-15
+
+
+def fluid(plan: PhysicsPlan, model: Model, data: Data) -> torch.Tensor:
+    """Inertia-box fluid forces -> qfrc contribution [B, nv]."""
+    mass = model.body_mass
+    inert = model.body_inertia  # (nbody, 3) principal moments
+
+    # equivalent inertia box: full side lengths, (nbody, 3)
+    safe_mass = torch.clamp(mass, min=_MINVAL)
+    box = torch.stack(
+        [
+            torch.sqrt(
+                torch.clamp(inert[:, (i + 1) % 3] + inert[:, (i + 2) % 3] - inert[:, i], min=_MINVAL)
+                / safe_mass
+                * 6.0
+            )
+            for i in range(3)
+        ],
+        dim=1,
+    )
+
+    # body 6D velocity at xipos, in the inertia (ximat) frame
+    rootid = static_tensor(plan, ("passive", "rootid"), data.qpos, lambda: plan.body_rootid)
+    arm = data.xipos - data.subtree_com[:, rootid]  # [B, nbody, 3]
+    w_world = data.cvel[..., :3]
+    v_world = data.cvel[..., 3:] + quat.cross(w_world, arm)
+    # local = R^T world (ximat columns are the local axes in world coordinates)
+    lw = (data.ximat * w_world[..., :, None]).sum(-2)
+    lv = (data.ximat * v_world[..., :, None]).sum(-2)
+    lv = lv - (data.ximat * model.opt_wind[:, None]).sum(-2)  # wind: a linear velocity field
+
+    # viscous drag (sphere of equivalent mean diameter)
+    diam = box.mean(dim=1, keepdim=True)
+    visc = model.opt_viscosity
+    lfrc_ang = -math.pi * diam**3 * visc * lw
+    lfrc_lin = -3.0 * math.pi * diam * visc * lv
+
+    # quadratic (density) drag against the box faces
+    dens = model.opt_density
+    b0, b1, b2 = box[:, 0:1], box[:, 1:2], box[:, 2:3]
+    face = torch.cat([b1 * b2, b0 * b2, b0 * b1], dim=1)
+    lfrc_lin = lfrc_lin - 0.5 * dens * face * torch.abs(lv) * lv
+    ang_coef = (
+        torch.cat([b0 * (b1**4 + b2**4), b1 * (b0**4 + b2**4), b2 * (b0**4 + b1**4)], dim=1)
+        / 64.0
+    )
+    lfrc_ang = lfrc_ang - dens * ang_coef * torch.abs(lw) * lw
+
+    # wrench to world, moved to the com reference point
+    torque_w = (data.ximat * lfrc_ang[..., None, :]).sum(-1)
+    force_w = (data.ximat * lfrc_lin[..., None, :]).sum(-1)
+    torque_com = torque_w + quat.cross(arm, force_w)
+    wrench = torch.cat([torque_com, force_w], dim=-1)  # [B, nbody, 6]
+    # massless bodies contribute nothing (MuJoCo skips them)
+    wrench = torch.where(mass[:, None] > _MINVAL, wrench, 0.0)
+
+    # qfrc[i] = sum_b mask[b, i] cdof[i] . wrench[b]
+    mask = static_tensor(plan, ("passive", "body_dof_mask"), data.qpos, lambda: dof_body_mask(plan))
+    dots = (data.cdof[:, :, None, :] * wrench[:, None, :, :]).sum(-1)  # [B, nv, nbody]
+    return (dots * mask.T).sum(-1)
+
+
 def passive(plan: PhysicsPlan, model: Model, data: Data) -> Data:
-    """Computes qfrc_spring, qfrc_damper, qfrc_passive."""
-    if plan.fluid_active:
-        raise NotImplementedError("inertia-box fluid forces are not ported")
+    """Computes qfrc_spring, qfrc_damper, qfrc_passive (with fluid drag)."""
     like = data.qpos
     qfrc_spring = like.new_zeros((like.shape[0], plan.nv))
 
@@ -66,9 +134,12 @@ def passive(plan: PhysicsPlan, model: Model, data: Data) -> Data:
         ten_vel = data.qvel @ model.tendon_moment.T
         qfrc_damper = qfrc_damper - (model.tendon_damping * ten_vel) @ model.tendon_moment
 
+    qfrc_passive = qfrc_spring + qfrc_damper
+    if plan.fluid_active:
+        qfrc_passive = qfrc_passive + fluid(plan, model, data)
     return data.replace(
         qfrc_spring=qfrc_spring,
         qfrc_damper=qfrc_damper,
-        qfrc_passive=qfrc_spring + qfrc_damper,
+        qfrc_passive=qfrc_passive,
     )
 

@@ -1,9 +1,10 @@
 """Sensor evaluation: gyro, velocimeter, accelerometer, subtreelinvel.
 
-Port of track_mjx_tpu/physics/sensors.py, the rodent's sensor set (a
-head-mounted IMU triplet and a subtree linear velocity). The accelerometer
-uses mj_rnePostConstraint's body-acceleration chain. Other sensor types stay
-zero, as in the JAX module.
+Port of track_mjx_tpu/physics/sensors.py: the rodent's sensor set (a
+head-mounted IMU triplet and a subtree linear velocity) and the fly's IMU
+triplet. The accelerometer uses mj_rnePostConstraint's body-acceleration
+chain. Other sensor types (the fly's touch and force sensors) stay zero, as
+in the JAX module.
 """
 
 from __future__ import annotations
