@@ -7,8 +7,8 @@ Usage (from the repository root, on a machine with a CUDA device and nvcc):
 It imports nothing of JAX. Phases, each of which raises on failure:
 
 1. Device: requires CUDA, prints the card's name and power limit as
-   nvidia-smi reports them, builds csrc/cg_solve.cu and csrc/ell_cg_solve.cu
-   for sm_90a in one nvcc call.
+   nvidia-smi reports them, builds csrc/cg_solve.cu, csrc/ell_cg_solve.cu
+   and csrc/batched_linalg.cu for sm_90a in one nvcc call.
 2. Rodent kernel against plain: 4096 contact-rich rodent states (the main
    path's batch) made on the card with the port's forward stages go through
    the cg_solve kernel and its plain PyTorch version; each output's error is
@@ -30,7 +30,18 @@ It imports nothing of JAX. Phases, each of which raises on failure:
    envs the warm-up control step and one substep after it are repeated on
    the CPU in float32 and in float64; the card must be as close to the
    float64 run as the CPU's float32 run is.
-6. Prints the kernels' JSON line and, last, {"ok": true, "device": {...}}.
+6. Standalone linalg kernels against plain: the rodent-full-clips snapshot
+   with opt.solver = Newton; from 4096 contact-rich states made on the card
+   with the port's stages, qM goes through cholesky, its factor and
+   qfrc_smooth through cho_solve, the first Newton iteration's H (and
+   Euler's M + h D) through solve_spd, each against its plain version, held
+   to a bar. Kernel, plain version and one library call are timed with
+   CUDA events on the same inputs.
+7. Rodent Newton main path: 4096 envs, 1 warm-up and 3 timed control
+   steps; every substep must launch cholesky once, cho_solve once,
+   solve_spd iterations + 1 times and cg_solve never, the state must stay
+   finite and contacts active; 64 envs are compared with the CPU as in 3.
+8. Prints the kernels' JSON line and, last, {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -128,6 +139,38 @@ FLY_F64_FLOOR = 1e-6
 GAP_SHARE = 0.02
 GAP_SUM = 1.1
 
+# --- rodent under the Newton solver: the standalone linalg kernels
+NEWTON_CONTROL_STEPS = 3  # timed, after one warm-up control step
+# Each standalone kernel against its plain version on the path's own
+# matrices, relative to max(1, max |plain|). The arithmetic is the same
+# (csrc/cholesky.cuh and ops/batched_linalg.py step for step); only FMA
+# contraction and rsqrtf differ, about an ulp per operation. Measured on an
+# NVIDIA H100 on these 4096 states: L 1.0e-8 (its entries are under 1),
+# cho_solve 5.7e-7 and solve_spd 3.7e-7 on M + h D (cond(qM) about 6e5
+# carries the factor's roundoff into the solution), solve_spd 6.7e-6 on the
+# Newton H, whose J^T D J term adds the stiff active rows. The bars leave
+# 7-10x.
+LINALG_REL = {"cholesky": 1e-7, "cho_solve": 5e-6, "solve_spd": 5e-5}
+# Card against CPU on the Newton path, per env relative to max(1, max
+# |cpu|). Unlike CG's five inexact iterations, exact-Hessian Newton
+# converges within its 5 iterations, so each substep lands on the optimum up
+# to f32 roundoff and that roundoff does not grow through the linesearch's
+# choices: over the warm-up control step the worst env's qpos and the
+# median env's qvel differed by 1.2e-7 and 2.6e-7 on an NVIDIA H100, about
+# 1e4 times less than the CG path's bars allow. The bars leave about 40x.
+NEWTON_STEP_REL = {"qpos_max": 5e-6, "qvel_median": 1e-5}
+# One substep from the state after the warm-up control step, worst env:
+# qacc_smooth (the cho_solve on qM's factor) up to 6.1e-6 and qacc up to
+# 9.6e-6 take cond(qM)'s amplification, efc_force 1.2e-6 and qvel 1.0e-6
+# (through the Euler solve_spd) less, in two runs on an NVIDIA H100; the
+# bars leave 5-10x.
+NEWTON_SUBSTEP_REL = {"qacc_smooth": 5e-5, "qacc": 5e-5, "efc_force": 1e-5, "qvel": 1e-5}
+REPLACES = {  # the TPU kernel bodies, track_mjx_tpu/ops/batched_linalg.py
+    "cholesky": "track_mjx_tpu/ops/batched_linalg.py:86",
+    "cho_solve": "track_mjx_tpu/ops/batched_linalg.py:248",
+    "solve_spd": "track_mjx_tpu/ops/batched_linalg.py:263",
+}
+
 
 def _rel(a, b) -> float:
     return float((a - b).abs().max() / max(1.0, float(b.abs().max())))
@@ -170,15 +213,38 @@ def solve_flops(n: int, nl: int, nc: int, rows_per_con: int, its: int, ls: int) 
             + its * row_pass)
 
 
-def bound_ms(inputs: dict, out, flops_per_env: int) -> tuple[float, str]:
-    """The least time the card could take for the solve: every input read
-    once, every output written once, over the HBM rate, against the
-    operations over the float32 rate; returns (ms, what bounds it)."""
-    nbytes = sum(t.numel() * t.element_size() for t in inputs.values())
-    nbytes += sum(t.numel() * t.element_size() for t in out)
-    bsz = inputs["qfrc_smooth"].shape[0]
+def factor_flops(n: int) -> int:
+    """Operations of one n x n Cholesky as `factor` computes it: step j
+    scales the n - j entries of column j and updates the (n-j-1)(n-j)/2
+    entries of the trailing lower triangle with one multiply-add each."""
+    return sum(k + (k - 1) * k for k in range(1, n + 1))
+
+
+def substitution_flops(n: int) -> int:
+    """Operations of one L L^T x = b solve: per row and sweep, one
+    multiply-add per solved entry before it, a subtraction and a division."""
+    return 2 * sum(2 * i + 2 for i in range(n))
+
+
+def tensor_bytes(tensors) -> int:
+    """Bytes of `tensors`, each read or written once in full."""
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def lower_triangle_bytes(a: torch.Tensor) -> int:
+    """Bytes of the lower triangles, diagonal included, of a batch of square
+    matrices: all that a factorization or a substitution needs to read of
+    its matrix input."""
+    n = a.shape[-1]
+    return a.numel() // (n * n) * (n * (n + 1) // 2) * a.element_size()
+
+
+def bound_ms(nbytes: int, flops: int) -> tuple[float, str]:
+    """The least time the card could take for a call: the `nbytes` it must
+    move over the HBM rate, against its operations `flops` over the float32
+    rate; returns (ms, what bounds it)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = bsz * flops_per_env / F32_FLOP_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes > t_ops else (t_ops, "operations")
 
 
@@ -191,12 +257,13 @@ def card_name() -> str:
 
 class Phases:
     def __init__(self, card: str, device: str = "cuda"):
+        from track_mjx_tpu_torch.ops import batched_linalg as bl
         from track_mjx_tpu_torch.ops import cg_solver_kernel as tk
         from track_mjx_tpu_torch.physics import forward as tf
         from track_mjx_tpu_torch.physics import model as tm
         from track_mjx_tpu_torch.physics import solver as ts
 
-        self.tk, self.tf, self.tm, self.ts = tk, tf, tm, ts
+        self.bl, self.tk, self.tf, self.tm, self.ts = bl, tk, tf, tm, ts
         self.card = card
         self.dev = torch.device(device)
         self.gen = torch.Generator(device=self.dev)
@@ -216,10 +283,12 @@ class Phases:
         d = tf.fwd_acceleration(plan, model, d)
         return inputs_of(plan, model, d, efc)
 
-    def main_path(self, plan, model, op, control_steps, ctrl_scale, reset_noise=0.001):
-        """Warm-up + timed control steps of n_step(..., 10) on N_ENVS envs;
-        returns the start, the controls, the state after the warm-up, the
-        final state and the measurements."""
+    def main_path(self, plan, model, per_substep, control_steps, ctrl_scale, reset_noise=0.001):
+        """Warm-up + timed control steps of n_step(..., 10) on N_ENVS envs.
+        `per_substep` maps each kernel wrapper of the path (and any that
+        must not launch, to 0) to its launches per substep. Returns the
+        start, the controls, the state after the warm-up, the final state
+        and the launches by wrapper name."""
         tf, tm = self.tf, self.tm
         data = tm.make_data(plan, model, N_ENVS)
         qpos = data.qpos.clone()
@@ -230,7 +299,8 @@ class Phases:
         start = tf.slim_data(data)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        op.launches = 0  # the kernel of this path; launches below are the path's
+        for op in per_substep:
+            op.launches = 0  # the kernels of this path; launches below are the path's
         active = 0
         data = tf.n_step(plan, model, data.replace(ctrl=ctrls[0]), SUBSTEPS)
         torch.cuda.synchronize()
@@ -242,10 +312,11 @@ class Phases:
             active += int((data.contact_dist < 0).sum())
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = op.launches
+        launches = {op.__name__: op.launches for op in per_substep}
         peak = torch.cuda.max_memory_allocated()
-        expected = (1 + control_steps) * SUBSTEPS
-        assert launches == expected, f"{op.__name__} launched {launches} times, expected {expected}"
+        for op, per in per_substep.items():
+            expected = (1 + control_steps) * SUBSTEPS * per
+            assert op.launches == expected, f"{op.__name__} launched {op.launches} times, expected {expected}"
         for name in ("qpos", "qvel", "act", "qacc", "qacc_eff", "efc_force", "sensordata", "xpos"):
             t = getattr(data, name)
             assert t.shape[0] == N_ENVS and torch.isfinite(t).all(), f"{name} is not finite"
@@ -253,14 +324,15 @@ class Phases:
         env_steps = control_steps * N_ENVS / seconds
         print(f"main path: {N_ENVS} envs x {control_steps} control steps x {SUBSTEPS} substeps in "
               f"{seconds:.3f} s: {env_steps:.1f} env-steps/s, {env_steps * SUBSTEPS:.1f} env-substeps/s; "
-              f"{op.__name__} launches {launches}; active contacts/env at the control steps' ends "
+              f"launches {launches} ({1 + control_steps} control steps); active contacts/env at the control steps' ends "
               f"{active / N_ENVS / (1 + control_steps):.2f}; peak memory {peak} B ({self.card})")
         return start, ctrls, after_warmup, data, launches
 
-    def cpu_warmup(self, name, start, ctrl0):
-        """The warm-up control step of the first N_CPU envs on the CPU."""
+    def cpu_warmup(self, snap, start, ctrl0):
+        """The warm-up control step of the first N_CPU envs on the CPU, from
+        the model snapshot `snap`."""
         tf, tm = self.tf, self.tm
-        cpu_plan, cpu_model = tm.put_model(tm.load_snapshot(name), device="cpu")
+        cpu_plan, cpu_model = tm.put_model(snap, device="cpu")
         cpu = tm.make_data(cpu_plan, cpu_model, N_CPU).replace(
             **{k: getattr(start, k)[:N_CPU].cpu() for k in ("time", "qpos", "qvel", "act", "qacc_warmstart")},
             ctrl=ctrl0[:N_CPU].cpu(),
@@ -279,22 +351,22 @@ class Phases:
     # rodent
     # -----------------------------------------------------------------------
 
-    def rodent_states(self, plan, model):
-        """Contact-rich rodent solver inputs: feet dropped into the floor,
-        joints perturbed, random qvel, ctrl and warmstart
-        (tests/test_cg_kernel_parity.py)."""
+    def rodent_drop(self, plan, model):
+        """Contact-rich rodent starts (qpos, qvel, ctrl, warmstart): feet
+        dropped into the floor, joints perturbed, random qvel, ctrl and
+        warmstart (tests/test_cg_kernel_parity.py)."""
         qpos = model.qpos0.expand(N_ENVS, plan.nq).clone()
         qpos[:, 2] -= self.uniform((N_ENVS,), 0.008, 0.016)
         qpos[:, 7:] += self.uniform((N_ENVS, plan.nq - 7), -0.08, 0.08)
-        return self.solver_inputs(
-            plan, model, qpos,
-            self.uniform((N_ENVS, plan.nv), -0.5, 0.5),
-            self.uniform((N_ENVS, plan.nu), -0.5, 0.5),
-            self.uniform((N_ENVS, plan.nv), -1.0, 1.0),
-            self.ts.solve_inputs,
-        )
+        qvel = self.uniform((N_ENVS, plan.nv), -0.5, 0.5)
+        ctrl = self.uniform((N_ENVS, plan.nu), -0.5, 0.5)
+        return qpos, qvel, ctrl, self.uniform((N_ENVS, plan.nv), -1.0, 1.0)
 
-    def rodent(self) -> dict:
+    def rodent_states(self, plan, model):
+        """Contact-rich rodent solver inputs of the fused solve."""
+        return self.solver_inputs(plan, model, *self.rodent_drop(plan, model), self.ts.solve_inputs)
+
+    def rodent(self) -> list:
         tk, tm = self.tk, self.tm
         plan, model = tm.put_model(tm.load_snapshot("rodent-full-clips"), device=self.dev)
         its, ls = plan.iterations, plan.ls_iterations
@@ -326,16 +398,17 @@ class Phases:
         kernel_ms = _time_ms(lambda: tk.cg_solve(**inputs, iterations=its, ls_iterations=ls), 20)
         plain_ms = _time_ms(lambda: tk.cg_solve_plain(**inputs, iterations=its, ls_iterations=ls), 3)
         nc, nl = inputs["fq"].shape[1], inputs["lim1h"].shape[0]
-        b_ms, b_by = bound_ms(inputs, kernel, solve_flops(plan.nv, nl, nc, 4, its, ls))
+        b_ms, b_by = bound_ms(tensor_bytes([*inputs.values(), *kernel]),
+                              N_ENVS * solve_flops(plan.nv, nl, nc, 4, its, ls))
         print(f"cg_solve at B={N_ENVS}: kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, "
               f"bound {b_ms:.4f} ms ({b_by}) ({self.card})")
         del inputs, kernel, plain
 
         # main path
         start, ctrls, after_warmup, _, launches = self.main_path(
-            plan, model, tk.cg_solve, RODENT_CONTROL_STEPS, RODENT_CTRL_SCALE
+            plan, model, {tk.cg_solve: 1}, RODENT_CONTROL_STEPS, RODENT_CTRL_SCALE
         )
-        cpu_plan, cpu_model, cpu = self.cpu_warmup("rodent-full-clips", start, ctrls[0])
+        cpu_plan, cpu_model, cpu = self.cpu_warmup(tm.load_snapshot("rodent-full-clips"), start, ctrls[0])
         errs = {}
         for name in ("qpos", "qvel"):
             per_env = _per_env(getattr(after_warmup, name)[:N_CPU].cpu(), getattr(cpu, name))
@@ -354,19 +427,19 @@ class Phases:
         for name, bar in SUBSTEP_REL.items():
             assert worst[name] < bar, f"card and CPU {name} differ after one substep: {worst[name]:.3e}"
 
-        return {
+        return [{
             "name": "cg_solve",
             "route": "cuda",
             "source": "track_mjx_tpu_torch/csrc/cg_solve.cu",
             "replaces": "track_mjx_tpu/ops/cg_solver_kernel.py:146",
-            "launches": launches,
+            "launches": launches["cg_solve"],
             "max_abs_err": max_abs,
             "ms": kernel_ms,
             "plain_ms": plain_ms,
             "bound_ms": b_ms,
             "bound_by": b_by,
             "library_ms": None,  # no single PyTorch call computes the fused solve
-        }
+        }]
 
     # -----------------------------------------------------------------------
     # fly
@@ -444,7 +517,7 @@ class Phases:
         inputs["warm"] = warm.contiguous()
         return inputs
 
-    def fly(self) -> dict:
+    def fly(self) -> list:
         tk, tf, tm = self.tk, self.tf, self.tm
         plan, model = tm.put_model(tm.load_snapshot("fly-mc-intention"), device=self.dev)
         its, ls = plan.iterations, plan.ls_iterations
@@ -487,16 +560,17 @@ class Phases:
 
         kernel_ms = _time_ms(lambda: tk.ell_cg_solve(**inputs, iterations=its, ls_iterations=ls), 20)
         plain_ms = _time_ms(lambda: tk.ell_cg_solve_plain(**inputs, iterations=its, ls_iterations=ls), 3)
-        b_ms, b_by = bound_ms(inputs, kernel, solve_flops(plan.nv, nl, nc, 3, its, ls))
+        b_ms, b_by = bound_ms(tensor_bytes([*inputs.values(), *kernel]),
+                              N_ENVS * solve_flops(plan.nv, nl, nc, 3, its, ls))
         print(f"ell_cg_solve at B={N_ENVS}: kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, "
               f"bound {b_ms:.4f} ms ({b_by}) ({self.card})")
         del inputs, kernel, plain, kernel1, plain1
 
         # main path
         start, ctrls, after_warmup, _, launches = self.main_path(
-            plan, model, tk.ell_cg_solve, FLY_CONTROL_STEPS, FLY_CTRL_SCALE
+            plan, model, {tk.ell_cg_solve: 1}, FLY_CONTROL_STEPS, FLY_CTRL_SCALE
         )
-        cpu_plan, cpu_model, cpu = self.cpu_warmup("fly-mc-intention", start, ctrls[0])
+        cpu_plan, cpu_model, cpu = self.cpu_warmup(tm.load_snapshot("fly-mc-intention"), start, ctrls[0])
         model64 = tm.Model(**{f: getattr(cpu_model, f).double() for f in tm.Model.__dataclass_fields__})
         cpu64 = tf.n_step(cpu_plan, model64, tm.make_data(cpu_plan, model64, N_CPU).replace(
             **{k: getattr(start, k)[:N_CPU].cpu().double()
@@ -527,41 +601,173 @@ class Phases:
             versus_f64("one substep", name, getattr(card_sub, name), getattr(cpu_sub, name),
                        getattr(sub64, name), "median")
 
-        return {
+        return [{
             "name": "ell_cg_solve",
             "route": "cuda",
             "source": "track_mjx_tpu_torch/csrc/ell_cg_solve.cu",
             "replaces": "track_mjx_tpu/ops/cg_solver_kernel.py:725",
-            "launches": launches,
+            "launches": launches["ell_cg_solve"],
             "max_abs_err": max_abs,
             "ms": kernel_ms,
             "plain_ms": plain_ms,
             "bound_ms": b_ms,
             "bound_by": b_by,
             "library_ms": None,  # no single PyTorch call computes the fused solve
+        }]
+
+    # -----------------------------------------------------------------------
+    # rodent under the Newton solver
+    # -----------------------------------------------------------------------
+
+    def newton_matrices(self, plan, model):
+        """The matrices the Newton path hands the standalone kernels, from
+        N_ENVS contact-rich rodent states made with the port's stages: qM
+        (cholesky), its factor and qfrc_smooth (cho_solve), M + h D with
+        qfrc_smooth + qfrc_constraint (Euler's solve_spd) and the first
+        Newton iteration's H with its gradient (Newton's solve_spd)."""
+        ts = self.ts
+        d, efc = self.solver_inputs(plan, model, *self.rodent_drop(plan, model), lambda p, m, d, e: (d, e))
+        j = ts.dense_j(plan, d, efc)
+        jar, _, grad = ts._cost_grad(d, efc, j, ts.newton_start(d, efc, j))
+        rich = float((jar < 0).any(dim=1).float().mean())
+        print(f"{N_ENVS} Newton states, share with active constraint rows at the start {rich:.3f}")
+        assert rich > 0.9, "states are not contact-rich"
+        solved = ts.solve(plan, model, d, efc)
+        mh = d.qM + torch.diag_embed((model.opt_timestep * model.dof_damping).expand(N_ENVS, plan.nv))
+        return {
+            "qM": d.qM.contiguous(),
+            "qLD": d.qLD,
+            "qfrc_smooth": d.qfrc_smooth.contiguous(),
+            "H": ts.newton_hessian(d.qM, j, efc.D, jar),
+            "grad": grad,
+            "M+hD": mh,
+            "euler_rhs": (d.qfrc_smooth + solved.qfrc_constraint).contiguous(),
         }
+
+    def linalg_kernels(self, m) -> list:
+        """Each standalone kernel against its plain version on the path's
+        matrices, then kernel, plain and library call timed on the same
+        inputs. Returns the kernels' records, launches still to be set."""
+        bl = self.bl
+        n = m["qM"].shape[-1]
+        cases = {  # name: (wrapper, plain, library call, [(what, args)], flops per env)
+            "cholesky": (bl.cholesky, bl.cholesky_plain, torch.linalg.cholesky_ex,
+                         [("qM", (m["qM"],))], factor_flops(n)),
+            "cho_solve": (bl.cho_solve, bl.cho_solve_plain,
+                          lambda l, b: torch.cholesky_solve(b[..., None], l),
+                          [("qLD, qfrc_smooth", (m["qLD"], m["qfrc_smooth"]))], substitution_flops(n)),
+            "solve_spd": (bl.solve_spd, bl.solve_spd_plain, torch.linalg.solve,
+                          [("Newton H, grad", (m["H"], m["grad"])),
+                           ("M + h D, qfrc_smooth + qfrc_constraint", (m["M+hD"], m["euler_rhs"]))],
+                          factor_flops(n) + substitution_flops(n)),
+        }
+        records = []
+        for name, (op, plain, library, inputs, flops) in cases.items():
+            bar = LINALG_REL[name]
+            max_abs = 0.0
+            for what, args in inputs:
+                before = op.launches
+                got = op(*args)
+                torch.cuda.synchronize()
+                assert op.launches == before + 1, f"{name}: the wrapper did not launch the kernel"
+                want = plain(*args)
+                assert torch.isfinite(got).all(), f"{name} not finite on {what}"
+                err = _rel(got, want)
+                abs_err = float((got - want).abs().max())
+                max_abs = max(max_abs, abs_err)
+                per_env = _per_env(got.flatten(1), want.flatten(1))
+                print(f"{name} vs plain on {what}: max rel err {err:.3e} (bar {bar:.0e}), max abs err "
+                      f"{abs_err:.3e}, max |plain| {float(want.abs().max()):.3e}; per env median "
+                      f"{float(per_env.median()):.3e} max {float(per_env.max()):.3e}")
+                assert err < bar, f"{name} disagrees with plain on {what}: {err:.3e} >= {bar:.0e}"
+            args = inputs[0][1]
+            kernel_ms = _time_ms(lambda: op(*args), 20)
+            plain_ms = _time_ms(lambda: plain(*args), 3)
+            library_ms = _time_ms(lambda: library(*args), 20)
+            out = op(*args)
+            # each kernel needs only the lower triangle of its matrix input;
+            # cholesky writes its whole factor, upper zeros included
+            b_ms, b_by = bound_ms(lower_triangle_bytes(args[0]) + tensor_bytes([*args[1:], out]), N_ENVS * flops)
+            print(f"{name} at B={N_ENVS}, n={n} on {inputs[0][0]}: kernel {kernel_ms:.4f} ms, plain "
+                  f"{plain_ms:.3f} ms, library {library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) "
+                  f"({self.card})")
+            records.append({
+                "name": name,
+                "route": "cuda",
+                "source": "track_mjx_tpu_torch/csrc/batched_linalg.cu",
+                "replaces": REPLACES[name],
+                "launches": None,
+                "max_abs_err": max_abs,
+                "ms": kernel_ms,
+                "plain_ms": plain_ms,
+                "bound_ms": b_ms,
+                "bound_by": b_by,
+                "library_ms": library_ms,
+            })
+        return records
+
+    def newton(self) -> list:
+        tk, tm, bl = self.tk, self.tm, self.bl
+        snap = tm.load_snapshot("rodent-full-clips")
+        snap.opt.solver = tm.SOLVER_NEWTON
+        plan, model = tm.put_model(snap, device=self.dev)
+        its, ls = plan.iterations, plan.ls_iterations
+        print(f"rodent, Newton: nv={plan.nv} nefc={plan.nefc} newton {its}/{ls} "
+              f"dt={float(model.opt_timestep)}")
+
+        records = self.linalg_kernels(self.newton_matrices(plan, model))
+        torch.cuda.empty_cache()
+
+        # main path: per substep factor_m, solve_m, one Newton H solve per
+        # iteration (all `iterations`, converged envs masked) and Euler's
+        per_substep = {bl.cholesky: 1, bl.cho_solve: 1, bl.solve_spd: its + 1, tk.cg_solve: 0}
+        start, ctrls, after_warmup, _, launches = self.main_path(
+            plan, model, per_substep, NEWTON_CONTROL_STEPS, RODENT_CTRL_SCALE
+        )
+        cpu_plan, cpu_model, cpu = self.cpu_warmup(snap, start, ctrls[0])
+        errs = {}
+        for name in ("qpos", "qvel"):
+            per_env = _per_env(getattr(after_warmup, name)[:N_CPU].cpu(), getattr(cpu, name))
+            errs[name] = (float(per_env.median()), float(per_env.max()))
+            print(f"Newton: card vs CPU, one control step, {N_CPU} envs, {name}: per-env rel err "
+                  f"median {errs[name][0]:.3e} max {errs[name][1]:.3e}")
+        assert errs["qpos"][1] < NEWTON_STEP_REL["qpos_max"], f"card and CPU qpos differ: {errs['qpos']}"
+        assert errs["qvel"][0] < NEWTON_STEP_REL["qvel_median"], f"card and CPU qvel differ: {errs['qvel']}"
+
+        _, card_sub, cpu_sub = self.one_substep(plan, model, cpu_plan, cpu_model, after_warmup)
+        worst = {}
+        for name, bar in NEWTON_SUBSTEP_REL.items():
+            worst[name] = float(_per_env(getattr(card_sub, name).cpu(), getattr(cpu_sub, name)).max())
+            print(f"Newton: card vs CPU, one substep, {N_CPU} envs, {name}: per-env rel err "
+                  f"max {worst[name]:.3e} (bar {bar:.0e})")
+        for name, bar in NEWTON_SUBSTEP_REL.items():
+            assert worst[name] < bar, f"card and CPU {name} differ after one substep: {worst[name]:.3e}"
+
+        for r in records:
+            r["launches"] = launches[r["name"]]
+        return records
 
 
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device (torch.cuda.is_available() is False)")
     sys.path.insert(0, REPO)
-    from track_mjx_tpu_torch.ops import cg_solver_kernel as tk
+    from track_mjx_tpu_torch.ops import kernel_lib
     from track_mjx_tpu_torch.physics import forward as tf
 
     card = card_name()
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
-    path, build_s, log = tk.build_library()
+    path, build_s, log = kernel_lib.build_library()
     print(f"built {os.path.relpath(path, REPO)} from "
-          f"{', '.join(os.path.relpath(s, REPO) for s in tk.SOURCES)} with nvcc for sm_90a "
+          f"{', '.join(os.path.relpath(s, REPO) for s in kernel_lib.SOURCES)} with nvcc for sm_90a "
           f"in {build_s:.1f} s")
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
     tf.set_full_f32()
     phases = Phases(card)
-    kernels = [phases.rodent(), phases.fly()]
+    kernels = phases.rodent() + phases.fly() + phases.newton()
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,11 +2,12 @@
 
 Usage (from the repository root):
 
-    python3 tools/profile_torch_step.py [--config rodent-full-clips] [--envs 4096]
-        [--reps 5] [--out FILE]
+    python3 tools/profile_torch_step.py [--config rodent-full-clips]
+        [--solver cg|newton] [--envs 4096] [--reps 5] [--out FILE]
 
 It loads the `--config` snapshot (rodent-full-clips or fly-mc-intention),
-puts `--envs` envs at rest (with reset noise) and runs one warm-up control
+sets its opt.solver to `--solver` (both configs run CG; newton is the
+env_args.solver: newton plan, which factors qM in its own stage), puts `--envs` envs at rest (with reset noise) and runs one warm-up control
 step of `forward.n_step(..., 10)` with controls drawn as chip_smoke.py draws
 them (0.2 x U(-1, 1) for the rodent, U(-1, 1) for the fly). Then it
 measures, from that state:
@@ -52,10 +53,12 @@ from track_mjx_tpu_torch.physics import solver as _solver  # noqa: E402
 
 SUBSTEPS = 10
 CTRL_SCALE = {"rodent-full-clips": 0.2, "fly-mc-intention": 1.0}  # as chip_smoke.py
+SOLVERS = {"cg": tm.SOLVER_CG, "newton": tm.SOLVER_NEWTON}
 
 
 def _stages(plan, model, data):
-    """forward() then euler(), as (name, callable) pairs over a shared state."""
+    """forward() then euler(), as (name, callable) pairs over a shared state.
+    Plans that are not fused CG factor qM in a stage of its own."""
     state = {"data": data}
 
     def run(fn):
@@ -72,11 +75,15 @@ def _stages(plan, model, data):
     def solve():
         state["data"] = _solver.solve(plan, model, state["data"], state["efc"])
 
+    factor_m = [] if _solver.fused_cg(plan) else [
+        ("factor_m", run(lambda d: _inertia.factor_m(plan, model, d)))
+    ]
     return [
         ("kinematics", run(lambda d: _kinematics.kinematics(plan, model, d))),
         ("com_pos", run(lambda d: _com.com_pos(plan, model, d))),
         ("tendon", run(lambda d: _actuation.tendon(plan, model, d))),
         ("crb", run(lambda d: _inertia.crb(plan, model, d))),
+        *factor_m,
         ("collide", collide),
         ("make_constraint", make_constraint),
         ("com_vel", run(lambda d: _com.com_vel(plan, model, d))),
@@ -93,6 +100,7 @@ def _stages(plan, model, data):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", choices=sorted(CTRL_SCALE), default="rodent-full-clips")
+    ap.add_argument("--solver", choices=sorted(SOLVERS), default="cg")
     ap.add_argument("--envs", type=int, default=4096)
     ap.add_argument("--reps", type=int, default=5, help="timed control steps")
     ap.add_argument("--stage-reps", type=int, default=3, help="substeps timed stage by stage")
@@ -114,7 +122,9 @@ def main() -> None:
         ).stdout.strip().splitlines()[0]
     print(card)
     tf.set_full_f32()
-    plan, model = tm.put_model(tm.load_snapshot(args.config), device=dev)
+    snap = tm.load_snapshot(args.config)
+    snap.opt.solver = SOLVERS[args.solver]
+    plan, model = tm.put_model(snap, device=dev)
     scale = CTRL_SCALE[args.config]
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
@@ -150,7 +160,7 @@ def main() -> None:
         data = tf.n_step(plan, model, data, SUBSTEPS)
         sync()
         step_ms.append((time.perf_counter() - t0) * 1e3)
-    for name in ("qpos", "qvel", "qacc_eff"):
+    for name in ("qpos", "qvel", "qacc"):
         if not torch.isfinite(getattr(data, name)).all():
             raise RuntimeError(f"{name} is not finite after the timed control steps")
     wall_ms = statistics.median(step_ms)
@@ -158,6 +168,7 @@ def main() -> None:
     summary = {
         "card": card,
         "config": args.config,
+        "solver": args.solver,
         "torch": torch.__version__,
         "envs": args.envs,
         "substeps": SUBSTEPS,

@@ -1,20 +1,31 @@
-"""Batched small-matrix Cholesky routines in plain PyTorch, [B, n, n].
+"""Batched small-matrix Cholesky routines, [B, n, n]: plain PyTorch
+versions, and the standalone CUDA kernels with their wrappers.
 
-Port of the device routines of track_mjx_tpu/ops/batched_linalg.py that the
-fused CG solves run: `factor` (factor_in_place, the right-looking Cholesky
-with c = row * rsqrt(diag)), `invert_diag_blocks` (inverses of the 8x8
-diagonal panels of L), `blocked_substitution_pinv` (L L^T x = b by panel
-substitution through those inverses; the scalar solve) and
-`blocked_substitution` (the exact panel-8 forward and back substitution; the
-elliptic solve). They are the arithmetic of the CUDA device routines in
-csrc/cholesky.cuh, written as batched torch ops, and serve as the plain
-versions of the kernels (ops/cg_solver_kernel.cg_solve_plain and
-ell_cg_solve_plain).
+Plain versions of the device routines of track_mjx_tpu/ops/batched_linalg.py
+that the fused CG solves run inside themselves: `factor` (factor_in_place,
+the right-looking Cholesky with c = row * rsqrt(diag)), `invert_diag_blocks`
+(inverses of the 8x8 diagonal panels of L), `blocked_substitution_pinv`
+(L L^T x = b by panel substitution through those inverses; the scalar
+solve) and `blocked_substitution` (the exact panel-8 forward and back
+substitution; the elliptic solve). They are the arithmetic of the CUDA
+device routines in csrc/cholesky.cuh, written as batched torch ops.
+
+The standalone kernels (csrc/batched_linalg.cu) replace the TPU kernels
+`_cholesky_kernel`, `_cho_solve_kernel` and `_solve_spd_kernel` of the same
+JAX module, which the non-fused plans run (`inertia.factor_m`/`solve_m`, the
+Newton solve, Euler's implicit-damping solve). `cholesky(a)`,
+`cho_solve(l, b)` and `solve_spd(a, b)` are their wrappers: they check their
+arguments, run the plain version (`cholesky_plain`, `cho_solve_plain`,
+`solve_spd_plain`) for CPU tensors and launch the kernel for CUDA tensors,
+raising if the build or the launch fails. `<wrapper>.launches` counts kernel
+launches.
 """
 
 from __future__ import annotations
 
 import torch
+
+from track_mjx_tpu_torch.ops.kernel_lib import MAX_SMEM_BYTES, load_library
 
 PANEL = 8
 
@@ -105,3 +116,117 @@ def blocked_substitution(l: torch.Tensor, b: torch.Tensor, panel: int = PANEL) -
         if p0 > 0:
             y[:, :p0] -= (l[:, p0 : p0 + m, :p0] * out[:, p0 : p0 + m, None]).sum(1)
     return out
+
+
+# ---------------------------------------------------------------------------
+# standalone kernels: plain versions, wrappers
+# ---------------------------------------------------------------------------
+
+
+def cholesky_plain(a: torch.Tensor) -> torch.Tensor:
+    """The cholesky kernel's computation in batched torch: `factor`."""
+    return factor(a)
+
+
+def cho_solve_plain(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The cho_solve kernel's computation: `blocked_substitution`."""
+    return blocked_substitution(l, b)
+
+
+def solve_spd_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The solve_spd kernel's computation: factor, then substitute."""
+    return blocked_substitution(factor(a), b)
+
+
+def _check(op: str, mat: torch.Tensor, rhs: torch.Tensor | None = None) -> tuple[int, int]:
+    """Validates a [B, n, n] matrix (and a [B, n] right-hand side): tensors
+    on one CPU or CUDA device, float32 (or float64 on the CPU, a reference
+    solve), contiguous, non-empty. Returns (B, n)."""
+    named = {"matrix": mat} if rhs is None else {"matrix": mat, "rhs": rhs}
+    for name, t in named.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{op}: {name} must be a tensor")
+    device = mat.device
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{op}: unsupported device {device}")
+    dtype = torch.float64 if device.type == "cpu" and mat.dtype == torch.float64 else torch.float32
+    if mat.dim() != 3 or mat.shape[1] != mat.shape[2]:
+        raise ValueError(f"{op}: matrix shape {tuple(mat.shape)}, expected (B, n, n)")
+    bsz, n = mat.shape[0], mat.shape[1]
+    want = {"matrix": (bsz, n, n), "rhs": (bsz, n)}
+    for name, t in named.items():
+        if t.device != device:
+            raise ValueError(f"{op}: {name} on {t.device}, matrix on {device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{op}: {name} must be {dtype} like the matrix (float32, or float64 on the CPU), got {t.dtype}")
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"{op}: {name} shape {tuple(t.shape)}, expected {want[name]}")
+        if not t.is_contiguous():
+            raise ValueError(f"{op}: {name} must be contiguous")
+    if bsz == 0 or n == 0:
+        raise ValueError(f"{op}: empty batch or matrix")
+    return bsz, n
+
+
+def _launch(op: str, out: torch.Tensor, *args: torch.Tensor) -> torch.Tensor:
+    """Launches `{op}_f32(*args, out, B, n, stream)` on the current stream of
+    the tensors' card; raises if the matrix does not fit one CTA's shared
+    memory or the launch fails."""
+    lib = load_library()
+    bsz, n = args[0].shape[0], args[0].shape[-1]
+    smem = getattr(lib, f"{op}_smem_bytes")(n)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"{op}: n = {n} needs {smem} B of shared memory per env (max {MAX_SMEM_BYTES})")
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        err = getattr(lib, f"{op}_f32")(*[t.data_ptr() for t in args], out.data_ptr(), bsz, n, stream)
+    if err != 0:
+        raise RuntimeError(f"{op}: CUDA kernel launch failed with cudaError {err}")
+    return out
+
+
+def cholesky(a: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factors of SPD [B, n, n] matrices, upper triangle zero.
+    float32, contiguous; CPU tensors run `cholesky_plain` (in float64 too),
+    CUDA tensors launch the kernel or raise."""
+    _check("cholesky", a)
+    if a.device.type == "cpu":
+        return cholesky_plain(a)
+    out = _launch("cholesky", torch.empty_like(a), a)
+    cholesky.launches += 1
+    return out
+
+
+cholesky.launches = 0
+
+
+def cho_solve(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solves L L^T x = b for lower factors [B, n, n] (only the lower
+    triangle is read) and right-hand sides [B, n]. float32, contiguous; CPU
+    tensors run `cho_solve_plain` (in float64 too), CUDA tensors launch the
+    kernel or raise."""
+    _check("cho_solve", l, b)
+    if l.device.type == "cpu":
+        return cho_solve_plain(l, b)
+    out = _launch("cho_solve", torch.empty_like(b), l, b)
+    cho_solve.launches += 1
+    return out
+
+
+cho_solve.launches = 0
+
+
+def solve_spd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solves A x = b for SPD [B, n, n] A and [B, n] b, factor and
+    substitution in one launch. float32, contiguous; CPU tensors run
+    `solve_spd_plain` (in float64 too), CUDA tensors launch the kernel or
+    raise."""
+    _check("solve_spd", a, b)
+    if a.device.type == "cpu":
+        return solve_spd_plain(a, b)
+    out = _launch("solve_spd", torch.empty_like(b), a, b)
+    solve_spd.launches += 1
+    return out
+
+
+solve_spd.launches = 0

@@ -1,7 +1,7 @@
 """Fused smooth + CG + Euler constraint solves: CUDA kernels, wrappers, plain versions.
 
-Two kernels, one per friction-cone type, built together from csrc/ into one
-library:
+Two kernels, one per friction-cone type, built with the other csrc/ kernels
+into one library (ops/kernel_lib.py):
 
 `cg_solve` (csrc/cg_solve.cu) replaces the TPU kernel
 track_mjx_tpu/ops/cg_solver_kernel.py::_cg_kernel, launched through
@@ -44,14 +44,6 @@ kernels with them.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
 from typing import NamedTuple
 
 import torch
@@ -62,17 +54,9 @@ from track_mjx_tpu_torch.ops.batched_linalg import (
     factor,
     invert_diag_blocks,
 )
+from track_mjx_tpu_torch.ops.kernel_lib import MAX_SMEM_BYTES, load_library
 
 _EPS = 1e-12
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CSRC = os.path.join(_PKG_DIR, "csrc")
-# compiled together, in one nvcc call, into one library
-SOURCES = tuple(os.path.join(CSRC, f) for f in ("cg_solve.cu", "ell_cg_solve.cu"))
-BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
 
 
 class CGOut(NamedTuple):
@@ -379,64 +363,8 @@ def ell_cg_solve_plain(
 
 
 # ---------------------------------------------------------------------------
-# CUDA build and launch
+# CUDA launch
 # ---------------------------------------------------------------------------
-
-
-def _nvcc() -> str:
-    for cand in (
-        shutil.which("nvcc"),
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-    ):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
-
-
-def library_path() -> str:
-    """Where the library built from the current csrc/ (every file in it, so
-    a change to a shared header rebuilds) and NVCC_FLAGS lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in sorted(os.listdir(CSRC)):
-        h.update(name.encode())
-        with open(os.path.join(CSRC, name), "rb") as f:
-            h.update(f.read())
-    return os.path.join(BUILD_DIR, f"libtorch_kernels_{h.hexdigest()[:16]}.so")
-
-
-def build_library() -> tuple[str, float, str]:
-    """Compiles the csrc/ kernels for sm_90a, in one nvcc call, into one
-    library under build/torch_kernels/ unless a library built from the same
-    sources and flags is there. Returns (path, build seconds, nvcc output);
-    raises if nvcc fails."""
-    path = library_path()
-    if os.path.exists(path):
-        return path, 0.0, ""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *SOURCES], capture_output=True, text=True
-    )
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, path)
-    return path, seconds, proc.stdout + proc.stderr
-
-
-@functools.lru_cache(maxsize=1)
-def load_library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(build_library()[0])
-    for fn in (lib.cg_solve_f32, lib.ell_cg_solve_f32):
-        fn.argtypes = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    for fn in (lib.cg_solve_smem_bytes, lib.ell_cg_solve_smem_bytes):
-        fn.argtypes = [ctypes.c_int] * 3
-        fn.restype = ctypes.c_long
-    return lib
 
 
 _ARG_NAMES = ("buf", "cdof", "fq", "sw", "ll", "mu", "aref", "D", "qfrc_smooth", "warm",
@@ -483,8 +411,8 @@ def _check(op: str, args, rows_per_con: int):
 def _launch(op: str, args, bsz, n, nl, nc, rows_per_con, iterations, ls_iterations) -> CGOut:
     lib = load_library()
     smem = getattr(lib, f"{op}_smem_bytes")(n, nl, nc)
-    if smem > 227 * 1024:
-        raise ValueError(f"{op}: model needs {smem} B of shared memory per env (max 232448)")
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"{op}: model needs {smem} B of shared memory per env (max {MAX_SMEM_BYTES})")
     like = args[0]
 
     def empty(cols):

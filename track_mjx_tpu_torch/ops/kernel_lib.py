@@ -1,0 +1,100 @@
+"""Build and load the port's CUDA kernels: every csrc/*.cu in one nvcc call,
+into one shared library with a plain C interface, bound with ctypes.
+
+The library is keyed by a hash of every file under csrc/ and of the flags,
+so a change to a shared header rebuilds it. It is built at first use into
+build/torch_kernels/ next to the package (listed in .gitignore); nothing is
+built or loaded when a module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG_DIR, "csrc")
+# compiled together, in one nvcc call, into one library
+SOURCES = tuple(
+    os.path.join(CSRC, f) for f in ("cg_solve.cu", "ell_cg_solve.cu", "batched_linalg.cu")
+)
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+# dynamic shared memory one CTA may use on sm_90 (232,448 B)
+MAX_SMEM_BYTES = 227 * 1024
+
+
+def _nvcc() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def library_path() -> str:
+    """Where the library built from the current csrc/ (every file in it, so
+    a change to a shared header rebuilds) and NVCC_FLAGS lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in sorted(os.listdir(CSRC)):
+        h.update(name.encode())
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libtorch_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build_library() -> tuple[str, float, str]:
+    """Compiles the csrc/ kernels for sm_90a, in one nvcc call, into one
+    library under build/torch_kernels/ unless a library built from the same
+    sources and flags is there. Returns (path, build seconds, nvcc output);
+    raises if nvcc fails."""
+    path = library_path()
+    if os.path.exists(path):
+        return path, 0.0, ""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *SOURCES], capture_output=True, text=True
+    )
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, path)
+    return path, seconds, proc.stdout + proc.stderr
+
+
+def _bind(fn, argtypes, restype):
+    fn.argtypes = argtypes
+    fn.restype = restype
+
+
+@functools.lru_cache(maxsize=1)
+def load_library() -> ctypes.CDLL:
+    """The built library with every entry point's C signature set. Each
+    `*_f32` launches on the stream it is given and returns cudaGetLastError();
+    each `*_smem_bytes` gives the dynamic shared memory of one CTA."""
+    lib = ctypes.CDLL(build_library()[0])
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+    for op in ("cg_solve", "ell_cg_solve"):
+        _bind(getattr(lib, f"{op}_f32"), [ptr] * 21 + [i32] * 6 + [ptr], i32)
+        _bind(getattr(lib, f"{op}_smem_bytes"), [i32] * 3, i64)
+    _bind(lib.cholesky_f32, [ptr, ptr, i32, i32, ptr], i32)
+    _bind(lib.cho_solve_f32, [ptr, ptr, ptr, i32, i32, ptr], i32)
+    _bind(lib.solve_spd_f32, [ptr, ptr, ptr, i32, i32, ptr], i32)
+    for op in ("cholesky", "cho_solve", "solve_spd"):
+        _bind(getattr(lib, f"{op}_smem_bytes"), [i32], i64)
+    return lib

@@ -18,6 +18,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from track_mjx_tpu_torch.ops import batched_linalg
 from track_mjx_tpu_torch.ops import quaternion as quat
 from track_mjx_tpu_torch.physics import actuation as _actuation
 from track_mjx_tpu_torch.physics import collision as _collision
@@ -70,6 +71,9 @@ def fwd_position(plan: PhysicsPlan, model: Model, data: Data):
     data = _com.com_pos(plan, model, data)
     data = _actuation.tendon(plan, model, data)
     data = _inertia.crb(plan, model, data)
+    if not _solver.fused_cg(plan):
+        # fused CG plans never materialize qLD: their solve factors qM itself
+        data = _inertia.factor_m(plan, model, data)
     data, contact = _collision.collide(plan, model, data)
     efc = _constraint.make_constraint(plan, model, data, contact)
     return data, efc
@@ -86,8 +90,11 @@ def fwd_actuation(plan: PhysicsPlan, model: Model, data: Data) -> Data:
 
 
 def fwd_acceleration(plan: PhysicsPlan, model: Model, data: Data) -> Data:
-    # qacc_smooth comes from the fused solve (the only solves ported)
-    return data.replace(qfrc_smooth=data.qfrc_passive - data.qfrc_bias + data.qfrc_actuator)
+    qfrc_smooth = data.qfrc_passive - data.qfrc_bias + data.qfrc_actuator
+    if _solver.fused_cg(plan):
+        # qacc_smooth comes from the fused solve in solve()
+        return data.replace(qfrc_smooth=qfrc_smooth)
+    return data.replace(qfrc_smooth=qfrc_smooth, qacc_smooth=_inertia.solve_m(data, qfrc_smooth))
 
 
 def forward(plan: PhysicsPlan, model: Model, data: Data) -> Data:
@@ -141,15 +148,21 @@ def _advance_act(plan: PhysicsPlan, model: Model, data: Data, dt) -> torch.Tenso
 
 
 def euler(plan: PhysicsPlan, model: Model, data: Data) -> Data:
-    """Semi-implicit Euler with implicit joint damping (mj_Euler parity),
-    from the qacc_eff that the fused solve produced."""
+    """Semi-implicit Euler with implicit joint damping (mj_Euler parity):
+    qvel += h (M + h diag(damping))^-1 (qfrc_smooth + qfrc_constraint), the
+    raw force as MuJoCo C takes it. Fused CG plans solved it inside their
+    solve (data.qacc_eff); the others solve it here with the solve_spd
+    kernel, which data does not keep, as in the reference."""
     if plan.integrator != INT_EULER:
         raise NotImplementedError(f"integrator {plan.integrator}: only Euler is ported")
-    if not _solver.fused_euler(plan):
-        raise NotImplementedError("Euler without the fused CG solve is not ported")
     dt = model.opt_timestep
+    if _solver.fused_euler(plan):
+        qacc_eff = data.qacc_eff
+    else:
+        mh = data.qM + torch.diag_embed((dt * model.dof_damping).expand_as(data.qvel))
+        qacc_eff = batched_linalg.solve_spd(mh, data.qfrc_smooth + data.qfrc_constraint)
     act = _advance_act(plan, model, data, dt)
-    qvel = data.qvel + dt * data.qacc_eff
+    qvel = data.qvel + dt * qacc_eff
     qpos = _integrate_pos(plan, data.qpos, qvel, dt)
     return data.replace(
         qpos=qpos, qvel=qvel, act=act, time=data.time + dt, qacc_warmstart=data.qacc

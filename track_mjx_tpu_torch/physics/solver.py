@@ -1,14 +1,23 @@
-"""Constraint solve: the fused CG branches of the JAX solver.
+"""Constraint solve: the fused CG branches and the Newton solver.
 
-Port of track_mjx_tpu/physics/solver.py for plans that solve through a fused
-smooth + CG op (CG solver, unilateral limit rows plus condim-3 contacts, no
-equality or frictionloss rows): `fused_scalar_cg` (pyramidal contacts, the
-rodent), `fused_elliptic_cg` (elliptic cone blocks, the fly), `fused_cg`,
-`fused_euler`, `_jb_static` and those branches of `solve`. The whole solve,
-including the qM factorization, the qacc_smooth solve and the Euler
-implicit-damping solve, is one call of ops/cg_solver_kernel.cg_solve or
-ell_cg_solve. Newton and plans with equality or frictionloss rows raise
-NotImplementedError.
+Port of track_mjx_tpu/physics/solver.py for unilateral limit rows plus
+condim-3 contacts (no equality or frictionloss rows):
+
+- CG plans solve through a fused smooth + CG op: `fused_scalar_cg`
+  (pyramidal contacts, the rodent), `fused_elliptic_cg` (elliptic cone
+  blocks, the fly), `fused_cg`, `fused_euler`, `_jb_static`. The whole
+  solve, including the qM factorization, the qacc_smooth solve and the Euler
+  implicit-damping solve, is one call of ops/cg_solver_kernel.cg_solve or
+  ell_cg_solve.
+- Newton plans with pyramidal contacts run `_newton`, batch-first: forward
+  has factored qM and solved qacc_smooth (inertia.factor_m/solve_m), each
+  iteration's Hessian solve is the solve_spd kernel, and the linesearch is
+  the plain Newton search of the scalar rows (`_linesearch`).
+
+`solve` dispatches as the reference does: PGS and Newton with elliptic
+cones raise NotImplementedError with the reference's messages, a plan with
+no constraint rows takes qacc = qacc_smooth, and plans with equality or
+frictionloss rows (the reference's bounded scalar CG) raise too.
 """
 
 from __future__ import annotations
@@ -16,11 +25,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from track_mjx_tpu_torch.ops import cg_solver_kernel
+from track_mjx_tpu_torch.ops import batched_linalg, cg_solver_kernel
+from track_mjx_tpu_torch.physics import inertia
 from track_mjx_tpu_torch.physics.constraint import EfcData, contact_diff_mask
 from track_mjx_tpu_torch.physics.model import (
     INT_EULER,
     SOLVER_CG,
+    SOLVER_NEWTON,
     Data,
     Model,
     PhysicsPlan,
@@ -131,19 +142,145 @@ def ell_solve_inputs(plan: PhysicsPlan, model: Model, data: Data, efc: EfcData) 
     return dict(_common_inputs(plan, model, data, efc), mu=mu_t.expand(bsz, -1).contiguous())
 
 
+def dense_j(plan: PhysicsPlan, data: Data, efc: EfcData) -> torch.Tensor:
+    """Dense J [B, nefc, nv] of pyramidal plans in efc row order, built from
+    the compact operands as the fused kernel builds it."""
+    like = data.qpos
+    dm = static_tensor(plan, ("solver", "dm"), like, lambda: _jb_static(plan)[0])
+    lim1h = static_tensor(plan, ("solver", "lim1h"), like, lambda: _jb_static(plan)[1])
+    return cg_solver_kernel.build_j(efc.jb_fq, efc.jb_sw, efc.jb_ll, efc.jb_mu, dm, lim1h)
+
+
+def _matv(j: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return (j @ x[..., None])[..., 0]
+
+
+def _force(d: torch.Tensor, jar: torch.Tensor) -> torch.Tensor:
+    """Constraint force of unilateral scalar rows, -ds/djar [B, nefc]."""
+    return torch.where(jar < 0, -d * jar, torch.zeros_like(jar))
+
+
+def _cost_rows(d: torch.Tensor, jar: torch.Tensor) -> torch.Tensor:
+    """Summed cost s(jar) of unilateral scalar rows [B]."""
+    return 0.5 * torch.where(jar < 0, d * jar * jar, torch.zeros_like(jar)).sum(-1)
+
+
+def _cost_grad(data: Data, efc: EfcData, j: torch.Tensor, x: torch.Tensor):
+    """jar = J x - aref, mdx = M (x - qacc_smooth) and the objective's
+    gradient mdx - J^T force at x."""
+    jar = _matv(j, x) - efc.aref
+    mdx = inertia.mul_m(data, x - data.qacc_smooth)
+    grad = mdx - _matv(j.transpose(-1, -2), _force(efc.D, jar))
+    return jar, mdx, grad
+
+
+def _linesearch(data: Data, efc: EfcData, j: torch.Tensor, jar0, mdx, p, ls_iterations: int):
+    """Newton linesearch on phi(alpha) with exact derivatives, scalar rows
+    only: phi' is piecewise linear in alpha and plain Newton (no bracket)
+    is the reference's scalar-row search. jar0 and mdx are `_cost_grad`'s
+    at the search's start. Returns alpha [B]."""
+    mp = inertia.mul_m(data, p)
+    pmp = (p * mp).sum(-1)
+    dmx = (p * mdx).sum(-1)
+    jp = _matv(j, p)
+    d = efc.D
+
+    def phi_derivs(alpha):
+        jar = jar0 + alpha[:, None] * jp
+        active = jar < 0
+        zero = torch.zeros_like(jar)
+        d1 = alpha * pmp + dmx + torch.where(active, d * jar * jp, zero).sum(-1)
+        d2 = pmp + torch.where(active, d * jp * jp, zero).sum(-1)
+        return d1, torch.clamp(d2, min=_EPS)
+
+    d1, d2 = phi_derivs(torch.zeros_like(pmp))
+    alpha = -d1 / d2
+    for _ in range(ls_iterations):
+        d1, d2 = phi_derivs(alpha)
+        alpha = alpha - d1 / d2
+    return alpha
+
+
+def newton_hessian(qm: torch.Tensor, j: torch.Tensor, d: torch.Tensor, jar: torch.Tensor) -> torch.Tensor:
+    """H = qM + J^T diag(D active) J with active = jar < 0 [B, nv, nv]."""
+    dj = j * (d * (jar < 0).to(d.dtype))[..., None]
+    return qm + j.transpose(-1, -2) @ dj
+
+
+def newton_start(data: Data, efc: EfcData, j: torch.Tensor) -> torch.Tensor:
+    """The cheaper of the warmstart and qacc_smooth by cost, per env."""
+    smooth, warm = data.qacc_smooth, data.qacc_warmstart
+
+    def cost(x):
+        dx = x - smooth
+        return 0.5 * (dx * inertia.mul_m(data, dx)).sum(-1) + _cost_rows(efc.D, _matv(j, x) - efc.aref)
+
+    return torch.where((cost(warm) < cost(smooth))[:, None], warm, smooth)
+
+
+def _newton(plan: PhysicsPlan, model: Model, data: Data, efc: EfcData) -> Data:
+    """mjSOL_NEWTON over unilateral scalar rows (limits, pyramidal contacts).
+
+    Exact-Hessian Newton on the soft-constraint objective: each iteration
+    rebuilds the active set, assembles H = M + J^T diag(D active) J, solves
+    p = -H^-1 grad with the solve_spd kernel and runs the linesearch. Like
+    the reference's fori_loop it runs all `iterations` for every env: an env
+    whose gradient (at the start of an iteration) fell under the tolerance
+    freezes from the next iteration on, by masking, not by leaving the
+    loop."""
+    j = dense_j(plan, data, efc)
+    x = newton_start(data, efc, j)
+    meaninertia = torch.diagonal(data.qM, dim1=-2, dim2=-1).mean(-1)
+    scale = torch.clamp(meaninertia * plan.nv, min=_EPS)
+    improved = torch.ones_like(scale, dtype=torch.bool)
+    for _ in range(plan.iterations):
+        jar, mdx, grad = _cost_grad(data, efc, j, x)
+        p = -batched_linalg.solve_spd(newton_hessian(data.qM, j, efc.D, jar), grad)
+        alpha = _linesearch(data, efc, j, jar, mdx, p, plan.ls_iterations)
+        # the update and the new flag are kept only where the env was still
+        # improving when the iteration began
+        x = torch.where(improved[:, None], x + alpha[:, None] * p, x)
+        improved = improved & (torch.sqrt((grad * grad).sum(-1)) / scale > model.opt_tolerance)
+    force = _force(efc.D, _matv(j, x) - efc.aref)
+    return data.replace(
+        qacc=x,
+        qfrc_constraint=_matv(j.transpose(-1, -2), force),
+        efc_force=force,
+    )
+
+
 def solve(plan: PhysicsPlan, model: Model, data: Data, efc: EfcData) -> Data:
-    """Runs the fused smooth + CG (+ Euler) solve and writes qacc_smooth,
-    qacc, qfrc_constraint, efc_force (and qacc_eff on Euler plans)."""
+    """Runs the configured solver and writes qacc, qfrc_constraint and
+    efc_force (CG plans also qacc_smooth, and qacc_eff on Euler plans).
+
+    CG (mjSOL_CG) runs the fused solves; Newton (mjSOL_NEWTON) is ported for
+    scalar-row models (limits, pyramidal contacts). PGS, Newton with an
+    elliptic cone, and equality or frictionloss rows raise. A plan with no
+    constraint rows takes qacc = qacc_smooth."""
+    if plan.nefc and plan.solver not in (SOLVER_CG, SOLVER_NEWTON):
+        raise NotImplementedError(
+            f"solver {plan.solver} not supported: CG (mjSOL_CG=1) and "
+            "Newton (mjSOL_NEWTON=2) are implemented (the reference "
+            "workloads all configure cg: track_mjx/config/*.yaml)"
+        )
+    if plan.nefc and plan.solver == SOLVER_NEWTON and plan.ncon_ell:
+        raise NotImplementedError(
+            "newton + elliptic cone not supported: use solver=cg for "
+            "elliptic-cone models (the shipped elliptic workload, fly, "
+            "configures cg: track_mjx/config/fly-mc-intention.yaml)"
+        )
+    if plan.nefc == 0:
+        return data.replace(qacc=data.qacc_smooth, qfrc_constraint=torch.zeros_like(data.qacc_smooth))
+    if plan.ne or plan.nf:
+        raise NotImplementedError(
+            "equality and frictionloss rows (the bounded scalar CG) are not ported"
+        )
+    if plan.solver == SOLVER_NEWTON:
+        return _newton(plan, model, data, efc)
     if fused_elliptic_cg(plan):
         op, inputs = cg_solver_kernel.ell_cg_solve, ell_solve_inputs(plan, model, data, efc)
-    elif fused_scalar_cg(plan):
-        op, inputs = cg_solver_kernel.cg_solve, solve_inputs(plan, model, data, efc)
     else:
-        raise NotImplementedError(
-            "only the fused CG solves are ported (CG solver, limit rows and "
-            "condim-3 pyramidal or elliptic contacts); Newton and equality or "
-            "frictionloss rows are not"
-        )
+        op, inputs = cg_solver_kernel.cg_solve, solve_inputs(plan, model, data, efc)
     out = op(**inputs, iterations=plan.iterations, ls_iterations=plan.ls_iterations)
     data = data.replace(
         qacc_smooth=out.qacc_smooth,
