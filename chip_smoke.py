@@ -30,22 +30,31 @@ It imports nothing of JAX. Phases, each of which raises on failure:
    envs the warm-up control step and one substep after it are repeated on
    the CPU in float32 and in float64; the card must be as close to the
    float64 run as the CPU's float32 run is.
-6. Standalone linalg kernels against plain: the rodent-full-clips snapshot
-   with opt.solver = Newton; from 4096 contact-rich states made on the card
-   with the port's stages, qM goes through cholesky, its factor and
-   qfrc_smooth through cho_solve, the first Newton iteration's H (and
-   Euler's M + h D) through solve_spd, each against its plain version, held
-   to a bar. Kernel, plain version and one library call are timed with
-   CUDA events on the same inputs.
-7. Rodent Newton main path: 4096 envs, 1 warm-up and 3 timed control
-   steps; every substep must launch cholesky once, cho_solve once,
-   solve_spd iterations + 1 times and cg_solve never, the state must stay
-   finite and contacts active; 64 envs are compared with the CPU as in 3.
+6. Rodent Newton main path: the rodent-full-clips snapshot with
+   opt.solver = Newton, 4096 envs, 1 warm-up and 3 timed control steps;
+   every substep must launch cholesky once, cho_solve once, solve_spd
+   iterations + 1 times and cg_solve never, the state must stay finite and
+   contacts active; 64 envs are compared with the CPU as in 3.
+7. Standalone linalg kernels against plain: from 4096 contact-rich states
+   of the same model, made on the card with the port's stages, qM goes
+   through cholesky, its factor and qfrc_smooth through cho_solve, the
+   first Newton iteration's H (and Euler's M + h D) through solve_spd, each
+   against its plain version, held to a bar, also on a ragged batch of
+   4095 envs; cholesky and solve_spd
+   must give bitwise the same output when qM's strict upper triangle is
+   NaN. The tiled kernels' registers, shared memory and resident CTAs per
+   SM are printed. Kernel, plain version and one library call are timed
+   with CUDA events on the same inputs, beside the host's issue time per
+   call and the kernel's device time from torch.profiler (the kernel's
+   time where the host is the slower), its share of its bound and its
+   ratio to the library call. This phase comes last: it starts
+   torch.profiler, which no host-clock rate should run after.
 8. Prints the kernels' JSON line and, last, {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import subprocess
@@ -151,6 +160,7 @@ NEWTON_CONTROL_STEPS = 3  # timed, after one warm-up control step
 # Newton H, whose J^T D J term adds the stiff active rows. The bars leave
 # 7-10x.
 LINALG_REL = {"cholesky": 1e-7, "cho_solve": 5e-6, "solve_spd": 5e-5}
+RAGGED = N_ENVS - 1  # a batch that is no multiple of anything: the kernels take any
 # Card against CPU on the Newton path, per env relative to max(1, max
 # |cpu|). Unlike CG's five inexact iterations, exact-Hessian Newton
 # converges within its 5 iterations, so each substep lands on the optimum up
@@ -180,16 +190,43 @@ def _per_env(a, b):
     return (a - b).abs().amax(1) / b.abs().amax(1).clamp(min=1.0)
 
 
-def _time_ms(fn, reps: int) -> float:
+def _times(fn, reps: int) -> tuple[float, float]:
+    """(ms per call between CUDA events, ms per call to issue on the host
+    clock) over the same `reps` calls, after one warm-up call. Where the
+    host takes longer to issue a call than the card to run it, the event
+    time is the host's rate, not the kernel's."""
     fn()
     torch.cuda.synchronize()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
+    t0 = time.perf_counter()
     for _ in range(reps):
         fn()
+    host_s = time.perf_counter() - t0
     stop.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+    return start.elapsed_time(stop) / reps, host_s * 1e3 / reps
+
+
+def _time_ms(fn, reps: int) -> float:
+    return _times(fn, reps)[0]
+
+
+def _profiled_ms(fn, reps: int, kernel: str) -> float:
+    """Device ms per launch of the CUDA kernels whose name contains
+    `kernel`, from torch.profiler over `reps` calls of fn: the mean over
+    the launches it recorded (it may miss one of a run)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and kernel in e.key]
+    count = sum(e.count for e in rows)
+    assert 0 < count <= reps, f"the profiler saw {count} launches of {kernel} in {reps} calls"
+    return sum(e.self_device_time_total for e in rows) / 1e3 / count
 
 
 def solve_flops(n: int, nl: int, nc: int, rows_per_con: int, its: int, ls: int) -> int:
@@ -644,28 +681,52 @@ class Phases:
             "euler_rhs": (d.qfrc_smooth + solved.qfrc_constraint).contiguous(),
         }
 
+    def tiled_kernel_info(self, n: int) -> None:
+        """Registers, shared memory and resident CTAs per SM of the tiled
+        factor's kernels (cholesky, solve_spd) at n, as built."""
+        from track_mjx_tpu_torch.ops import kernel_lib
+
+        lib = kernel_lib.load_library()
+        for solve, name in enumerate(self.bl.TILED):
+            info = (ctypes.c_int * 5)()
+            err = lib.tiled_kernel_info(solve, n, info)
+            assert err == 0, f"tiled_kernel_info({name}) failed with cudaError {err}"
+            print(f"{name} kernel at n={n}: panel {info[4]}, {info[3]} threads per CTA (one env), "
+                  f"{info[0]} registers per thread, {info[1]} B of shared memory per CTA, "
+                  f"{info[2]} resident CTAs per SM ({self.card})")
+
     def linalg_kernels(self, m) -> list:
         """Each standalone kernel against its plain version on the path's
-        matrices, then kernel, plain and library call timed on the same
-        inputs. Returns the kernels' records, launches still to be set."""
+        matrices and on a ragged batch of RAGGED envs; cholesky and
+        solve_spd also with a NaN-filled strict upper triangle, which must
+        not change their output. Then kernel, plain and library call are
+        timed on the same inputs, with the host's issue time per call and
+        the kernel's device time from torch.profiler, which is the kernel's
+        time where the host is the slower. Returns the kernels' records,
+        launches still to be set."""
         bl = self.bl
         n = m["qM"].shape[-1]
-        cases = {  # name: (wrapper, plain, library call, [(what, args)], flops per env)
+        self.tiled_kernel_info(n)
+        cases = {  # name: (wrapper, plain, library call, [(what, args)], flops per env, CUDA kernel)
             "cholesky": (bl.cholesky, bl.cholesky_plain, torch.linalg.cholesky_ex,
-                         [("qM", (m["qM"],))], factor_flops(n)),
+                         [("qM", (m["qM"],))], factor_flops(n), "tiled_kernel"),
             "cho_solve": (bl.cho_solve, bl.cho_solve_plain,
                           lambda l, b: torch.cholesky_solve(b[..., None], l),
-                          [("qLD, qfrc_smooth", (m["qLD"], m["qfrc_smooth"]))], substitution_flops(n)),
+                          [("qLD, qfrc_smooth", (m["qLD"], m["qfrc_smooth"]))], substitution_flops(n),
+                          "cho_solve_kernel"),
             "solve_spd": (bl.solve_spd, bl.solve_spd_plain, torch.linalg.solve,
                           [("Newton H, grad", (m["H"], m["grad"])),
                            ("M + h D, qfrc_smooth + qfrc_constraint", (m["M+hD"], m["euler_rhs"]))],
-                          factor_flops(n) + substitution_flops(n)),
+                          factor_flops(n) + substitution_flops(n), "tiled_kernel"),
         }
+        nan_upper = m["qM"].masked_fill(torch.ones_like(m["qM"][0], dtype=torch.bool).triu(1), float("nan"))
         records = []
-        for name, (op, plain, library, inputs, flops) in cases.items():
+        for name, (op, plain, library, inputs, flops, kernel_name) in cases.items():
             bar = LINALG_REL[name]
             max_abs = 0.0
-            for what, args in inputs:
+            what0, args0 = inputs[0]
+            ragged = (f"{what0}, first {RAGGED} envs", tuple(t[:RAGGED].contiguous() for t in args0))
+            for what, args in [*inputs, ragged]:
                 before = op.launches
                 got = op(*args)
                 torch.cuda.synchronize()
@@ -680,17 +741,28 @@ class Phases:
                       f"{abs_err:.3e}, max |plain| {float(want.abs().max()):.3e}; per env median "
                       f"{float(per_env.median()):.3e} max {float(per_env.max()):.3e}")
                 assert err < bar, f"{name} disagrees with plain on {what}: {err:.3e} >= {bar:.0e}"
-            args = inputs[0][1]
-            kernel_ms = _time_ms(lambda: op(*args), 20)
+            args = args0
+            if op in (bl.cholesky, bl.solve_spd):
+                clean, dirty = op(m["qM"], *args[1:]), op(nan_upper, *args[1:])
+                torch.cuda.synchronize()
+                assert torch.equal(clean, dirty), f"{name} read above the diagonal"
+                print(f"{name} on qM with a NaN strict upper triangle: output bitwise equal to the clean input's")
+            event_ms, host_ms = _times(lambda: op(*args), 20)
+            device_ms = _profiled_ms(lambda: op(*args), 20, kernel_name)
+            # the kernel's own time: the events', unless issuing a call takes
+            # the host longer, when the events measure the host's rate
+            kernel_ms = device_ms if host_ms >= event_ms else event_ms
             plain_ms = _time_ms(lambda: plain(*args), 3)
             library_ms = _time_ms(lambda: library(*args), 20)
             out = op(*args)
             # each kernel needs only the lower triangle of its matrix input;
             # cholesky writes its whole factor, upper zeros included
             b_ms, b_by = bound_ms(lower_triangle_bytes(args[0]) + tensor_bytes([*args[1:], out]), N_ENVS * flops)
-            print(f"{name} at B={N_ENVS}, n={n} on {inputs[0][0]}: kernel {kernel_ms:.4f} ms, plain "
-                  f"{plain_ms:.3f} ms, library {library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) "
-                  f"({self.card})")
+            print(f"{name} at B={N_ENVS}, n={n} on {what0}: kernel {kernel_ms:.4f} ms (CUDA events "
+                  f"{event_ms:.4f} ms, host issue {host_ms:.4f} ms per call, profiler device "
+                  f"{device_ms:.4f} ms), plain {plain_ms:.3f} ms, library {library_ms:.4f} ms, bound "
+                  f"{b_ms:.4f} ms ({b_by}); {100 * b_ms / kernel_ms:.1f}% of the bound, library / kernel "
+                  f"{library_ms / kernel_ms:.2f}x ({self.card})")
             records.append({
                 "name": name,
                 "route": "cuda",
@@ -714,9 +786,6 @@ class Phases:
         its, ls = plan.iterations, plan.ls_iterations
         print(f"rodent, Newton: nv={plan.nv} nefc={plan.nefc} newton {its}/{ls} "
               f"dt={float(model.opt_timestep)}")
-
-        records = self.linalg_kernels(self.newton_matrices(plan, model))
-        torch.cuda.empty_cache()
 
         # main path: per substep factor_m, solve_m, one Newton H solve per
         # iteration (all `iterations`, converged envs masked) and Euler's
@@ -743,6 +812,9 @@ class Phases:
         for name, bar in NEWTON_SUBSTEP_REL.items():
             assert worst[name] < bar, f"card and CPU {name} differ after one substep: {worst[name]:.3e}"
 
+        # last: the kernels' timings start torch.profiler, which the main
+        # path's host-clock rate must not run after
+        records = self.linalg_kernels(self.newton_matrices(plan, model))
         for r in records:
             r["launches"] = launches[r["name"]]
         return records

@@ -185,6 +185,40 @@ def test_newton_solve_matches_jax(port, ref, output):
         assert (np.abs(ref["solved"][output]).max(axis=1) > 0).all()
 
 
+def test_newton_hessian_solve_matches_jax_on_an_unsymmetric_qm():
+    """The reference factors H with jnp.linalg.cholesky, which symmetrizes
+    its input, and solves with cho_solve; the port's newton_hessian returns
+    (H + H^T) / 2 for solve_spd, which reads only the lower triangle. With
+    qM's upper triangle perturbed (by up to 5% of its largest entry) the two
+    agree to f32 roundoff through cond(H) (measured on an x86 CPU 2.8e-6);
+    the lower triangle alone solves another system (0.15)."""
+    rng = np.random.RandomState(5)
+    bsz, nv, nefc = 4, 20, 30
+    q = np.linalg.qr(rng.normal(size=(bsz, nv, nv)))[0]
+    qm = (q * np.logspace(-2.0, 0.0, nv)[None, None, :]) @ q.transpose(0, 2, 1)
+    qm += np.triu(rng.uniform(-0.05, 0.05, (bsz, nv, nv)), 1) * np.abs(qm).max()
+    j = rng.normal(size=(bsz, nefc, nv))
+    d = rng.uniform(0.1, 1.0, (bsz, nefc))
+    jar = rng.uniform(-1.0, 1.0, (bsz, nefc))
+    grad = rng.uniform(-1.0, 1.0, (bsz, nv))
+    qm, j, d, jar, grad = (x.astype(np.float32) for x in (qm, j, d, jar, grad))
+
+    def jax_step(qm, j, d, jar, grad):  # solver.py's _newton body
+        dj = j * (d * (jar < 0).astype(d.dtype))[:, None]
+        l = jnp.linalg.cholesky(qm + j.T @ dj)
+        return jax.scipy.linalg.cho_solve((l, True), grad)
+
+    with jax.default_matmul_precision("highest"):
+        want = np.asarray(jax.jit(jax.vmap(jax_step))(qm, j, d, jar, grad))
+    t = [torch.tensor(x) for x in (qm, j, d, jar, grad)]
+    h = tsolver.newton_hessian(*t[:4])
+    assert torch.equal(h, h.transpose(-1, -2))
+    assert_close("H^-1 grad", bl.solve_spd(h, t[4]), want, 1e-5)
+    unsym = t[0] + t[1].transpose(-1, -2) @ (t[1] * (t[2] * (t[3] < 0).float())[..., None])
+    with pytest.raises(AssertionError):
+        assert_close("lower triangle only", bl.solve_spd(unsym, t[4]), want, 1e-2)
+
+
 # Euler's (M + h D) solve: qacc_eff carries qfrc_constraint's roundoff
 # through the inverse (SOLVE_REL's qacc_eff bar), and qvel = qvel + h
 # qacc_eff takes it times h. Measured on an x86 CPU: qvel 6.1e-7.

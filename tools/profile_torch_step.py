@@ -18,7 +18,8 @@ measures, from that state:
   synchronizations, so their spread is a noise bound within one run;
 - one control step under `torch.profiler` (CUDA only): the number of device
   kernels and their summed device time, and from those and the median wall
-  time the share of the control step in which the device is idle.
+  time the share of the control step in which the device is idle; the
+  launches and device ms of each of the port's CUDA kernels.
 
 It prints one JSON object as its last line and writes it to `--out` when
 given. `--device cpu` runs the same phases at a small `--envs` (no profile).
@@ -95,6 +96,18 @@ def _stages(plan, model, data):
         ("sensors", run(lambda d: _sensors.sensor(plan, model, d))),
         ("euler", run(lambda d: tf.euler(plan, model, d))),
     ]
+
+
+def _port_kernel(key: str) -> str | None:
+    """The wrapper whose hand-written CUDA kernel a profiler row is, or None:
+    csrc/batched_linalg.cu's tiled factor serves cholesky (kSolve false)
+    and solve_spd (true)."""
+    if "::tiled_kernel<" in key:
+        return "solve_spd" if "tiled_kernel<true>" in key else "cholesky"
+    for name in ("ell_cg_solve", "cg_solve", "cho_solve"):
+        if f"::{name}_kernel(" in key:
+            return name
+    return None
 
 
 def main() -> None:
@@ -203,6 +216,14 @@ def main() -> None:
                 for e in top
             ],
         })
+        port = {}
+        for e in device_rows:
+            name = _port_kernel(e.key)
+            if name:
+                row = port.setdefault(name, {"count": 0, "ms": 0.0})
+                row["count"] += e.count
+                row["ms"] += e.self_device_time_total / 1e3
+        summary["port_kernels"] = port
 
     line = json.dumps(summary)
     if args.out:

@@ -140,15 +140,21 @@ __device__ void chosolve(const float* L, const float* dinv, const float* b,
   }
 }
 
+// An n x n row-major matrix as lower_substitution reads it: L(i, j).
+struct RowMajor {
+  const float* p;
+  int n;
+  __device__ __forceinline__ float operator()(int i, int j) const { return p[i * n + j]; }
+};
+
 // Solves L L^T x = b into out by exact panel forward and back substitution
 // (the elliptic kernel's apply): within a panel, warp 0 solves the rows in
 // turn, lane r holding row r and each solved value broadcast by a shuffle;
 // then every thread takes the panel out of the remaining right-hand side.
 // y is scratch; b may be global or shared but must not alias out or y.
-// Reads only the lower triangle of L.
-template <int NT>
-__device__ void blocked_substitution(const float* L, const float* b, float* out,
-                                     float* y, int n) {
+// Reads only the lower triangle of L, through L(i, j) (any layout).
+template <int NT, typename Mat>
+__device__ void lower_substitution(const Mat& L, const float* b, float* out, float* y, int n) {
   const int tid = threadIdx.x, lane = tid & 31;
   for (int i = tid; i < n; i += NT) out[i] = b[i];
   __syncthreads();
@@ -156,19 +162,19 @@ __device__ void blocked_substitution(const float* L, const float* b, float* out,
     const int m = min(kPanel, n - p0);
     if (tid < 32) {
       const int r = lane < m ? lane : 0;  // lanes >= m shadow row 0, write nothing
-      const float rp = out[p0 + r], diag = L[(p0 + r) * n + p0 + r];
+      const float rp = out[p0 + r], diag = L(p0 + r, p0 + r);
       float s = 0.f, v_own = 0.f;
       for (int jj = 0; jj < m; ++jj) {
         const float v = __shfl_sync(0xffffffffu, (rp - s) / diag, jj);
         if (lane == jj) v_own = v;
-        if (lane > jj && lane < m) s += L[(p0 + lane) * n + p0 + jj] * v;
+        if (lane > jj && lane < m) s += L(p0 + lane, p0 + jj) * v;
       }
       if (lane < m) y[p0 + lane] = v_own;
     }
     __syncthreads();
     for (int i = p0 + m + tid; i < n; i += NT) {
       float s = 0.f;
-      for (int c = 0; c < m; ++c) s += L[i * n + p0 + c] * y[p0 + c];
+      for (int c = 0; c < m; ++c) s += L(i, p0 + c) * y[p0 + c];
       out[i] -= s;
     }
     __syncthreads();
@@ -177,23 +183,30 @@ __device__ void blocked_substitution(const float* L, const float* b, float* out,
     const int m = min(kPanel, n - p0);
     if (tid < 32) {
       const int r = lane < m ? lane : 0;
-      const float rp = y[p0 + r], diag = L[(p0 + r) * n + p0 + r];
+      const float rp = y[p0 + r], diag = L(p0 + r, p0 + r);
       float s = 0.f, v_own = 0.f;
       for (int jj = m - 1; jj >= 0; --jj) {
         const float v = __shfl_sync(0xffffffffu, (rp - s) / diag, jj);
         if (lane == jj) v_own = v;
-        if (lane < jj) s += L[(p0 + jj) * n + p0 + lane] * v;
+        if (lane < jj) s += L(p0 + jj, p0 + lane) * v;
       }
       if (lane < m) out[p0 + lane] = v_own;
     }
     __syncthreads();
     for (int i = tid; i < p0; i += NT) {
       float s = 0.f;
-      for (int r = 0; r < m; ++r) s += L[(p0 + r) * n + i] * out[p0 + r];
+      for (int r = 0; r < m; ++r) s += L(p0 + r, i) * out[p0 + r];
       y[i] -= s;
     }
     __syncthreads();
   }
+}
+
+// lower_substitution on an n x n row-major L.
+template <int NT>
+__device__ void blocked_substitution(const float* L, const float* b, float* out,
+                                     float* y, int n) {
+  lower_substitution<NT>(RowMajor{L, n}, b, out, y, n);
 }
 
 // y[r] = (J x)[r] - sub[r] (sub may be null); J has row stride ldj. Thread

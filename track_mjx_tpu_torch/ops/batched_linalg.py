@@ -18,7 +18,10 @@ Newton solve, Euler's implicit-damping solve). `cholesky(a)`,
 arguments, run the plain version (`cholesky_plain`, `cho_solve_plain`,
 `solve_spd_plain`) for CPU tensors and launch the kernel for CUDA tensors,
 raising if the build or the launch fails. `<wrapper>.launches` counts kernel
-launches.
+launches. `cholesky` and `solve_spd` run the tiled factor of
+csrc/batched_linalg.cu, which takes n <= MAX_N and reads only the lower
+triangle of its matrix, as the plain versions do; their wrappers raise for
+a larger n on the card.
 """
 
 from __future__ import annotations
@@ -28,6 +31,10 @@ import torch
 from track_mjx_tpu_torch.ops.kernel_lib import MAX_SMEM_BYTES, load_library
 
 PANEL = 8
+# The kernels on csrc/batched_linalg.cu's tiled factor, and the largest n
+# they take (the TPU kernels' documented range).
+TILED = ("cholesky", "solve_spd")
+MAX_N = 128
 
 
 def factor(a: torch.Tensor) -> torch.Tensor:
@@ -170,10 +177,13 @@ def _check(op: str, mat: torch.Tensor, rhs: torch.Tensor | None = None) -> tuple
 
 def _launch(op: str, out: torch.Tensor, *args: torch.Tensor) -> torch.Tensor:
     """Launches `{op}_f32(*args, out, B, n, stream)` on the current stream of
-    the tensors' card; raises if the matrix does not fit one CTA's shared
-    memory or the launch fails."""
-    lib = load_library()
+    the tensors' card; raises for an n the kernel does not take (the tiled
+    factor of cholesky and solve_spd: n > MAX_N; cho_solve: a matrix over
+    one CTA's shared memory) or if the launch fails."""
     bsz, n = args[0].shape[0], args[0].shape[-1]
+    if op in TILED and n > MAX_N:
+        raise ValueError(f"{op}: n = {n}, the CUDA kernel takes n <= {MAX_N}")
+    lib = load_library()
     smem = getattr(lib, f"{op}_smem_bytes")(n)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"{op}: n = {n} needs {smem} B of shared memory per env (max {MAX_SMEM_BYTES})")
@@ -186,9 +196,10 @@ def _launch(op: str, out: torch.Tensor, *args: torch.Tensor) -> torch.Tensor:
 
 
 def cholesky(a: torch.Tensor) -> torch.Tensor:
-    """Lower Cholesky factors of SPD [B, n, n] matrices, upper triangle zero.
-    float32, contiguous; CPU tensors run `cholesky_plain` (in float64 too),
-    CUDA tensors launch the kernel or raise."""
+    """Lower Cholesky factors of SPD [B, n, n] matrices (only the lower
+    triangle is read), upper triangle zero. float32, contiguous; CPU tensors
+    run `cholesky_plain` (in float64 too), CUDA tensors launch the kernel
+    (n <= MAX_N) or raise."""
     _check("cholesky", a)
     if a.device.type == "cpu":
         return cholesky_plain(a)
@@ -217,10 +228,10 @@ cho_solve.launches = 0
 
 
 def solve_spd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Solves A x = b for SPD [B, n, n] A and [B, n] b, factor and
-    substitution in one launch. float32, contiguous; CPU tensors run
-    `solve_spd_plain` (in float64 too), CUDA tensors launch the kernel or
-    raise."""
+    """Solves A x = b for SPD [B, n, n] A (only the lower triangle is read)
+    and [B, n] b, factor and substitution in one launch. float32,
+    contiguous; CPU tensors run `solve_spd_plain` (in float64 too), CUDA
+    tensors launch the kernel (n <= MAX_N) or raise."""
     _check("solve_spd", a, b)
     if a.device.type == "cpu":
         return solve_spd_plain(a, b)

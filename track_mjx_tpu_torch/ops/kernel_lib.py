@@ -97,4 +97,5 @@ def load_library() -> ctypes.CDLL:
     _bind(lib.solve_spd_f32, [ptr, ptr, ptr, i32, i32, ptr], i32)
     for op in ("cholesky", "cho_solve", "solve_spd"):
         _bind(getattr(lib, f"{op}_smem_bytes"), [i32], i64)
+    _bind(lib.tiled_kernel_info, [i32, i32, ptr], i32)
     return lib

@@ -202,9 +202,14 @@ def _linesearch(data: Data, efc: EfcData, j: torch.Tensor, jar0, mdx, p, ls_iter
 
 
 def newton_hessian(qm: torch.Tensor, j: torch.Tensor, d: torch.Tensor, jar: torch.Tensor) -> torch.Tensor:
-    """H = qM + J^T diag(D active) J with active = jar < 0 [B, nv, nv]."""
+    """H = qM + J^T diag(D active) J with active = jar < 0 [B, nv, nv],
+    symmetrized as (H + H^T) / 2: the matrix that the reference's
+    `jnp.linalg.cholesky` factors (it symmetrizes its input), since the
+    product is not exactly symmetric in f32 and `solve_spd` reads only the
+    lower triangle."""
     dj = j * (d * (jar < 0).to(d.dtype))[..., None]
-    return qm + j.transpose(-1, -2) @ dj
+    h = qm + j.transpose(-1, -2) @ dj
+    return (h + h.transpose(-1, -2)) / 2
 
 
 def newton_start(data: Data, efc: EfcData, j: torch.Tensor) -> torch.Tensor:
