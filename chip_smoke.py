@@ -12,7 +12,9 @@ It imports nothing of JAX. Phases, each of which raises on failure:
 2. Rodent kernel against plain: 4096 contact-rich rodent states (the main
    path's batch) made on the card with the port's forward stages go through
    the cg_solve kernel and its plain PyTorch version; each output's error is
-   held to a bar. Then both are timed on the same inputs with CUDA events.
+   held to a bar. The kernel's registers, shared memory, resident CTAs per
+   SM and waves at that batch are printed. Then both are timed on the same
+   inputs with CUDA events.
 3. Rodent main path: the rodent-full-clips snapshot, 4096 envs, 1 warm-up
    and 5 timed control steps of forward.n_step(..., 10). Every substep must
    launch cg_solve once (60 launches), the state must stay finite and
@@ -403,6 +405,21 @@ class Phases:
         """Contact-rich rodent solver inputs of the fused solve."""
         return self.solver_inputs(plan, model, *self.rodent_drop(plan, model), self.ts.solve_inputs)
 
+    def cg_kernel_info(self, n: int, nl: int, nc: int) -> None:
+        """Registers, shared memory, resident CTAs per SM and threads of the
+        cg_solve kernel at the rodent's sizes, as built, and the waves of
+        N_ENVS envs (one per CTA) over the card's SMs."""
+        from track_mjx_tpu_torch.ops import kernel_lib
+
+        info = (ctypes.c_int * 4)()
+        err = kernel_lib.load_library().cg_solve_kernel_info(n, nl, nc, info)
+        assert err == 0, f"cg_solve_kernel_info failed with cudaError {err}"
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        waves = -(-N_ENVS // (info[2] * sms))
+        print(f"cg_solve kernel at n={n}, nl={nl}, nc={nc}: {info[3]} threads per CTA (one env), "
+              f"{info[0]} registers per thread, {info[1]} B of shared memory per CTA, {info[2]} "
+              f"resident CTAs per SM, {waves} waves of {N_ENVS} envs on {sms} SMs ({self.card})")
+
     def rodent(self) -> list:
         tk, tm = self.tk, self.tm
         plan, model = tm.put_model(tm.load_snapshot("rodent-full-clips"), device=self.dev)
@@ -432,9 +449,10 @@ class Phases:
                   f"max abs err {abs_err:.3e}, max |plain| {float(b.abs().max()):.3e}")
             assert err < bar, f"kernel {name} disagrees with plain: {err:.3e} >= {bar:.0e}"
 
+        nc, nl = inputs["fq"].shape[1], inputs["lim1h"].shape[0]
+        self.cg_kernel_info(plan.nv, nl, nc)
         kernel_ms = _time_ms(lambda: tk.cg_solve(**inputs, iterations=its, ls_iterations=ls), 20)
         plain_ms = _time_ms(lambda: tk.cg_solve_plain(**inputs, iterations=its, ls_iterations=ls), 3)
-        nc, nl = inputs["fq"].shape[1], inputs["lim1h"].shape[0]
         b_ms, b_by = bound_ms(tensor_bytes([*inputs.values(), *kernel]),
                               N_ENVS * solve_flops(plan.nv, nl, nc, 4, its, ls))
         print(f"cg_solve at B={N_ENVS}: kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, "

@@ -19,23 +19,16 @@
 // three shared-memory operations per multiply-add, the whole matrix loaded,
 // and 21.9 KB of shared memory per env.
 //
-// cholesky_f32 and solve_spd_f32 (the tiled factor below), n <= 128:
+// cholesky_f32 and solve_spd_f32 run the tiled factor of
+// tiled_cholesky.cuh (shared with the fused CG solve, cg_solve.cu), n <= 128:
 // - one env per CTA of 64 threads; its lower triangle is copied with
 //   cp.async, a warp per row, into shared memory as 4x4 tiles (Tiles:
 //   12.4 KB at n = 73, so registers, not shared memory, cap an SM at 12-14
 //   CTAs); nothing above the diagonal is read;
-// - a blocked right-looking factor in panels of 8 columns: warp 0 factors
-//   the panel in registers (lane l holds rows p0 + l + 32 q), pivots and
-//   columns broadcast by shuffles; the other warps update the trailing
-//   lower triangle one 4x4 tile at a time in registers, with 128-bit shared
-//   loads of the panel's tiles, while warp 0 updates the next panel's tiles
-//   and factors it (lookahead). One CTA barrier per panel; no tile above
-//   the diagonal is visited;
-// - the arithmetic is `factor`'s (cholesky.cuh): pivot rsqrtf, column
-//   scaled by multiplication, and each entry receives its updates
-//   L_ik -= L_ij L_kj one multiply-add at a time in increasing j (the torch
-//   mirror of this schedule in tests/test_torch_linalg.py equals `factor`
-//   bit for bit);
+// - a blocked right-looking factor in panels of 8 columns, factored by warp
+//   0 in registers, the trailing lower triangle updated one 4x4 register
+//   tile at a time by the other warps, with lookahead; one CTA barrier per
+//   panel; `factor`'s arithmetic (cholesky.cuh), entry for entry;
 // - cholesky writes the dense factor, upper triangle zero, a warp per row;
 //   solve_spd runs the exact lower_substitution on the tiles and writes
 //   only x.
@@ -55,15 +48,13 @@
 #include <cuda_runtime.h>
 
 #include "cholesky.cuh"
+#include "tiled_cholesky.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;             // cho_solve
 constexpr long kDefaultSmem = 48 * 1024;  // above this a kernel must opt in
-constexpr int kMaxN = 128;                // the TPU kernels' documented range
-constexpr int kLaneRows = kMaxN / 32;     // panel rows per lane of warp 0
-constexpr int kTiledPanel = 8;            // the tiled factor's panel width
-constexpr int kTiledThreads = 64;         // and threads per CTA (one env)
+constexpr int kTiledThreads = 64;         // the tiled kernels' threads per CTA (one env)
 
 // ---------------------------------------------------------------------------
 // cho_solve: dense factor in shared memory
@@ -88,52 +79,6 @@ cho_solve_kernel(const float* __restrict__ l, const float* __restrict__ b,
 // ---------------------------------------------------------------------------
 // the tiled factor: cholesky and solve_spd
 // ---------------------------------------------------------------------------
-
-__host__ __device__ __forceinline__ int tri(int c) { return c * (c + 1) / 2; }
-
-// Floats of one plane (below): 4 per tile, rounded up to 8 mod 32 so that
-// rows 0..3 of a tile fall in distinct bank quads.
-__host__ __device__ inline int plane_floats(int n) {
-  const int p = 4 * tri((n + 3) / 4);
-  return p + ((8 - p) & 31);
-}
-__host__ __device__ inline long tiles_floats(int n) { return 4L * plane_floats(n); }
-
-// The lower triangle of an n x n matrix as 4x4 tiles in shared memory, nt =
-// ceil(n / 4) tile rows. Tile (ti, tk), tk <= ti, has index tri(nt - 1 -
-// tk) + (nt - 1 - ti), tri(c) = c (c + 1) / 2: ordered by tile column from
-// the last, so the tiles right of any panel are a prefix, indices 0 ..
-// tri(m) - 1 for their m columns. Row r of every tile lies in plane r, 4
-// floats per tile: row r of consecutive tiles is consecutive, and entry
-// (i, k) is at row_part(i) + col_part(k). L(i, k) reads it (the accessor
-// lower_substitution takes).
-struct Tiles {
-  float* s;
-  int nt, plane;
-  __device__ Tiles(float* s_, int n) : s(s_), nt((n + 3) >> 2), plane(plane_floats(n)) {}
-  __device__ __forceinline__ int index(int ti, int tk) const { return tri(nt - 1 - tk) + (nt - 1 - ti); }
-  __device__ __forceinline__ float4& row(int idx, int r) const {
-    return *reinterpret_cast<float4*>(s + r * plane + 4 * idx);
-  }
-  __device__ __forceinline__ int row_part(int i) const { return (i & 3) * plane + 4 * (nt - 1 - (i >> 2)); }
-  __device__ __forceinline__ int col_part(int k) const { return 4 * tri(nt - 1 - (k >> 2)) + (k & 3); }
-  __device__ __forceinline__ float operator()(int i, int k) const { return s[row_part(i) + col_part(k)]; }
-};
-
-// (c, t - tri(c)) for the largest c with tri(c) <= t: tile t's column and
-// row counted from the last.
-__device__ __forceinline__ int2 untri(int t) {
-  int c = (int)((sqrtf(8.f * t + 1.f) - 1.f) * 0.5f);
-  if (tri(c + 1) <= t) ++c;
-  if (tri(c) > t) --c;
-  return make_int2(c, t - tri(c));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(dst)),
-               "l"(src));
-}
 
 // Copies the lower triangle of the row-major n x n matrix a into the tiles,
 // a warp per row, consecutive lanes on consecutive addresses.
@@ -170,130 +115,19 @@ __device__ void store_dense(const Tiles& L, float* __restrict__ l, int n) {
   }
 }
 
-// Warp 0: factors columns p0 .. p0 + P - 1 (those < n) of the rows >= p0.
-// Entries above the diagonal are zero in registers and their tile slots
-// are written with values nothing reads.
-template <int P>
-__device__ void factor_panel(const Tiles& L, int n, int p0) {
-  const int lane = threadIdx.x & 31;
-  float v[kLaneRows][P];
-#pragma unroll
-  for (int q = 0; q < kLaneRows; ++q) {
-    const int i = p0 + lane + 32 * q;
-#pragma unroll
-    for (int c = 0; c < P; c += 4) {
-      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (i < n && i >= p0 + c) x = L.row(L.index(i >> 2, (p0 + c) >> 2), i & 3);
-      v[q][c] = x.x;
-      v[q][c + 1] = i >= p0 + c + 1 ? x.y : 0.f;
-      v[q][c + 2] = i >= p0 + c + 2 ? x.z : 0.f;
-      v[q][c + 3] = i >= p0 + c + 3 ? x.w : 0.f;
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < P; ++j) {
-    if (p0 + j < n) {
-      // row p0 + k lives on lane k; its entry of column j is shuffled
-      // unscaled, so the shuffles need not wait for the pivot, and scaled
-      // on arrival: the same product as the scaled column
-      const float rs = rsqrtf(__shfl_sync(0xffffffffu, v[0][j], j));
-      float u[P];
-#pragma unroll
-      for (int k = j + 1; k < P; ++k) u[k] = __shfl_sync(0xffffffffu, v[0][j], k);
-#pragma unroll
-      for (int q = 0; q < kLaneRows; ++q) v[q][j] *= rs;
-#pragma unroll
-      for (int k = j + 1; k < P; ++k) {
-        const float lkj = u[k] * rs;
-#pragma unroll
-        for (int q = 0; q < kLaneRows; ++q) v[q][k] -= v[q][j] * lkj;
-      }
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < kLaneRows; ++q) {
-    const int i = p0 + lane + 32 * q;
-#pragma unroll
-    for (int c = 0; c < P; c += 4) {
-      if (i < n && i >= p0 + c)
-        L.row(L.index(i >> 2, (p0 + c) >> 2), i & 3) =
-            make_float4(v[q][c], v[q][c + 1], v[q][c + 2], v[q][c + 3]);
-    }
-  }
-}
-
-// Applies the P columns of the panel at p0 to tiles first, first + stride,
-// ... < end of those right of it (indices 0 .. tri(m) - 1 for its m tile
-// columns), one 4x4 tile at a time in registers, columns in increasing
-// order.
-template <int P>
-__device__ void update_tiles(const Tiles& L, int p0, int first, int end, int stride) {
-  for (int t = first; t < end; t += stride) {
-    const int2 ct = untri(t);  // the tile's index is t
-    const int tk = L.nt - 1 - ct.x, ti = L.nt - 1 - ct.y;
-    float acc[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const float4 x = L.row(t, r);
-      acc[r][0] = x.x, acc[r][1] = x.y, acc[r][2] = x.z, acc[r][3] = x.w;
-    }
-#pragma unroll
-    for (int g = 0; g < P / 4; ++g) {
-      const int tc = (p0 >> 2) + g;
-      const int ia = L.index(ti, tc), ib = L.index(tk, tc);
-      float a[4][4];  // L[4 ti + r][4 tc + jj]
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float4 x = L.row(ia, r);
-        a[r][0] = x.x, a[r][1] = x.y, a[r][2] = x.z, a[r][3] = x.w;
-      }
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float4 x = L.row(ib, c);  // L[4 tk + c][4 tc + jj]
-        const float b[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) acc[r][c] -= a[r][jj] * b[jj];
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) L.row(t, r) = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-  }
-}
-
 // One env per CTA. kSolve: x = A^-1 b into out [B, n]; else the dense
 // factor into out [B, n, n], upper triangle zero.
 template <bool kSolve>
 __global__ void __launch_bounds__(kTiledThreads)
 tiled_kernel(const float* __restrict__ a, const float* __restrict__ b, float* __restrict__ out,
              int n) {
-  constexpr int P = kTiledPanel, NT = kTiledThreads;
+  constexpr int NT = kTiledThreads;
   extern __shared__ __align__(16) float smem[];
   const Tiles L(smem, n);
   const long nn = (long)n * n;
   load_lower<NT>(a + blockIdx.x * nn, L, n);
   __syncthreads();
-  if (threadIdx.x < 32) factor_panel<P>(L, n, 0);
-  __syncthreads();
-  // With lookahead: while the other warps apply the panel at p0 to the
-  // tiles right of the next panel, warp 0 applies it to the next panel's
-  // own tiles (the last indices, split on) and factors that panel. Every
-  // entry still takes the panels in order; one barrier per panel.
-  for (int p0 = 0; p0 < n; p0 += P) {
-    const int m = L.nt - ((p0 + P) >> 2);  // tile columns right of the panel
-    if (m <= 0) break;  // the last panel; else p0 + P < n, the next exists
-    const int split = tri(max(m - P / 4, 0));
-    if (threadIdx.x < 32) {
-      update_tiles<P>(L, p0, split + threadIdx.x, tri(m), 32);
-      __syncwarp();
-      factor_panel<P>(L, n, p0 + P);
-    } else {
-      update_tiles<P>(L, p0, threadIdx.x - 32, split, NT - 32);
-    }
-    __syncthreads();
-  }
+  tiled_factor<NT>(L, n);
   if constexpr (kSolve) {
     float* x = smem + tiles_floats(n);
     float* y = x + n;

@@ -1,12 +1,17 @@
-// Device routines shared by the fused CG solve kernels (cg_solve.cu and
-// ell_cg_solve.cu), for one env per CTA with every operand in shared memory.
+// Dense device routines of the elliptic CG solve (ell_cg_solve.cu) and the
+// standalone cho_solve (batched_linalg.cu), for one env per CTA with every
+// operand in shared memory as a row-major n x n matrix; the warp sum and
+// constants are shared with every kernel.
 //
 // They port the device routines of track_mjx_tpu/ops/batched_linalg.py that
 // the TPU kernels run inside themselves (no pallas_call of their own):
-// factor_in_place (`factor`), invert_diag_blocks, blocked_substitution_pinv
-// (`chosolve`) and blocked_substitution. The plain PyTorch versions are in
-// ops/batched_linalg.py. Beside them: the block reductions and the J, J^T and
-// M matrix-vector products both solves use.
+// factor_in_place (`factor`) and blocked_substitution. The plain PyTorch
+// versions are in ops/batched_linalg.py. Beside them: the block reductions,
+// the qM build and the J, J^T and M matrix-vector products of the elliptic
+// solve. The tiled factor and the panel-inverse solve on its layout
+// (invert_diag_blocks, blocked_substitution_pinv), which the scalar CG
+// solve and the standalone cholesky and solve_spd run, are in
+// tiled_cholesky.cuh; `factor` stays the reference for its arithmetic.
 //
 // Every routine is a template on the CTA's thread count NT (a multiple of
 // 32), ends with a barrier, and leaves its result visible to every thread.
@@ -68,76 +73,6 @@ __device__ void factor(float* L, int n) {
     }
   }
   __syncthreads();
-}
-
-// dinv[(p0 + r) * kPanel + c] = inv(L[p0:p0+m, p0:p0+m])[r][c] for every
-// panel; one warp per panel, lane c solves column c by forward substitution.
-template <int NT>
-__device__ void invert_diag_blocks(const float* L, float* dinv, int n) {
-  constexpr int kWarps = NT / 32;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int npan = (n + kPanel - 1) / kPanel;
-  for (int pi = warp; pi < npan; pi += kWarps) {
-    const int p0 = pi * kPanel, m = min(kPanel, n - p0);
-    if (lane < kPanel) {
-      const int c = lane;
-      float x[kPanel];
-#pragma unroll
-      for (int r = 0; r < kPanel; ++r) {
-        x[r] = 0.f;
-        if (r < m) {
-          float s = 0.f;
-#pragma unroll
-          for (int k = 0; k < r; ++k) s += L[(p0 + r) * n + p0 + k] * x[k];
-          x[r] = ((r == c ? 1.f : 0.f) - s) / L[(p0 + r) * n + p0 + r];
-          dinv[(p0 + r) * kPanel + c] = c < m ? x[r] : 0.f;
-        }
-      }
-    }
-  }
-  __syncthreads();
-}
-
-// Solves L L^T x = b into out through the panel-diagonal inverses (the
-// scalar kernel's apply); y is scratch. b may be global or shared but must
-// not alias out or y.
-template <int NT>
-__device__ void chosolve(const float* L, const float* dinv, const float* b,
-                         float* out, float* y, int n) {
-  for (int i = threadIdx.x; i < n; i += NT) out[i] = b[i];
-  __syncthreads();
-  for (int p0 = 0; p0 < n; p0 += kPanel) {  // forward: L y = b
-    const int m = min(kPanel, n - p0);
-    if (threadIdx.x < m) {
-      const int r = threadIdx.x;
-      float s = 0.f;
-      for (int c = 0; c < m; ++c) s += dinv[(p0 + r) * kPanel + c] * out[p0 + c];
-      y[p0 + r] = s;
-    }
-    __syncthreads();
-    for (int i = p0 + m + threadIdx.x; i < n; i += NT) {
-      float s = 0.f;
-      for (int c = 0; c < m; ++c) s += L[i * n + p0 + c] * y[p0 + c];
-      out[i] -= s;
-    }
-    __syncthreads();
-  }
-  for (int p0 = ((n - 1) / kPanel) * kPanel; p0 >= 0; p0 -= kPanel) {  // L^T x = y
-    const int m = min(kPanel, n - p0);
-    if (threadIdx.x < m) {
-      const int c = threadIdx.x;
-      float s = 0.f;
-      for (int r = 0; r < m; ++r) s += dinv[(p0 + r) * kPanel + c] * y[p0 + r];
-      out[p0 + c] = s;
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < p0; i += NT) {
-      float s = 0.f;
-      for (int r = 0; r < m; ++r) s += L[(p0 + r) * n + i] * out[p0 + r];
-      y[i] -= s;
-    }
-    __syncthreads();
-  }
 }
 
 // An n x n row-major matrix as lower_substitution reads it: L(i, j).

@@ -43,10 +43,10 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def library_path() -> str:
+def library_path(defines: tuple[str, ...] = ()) -> str:
     """Where the library built from the current csrc/ (every file in it, so
-    a change to a shared header rebuilds) and NVCC_FLAGS lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    a change to a shared header rebuilds), NVCC_FLAGS and `defines` lives."""
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *defines)).encode())
     for name in sorted(os.listdir(CSRC)):
         h.update(name.encode())
         with open(os.path.join(CSRC, name), "rb") as f:
@@ -54,12 +54,15 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libtorch_kernels_{h.hexdigest()[:16]}.so")
 
 
-def build_library() -> tuple[str, float, str]:
+def build_library(defines: tuple[str, ...] = ()) -> tuple[str, float, str]:
     """Compiles the csrc/ kernels for sm_90a, in one nvcc call, into one
     library under build/torch_kernels/ unless a library built from the same
-    sources and flags is there. Returns (path, build seconds, nvcc output);
+    sources and flags is there. `defines` ("NAME=VALUE") are for the one
+    build-time switch the sources take, CG_SOLVE_STAMPS=1: cg_solve's phase
+    stamps, read by tools/compare_torch_kernels.py (the port loads the
+    library built without). Returns (path, build seconds, nvcc output);
     raises if nvcc fails."""
-    path = library_path()
+    path = library_path(defines)
     if os.path.exists(path):
         return path, 0.0, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -67,7 +70,8 @@ def build_library() -> tuple[str, float, str]:
     os.close(fd)
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *SOURCES], capture_output=True, text=True
+        [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", tmp, *SOURCES],
+        capture_output=True, text=True,
     )
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
@@ -87,7 +91,13 @@ def load_library() -> ctypes.CDLL:
     """The built library with every entry point's C signature set. Each
     `*_f32` launches on the stream it is given and returns cudaGetLastError();
     each `*_smem_bytes` gives the dynamic shared memory of one CTA."""
-    lib = ctypes.CDLL(build_library()[0])
+    return open_library(build_library()[0])
+
+
+def open_library(path: str) -> ctypes.CDLL:
+    """The library at `path` (built by build_library) with every entry
+    point's C signature set."""
+    lib = ctypes.CDLL(path)
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
     for op in ("cg_solve", "ell_cg_solve"):
         _bind(getattr(lib, f"{op}_f32"), [ptr] * 21 + [i32] * 6 + [ptr], i32)
@@ -98,4 +108,6 @@ def load_library() -> ctypes.CDLL:
     for op in ("cholesky", "cho_solve", "solve_spd"):
         _bind(getattr(lib, f"{op}_smem_bytes"), [i32], i64)
     _bind(lib.tiled_kernel_info, [i32, i32, ptr], i32)
+    _bind(lib.cg_solve_kernel_info, [i32, i32, i32, ptr], i32)
+    _bind(lib.cg_solve_stamps, [ptr], i32)
     return lib
