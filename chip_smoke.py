@@ -24,8 +24,9 @@ It imports nothing of JAX. Phases, each of which raises on failure:
 4. Fly kernel against plain: 4096 contact-rich fly states; at one
    iteration with one Newton step every output of ell_cg_solve is held to
    the JAX package's bars, at the workload's 4/4 the kernel is held by its
-   optimality gap against a converged (60/15) plain solve. Both are timed
-   at 4/4.
+   optimality gap against a converged (60/15) plain solve. The kernel's
+   registers, shared memory, resident CTAs per SM and waves are printed.
+   Both are timed at 4/4.
 5. Fly main path: the fly-mc-intention snapshot, 4096 envs, 1 warm-up and 3
    timed control steps; ell_cg_solve must launch once per substep (40
    launches), the state must stay finite and contacts must be active. For 64
@@ -42,10 +43,10 @@ It imports nothing of JAX. Phases, each of which raises on failure:
    through cholesky, its factor and qfrc_smooth through cho_solve, the
    first Newton iteration's H (and Euler's M + h D) through solve_spd, each
    against its plain version, held to a bar, also on a ragged batch of
-   4095 envs; cholesky and solve_spd
-   must give bitwise the same output when qM's strict upper triangle is
-   NaN. The tiled kernels' registers, shared memory and resident CTAs per
-   SM are printed. Kernel, plain version and one library call are timed
+   4095 envs; each must give bitwise the same output when the strict upper
+   triangle of its matrix (qM, or for cho_solve its factor) is NaN. The
+   kernels' registers, shared memory and resident CTAs per SM are
+   printed. Kernel, plain version and one library call are timed
    with CUDA events on the same inputs, beside the host's issue time per
    call and the kernel's device time from torch.profiler (the kernel's
    time where the host is the slower), its share of its bound and its
@@ -405,18 +406,19 @@ class Phases:
         """Contact-rich rodent solver inputs of the fused solve."""
         return self.solver_inputs(plan, model, *self.rodent_drop(plan, model), self.ts.solve_inputs)
 
-    def cg_kernel_info(self, n: int, nl: int, nc: int) -> None:
+    def cg_kernel_info(self, op: str, n: int, nl: int, nc: int) -> None:
         """Registers, shared memory, resident CTAs per SM and threads of the
-        cg_solve kernel at the rodent's sizes, as built, and the waves of
-        N_ENVS envs (one per CTA) over the card's SMs."""
+        fused solve kernel `op` (cg_solve, ell_cg_solve) at the walker's
+        sizes, as built, and the waves of N_ENVS envs (one per CTA) over the
+        card's SMs."""
         from track_mjx_tpu_torch.ops import kernel_lib
 
         info = (ctypes.c_int * 4)()
-        err = kernel_lib.load_library().cg_solve_kernel_info(n, nl, nc, info)
-        assert err == 0, f"cg_solve_kernel_info failed with cudaError {err}"
+        err = getattr(kernel_lib.load_library(), f"{op}_kernel_info")(n, nl, nc, info)
+        assert err == 0, f"{op}_kernel_info failed with cudaError {err}"
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         waves = -(-N_ENVS // (info[2] * sms))
-        print(f"cg_solve kernel at n={n}, nl={nl}, nc={nc}: {info[3]} threads per CTA (one env), "
+        print(f"{op} kernel at n={n}, nl={nl}, nc={nc}: {info[3]} threads per CTA (one env), "
               f"{info[0]} registers per thread, {info[1]} B of shared memory per CTA, {info[2]} "
               f"resident CTAs per SM, {waves} waves of {N_ENVS} envs on {sms} SMs ({self.card})")
 
@@ -450,7 +452,7 @@ class Phases:
             assert err < bar, f"kernel {name} disagrees with plain: {err:.3e} >= {bar:.0e}"
 
         nc, nl = inputs["fq"].shape[1], inputs["lim1h"].shape[0]
-        self.cg_kernel_info(plan.nv, nl, nc)
+        self.cg_kernel_info("cg_solve", plan.nv, nl, nc)
         kernel_ms = _time_ms(lambda: tk.cg_solve(**inputs, iterations=its, ls_iterations=ls), 20)
         plain_ms = _time_ms(lambda: tk.cg_solve_plain(**inputs, iterations=its, ls_iterations=ls), 3)
         b_ms, b_by = bound_ms(tensor_bytes([*inputs.values(), *kernel]),
@@ -613,6 +615,7 @@ class Phases:
             assert torch.isfinite(getattr(kernel, name)).all(), f"kernel {name} not finite"
         self.gap_check(inputs, kernel.qacc, plain.qacc, nl, f"ell_cg_solve vs plain, {its}/{ls}")
 
+        self.cg_kernel_info("ell_cg_solve", plan.nv, nl, nc)
         kernel_ms = _time_ms(lambda: tk.ell_cg_solve(**inputs, iterations=its, ls_iterations=ls), 20)
         plain_ms = _time_ms(lambda: tk.ell_cg_solve_plain(**inputs, iterations=its, ls_iterations=ls), 3)
         b_ms, b_by = bound_ms(tensor_bytes([*inputs.values(), *kernel]),
@@ -700,8 +703,9 @@ class Phases:
         }
 
     def tiled_kernel_info(self, n: int) -> None:
-        """Registers, shared memory and resident CTAs per SM of the tiled
-        factor's kernels (cholesky, solve_spd) at n, as built."""
+        """Registers, shared memory and resident CTAs per SM of the
+        standalone kernels at n, as built: the tiled factor's (cholesky,
+        solve_spd) and cho_solve's."""
         from track_mjx_tpu_torch.ops import kernel_lib
 
         lib = kernel_lib.load_library()
@@ -712,12 +716,18 @@ class Phases:
             print(f"{name} kernel at n={n}: panel {info[4]}, {info[3]} threads per CTA (one env), "
                   f"{info[0]} registers per thread, {info[1]} B of shared memory per CTA, "
                   f"{info[2]} resident CTAs per SM ({self.card})")
+        info = (ctypes.c_int * 4)()
+        err = lib.cho_solve_kernel_info(n, info)
+        assert err == 0, f"cho_solve_kernel_info failed with cudaError {err}"
+        print(f"cho_solve kernel at n={n}: {info[3]} threads per CTA (one env), "
+              f"{info[0]} registers per thread, {info[1]} B of shared memory per CTA, "
+              f"{info[2]} resident CTAs per SM ({self.card})")
 
     def linalg_kernels(self, m) -> list:
         """Each standalone kernel against its plain version on the path's
-        matrices and on a ragged batch of RAGGED envs; cholesky and
-        solve_spd also with a NaN-filled strict upper triangle, which must
-        not change their output. Then kernel, plain and library call are
+        matrices and on a ragged batch of RAGGED envs, and with a NaN-filled
+        strict upper triangle of its matrix, which must not change its
+        output. Then kernel, plain and library call are
         timed on the same inputs, with the host's issue time per call and
         the kernel's device time from torch.profiler, which is the kernel's
         time where the host is the slower. Returns the kernels' records,
@@ -737,7 +747,9 @@ class Phases:
                            ("M + h D, qfrc_smooth + qfrc_constraint", (m["M+hD"], m["euler_rhs"]))],
                           factor_flops(n) + substitution_flops(n), "tiled_kernel"),
         }
-        nan_upper = m["qM"].masked_fill(torch.ones_like(m["qM"][0], dtype=torch.bool).triu(1), float("nan"))
+        upper = torch.ones_like(m["qM"][0], dtype=torch.bool).triu(1)
+        nan_upper = {"qM": m["qM"].masked_fill(upper, float("nan")),
+                     "qLD": m["qLD"].masked_fill(upper, float("nan"))}
         records = []
         for name, (op, plain, library, inputs, flops, kernel_name) in cases.items():
             bar = LINALG_REL[name]
@@ -760,11 +772,11 @@ class Phases:
                       f"{float(per_env.median()):.3e} max {float(per_env.max()):.3e}")
                 assert err < bar, f"{name} disagrees with plain on {what}: {err:.3e} >= {bar:.0e}"
             args = args0
-            if op in (bl.cholesky, bl.solve_spd):
-                clean, dirty = op(m["qM"], *args[1:]), op(nan_upper, *args[1:])
-                torch.cuda.synchronize()
-                assert torch.equal(clean, dirty), f"{name} read above the diagonal"
-                print(f"{name} on qM with a NaN strict upper triangle: output bitwise equal to the clean input's")
+            mat = "qLD" if op is bl.cho_solve else "qM"
+            clean, dirty = op(m[mat], *args[1:]), op(nan_upper[mat], *args[1:])
+            torch.cuda.synchronize()
+            assert torch.equal(clean, dirty), f"{name} read above the diagonal"
+            print(f"{name} on {mat} with a NaN strict upper triangle: output bitwise equal to the clean input's")
             event_ms, host_ms = _times(lambda: op(*args), 20)
             device_ms = _profiled_ms(lambda: op(*args), 20, kernel_name)
             # the kernel's own time: the events', unless issuing a call takes

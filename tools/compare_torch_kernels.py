@@ -9,32 +9,43 @@ Usage (from the repository root, on a machine with a CUDA device and nvcc):
 DIR is a checkout of another commit (for example unpacked with `git
 archive`). Both trees' csrc/ are built, each by its own ops/kernel_lib.py
 (the parent's afresh into build/compare_parent/ of this tree, so that
-ptxas reports its registers), and this tree's once more with
-CG_SOLVE_STAMPS (phase stamps); all builds run at once. The inputs come
-from this tree's port: 4096 contact-rich rodent states from chip_smoke.py's
-generator (seed 0), 4096 drawn as tests/torch_parity.py's
-contact_rich_states draws them (numpy seed 29), 4096 fly states and the
+ptxas reports its registers), this tree's once more with CG_SOLVE_STAMPS
+(phase stamps); all builds run at once. The inputs come from this tree's
+port: 4096 contact-rich rodent states from chip_smoke.py's generator (seed
+0), 4096 drawn as tests/torch_parity.py's contact_rich_states draws them
+(numpy seed 29), 4096 fly states from chip_smoke.py's generator (seed 0)
+and 4096 more (seed 1), the solve inputs of the fly's main path (4096 flies
+after one control step from rest, as chip_smoke.py drives them), and the
 Newton path's matrices. Then, calling each library's C entry points
 directly:
 
 - cg_solve (K2): each build's error against the plain version per output
   (relative to max(1, max |plain|), as chip_smoke.py) and whether its
-  outputs equal the parent's bit for bit, on both state sets; each build's
-  and the float32 plain version's error against the plain version in
-  float64 (how far each float32 solve is from the exact one); its time at
-  iterations / ls_iterations 0/0, 1/0, 1/5 and 5/5 (the differences split
-  an env's time into set-up, a CG iteration and the linesearch), and the
-  cycles per env of each phase from the stamps build; registers,
+  outputs equal the parent's bit for bit, on both rodent state sets; each
+  build's and the float32 plain version's error against the plain version
+  in float64 (how far each float32 solve is from the exact one); its time
+  at iterations / ls_iterations 0/0, 1/0, 1/5 and 5/5 (the differences
+  split an env's time into set-up, a CG iteration and the linesearch), and
+  the cycles per env of each phase from the stamps build; registers,
   shared memory and resident CTAs per SM (this tree's from
   cg_solve_kernel_info; the parent's from its ptxas registers and shared
   memory by Hopper's occupancy limits), and the waves of 4096 envs;
-- ell_cg_solve (K3), cholesky (K4a), cho_solve (K4b), solve_spd (K4c):
-  whether this tree's outputs equal the parent's bit for bit, and both
-  times.
+- ell_cg_solve (K3): whether this tree's outputs equal the parent's bit
+  for bit on the three fly state sets, at the fly's 4/4 and at 1/0; its
+  time at 0/0, 1/0, 1/4 and 4/4 on the first set and at 4/4 on the main
+  path's; the stamps build's cycles per env of each phase on both; each
+  build's registers (with ptxas's spills), shared memory, CTAs per SM and
+  waves;
+- cho_solve (K4b): whether this tree's output equals the parent's bit for
+  bit on the Newton path's qM factor, on a ragged batch of 4095 envs and
+  with the factor's strict upper triangle NaN; both times; each build's
+  occupancy;
+- cholesky (K4a), solve_spd (K4c): whether this tree's outputs equal the
+  parent's bit for bit, and both times.
 
 Times are CUDA-event ms per launch over `--reps` launches, the builds taken
-in turn, `--rounds` times (parent, this tree; then reversed). It
-prints one JSON object as its last line and writes it to `--out`.
+in turn, `--rounds` times (parent, this tree; then reversed). It prints one
+JSON object as its last line and writes it to `--out`.
 """
 
 from __future__ import annotations
@@ -61,11 +72,14 @@ from track_mjx_tpu_torch.ops import kernel_lib  # noqa: E402
 
 OUTS = ("qacc_smooth", "qacc", "efc_force", "qfrc_constraint", "qacc_eff")
 CONFIGS = ((0, 0), (1, 0), (1, 5), (5, 5))  # (iterations, ls_iterations) of K2
+K3_CONFIGS = ((0, 0), (1, 0), (1, 4), (4, 4))  # of K3
 # Hopper (sm_90) occupancy limits per SM: registers, their allocation unit
 # per warp, threads, CTAs, shared memory a kernel may use and the part the
 # system reserves per CTA.
 SM_REGS, REG_UNIT, SM_THREADS, SM_CTAS, SM_SMEM, CTA_RESERVED = 65536, 256, 2048, 32, 233472, 1024
-PARENT_THREADS = 256  # the first design's threads per CTA
+# Threads per CTA of K3's and K4b's first designs, for the occupancy of a
+# parent built before their kernel_info entry points (from its ptxas report)
+FIRST_DESIGN_THREADS = {"ell_cg_solve": 128, "cho_solve": 128}
 # cg_solve.cu's phase stamps, in order (a CG iteration's summed over its
 # iterations)
 PHASES = (
@@ -75,7 +89,13 @@ PHASES = (
     "it: solve", "it: beta, p", "J^T qfrc, M + hD, outputs", "Euler factor",
     "Euler inverses, solve",
 )
-STAMPS = len(PHASES)
+# ell_cg_solve.cu's phase stamps, in order
+K3_PHASES = (
+    "load", "qM, limit rows", "jfr", "L = M, limit lists", "factor qM", "smooth solve | J warm",
+    "M dx, J smooth", "warm-start choice, force", "J^T: grad", "solve: mgrad", "it: M p, J p",
+    "it: first sums", "it: linesearch", "it: cost check", "it: x, jar, force, M dx", "it: J^T",
+    "it: solve, beta, p", "J^T qfrc, M + hD, outputs", "Euler factor", "Euler solve",
+)
 
 
 def _load_kernel_lib(root: str, name: str):
@@ -86,17 +106,24 @@ def _load_kernel_lib(root: str, name: str):
     return mod
 
 
-def _ptxas_registers(log: str, kernel: str) -> int:
-    """Registers of the entry function whose name holds `kernel` (and not a
-    longer name ending in it), from nvcc's -Xptxas -v output."""
+def _ptxas(log: str, kernel: str) -> dict:
+    """Registers, stack frame and spill bytes of the entry function whose
+    name holds `kernel` (and not a longer name ending in it), from nvcc's
+    -Xptxas -v output."""
     lines = log.splitlines()
     for k, line in enumerate(lines):
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m and re.search(rf"\d{kernel}E", m.group(1)):
-            for later in lines[k + 1 : k + 4]:
+            out = {}
+            for later in lines[k + 1 : k + 5]:
                 r = re.search(r"Used (\d+) registers", later)
                 if r:
-                    return int(r.group(1))
+                    out["registers"] = int(r.group(1))
+                f = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", later)
+                if f:
+                    out.update(stack=int(f.group(1)), spill_stores=int(f.group(2)), spill_loads=int(f.group(3)))
+            if "registers" in out:
+                return out
     raise RuntimeError(f"no ptxas register count for {kernel}")
 
 
@@ -143,6 +170,51 @@ def timed(fns: dict, reps: int, rounds: int) -> dict:
     return ms
 
 
+def _kernel_occupancy(lib, built_log: str, op: str, dims: tuple, n_envs: int) -> dict:
+    """The occupancy of `op` (cg_solve, ell_cg_solve, cho_solve; one env per
+    CTA) at dims: from its `{op}_kernel_info` where the build has one
+    (registers, shared memory, CTAs per SM, threads), else from ptxas's
+    registers and `{op}_smem_bytes` with its first design's threads; ptxas's
+    report beside it."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    report = _ptxas(built_log, f"{op}_kernel")
+    if hasattr(lib, f"{op}_kernel_info"):
+        info = (ctypes.c_int * 4)()
+        err = getattr(lib, f"{op}_kernel_info")(*dims, info)
+        assert err == 0, f"{op}_kernel_info failed with cudaError {err}"
+        out = dict(registers=info[0], smem=info[1], ctas=info[2], threads=info[3],
+                   ctas_by_limits=ctas_per_sm(info[0], info[3], info[1]))
+    else:
+        smem = getattr(lib, f"{op}_smem_bytes")(*dims)
+        threads = FIRST_DESIGN_THREADS[op]
+        out = dict(registers=report["registers"], smem=smem, threads=threads,
+                   ctas=ctas_per_sm(report["registers"], threads, smem))
+    out["waves"] = math.ceil(n_envs / (out["ctas"] * sms))
+    out["ptxas"] = report
+    return out
+
+
+def _print_occ(name: str, k: str, o: dict, n_envs: int, card: str) -> None:
+    print(f"{name} {k}: {o['threads']} threads per CTA (one env), {o['registers']} registers"
+          + (f" (ptxas: {o['ptxas']})" if "ptxas" in o else "")
+          + f", {o['smem']} B shared, {o['ctas']} CTAs per SM, {o['waves']} waves of {n_envs} envs ({card})")
+
+
+def main_path_fly_states(phases, plan, model) -> dict:
+    """ell_cg_solve's inputs on the fly's main path: chip_smoke.py's start
+    (4096 flies at rest, 1e-3 joint noise) after one control step of
+    n_step(..., 10) under its controls, then the next substep's stages."""
+    tf, tm, ts = phases.tf, phases.tm, phases.ts
+    n_envs = chip_smoke.N_ENVS
+    data = tm.make_data(plan, model, n_envs)
+    qpos = data.qpos.clone()
+    qpos[:, 7:] += phases.uniform((n_envs, plan.nq - 7), -0.001, 0.001)
+    ctrl = chip_smoke.FLY_CTRL_SCALE * phases.uniform((n_envs, plan.nu), -1.0, 1.0)
+    data = tf.n_step(plan, model, data.replace(qpos=qpos, ctrl=ctrl), chip_smoke.SUBSTEPS)
+    return phases.solver_inputs(plan, model, data.qpos, data.qvel, ctrl, data.qacc_warmstart,
+                                ts.ell_solve_inputs)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", required=True)
@@ -161,6 +233,8 @@ def main() -> None:
     parent_kl = _load_kernel_lib(os.path.abspath(args.parent), "parent_kernel_lib")
     parent_kl.BUILD_DIR = os.path.join(REPO, "build", "compare_parent")
     shutil.rmtree(parent_kl.BUILD_DIR, ignore_errors=True)
+    # this tree's builds too, so that each reports its registers and spills
+    shutil.rmtree(kernel_lib.BUILD_DIR, ignore_errors=True)
     jobs = {
         "parent": parent_kl.build_library,
         "change": kernel_lib.build_library,
@@ -182,25 +256,13 @@ def main() -> None:
     plan, model = tm.put_model(tm.load_snapshot("rodent-full-clips"), device="cuda")
     its, ls = plan.iterations, plan.ls_iterations
     nl, nc = plan.nlimit, plan.ncon
-    report = {"card": card, "k2": {}, "same_as_parent": {}, "ms": {}}
+    report = {"card": card, "k2": {}, "k3": {}, "k4b": {}, "same_as_parent": {}, "ms": {}}
 
     # K2: occupancy
-    smem_p = libs["parent"].cg_solve_smem_bytes(plan.nv, nl, nc)
-    regs_p = _ptxas_registers(built["parent"][2], "cg_solve_kernel")
-    occ = {"parent": dict(registers=regs_p, smem=smem_p, threads=PARENT_THREADS,
-                          ctas=ctas_per_sm(regs_p, PARENT_THREADS, smem_p))}
-    for k, lib in libs.items():
-        if k == "parent":
-            continue
-        info = (ctypes.c_int * 4)()
-        assert lib.cg_solve_kernel_info(plan.nv, nl, nc, info) == 0
-        occ[k] = dict(registers=info[0], smem=info[1], ctas=info[2], threads=info[3],
-                      ctas_by_limits=ctas_per_sm(info[0], info[3], info[1]))
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    occ = {k: _kernel_occupancy(lib, built[k][2], "cg_solve", (plan.nv, nl, nc), n_envs)
+           for k, lib in libs.items()}
     for k, o in occ.items():
-        o["waves"] = math.ceil(n_envs / (o["ctas"] * sms))
-        print(f"cg_solve {k}: {o['threads']} threads, {o['registers']} registers, {o['smem']} B shared, "
-              f"{o['ctas']} CTAs per SM, {o['waves']} waves of {n_envs} envs on {sms} SMs ({card})")
+        _print_occ("cg_solve", k, o, n_envs, card)
     report["k2"]["occupancy"] = occ
 
     # K2: errors against plain (float32 and float64) and against the
@@ -250,41 +312,104 @@ def main() -> None:
 
     # K2: where an env's time goes, from the stamps build (the solo warp's
     # clock64 cycles per phase, summed over the CTAs, per env)
-    stamps = (ctypes.c_ulonglong * STAMPS)()
-    call_cg(stamps_lib, "cg_solve", a, its, ls)
-    torch.cuda.synchronize()
-    assert stamps_lib.cg_solve_stamps(stamps) == 0
-    call_cg(stamps_lib, "cg_solve", a, its, ls)
-    torch.cuda.synchronize()
-    assert stamps_lib.cg_solve_stamps(stamps) == 0
-    per_env = [s / n_envs for s in stamps]
-    total = sum(per_env)
-    report["k2"]["stamps_cycles_per_env"] = dict(zip(PHASES, per_env))
-    print(f"cg_solve phases at B={n_envs}, {its}/{ls}, the solo warp's cycles per env (share): " + "; ".join(
-        f"{name} {c:.0f} ({100 * c / total:.1f}%)" for name, c in zip(PHASES, per_env))
-        + f"; total {total:.0f} ({card})")
+    report["k2"]["stamps_cycles_per_env"] = _stamps(
+        stamps_lib.cg_solve_stamps, lambda: call_cg(stamps_lib, "cg_solve", a, its, ls), PHASES,
+        f"cg_solve phases at B={n_envs}, {its}/{ls}", n_envs, card)
     del state_sets, a
 
-    # K3 and K4a-c: this tree's outputs against the parent's, and their times
-    pair = {"parent": libs["parent"], "change": libs["change"]}
+    # K3: occupancy, outputs against the parent's on two fly state sets,
+    # time by iterations / ls_iterations, phase stamps
     fly_plan, fly_model = tm.put_model(tm.load_snapshot("fly-mc-intention"), device="cuda")
+    fits, fls = fly_plan.iterations, fly_plan.ls_iterations
+    fn_, fnl, fnc = fly_plan.nv, fly_plan.nlimit, fly_plan.ncon
+    occ = {k: _kernel_occupancy(lib, built[k][2], "ell_cg_solve", (fn_, fnl, fnc), n_envs)
+           for k, lib in libs.items()}
+    for k, o in occ.items():
+        _print_occ("ell_cg_solve", k, o, n_envs, card)
+    report["k3"]["occupancy"] = occ
     fa = phases.fly_states(fly_plan, fly_model)
-    cases = {"ell_cg_solve": lambda lib: call_cg(lib, "ell_cg_solve", fa, fly_plan.iterations,
-                                                  fly_plan.ls_iterations)}
+    seed1 = chip_smoke.Phases(card)
+    seed1.gen.manual_seed(1)
+    fly_sets = {"chip_smoke": fa, "seed1": seed1.fly_states(fly_plan, fly_model),
+                "main_path": main_path_fly_states(seed1, fly_plan, fly_model)}
+    same = {}
+    for what, fs in fly_sets.items():
+        for cfg in ((fits, fls), (1, 0)):
+            outs = {k: call_cg(lib, "ell_cg_solve", fs, *cfg) for k, lib in libs.items()}
+            torch.cuda.synchronize()
+            key = f"{what} {cfg[0]}/{cfg[1]}"
+            out, ref = outs["change"], outs["parent"]
+            same[key] = all(torch.equal(getattr(out, name), getattr(ref, name)) for name in OUTS)
+            print(f"ell_cg_solve on {what} fly states ({cfg[0]}/{cfg[1]}), outputs bitwise the parent's: {same[key]}")
+            if not same[key]:  # where they part: envs, largest difference
+                print("  " + "; ".join(
+                    f"{name} {int((getattr(out, name) != getattr(ref, name)).any(1).sum())} envs, "
+                    f"max rel {chip_smoke._rel(getattr(out, name), getattr(ref, name)):.2e}" for name in OUTS))
+            del outs, out, ref
+    report["k3"]["bitwise_parent"] = same
+    report["same_as_parent"]["ell_cg_solve"] = all(same.values())
+    times = {}
+    for cfg in K3_CONFIGS:
+        fns = {k: (lambda lib=lib, cfg=cfg: call_cg(lib, "ell_cg_solve", fa, *cfg)) for k, lib in libs.items()}
+        times[f"{cfg[0]}/{cfg[1]}"] = timed(fns, args.reps, args.rounds)
+        print(f"ell_cg_solve at B={n_envs}, {cfg[0]}/{cfg[1]}: " + "; ".join(
+            f"{k} " + " ".join(f"{t:.4f}" for t in v) + " ms" for k, v in times[f"{cfg[0]}/{cfg[1]}"].items())
+            + f" ({card})")
+    mp = fly_sets["main_path"]
+    times[f"main path {fits}/{fls}"] = timed(
+        {k: (lambda lib=lib: call_cg(lib, "ell_cg_solve", mp, fits, fls)) for k, lib in libs.items()},
+        args.reps, args.rounds)
+    print(f"ell_cg_solve at B={n_envs} on the main path's states, {fits}/{fls}: " + "; ".join(
+        f"{k} " + " ".join(f"{t:.4f}" for t in v) + " ms" for k, v in times[f"main path {fits}/{fls}"].items())
+        + f" ({card})")
+    report["k3"]["ms"] = times
+    report["ms"]["ell_cg_solve"] = times[f"{fits}/{fls}"]
+    report["k3"]["stamps_cycles_per_env"] = {
+        what: _stamps(stamps_lib.ell_cg_solve_stamps,
+                      lambda fs=fs: call_cg(stamps_lib, "ell_cg_solve", fs, fits, fls), K3_PHASES,
+                      f"ell_cg_solve phases at B={n_envs}, {fits}/{fls}, {what} states", n_envs, card)
+        for what, fs in (("chip_smoke", fa), ("main_path", mp))}
+    del fly_sets, fa, mp
+
+    # K4a-c: this tree's outputs against the parent's, and their times;
+    # K4b also its occupancy
     snap = tm.load_snapshot("rodent-full-clips")
     snap.opt.solver = tm.SOLVER_NEWTON
     nplan, nmodel = tm.put_model(snap, device="cuda")
     m = phases.newton_matrices(nplan, nmodel)
-    for op, mat in (("cholesky", (m["qM"],)), ("cho_solve", (m["qLD"], m["qfrc_smooth"])),
-                    ("solve_spd", (m["H"], m["grad"])), ("solve_spd_euler", (m["M+hD"], m["euler_rhs"]))):
+    occ = {k: _kernel_occupancy(lib, built[k][2], "cho_solve", (nplan.nv,), n_envs)
+           for k, lib in libs.items()}
+    for k, o in occ.items():
+        _print_occ("cho_solve", k, o, n_envs, card)
+    report["k4b"]["occupancy"] = occ
+    nan_l = m["qLD"].masked_fill(torch.ones_like(m["qLD"][0], dtype=torch.bool).triu(1), float("nan"))
+    cho_cases = {
+        "qLD": (m["qLD"], m["qfrc_smooth"]),
+        "qLD, ragged": (m["qLD"][: chip_smoke.RAGGED].contiguous(), m["qfrc_smooth"][: chip_smoke.RAGGED].contiguous()),
+        "qLD, NaN upper": (nan_l, m["qfrc_smooth"]),
+    }
+    same = {}
+    for what, cargs in cho_cases.items():
+        got = {k: call_linalg(lib, "cho_solve", cargs) for k, lib in libs.items()}
+        torch.cuda.synchronize()
+        same[what] = torch.equal(got["change"], got["parent"])
+        print(f"cho_solve on {what}: outputs bitwise the parent's: {same[what]}")
+    report["k4b"]["bitwise_parent"] = same
+    report["same_as_parent"]["cho_solve"] = all(same.values())
+    report["ms"]["cho_solve"] = timed({k: (lambda lib=lib: call_linalg(lib, "cho_solve", cho_cases["qLD"]))
+                                       for k, lib in libs.items()}, args.reps, args.rounds)
+    print("cho_solve: ms " + "; ".join(f"{k} " + " ".join(f"{t:.4f}" for t in v)
+                                       for k, v in report["ms"]["cho_solve"].items()) + f" ({card})")
+    cases = {}
+    for op, mat in (("cholesky", (m["qM"],)), ("solve_spd", (m["H"], m["grad"])),
+                    ("solve_spd_euler", (m["M+hD"], m["euler_rhs"]))):
         cases[op] = lambda lib, op=op.replace("_euler", ""), mat=mat: call_linalg(lib, op, mat)
     for name, fn in cases.items():
-        got = {k: fn(lib) for k, lib in pair.items()}
+        got = {k: fn(lib) for k, lib in libs.items()}
         torch.cuda.synchronize()
-        got = {k: (tuple(v) if isinstance(v, tuple) else (v,)) for k, v in got.items()}
-        same = all(torch.equal(x, y) for x, y in zip(got["parent"], got["change"]))
+        same = torch.equal(got["parent"], got["change"])
         report["same_as_parent"][name] = same
-        report["ms"][name] = timed({k: (lambda lib=lib: fn(lib)) for k, lib in pair.items()},
+        report["ms"][name] = timed({k: (lambda lib=lib: fn(lib)) for k, lib in libs.items()},
                                    args.reps, args.rounds)
         print(f"{name}: outputs bitwise the parent's: {same}; ms " + "; ".join(
             f"{k} " + " ".join(f"{t:.4f}" for t in v) for k, v in report["ms"][name].items()) + f" ({card})")
@@ -295,6 +420,23 @@ def main() -> None:
         with open(args.out, "w") as f:
             f.write(line + "\n")
     print(line)
+
+
+def _stamps(read, run, phases: tuple, what: str, n_envs: int, card: str) -> dict:
+    """The stamps build's cycles per env of each phase (the solo warp's
+    clock64 cycles, summed over the CTAs, per env) over one launch: one
+    launch first clears them."""
+    stamps = (ctypes.c_ulonglong * len(phases))()
+    for _ in range(2):
+        run()
+        torch.cuda.synchronize()
+        assert read(stamps) == 0
+    per_env = [s / n_envs for s in stamps]
+    total = sum(per_env)
+    print(f"{what}, the solo warp's cycles per env (share): " + "; ".join(
+        f"{name} {c:.0f} ({100 * c / total:.1f}%)" for name, c in zip(phases, per_env))
+        + f"; total {total:.0f} ({card})")
+    return dict(zip(phases, per_env))
 
 
 if __name__ == "__main__":

@@ -37,13 +37,23 @@
 // loads, not bytes; solve_spd's time is mostly its substitution. Panels of
 // 16 and 128 threads per CTA were measured slower (more registers, fewer
 // CTAs per SM).
-// cho_solve_f32 keeps the first design: one env per CTA, the dense factor
-// in shared memory (n^2 + 2n floats), blocked_substitution.
+//
+// cho_solve_f32 needs no factor, only the substitution, and that is one
+// warp's work: one env per CTA of one warp, n <= 128. The warp copies its
+// env's lower triangle with cp.async, a row at a time, consecutive lanes on
+// consecutive addresses, into tiles (12.7 KB at n = 73, at most 34.9 KB: no
+// opt-in) and runs tiled_cholesky.cuh's warp_exact_solve on them: the exact
+// panel substitution of the first design (blocked_substitution on the dense
+// factor, two CTA barriers per panel) entry for entry, so x is the first
+// design's bit for bit, with no CTA barrier at all. Shared memory caps an SM
+// at 16 envs; 2 and 4 envs per CTA measured the same on an NVIDIA H100
+// (PERF.md, Findings).
 //
 // C interface (bound with ctypes): each *_f32 launches on the given stream
-// and returns cudaGetLastError(); each *_smem_bytes(n) gives the dynamic
-// shared memory one CTA needs; tiled_kernel_info gives the tiled kernels'
-// registers, shared memory and resident CTAs per SM.
+// and returns cudaGetLastError() (cudaErrorInvalidValue for n > 128); each
+// *_smem_bytes(n) gives the dynamic shared memory one CTA needs;
+// tiled_kernel_info and cho_solve_kernel_info give the kernels' registers,
+// shared memory and resident CTAs per SM.
 
 #include <cuda_runtime.h>
 
@@ -52,28 +62,42 @@
 
 namespace {
 
-constexpr int kThreads = 128;             // cho_solve
-constexpr long kDefaultSmem = 48 * 1024;  // above this a kernel must opt in
-constexpr int kTiledThreads = 64;         // the tiled kernels' threads per CTA (one env)
+constexpr int kTiledThreads = 64;  // the tiled kernels' threads per CTA (one env)
 
 // ---------------------------------------------------------------------------
-// cho_solve: dense factor in shared memory
+// cho_solve: one env per warp on its tiles
 // ---------------------------------------------------------------------------
 
-// the matrix, then the substitution's two n-vectors (out, y)
-__host__ __device__ inline long smem_floats(int n) { return (long)n * n + 2L * n; }
+// One warp: copies the lower triangle of the row-major n x n matrix a into
+// the tiles, a row at a time, consecutive lanes on consecutive addresses;
+// the copies run on until the caller's cp.async.wait_all.
+__device__ void load_lower_warp(const float* __restrict__ a, const Tiles& L, int n) {
+  const int lane = threadIdx.x & 31;
+  int col[kLaneRows];  // lane's columns lane + 32 m
+#pragma unroll
+  for (int m = 0; m < kLaneRows; ++m) col[m] = L.col_part(lane + 32 * m);
+  for (int i = 0; i < n; ++i) {
+    const int row = L.row_part(i);
+#pragma unroll
+    for (int m = 0; m < kLaneRows; ++m)
+      if (lane + 32 * m <= i) cp_async4(L.s + row + col[m], a + (long)i * n + lane + 32 * m);
+  }
+}
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(32)
 cho_solve_kernel(const float* __restrict__ l, const float* __restrict__ b,
                  float* __restrict__ x, int n) {
-  extern __shared__ float L[];
-  const long nn = (long)n * n;
-  float* out = L + nn;
-  float* y = out + n;
-  for (long t = threadIdx.x; t < nn; t += kThreads) L[t] = l[blockIdx.x * nn + t];
-  // the substitution's first barrier orders the load
-  blocked_substitution<kThreads>(L, b + (long)blockIdx.x * n, out, y, n);
-  for (int i = threadIdx.x; i < n; i += kThreads) x[(long)blockIdx.x * n + i] = out[i];
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x;
+  const long env = blockIdx.x;
+  const Tiles L(smem, n);
+  float* out = smem + tiles_floats(n);
+  float* y = out + ((n + 3) & ~3);
+  load_lower_warp(l + env * n * n, L, n);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncwarp();
+  warp_exact_solve<false>(L, b + env * n, out, y, n);
+  for (int i = lane; i < n; i += 32) x[env * n + i] = out[i];
 }
 
 // ---------------------------------------------------------------------------
@@ -155,7 +179,9 @@ int tiled_launch(const float* a, const float* b, float* out, int batch, int n, v
 }  // namespace
 
 extern "C" long cholesky_smem_bytes(int n) { return tiled_smem(false, n); }
-extern "C" long cho_solve_smem_bytes(int n) { return smem_floats(n) * (long)sizeof(float); }
+extern "C" long cho_solve_smem_bytes(int n) {
+  return (tiles_floats(n) + 2L * ((n + 3) & ~3)) * (long)sizeof(float);  // tiles, out, y
+}
 extern "C" long solve_spd_smem_bytes(int n) { return tiled_smem(true, n); }
 
 // info[0..4] = registers per thread, dynamic shared memory per CTA (bytes),
@@ -179,20 +205,32 @@ extern "C" int tiled_kernel_info(int solve, int n, int* info) {
   return 0;
 }
 
+// info[0..3] = registers per thread, dynamic shared memory per CTA (bytes),
+// resident CTAs per SM and threads per CTA (one env) of cho_solve at n.
+extern "C" int cho_solve_kernel_info(int n, int* info) {
+  if (n <= 0 || n > kMaxN) return (int)cudaErrorInvalidValue;
+  const long smem = cho_solve_smem_bytes(n);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, cho_solve_kernel);
+  if (err != cudaSuccess) return (int)err;
+  int ctas = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, cho_solve_kernel, 32, (size_t)smem);
+  if (err != cudaSuccess) return (int)err;
+  info[0] = attr.numRegs;
+  info[1] = (int)smem;
+  info[2] = ctas;
+  info[3] = 32;
+  return 0;
+}
+
 extern "C" int cholesky_f32(const float* a, float* l, int batch, int n, void* stream) {
   return tiled_launch<false>(a, nullptr, l, batch, n, stream);
 }
 
 extern "C" int cho_solve_f32(const float* l, const float* b, float* x, int batch, int n,
                              void* stream) {
-  if (batch <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
-  const long smem = cho_solve_smem_bytes(n);
-  if (smem > kDefaultSmem) {
-    cudaError_t err = cudaFuncSetAttribute(cho_solve_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  cho_solve_kernel<<<batch, kThreads, smem, (cudaStream_t)stream>>>(l, b, x, n);
+  if (batch <= 0 || n <= 0 || n > kMaxN) return (int)cudaErrorInvalidValue;
+  cho_solve_kernel<<<batch, 32, cho_solve_smem_bytes(n), (cudaStream_t)stream>>>(l, b, x, n);
   return (int)cudaGetLastError();
 }
 

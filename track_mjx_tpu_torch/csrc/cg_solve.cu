@@ -351,8 +351,8 @@ cg_solve_kernel(const float* __restrict__ g_buf, const float* __restrict__ g_cdo
     }
   }
   // qM = anc-masked buf cdof^T mirrored + diag(arm), into the lower tiles
-  // (the diagonal tiles whole; padding zero), each entry as cholesky.cuh's
-  // assemble_qm; a thread per tile row, its 4 entries stored at once
+  // (the diagonal tiles whole; padding zero), each entry as the first
+  // design's dense build; a thread per tile row, its 4 entries stored at once
   for (int t = tid; t < 4 * tri(M.nt); t += NT) {
     const int2 ct = untri(t >> 2);  // tile t / 4 in Tiles' order
     const int i = 4 * (M.nt - 1 - ct.y) + (t & 3), j0 = 4 * (M.nt - 1 - ct.x);

@@ -1,14 +1,15 @@
-// The tiled Cholesky factor and the panel-inverse solve on its layout, for
-// one env per CTA with the matrix in shared memory, n <= kMaxN.
+// The tiled Cholesky factor and the solves on its layout, for one env per
+// CTA (or per warp) with the matrix in shared memory, n <= kMaxN.
 //
-// Shared by the standalone cholesky and solve_spd kernels (batched_linalg.cu)
-// and the fused CG solve (cg_solve.cu). They port the device routines of
+// Shared by the standalone cholesky, cho_solve and solve_spd kernels
+// (batched_linalg.cu) and the fused CG solves (cg_solve.cu,
+// ell_cg_solve.cu). They port the device routines of
 // track_mjx_tpu/ops/batched_linalg.py that the TPU kernels run inside
-// themselves: factor_in_place (`tiled_factor`, with the arithmetic of
-// cholesky.cuh's `factor`), invert_diag_blocks (`invert_diag_blocks`) and
-// blocked_substitution_pinv (`warp_pinv_solve`). The plain PyTorch versions
-// are ops/batched_linalg.py's factor, invert_diag_blocks and
-// blocked_substitution_pinv.
+// themselves: factor_in_place (`tiled_factor`), invert_diag_blocks
+// (`invert_diag_blocks`), blocked_substitution_pinv (`warp_pinv_solve`) and
+// blocked_substitution (`warp_exact_solve`). The plain PyTorch versions are
+// ops/batched_linalg.py's factor, invert_diag_blocks,
+// blocked_substitution_pinv and blocked_substitution.
 //
 // - Tiles: only the lower triangle, as 4x4 tiles ordered by tile column from
 //   the last, so that the tiles right of any panel are a prefix; row r of
@@ -29,6 +30,11 @@
 //   lanes with the panel's values broadcast by shuffles, the update of the
 //   remaining right-hand side over the warp. tests/test_torch_cg_kernel.py
 //   mirrors it.
+// - warp_exact_solve: L L^T x = b by exact panel substitution (no panel
+//   inverses), by one warp alone, with no CTA barrier: cholesky.cuh's
+//   lower_substitution entry for entry, read through the tiles.
+//   tests/test_torch_ell_kernel.py mirrors it and holds it bit for bit
+//   against blocked_substitution with its sums taken one term at a time.
 
 #pragma once
 
@@ -340,6 +346,130 @@ __device__ void warp_pinv_solve(const Tiles& L, const float* dinv, const float* 
         float t = 0.f;
         for (int r = 0; r < m; ++r) t += L.s[L.row_part(p0 + r) + cp] * out[p0 + r];
         y[i] -= t;
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// The diagonal panel of L at p0 (m <= kPanel rows), as every lane reads it:
+// a[r][k] = L(p0 + r, p0 + k) for k <= r < m, the panel's three tiles as
+// 128-bit reads (entries above the diagonal are read and never used).
+__device__ __forceinline__ void diag_panel(const Tiles& L, int p0, int m, float (&a)[kPanel][kPanel]) {
+  const int tp = p0 >> 2;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const float4 t = L.row(L.index(tp, tp), r);
+    a[r][0] = t.x, a[r][1] = t.y, a[r][2] = t.z, a[r][3] = t.w;
+    float4 u = make_float4(0.f, 0.f, 0.f, 0.f), w = u;
+    if (m > 4) {
+      u = L.row(L.index(tp + 1, tp), r);
+      w = L.row(L.index(tp + 1, tp + 1), r);
+    }
+    a[4 + r][0] = u.x, a[4 + r][1] = u.y, a[4 + r][2] = u.z, a[4 + r][3] = u.w;
+    a[4 + r][4] = w.x, a[4 + r][5] = w.y, a[4 + r][6] = w.z, a[4 + r][7] = w.w;
+  }
+}
+
+// x / y for a positive (or NaN) y: a zero x gives x itself, as the division
+// would (0 / y keeps x's sign), without dividing: a zero dividend leaves the
+// division's fast path. A NaN, zero or negative y divides.
+__device__ __forceinline__ float div_pos(float x, float y) {
+  return x == 0.f && y > 0.f ? x : x / y;
+}
+
+// One warp alone: solves L L^T x = b into out by exact panel forward and
+// back substitution, with y as scratch; the arithmetic of
+// lower_substitution entry for entry. Forward, each panel's rows in turn,
+// v_j = (r_j - s) / L_jj with s = sum_{k < j} L_jk v_k one multiply-add at
+// a time in increasing k, then every row below takes r_i -= sum_c L_ic v_c
+// (c in increasing order); backward, v_j = (y_j - s) / L_jj with s summed
+// over k = m - 1 down to j + 1 of L_kj v_k, then every row above takes y_i
+// -= sum_r L_ri x_r. Where lower_substitution's lane j solves row j and
+// broadcasts it by a shuffle, every lane here holds the whole panel in
+// registers and solves all its rows alike, so no step waits for a shuffle;
+// the rows below or above go one per lane, their tile addresses formed once
+// per panel. kZeroDividends: a caller whose right-hand sides are often zero
+// (the gradient of an env at rest) skips the divisions of zero dividends
+// (div_pos, the same bits), which costs the others a compare each. Reads
+// only L's lower triangle. b (global or shared) must not alias out or y.
+// The caller syncs before (b ready) and after (out ready).
+template <bool kZeroDividends>
+__device__ void warp_exact_solve(const Tiles& L, const float* b, float* out, float* y, int n) {
+  const auto divide = [](float x, float d) { return kZeroDividends ? div_pos(x, d) : x / d; };
+  const int lane = threadIdx.x & 31;
+  for (int i = lane; i < n; i += 32) out[i] = b[i];
+  int cpl[kLaneRows];  // col_part of the lane's columns lane + 32 q
+#pragma unroll
+  for (int q = 0; q < kLaneRows; ++q) cpl[q] = L.col_part(lane + 32 * q);
+  __syncwarp();
+  float a[kPanel][kPanel], v[kPanel];
+  for (int p0 = 0; p0 < n; p0 += kPanel) {  // forward: L y = b
+    const int m = min(kPanel, n - p0);
+    float mine = 0.f;
+    diag_panel(L, p0, m, a);
+#pragma unroll
+    for (int j = 0; j < kPanel; ++j) {
+      v[j] = 0.f;
+      if (j < m) {
+        float s = 0.f;
+#pragma unroll
+        for (int k = 0; k < j; ++k) s += a[j][k] * v[k];
+        v[j] = divide(out[p0 + j] - s, a[j][j]);
+        if (lane == j) mine = v[j];
+      }
+    }
+    if (lane < m) y[p0 + lane] = mine;
+    if (p0 + m < n) {  // a full panel: columns p0 .. p0 + 7 are two tile columns
+      const int tp = p0 >> 2;
+      const float* ca = L.s + 4 * tri(L.nt - 1 - tp);
+      const float* cb = L.s + 4 * tri(L.nt - 2 - tp);
+      int rp = L.row_part(p0 + m + lane);  // row i + 32 is 8 tiles, 32 floats, earlier
+      for (int i = p0 + m + lane; i < n; i += 32, rp -= 32) {
+        const float4 u = *reinterpret_cast<const float4*>(ca + rp);
+        const float4 w = *reinterpret_cast<const float4*>(cb + rp);
+        float t = 0.f;
+        t += u.x * v[0];
+        t += u.y * v[1];
+        t += u.z * v[2];
+        t += u.w * v[3];
+        t += w.x * v[4];
+        t += w.y * v[5];
+        t += w.z * v[6];
+        t += w.w * v[7];
+        out[i] -= t;
+      }
+    }
+    __syncwarp();
+  }
+  for (int p0 = ((n - 1) / kPanel) * kPanel; p0 >= 0; p0 -= kPanel) {  // L^T x = y
+    const int m = min(kPanel, n - p0);
+    float mine = 0.f;
+    diag_panel(L, p0, m, a);
+#pragma unroll
+    for (int j = kPanel - 1; j >= 0; --j) {
+      v[j] = 0.f;
+      if (j < m) {
+        float s = 0.f;
+#pragma unroll
+        for (int k = kPanel - 1; k > j; --k)
+          if (k < m) s += a[k][j] * v[k];
+        v[j] = divide(y[p0 + j] - s, a[j][j]);
+        if (lane == j) mine = v[j];
+      }
+    }
+    if (lane < m) out[p0 + lane] = mine;
+    const float* r0 = L.s + L.row_part(p0);      // rows p0 .. p0 + 3, a plane apart
+    const float* r4 = L.s + L.row_part(p0 + 4);  // rows p0 + 4 .. p0 + 7
+#pragma unroll
+    for (int q = 0; q < kLaneRows; ++q) {
+      if (32 * q + lane < p0) {
+        const int cp = cpl[q];
+        float t = 0.f;
+#pragma unroll
+        for (int r = 0; r < kPanel; ++r)
+          if (r < m) t += (r < 4 ? r0 : r4)[(r & 3) * L.plane + cp] * v[r];
+        y[32 * q + lane] -= t;
       }
     }
     __syncwarp();

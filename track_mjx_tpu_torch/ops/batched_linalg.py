@@ -7,8 +7,9 @@ the right-looking Cholesky with c = row * rsqrt(diag)), `invert_diag_blocks`
 (inverses of the 8x8 diagonal panels of L), `blocked_substitution_pinv`
 (L L^T x = b by panel substitution through those inverses; the scalar
 solve) and `blocked_substitution` (the exact panel-8 forward and back
-substitution; the elliptic solve). They are the arithmetic of the CUDA
-device routines in csrc/cholesky.cuh, written as batched torch ops.
+substitution; the elliptic solve and cho_solve). They are the arithmetic of
+the CUDA device routines in csrc/tiled_cholesky.cuh and csrc/cholesky.cuh,
+written as batched torch ops.
 
 The standalone kernels (csrc/batched_linalg.cu) replace the TPU kernels
 `_cholesky_kernel`, `_cho_solve_kernel` and `_solve_spd_kernel` of the same
@@ -18,21 +19,22 @@ Newton solve, Euler's implicit-damping solve). `cholesky(a)`,
 arguments, run the plain version (`cholesky_plain`, `cho_solve_plain`,
 `solve_spd_plain`) for CPU tensors and launch the kernel for CUDA tensors,
 raising if the build or the launch fails. `<wrapper>.launches` counts kernel
-launches. `cholesky` and `solve_spd` run the tiled factor of
-csrc/batched_linalg.cu, which takes n <= MAX_N and reads only the lower
-triangle of its matrix, as the plain versions do; their wrappers raise for
-a larger n on the card.
+launches. All three keep the lower triangle of their matrix in the tiles of
+csrc/tiled_cholesky.cuh, which take n <= MAX_N, and read nothing above the
+diagonal, as the plain versions do; their wrappers raise for a larger n on
+the card. `cholesky` and `solve_spd` run its tiled factor, `cho_solve` and
+`solve_spd` its exact substitution (`cho_solve` on one warp per env).
 """
 
 from __future__ import annotations
 
 import torch
 
-from track_mjx_tpu_torch.ops.kernel_lib import MAX_SMEM_BYTES, load_library
+from track_mjx_tpu_torch.ops.kernel_lib import load_library
 
 PANEL = 8
 # The kernels on csrc/batched_linalg.cu's tiled factor, and the largest n
-# they take (the TPU kernels' documented range).
+# any kernel of the port takes (the TPU kernels' documented range).
 TILED = ("cholesky", "solve_spd")
 MAX_N = 128
 
@@ -177,16 +179,12 @@ def _check(op: str, mat: torch.Tensor, rhs: torch.Tensor | None = None) -> tuple
 
 def _launch(op: str, out: torch.Tensor, *args: torch.Tensor) -> torch.Tensor:
     """Launches `{op}_f32(*args, out, B, n, stream)` on the current stream of
-    the tensors' card; raises for an n the kernel does not take (the tiled
-    factor of cholesky and solve_spd: n > MAX_N; cho_solve: a matrix over
-    one CTA's shared memory) or if the launch fails."""
+    the tensors' card; raises for an n the kernel does not take (n > MAX_N)
+    or if the launch fails."""
     bsz, n = args[0].shape[0], args[0].shape[-1]
-    if op in TILED and n > MAX_N:
+    if n > MAX_N:
         raise ValueError(f"{op}: n = {n}, the CUDA kernel takes n <= {MAX_N}")
     lib = load_library()
-    smem = getattr(lib, f"{op}_smem_bytes")(n)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"{op}: n = {n} needs {smem} B of shared memory per env (max {MAX_SMEM_BYTES})")
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
         err = getattr(lib, f"{op}_f32")(*[t.data_ptr() for t in args], out.data_ptr(), bsz, n, stream)
@@ -215,7 +213,7 @@ def cho_solve(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solves L L^T x = b for lower factors [B, n, n] (only the lower
     triangle is read) and right-hand sides [B, n]. float32, contiguous; CPU
     tensors run `cho_solve_plain` (in float64 too), CUDA tensors launch the
-    kernel or raise."""
+    kernel (n <= MAX_N) or raise."""
     _check("cho_solve", l, b)
     if l.device.type == "cpu":
         return cho_solve_plain(l, b)

@@ -31,18 +31,18 @@ by bytes or flops: factorizations and (L L^T)^-1 applies are chains of
 dependent steps, over operands (J, qM, L) that live in shared memory for the
 whole solve. Both keep one env per CTA with everything in shared memory, so
 device memory is read once (the compact operands) and written once (the
-outputs). `cg_solve`'s kernel was redesigned to shorten the chain
-(csrc/cg_solve.cu): qM and its factors in lower-triangle tiles, factored by
-the standalone cholesky kernel's tiled factor; J compact (each limit row
-one dof, each contact its three frame rows, the pyramid rows formed inside
-the products with the dense build's arithmetic); the (L L^T)^-1 applies on
-one warp with no CTA barrier, their 8x8 panel steps on shuffles; each
-reduction behind one barrier, so a CG iteration pays 12 CTA barriers, not
-about 60; 3 envs per SM, not 2. It keeps the first design's float32
-operations in their order, so its outputs are the first design's bit for
-bit. It takes n <= MAX_N (batched_linalg.MAX_N). `ell_cg_solve`'s kernel
-keeps the dense first design (its linesearch is a knife edge under
-reassociation).
+outputs). Both kernels were redesigned to shorten the chain
+(csrc/cg_solve.cu, csrc/ell_cg_solve.cu): qM and its factors in
+lower-triangle tiles, factored by the standalone cholesky kernel's tiled
+factor; J compact (each limit row one dof, each contact its three frame
+rows; `cg_solve` forms the pyramid rows inside the products with the dense
+build's arithmetic); the (L L^T)^-1 applies on one warp with no CTA
+barrier (`cg_solve` through the panel inverses, `ell_cg_solve` by the
+exact substitution); each reduction behind one barrier. Each keeps its
+first design's float32 operations in their order, reductions included, so
+its outputs are its first design's bit for bit (the elliptic linesearch is
+a knife edge under reassociation). Both take n <= MAX_N
+(batched_linalg.MAX_N).
 
 `cg_solve` and `ell_cg_solve` are the wrappers: they check their arguments,
 run the plain version for CPU tensors and launch the kernel for CUDA
@@ -421,9 +421,9 @@ def _check(op: str, args, rows_per_con: int):
 
 def _launch(op: str, args, bsz, n, nl, nc, rows_per_con, iterations, ls_iterations) -> CGOut:
     """Launches `{op}_f32` on the current stream of the tensors' card; raises
-    for a model the kernel does not take (cg_solve: n > MAX_N; either: more
-    shared memory per env than a CTA has) or if the launch fails."""
-    if op == "cg_solve" and n > MAX_N:
+    for a model the kernel does not take (n > MAX_N, or more shared memory
+    per env than a CTA has) or if the launch fails."""
+    if n > MAX_N:
         raise ValueError(f"{op}: n = {n}, the CUDA kernel takes n <= {MAX_N}")
     lib = load_library()
     smem = getattr(lib, f"{op}_smem_bytes")(n, nl, nc)
@@ -490,7 +490,8 @@ def ell_cg_solve(
     [B, nl + 3 nc]; qfrc_smooth, warm, hd [B, n]; tolscale [B]. Static: anc
     (n, n) 0/1, arm (n,), dm (nc, n), lim1h (nl, n). All float32 and
     contiguous on one device. CPU tensors run `ell_cg_solve_plain` (in
-    float64 too, as a reference); CUDA tensors launch the kernel or raise."""
+    float64 too, as a reference); CUDA tensors launch the kernel (n <=
+    MAX_N; a lim1h row with two nonzeros makes that env's J NaN) or raise."""
     args = (buf, cdof, fq, sw, ll, mu, aref, D, qfrc_smooth, warm, hd, tolscale,
             anc, arm, dm, lim1h)
     bsz, n, nl, nc = _check("ell_cg_solve", args, 3)

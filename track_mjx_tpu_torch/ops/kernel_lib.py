@@ -58,10 +58,10 @@ def build_library(defines: tuple[str, ...] = ()) -> tuple[str, float, str]:
     """Compiles the csrc/ kernels for sm_90a, in one nvcc call, into one
     library under build/torch_kernels/ unless a library built from the same
     sources and flags is there. `defines` ("NAME=VALUE") are for the one
-    build-time switch the sources take, CG_SOLVE_STAMPS=1: cg_solve's phase
-    stamps, read by tools/compare_torch_kernels.py (the port loads the
-    library built without). Returns (path, build seconds, nvcc output);
-    raises if nvcc fails."""
+    build-time switch the sources take, CG_SOLVE_STAMPS=1: the phase stamps
+    of cg_solve and ell_cg_solve, read by tools/compare_torch_kernels.py (the
+    port loads the library built without). Returns (path, build seconds,
+    nvcc output); raises if nvcc fails."""
     path = library_path(defines)
     if os.path.exists(path):
         return path, 0.0, ""
@@ -108,6 +108,8 @@ def open_library(path: str) -> ctypes.CDLL:
     for op in ("cholesky", "cho_solve", "solve_spd"):
         _bind(getattr(lib, f"{op}_smem_bytes"), [i32], i64)
     _bind(lib.tiled_kernel_info, [i32, i32, ptr], i32)
-    _bind(lib.cg_solve_kernel_info, [i32, i32, i32, ptr], i32)
-    _bind(lib.cg_solve_stamps, [ptr], i32)
+    _bind(lib.cho_solve_kernel_info, [i32, ptr], i32)
+    for op in ("cg_solve", "ell_cg_solve"):
+        _bind(getattr(lib, f"{op}_kernel_info"), [i32, i32, i32, ptr], i32)
+        _bind(getattr(lib, f"{op}_stamps"), [ptr], i32)
     return lib

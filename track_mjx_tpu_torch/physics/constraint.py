@@ -12,6 +12,8 @@ soft-constraint model (mj_makeImpedance / mj_referenceConstraint); elliptic
 friction rows reuse the normal row's impedance, aref_fric = -b jv, and
 D_fric_i = D_normal impratio (mu_i / mu_1)^2 (mj_instantiateContact).
 
+A model without contacts takes the first layout with no contact rows: its
+limit rows alone, or no rows at all (nefc 0), as the reference solves them.
 Equality, frictionloss and condim-1/4/6 rows raise NotImplementedError.
 """
 
@@ -44,18 +46,19 @@ class EfcData:
     pos: torch.Tensor  # [B, nefc] constraint violation
     active_row: torch.Tensor  # [B, nefc] bool
     jb_sw: torch.Tensor  # [B, nv, 6]
-    jb_fq: torch.Tensor  # [B, ncon, 3, 6]
+    jb_fq: torch.Tensor  # [B, ncon, 3, 6] (ncon may be 0)
     jb_ll: torch.Tensor  # [B, nlimit] side * active
-    jb_mu: torch.Tensor | None  # [ncon, 2] tangential friction (pyramidal)
+    jb_mu: torch.Tensor | None  # [ncon, 2] tangential friction (pyramidal, and models without contacts)
     ell_mu: torch.Tensor | None = None  # [ncon] mu_1 of each cone block (elliptic)
 
 
 def _jb_supported(plan: PhysicsPlan) -> bool:
     """True when the plan's rows are exactly [joint limits | contact-major
-    condim-3 pyramid rows], the layout the fused solve builds J for."""
+    condim-3 pyramid rows], the layout the fused solve builds J for. A plan
+    with no contacts (limit rows only, or no rows at all) is one, as in the
+    reference, which solves such rows as scalar rows."""
     return bool(
-        plan.ncon > 0
-        and plan.ne == 0
+        plan.ne == 0
         and plan.nf == 0
         and plan.ncon_ell == 0
         and np.all(plan.contact_condim == 3)
@@ -64,7 +67,8 @@ def _jb_supported(plan: PhysicsPlan) -> bool:
 
 def _jb_supported_ell(plan: PhysicsPlan) -> bool:
     """True when the plan's rows are exactly [joint limits | per-contact
-    (normal, t1, t2) elliptic cone blocks], every contact condim 3."""
+    (normal, t1, t2) elliptic cone blocks], every contact condim 3, and
+    there is at least one contact."""
     return bool(
         plan.ncon > 0
         and plan.ne == 0
