@@ -21,24 +21,43 @@ It imports nothing of JAX. Phases, each of which raises on failure:
    contacts must be active. For 64 of those envs, the warm-up control step
    and one substep from the state after it are repeated on the CPU (plain
    version) from the same state and controls and compared.
-4. Fly kernel against plain: 4096 contact-rich fly states; at one
+4. Rodent rollout: the port's rollout of rodent-full-clips
+   (track_mjx_tpu_torch/rollout.py): 8 synthetic clips of 250 frames made
+   on the card, the tracking env with the exported config (CG 5/5, 10
+   substeps, dt 0.002, mocap 50 Hz, traj_length 5, the reward weights),
+   Episode (195 steps) and AutoReset wrappers, 4096 envs, and the
+   intention policy and value networks at the config's widths (encoder
+   [1024, 512 x 4], decoder [512 x 3, 256 x 2] + 2 x 38, critic
+   [512 x 5, 256], intention 60) from seeded initializers behind the
+   initial normalizer. Reset and one stochastic generate_unroll of
+   unroll_length (20) steps must launch cg_solve exactly 1 + 20 x 10 times
+   and the plain version never; every Transition field must be finite.
+   Then ROLLOUT_TIMED more unrolls are timed (env-steps/s with the
+   policy, median and spread, beside the physics-only figure of 3), the
+   policy's forward at 4096 envs is timed with CUDA events, and for 64
+   envs one env step from the state after the first unroll is repeated on
+   the CPU: on the card's own physics output the env layer (obs, reward,
+   the reward terms, flags) must agree with the CPU's to float32
+   roundoff; the whole step, card and CPU float32, against a float64 CPU
+   run. The policy's outputs on 64 observations are held against the CPU.
+5. Fly kernel against plain: 4096 contact-rich fly states; at one
    iteration with one Newton step every output of ell_cg_solve is held to
    the JAX package's bars, at the workload's 4/4 the kernel is held by its
    optimality gap against a converged (60/15) plain solve. The kernel's
    registers, shared memory, resident CTAs per SM and waves are printed.
    Both are timed at 4/4.
-5. Fly main path: the fly-mc-intention snapshot, 4096 envs, 1 warm-up and 3
+6. Fly main path: the fly-mc-intention snapshot, 4096 envs, 1 warm-up and 3
    timed control steps; ell_cg_solve must launch once per substep (40
    launches), the state must stay finite and contacts must be active. For 64
    envs the warm-up control step and one substep after it are repeated on
    the CPU in float32 and in float64; the card must be as close to the
    float64 run as the CPU's float32 run is.
-6. Rodent Newton main path: the rodent-full-clips snapshot with
+7. Rodent Newton main path: the rodent-full-clips snapshot with
    opt.solver = Newton, 4096 envs, 1 warm-up and 3 timed control steps;
    every substep must launch cholesky once, cho_solve once, solve_spd
    iterations + 1 times and cg_solve never, the state must stay finite and
    contacts active; 64 envs are compared with the CPU as in 3.
-7. Standalone linalg kernels against plain: from 4096 contact-rich states
+8. Standalone linalg kernels against plain: from 4096 contact-rich states
    of the same model, made on the card with the port's stages, qM goes
    through cholesky, its factor and qfrc_smooth through cho_solve, the
    first Newton iteration's H (and Euler's M + h D) through solve_spd, each
@@ -52,7 +71,9 @@ It imports nothing of JAX. Phases, each of which raises on failure:
    time where the host is the slower), its share of its bound and its
    ratio to the library call. This phase comes last: it starts
    torch.profiler, which no host-clock rate should run after.
-8. Prints the kernels' JSON line and, last, {"ok": true, "device": {...}}.
+9. Prints the kernels' JSON line (each kernel's launches on every path
+   that runs it under "launches_by_path") and, last, {"ok": true,
+   "device": {...}}.
 """
 
 from __future__ import annotations
@@ -150,6 +171,29 @@ FLY_F64_FLOOR = 1e-6
 # by at most GAP_SUM.
 GAP_SHARE = 0.02
 GAP_SUM = 1.1
+
+# --- rodent rollout: the tracking env and the intention policy
+ROLLOUT_CLIPS = 8
+ROLLOUT_TIMED = 2  # timed unrolls after the first (counted) one
+# The env layer on the card's own physics output, card against CPU, per env
+# relative to max(1, max |cpu|): the same float32 formulas (gathers, sums
+# in another order), about 1e-7 in the JAX package's parity tests.
+ROLLOUT_LAYER_REL = 1e-5
+# The whole env step from a rollout state. The untrained policy's actions
+# are O(1), and a rodent driven so is chaotic in float32: one control step
+# of float32 against float64 from the same state parts most envs' obs by
+# tenths (this phase prints it), so the card is held against a float64 CPU
+# run and must stay as close to it as the CPU's float32 run is: the card's
+# median per-env error within ROLLOUT_VS_F64 times the CPU's, plus
+# ROLLOUT_F64_FLOOR.
+ROLLOUT_VS_F64 = 3.0
+ROLLOUT_F64_FLOOR = 1e-6
+# The policy and value networks, card against CPU on the same weights and
+# observations, both in full float32 (TF32 off): sums of up to 1024 terms
+# in another order; the port matched the JAX package to 2.0e-6 on the CPU.
+POLICY_REL = 1e-5
+REWARD_TERMS = ("pos_reward", "quat_reward", "joint_reward", "angvel_reward", "bodypos_reward",
+                "endeff_reward", "ctrl_cost", "ctrl_diff_cost", "energy_cost", "var_cost", "jerk_cost")
 
 # --- rodent under the Newton solver: the standalone linalg kernels
 NEWTON_CONTROL_STEPS = 3  # timed, after one warm-up control step
@@ -362,6 +406,7 @@ class Phases:
             assert t.shape[0] == N_ENVS and torch.isfinite(t).all(), f"{name} is not finite"
         assert active > 0, "no contact is active"
         env_steps = control_steps * N_ENVS / seconds
+        self.last_env_steps = env_steps
         print(f"main path: {N_ENVS} envs x {control_steps} control steps x {SUBSTEPS} substeps in "
               f"{seconds:.3f} s: {env_steps:.1f} env-steps/s, {env_steps * SUBSTEPS:.1f} env-substeps/s; "
               f"launches {launches} ({1 + control_steps} control steps); active contacts/env at the control steps' ends "
@@ -465,6 +510,7 @@ class Phases:
         start, ctrls, after_warmup, _, launches = self.main_path(
             plan, model, {tk.cg_solve: 1}, RODENT_CONTROL_STEPS, RODENT_CTRL_SCALE
         )
+        self.physics_env_steps = self.last_env_steps
         cpu_plan, cpu_model, cpu = self.cpu_warmup(tm.load_snapshot("rodent-full-clips"), start, ctrls[0])
         errs = {}
         for name in ("qpos", "qvel"):
@@ -497,6 +543,166 @@ class Phases:
             "bound_by": b_by,
             "library_ms": None,  # no single PyTorch call computes the fused solve
         }]
+
+    # -----------------------------------------------------------------------
+    # rodent rollout: the tracking env and the intention policy
+    # -----------------------------------------------------------------------
+
+    def rollout(self) -> int:
+        """The rodent rollout at 4096 envs (phase 4); returns cg_solve's
+        launches in reset and the first unroll."""
+        from track_mjx_tpu_torch import rollout as trollout
+        from track_mjx_tpu_torch.agent import acting
+        from track_mjx_tpu_torch.envs.base import Wrapper, map_tensors
+
+        tk = self.tk
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = phase_t0 = time.perf_counter()
+        ro = trollout.make_rollout(n_clips=ROLLOUT_CLIPS, seed=SEED, device=self.dev)
+        env, unroll = ro.tracking, ro.unroll_length
+        torch.cuda.synchronize()
+        print(f"rollout: {ROLLOUT_CLIPS} clips x {env._clip_frames} frames synthesized and the env and "
+              f"networks built on the card in {time.perf_counter() - t0:.1f} s; obs {env.observation_size} "
+              f"(reference {env.reference_obs_size}), actions {env.action_size}, episode length "
+              f"{ro.episode_length}, unroll length {unroll}, policy parameters "
+              f"{sum(p.numel() for p in ro.networks.policy_network.parameters())}")
+
+        class Recorder(Wrapper):
+            """Counts, per step, the envs that hit the NaN guard."""
+
+            nans: list = []
+
+            def step(self, state, action):
+                state = self.env.step(state, action)
+                self.nans.append(int(state.metrics["nan"].sum()))
+                return state
+
+        wrapped = Recorder(ro.env)
+        policy = ro.policy()
+        gen = torch.Generator(device=self.dev).manual_seed(SEED)
+        plain_calls = [0]
+        plain = tk.cg_solve_plain
+
+        def counting_plain(*args, **kwargs):
+            plain_calls[0] += 1
+            return plain(*args, **kwargs)
+
+        tk.cg_solve_plain = counting_plain
+        others = (tk.ell_cg_solve, self.bl.cholesky, self.bl.cho_solve, self.bl.solve_spd)
+        for op in (tk.cg_solve, *others):
+            op.launches = 0  # reset and the first unroll: the path's launches
+        t0 = time.perf_counter()
+        state = wrapped.reset(gen, N_ENVS)
+        state, data = acting.generate_unroll(wrapped, state, policy, gen, unroll)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = tk.cg_solve.launches
+        expected = 1 + unroll * SUBSTEPS
+        assert launches == expected, f"cg_solve launched {launches} times in reset and {unroll} steps, expected {expected}"
+        for op in others:
+            assert op.launches == 0, f"the rollout launched {op.__name__}"
+        fields = {f: getattr(data, f) for f in ("observation", "action", "reward", "discount", "next_observation")}
+        fields.update({f"extras.{k}": v for k, v in data.extras["policy_extras"].items()})
+        for name, t in fields.items():
+            assert t.shape[:2] == (unroll, N_ENVS) and torch.isfinite(t).all(), f"transition {name} is not finite"
+        dones = int((data.discount == 0).sum())
+        print(f"rollout: reset + {unroll} steps of {N_ENVS} envs in {first_s:.3f} s, cg_solve launches "
+              f"{launches} (1 + {unroll} x {SUBSTEPS}); every Transition field finite; env-steps that ended "
+              f"an episode {dones} of {unroll * N_ENVS}, that hit the NaN guard {sum(wrapped.nans)} "
+              f"(per step {wrapped.nans})")
+
+        seconds = []
+        for _ in range(ROLLOUT_TIMED):
+            before = tk.cg_solve.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, data = acting.generate_unroll(wrapped, state, policy, gen, unroll)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            assert tk.cg_solve.launches - before == unroll * SUBSTEPS, "a timed unroll launched cg_solve otherwise"
+            assert torch.isfinite(data.observation).all() and torch.isfinite(data.reward).all()
+        tk.cg_solve_plain = plain
+        assert plain_calls[0] == 0, f"the rollout called cg_solve_plain {plain_calls[0]} times"
+        peak = torch.cuda.max_memory_allocated()
+        rates = sorted(unroll * N_ENVS / s for s in seconds)
+        median = rates[len(rates) // 2] if len(rates) % 2 else 0.5 * (rates[len(rates) // 2 - 1] + rates[len(rates) // 2])
+        policy_ms, policy_host_ms = _times(lambda: policy(state.obs, gen), 20)
+        # the policy's products (a multiply-add counts 2) and weights, read once
+        linears = [m for m in ro.networks.policy_network.modules() if isinstance(m, torch.nn.Linear)]
+        policy_flops = sum(2 * N_ENVS * m.in_features * m.out_features for m in linears)
+        policy_bound, policy_by = bound_ms(tensor_bytes([*ro.networks.policy_network.parameters(), state.obs]),
+                                           policy_flops)
+        print(f"rollout: {ROLLOUT_TIMED} timed unrolls of {unroll} steps x {N_ENVS} envs in "
+              f"{', '.join(f'{x:.3f}' for x in seconds)} s: {median:.1f} env-steps/s median (spread "
+              f"{rates[0]:.1f}-{rates[-1]:.1f}), policy included; physics alone (phase 3, this run) "
+              f"{self.physics_env_steps:.1f} env-steps/s; cg_solve_plain calls 0; policy forward at "
+              f"B={N_ENVS} {policy_ms:.3f} ms (CUDA events; host issue {policy_host_ms:.3f} ms; bound "
+              f"{policy_bound:.4f} ms ({policy_by}), {policy_flops / 1e9:.2f} GFLOP in float32); peak "
+              f"memory {peak} B ({self.card})")
+
+        # card against CPU on N_CPU envs, one env step from the state after
+        # the first unroll (the unwrapped env: the Data of the step is kept)
+        sub = map_tensors(lambda t: t[:N_CPU] if t.dim() and t.shape[0] == N_ENVS else t, state)
+        action, _ = policy(sub.obs, gen)
+        card = env.step(sub, action)
+        cpu_ro = trollout.make_rollout(clips=env._reference_clips.to("cpu"), seed=SEED, device="cpu")
+        cpu_env = cpu_ro.tracking
+        to_cpu = lambda tree: map_tensors(lambda t: t.cpu(), tree)  # noqa: E731
+        cpu_sub, cpu_action = to_cpu(sub), action.cpu()
+        cpu = cpu_env.step(cpu_sub, cpu_action)
+        cpu_env.pipeline_step = lambda data, ctrl: to_cpu(card.pipeline_state)
+        layer = cpu_env.step(cpu_sub, cpu_action)
+        del cpu_env.pipeline_step
+        cpu_env.model = self.tm.Model(**{f: getattr(cpu_env.model, f).double() for f in self.tm.Model.__dataclass_fields__})
+        cpu_env._pack = cpu_env._pack.double()
+        f64 = cpu_env.step(map_tensors(lambda t: t.double() if t.is_floating_point() else t, cpu_sub),
+                           cpu_action.double())
+
+        def pairs(out):
+            got = {"obs": out.obs, "reward": out.reward[:, None]}
+            got.update({k: out.metrics[k][:, None] for k in REWARD_TERMS})
+            return got
+
+        card_v, cpu_v, layer_v, f64_v = pairs(card), pairs(cpu), pairs(layer), pairs(f64)
+        worst = 0.0
+        for name in card_v:
+            worst = max(worst, float(_per_env(card_v[name].cpu(), layer_v[name]).max()))
+        flags = ("done", "too_far", "bad_pose", "bad_quat", "fall", "nan")
+        flags_equal = all(torch.equal(card.metrics[k].cpu(), layer.metrics[k]) for k in flags)
+        print(f"rollout, card vs CPU on the card's physics, {N_CPU} envs: env layer worst per-env rel err "
+              f"{worst:.3e} over obs, reward and the reward terms (bar {ROLLOUT_LAYER_REL:.0e}); flags equal {flags_equal}")
+        assert worst < ROLLOUT_LAYER_REL, f"the card's env layer disagrees with the CPU's: {worst:.3e}"
+        assert flags_equal, "the card's flags disagree with the CPU's on the same physics"
+        for name in card_v:
+            ref = f64_v[name].double()
+            card_e = _per_env(card_v[name].cpu().double(), ref)
+            cpu_e = _per_env(cpu_v[name].double(), ref)
+            bar = ROLLOUT_VS_F64 * float(cpu_e.median()) + ROLLOUT_F64_FLOOR
+            print(f"rollout, one env step, {N_CPU} envs, {name} against float64 CPU: per-env rel err, card "
+                  f"median {float(card_e.median()):.3e} max {float(card_e.max()):.3e}; CPU float32 median "
+                  f"{float(cpu_e.median()):.3e} max {float(cpu_e.max()):.3e}; bar on the card's median {bar:.3e}")
+            assert float(card_e.median()) <= bar, f"rollout: card {name} further from float64 than the CPU"
+        done_card, done_cpu = int(card.done.sum()), int(cpu.done.sum())
+        print(f"rollout, one env step, {N_CPU} envs: done on the card {done_card}, on the CPU {done_cpu}, "
+              f"in float64 {int(f64.done.sum())}")
+
+        # the networks, card against CPU (the same seeded weights)
+        obs = sub.obs
+        card_out = ro.networks.policy_network(ro.normalizer, obs, None)
+        cpu_out = cpu_ro.networks.policy_network(cpu_ro.normalizer, obs.cpu(), None)
+        card_value = ro.networks.value_network(ro.normalizer, obs)
+        cpu_value = cpu_ro.networks.value_network(cpu_ro.normalizer, obs.cpu())
+        for name, a, b in zip(("logits", "latent_mean", "latent_logvar", "value"),
+                              (*card_out, card_value[:, None]), (*cpu_out, cpu_value[:, None])):
+            err = float(_per_env(a.detach().cpu(), b.detach()).max())
+            print(f"rollout, policy card vs CPU, {N_CPU} observations, {name}: worst per-env rel err "
+                  f"{err:.3e} (bar {POLICY_REL:.0e})")
+            assert err < POLICY_REL, f"the card's {name} disagree with the CPU's: {err:.3e}"
+        del ro, cpu_ro, state, data, sub
+        torch.cuda.empty_cache()
+        print(f"rollout phase: {time.perf_counter() - phase_t0:.1f} s ({self.card})")
+        return launches
 
     # -----------------------------------------------------------------------
     # fly
@@ -869,7 +1075,17 @@ def main() -> None:
             print("  ptxas:", line.strip())
     tf.set_full_f32()
     phases = Phases(card)
-    kernels = phases.rodent() + phases.fly() + phases.newton()
+    kernels = phases.rodent()
+    rollout_launches = phases.rollout()
+    kernels += phases.fly() + phases.newton()
+    for k in kernels:  # each kernel's launches on every path that runs it, as counted there
+        if k["name"] == "cg_solve":
+            k["launches_by_path"] = {"rodent control steps (phase 3)": k["launches"],
+                                     "rodent rollout, reset + one unroll (phase 4)": rollout_launches}
+        elif k["name"] == "ell_cg_solve":
+            k["launches_by_path"] = {"fly control steps (phase 6)": k["launches"]}
+        else:
+            k["launches_by_path"] = {"rodent Newton control steps (phase 7)": k["launches"]}
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,6 +3,7 @@ put_model on every plan and model field, the numpy converters, and the
 port's import isolation from JAX and MuJoCo."""
 
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -25,17 +26,37 @@ def export_tool():
 
 
 @pytest.fixture(scope="module")
-def live_model(export_tool):
-    return export_tool.workload_model("rodent-full-clips")
+def live_walker(export_tool):
+    return export_tool.workload_walker("rodent-full-clips")
 
 
-def test_snapshot_equals_fresh_export(export_tool, live_model):
-    fresh = export_tool.snapshot_arrays(live_model)
+@pytest.fixture(scope="module")
+def live_model(live_walker):
+    return live_walker._mj_model
+
+
+def test_snapshot_equals_fresh_export(export_tool, live_walker):
+    fresh = {**export_tool.snapshot_arrays(live_walker._mj_model), **export_tool.walker_arrays(live_walker)}
     with np.load(tm.SNAPSHOTS["rodent-full-clips"]) as z:
         assert sorted(z.files) == sorted(fresh)
         for name, arr in fresh.items():
             assert z[name].dtype == arr.dtype, name
             np.testing.assert_array_equal(z[name], arr, err_msg=name)
+    with open(os.path.splitext(tm.SNAPSHOTS["rodent-full-clips"])[0] + ".json") as f:
+        assert json.load(f) == export_tool.config_sections("rodent-full-clips")
+
+
+def test_snapshot_walker_tables_equal_the_jax_rodent(live_walker):
+    """The port's Rodent, built from the snapshot with no MuJoCo, holds the
+    index tables that the JAX Rodent resolves by name."""
+    from track_mjx_tpu_torch.envs.walker.rodent import Rodent
+
+    walker = Rodent.from_snapshot(tm.load_snapshot("rodent-full-clips"))
+    np.testing.assert_array_equal(walker.joint_idxs, np.asarray(live_walker._joint_idxs))
+    np.testing.assert_array_equal(walker.body_idxs, np.asarray(live_walker._body_idxs))
+    np.testing.assert_array_equal(walker.endeff_idxs, np.asarray(live_walker._endeff_idxs))
+    assert walker.torso_idx == int(live_walker._torso_idx) == 3
+    assert (len(walker.joint_idxs), len(walker.body_idxs), len(walker.endeff_idxs)) == (33, 18, 5)
 
 
 @pytest.mark.parametrize("source", ["snapshot", "live"])
@@ -106,6 +127,10 @@ def test_port_imports_neither_jax_nor_mujoco():
         "import sys\n"
         "import track_mjx_tpu_torch.physics.forward\n"
         "import track_mjx_tpu_torch.ops.cg_solver_kernel\n"
+        "import track_mjx_tpu_torch.envs.wrappers, track_mjx_tpu_torch.envs.task.tracking\n"
+        "import track_mjx_tpu_torch.envs.walker.rodent, track_mjx_tpu_torch.io.load\n"
+        "import track_mjx_tpu_torch.io.synthetic, track_mjx_tpu_torch.agent.acting\n"
+        "import track_mjx_tpu_torch.agent.ppo_factory, track_mjx_tpu_torch.agent.mlp_ppo.ppo_networks\n"
         "bad = [m for m in ('jax', 'flax', 'mujoco', 'yaml', 'h5py', 'track_mjx_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n"
         "print('ok')\n"

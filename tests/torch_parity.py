@@ -143,3 +143,210 @@ def assert_plan_equal(a, b):
 def rodent_full_clips_model():
     """The rodent MjModel compiled as the rodent-full-clips workload does."""
     return load_export_tool().workload_model("rodent-full-clips")
+
+
+# ---------------------------------------------------------------------------
+# env and agent layers: the JAX package's objects carried into the port
+# ---------------------------------------------------------------------------
+
+CLIP_FIELDS = (
+    "position",
+    "quaternion",
+    "joints",
+    "body_positions",
+    "velocity",
+    "angular_velocity",
+    "joints_velocity",
+    "body_quaternions",
+)
+
+
+def port_walker(jwalker, mj_model=None):
+    """The port's walker with the JAX walker's index tables and model."""
+    from track_mjx_tpu_torch.envs.walker.base import BaseWalker
+
+    return BaseWalker(
+        np.asarray(jwalker._joint_idxs),
+        np.asarray(jwalker._body_idxs),
+        np.asarray(jwalker._endeff_idxs),
+        int(jwalker._torso_idx),
+        mj_model=jwalker._mj_model if mj_model is None else mj_model,
+        reproduce_joint_index_quirk=jwalker.reproduce_joint_index_quirk,
+    )
+
+
+def port_reward_config(jrc):
+    """The port's RewardConfig with the JAX one's values."""
+    import dataclasses
+
+    from track_mjx_tpu_torch.envs.task.reward import RewardConfig
+
+    vals = {f.name: getattr(jrc, f.name) for f in dataclasses.fields(RewardConfig)}
+    vals["penalty_pos_distance_scale"] = np.asarray(vals["penalty_pos_distance_scale"]).tolist()
+    return RewardConfig(**vals)
+
+
+def port_clip(jclip):
+    """The port's ReferenceClip (CPU) of a JAX ReferenceClip."""
+    from track_mjx_tpu_torch.io.load import clip_from_numpy
+
+    return clip_from_numpy({k: np.asarray(getattr(jclip, k)) for k in CLIP_FIELDS}, "cpu")
+
+
+def jax_reset_draws(env, keys, noise_scale):
+    """What the JAX MultiClipTracking.reset draws from each key of `keys`
+    (start frame, clip index, qpos noise, qvel noise; tracking.py:567-579
+    and :228-250, where rng1 is the start frame's key and serves both
+    noises), as numpy arrays [B, ...]."""
+    import jax
+
+    nq, nv, n_clips = env.plan.nq, env.plan.nv, env._n_clips
+
+    def draws(rng):
+        _, start_rng, clip_rng = jax.random.split(rng, 3)
+        start = jax.random.randint(start_rng, (), 0, 44)
+        clip = jax.random.randint(clip_rng, (), 0, n_clips)
+        _, rng1, _ = jax.random.split(rng, 3)
+        lo, hi = -noise_scale, noise_scale
+        return (
+            start,
+            clip,
+            jax.random.uniform(rng1, (nq,), minval=lo, maxval=hi),
+            jax.random.uniform(rng1, (nv,), minval=lo, maxval=hi),
+        )
+
+    return [np.asarray(x) for x in jax.vmap(draws)(keys)]
+
+
+def jax_policy_noise(key, batch: int, latents: int, action_size: int):
+    """The standard-normal draws of one stochastic step of the JAX
+    package's intention policy under `key` (ppo_factory.py:109,
+    intention.py:210 and :153): (latent noise, action noise)."""
+    import jax
+
+    key_sample, key_network = jax.random.split(key)
+    _, sample_rng = jax.random.split(key_network)
+    return (
+        np.array(jax.random.normal(sample_rng, (batch, latents))),
+        np.array(jax.random.normal(key_sample, (batch, action_size))),
+    )
+
+
+def to_torch(tree):
+    """A JAX pytree of arrays (flax dataclasses, dicts) carried into the
+    port on the CPU: jax arrays become tensors (float32, or int64 for
+    integers), JAX SlimData, Data and ReferenceClip the port's."""
+    import dataclasses
+
+    import torch
+
+    from track_mjx_tpu.io.load import ReferenceClip as JClip
+    from track_mjx_tpu.physics import forward as jf
+    from track_mjx_tpu.physics import model as jm
+    from track_mjx_tpu_torch.io.load import clip_from_numpy
+    from track_mjx_tpu_torch.physics import forward as tf
+    from track_mjx_tpu_torch.physics import model as tm
+
+    def leaf(x):
+        a = np.array(x)
+        if a.dtype.kind in "iu":
+            return torch.as_tensor(a.astype(np.int64))
+        return torch.as_tensor(a.astype(np.float32))
+
+    if isinstance(tree, jf.SlimData):
+        return tf.SlimData(**{f: leaf(getattr(tree, f)) for f in tf._CARRY_FIELDS})
+    if isinstance(tree, jm.Data):
+        return tm.data_from_numpy(
+            {f.name: np.asarray(getattr(tree, f.name)) for f in dataclasses.fields(jm.Data)}, "cpu"
+        )
+    if isinstance(tree, JClip):
+        return clip_from_numpy({k: np.asarray(getattr(tree, k)) for k in CLIP_FIELDS}, "cpu")
+    if isinstance(tree, dict):
+        return {k: to_torch(v) for k, v in tree.items()}
+    if isinstance(tree, (int, float)):
+        return tree
+    return leaf(tree)
+
+
+def state_to_torch(jstate):
+    """A batched JAX env State as the port's State (CPU)."""
+    from track_mjx_tpu_torch.envs.base import State
+
+    info = to_torch(dict(jstate.info))
+    for k in ("reference_obs_size", "proprioceptive_obs_size"):
+        if k in info:
+            info[k] = int(np.asarray(jstate.info[k]).reshape(-1)[0])
+    return State(
+        pipeline_state=to_torch(jstate.pipeline_state),
+        obs=to_torch(jstate.obs),
+        reward=to_torch(jstate.reward),
+        done=to_torch(jstate.done),
+        metrics=to_torch(dict(jstate.metrics)),
+        info=info,
+    )
+
+
+def per_env_rel(got, want) -> np.ndarray:
+    """Per-env max |got - want| / max(1, max |want|) over all but the
+    first axis."""
+    got = np.asarray(got, np.float64).reshape(len(want), -1)
+    want = np.asarray(want, np.float64).reshape(len(want), -1)
+    if want.shape[1] == 0:
+        return np.zeros(len(want))
+    return np.abs(got - want).max(1) / np.maximum(1.0, np.abs(want).max(1))
+
+
+# flags whose value sits within this relative distance of their threshold
+# may flip between two f32 computations of the same step
+FLAG_MARGIN = 1e-4
+
+
+def near_threshold(value, threshold) -> np.ndarray:
+    value = np.asarray(value, np.float64)
+    return np.abs(value - threshold) <= FLAG_MARGIN * max(abs(threshold), 1e-30)
+
+
+FLAGS = {"too_far": "too_far_dist", "bad_pose": "bad_pose_dist", "bad_quat": "bad_quat_dist"}
+FLAG_SOURCE = {"too_far": "summed_pos_distance", "bad_pose": "joint_distance", "bad_quat": "quat_distance"}
+
+
+def assert_state_close(got, want, rel, what, reward_config=None, frame_rel=1e-6):
+    """obs, reward, done, the 20 metrics and the step's info per env; flags
+    equal except within FLAG_MARGIN of their threshold (returns how many
+    envs that exempted). `rel` may be a number or a per-env array."""
+    import dataclasses
+
+    from track_mjx_tpu_torch.envs.task import tracking as tt
+
+    rel = np.broadcast_to(np.asarray(rel, np.float64), (len(np.asarray(want.done)),))
+    exempt = 0
+    for name, g, w in (("obs", got.obs, want.obs), ("reward", got.reward, want.reward)):
+        err = per_env_rel(g, np.asarray(w))
+        assert (err < rel).all(), f"{what} {name}: {err} against {rel}"
+    assert set(got.metrics) == set(want.metrics) == set(tt.METRIC_KEYS)
+    flags = ("done", "too_far", "bad_pose", "bad_quat", "fall", "nan")
+    for k in tt.METRIC_KEYS:
+        w = np.asarray(want.metrics[k])
+        g = got.metrics[k].numpy()
+        if k in flags:
+            keep = np.ones(len(w), bool)
+            if k in FLAGS and reward_config is not None:
+                near = near_threshold(want.metrics[FLAG_SOURCE[k]], getattr(reward_config, FLAGS[k]))
+                keep &= ~near
+                exempt += int(near.sum())
+            np.testing.assert_array_equal(g[keep], w[keep], err_msg=f"{what} {k}")
+        else:
+            err = per_env_rel(g[:, None], w[:, None])
+            assert (err < rel).all(), f"{what} {k}: {err} against {rel}"
+    np.testing.assert_array_equal(got.done.numpy(), np.asarray(want.done), err_msg=f"{what} done")
+    info_w = want.info
+    for k in ("start_frame", "clip_idx", "buffer_index"):
+        np.testing.assert_array_equal(got.info[k].numpy(), np.asarray(info_w[k]), err_msg=f"{what} {k}")
+    for k in ("action_buffer", "prev_ctrl"):
+        assert (per_env_rel(got.info[k], np.asarray(info_w[k])) < rel).all(), f"{what} {k}"
+    for f in dataclasses.fields(got.info["reference_frame"]):
+        if f.name in ("original_clip_idx", "body_quaternions"):
+            continue  # not read after io: None and zeros in both packages
+        g = getattr(got.info["reference_frame"], f.name)
+        assert per_env_rel(g, np.asarray(getattr(info_w["reference_frame"], f.name))).max() < frame_rel, f.name
+    return exempt

@@ -10,13 +10,19 @@ and the MjModel fields and `opt` scalars that `put_model` reads, and no
 others, are written to track_mjx_tpu_torch/assets/<name>.npz (dashes become
 underscores). The fields are found by running the JAX package's put_model on
 a proxy that records every attribute it reads, so the snapshot follows
-put_model if that changes. This tool needs mujoco and the JAX package; the
-port that reads the snapshot needs neither.
+put_model if that changes. Beside them, under `walker.` keys, go the
+walker's index tables (joint, body and end-effector ids and the torso's),
+which the JAX walker resolves by name with MuJoCo. The config's env_args,
+reward_weights, reference_config, network_config and train_config go to
+<name>.json beside the snapshot (the port reads them with the standard
+library: where it runs there may be no YAML reader). This tool needs mujoco
+and the JAX package; the port that reads the snapshot needs neither.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 
@@ -24,6 +30,10 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = ("rodent-full-clips", "fly-mc-intention")
+
+
+# the config sections the port reads from <name>.json
+CONFIG_SECTIONS = ("env_args", "reward_weights", "reference_config", "network_config", "train_config")
 
 
 def default_out(config: str) -> str:
@@ -47,8 +57,9 @@ class _Recorder:
         return val
 
 
-def workload_model(config: str):
-    """The walker's MjModel as the `config` tracking env compiles it."""
+def workload_walker(config: str):
+    """The JAX package's walker of `config`, its MjModel compiled as the
+    tracking env compiles it."""
     if config not in CONFIGS:
         raise ValueError(f"unknown config {config!r}; choose from {CONFIGS}")
     sys.path.insert(0, REPO)
@@ -74,7 +85,44 @@ def workload_model(config: str):
     m.opt.ls_iterations = args.ls_iterations
     m.opt.timestep = args.mj_model_timestep
     m.opt.jacobian = 0  # dense
-    return m
+    return walker
+
+
+def workload_model(config: str):
+    """The walker's MjModel as the `config` tracking env compiles it."""
+    return workload_walker(config)._mj_model
+
+
+def walker_arrays(walker) -> dict:
+    """The walker's index tables under `walker.` keys."""
+    return {
+        "walker.joint_idxs": np.asarray(walker._joint_idxs, np.int64),
+        "walker.body_idxs": np.asarray(walker._body_idxs, np.int64),
+        "walker.endeff_idxs": np.asarray(walker._endeff_idxs, np.int64),
+        "walker.torso_idx": np.asarray(walker._torso_idx, np.int64),
+    }
+
+
+def export_arrays(config: str) -> dict:
+    """Everything the snapshot of `config` holds: put_model's fields and the
+    walker's index tables."""
+    walker = workload_walker(config)
+    return {**snapshot_arrays(walker._mj_model), **walker_arrays(walker)}
+
+
+def config_sections(config: str) -> dict:
+    """The sections of `config` that the port reads, as plain JSON values."""
+    from track_mjx_tpu.utils.config import load_config
+
+    cfg = load_config(config)
+    where = {
+        "env_args": cfg.env_config.env_args,
+        "reward_weights": cfg.env_config.reward_weights,
+        "reference_config": cfg.reference_config,
+        "network_config": cfg.network_config,
+        "train_config": cfg.train_setup.train_config,
+    }
+    return {k: where[k].to_dict() for k in CONFIG_SECTIONS}
 
 
 def snapshot_arrays(m) -> dict:
@@ -96,10 +144,15 @@ def main(argv):
     ap.add_argument("--out", default=None, help="default: the port's assets/<config>.npz")
     args = ap.parse_args(argv[1:])
     out = args.out or default_out(args.config)
-    arrays = snapshot_arrays(workload_model(args.config))
+    arrays = export_arrays(args.config)
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
     np.savez_compressed(out, **arrays)
     print(f"wrote {len(arrays)} fields, {os.path.getsize(out)} bytes to {out}")
+    json_out = os.path.splitext(out)[0] + ".json"
+    with open(json_out, "w") as f:
+        json.dump(config_sections(args.config), f, indent=1, sort_keys=True)
+        f.write("\n")
+    print(f"wrote {', '.join(CONFIG_SECTIONS)} to {json_out}")
 
 
 if __name__ == "__main__":

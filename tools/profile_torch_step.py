@@ -21,6 +21,16 @@ measures, from that state:
   time the share of the control step in which the device is idle; the
   launches and device ms of each of the port's CUDA kernels.
 
+With `--rollout` (rodent-full-clips) it profiles one control step of the
+rollout instead (track_mjx_tpu_torch/rollout.py: the wrapped tracking env
+and the stochastic intention policy, as chip_smoke.py's phase 4 builds
+them), from the state after one warm-up unroll of the config's
+unroll_length: the step's parts timed between two synchronizations
+(median of `--stage-reps`): the policy forward, the physics (n_step), the
+reference gather, the reward, the obs, the NaN guard and the auto-reset
+swap; `--reps` whole rollout control steps (policy and wrapped env step);
+and one of them under `torch.profiler`.
+
 It prints one JSON object as its last line and writes it to `--out` when
 given. `--device cpu` runs the same phases at a small `--envs` (no profile).
 """
@@ -110,6 +120,138 @@ def _port_kernel(key: str) -> str | None:
     return None
 
 
+def _rollout_parts(ro, state, policy, gen):
+    """One rollout control step cut into its parts, as (name, callable)
+    pairs over a shared dict (the swap takes the NaN guard's flags for
+    done)."""
+    from track_mjx_tpu_torch.envs.task.reward import compute_tracking_rewards
+    from track_mjx_tpu_torch.envs.wrappers import _where_done
+
+    env = ro.tracking
+    s = {"state": state}
+
+    def policy_forward():
+        s["action"], _ = policy(s["state"].obs, gen)
+
+    def physics():
+        s["data"] = env.pipeline_step(s["state"].pipeline_state, s["action"])
+
+    def reference():
+        s["frame"], s["traj"] = env._get_step_reference(s["state"].info, s["data"])
+
+    def reward():
+        info = dict(s["state"].info, prev_ctrl=s["state"].info["prev_ctrl"])
+        s["terms"] = compute_tracking_rewards(s["data"], s["frame"], env.walker, s["action"], info,
+                                              env._reward_config)
+
+    def obs():
+        ref_obs, prop_obs = env._get_obs_from_traj(s["data"], s["traj"])
+        s["obs"] = torch.cat([ref_obs, prop_obs], dim=1)
+
+    def nan_guard():
+        s["obs"] = torch.nan_to_num(s["obs"])
+        s["nan"] = env.nan_count(s["data"]) > 0
+
+    def auto_reset_swap():
+        first = s["state"].info["first_pipeline_state"]
+        done = s["nan"].float()
+        slim = tf.slim_data(s["data"])
+        s["slim"] = tf.SlimData(**{f: _where_done(done, getattr(first, f), getattr(slim, f))
+                                   for f in tf._CARRY_FIELDS})
+        s["obs"] = _where_done(done, s["state"].info["first_obs"], s["obs"])
+
+    parts = [("policy_forward", policy_forward), ("physics", physics), ("reference_gather", reference),
+             ("reward", reward), ("obs", obs), ("nan_guard", nan_guard), ("auto_reset_swap", auto_reset_swap)]
+    return parts, s
+
+
+def rollout_main(args, dev, sync, card) -> dict:
+    """The --rollout profile: see the module docstring."""
+    from track_mjx_tpu_torch import rollout as trollout
+    from track_mjx_tpu_torch.agent import acting
+
+    ro = trollout.make_rollout(args.config, seed=args.seed, device=dev)
+    policy = ro.policy()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    state = ro.env.reset(gen, args.envs)
+    state, _ = acting.generate_unroll(ro.env, state, policy, gen, ro.unroll_length)  # warm-up
+    sync()
+
+    part_ms: dict[str, list[float]] = {}
+    for _ in range(args.stage_reps):
+        parts, s = _rollout_parts(ro, state, policy, gen)
+        for name, call in parts:
+            sync()
+            t0 = time.perf_counter()
+            call()
+            sync()
+            part_ms.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+        # the next state, untimed: the wrapped env's own step on the same
+        # action, so the parts stay on the trajectory the rollout follows
+        state = ro.env.step(state, s["action"])
+    parts = {k: statistics.median(v) for k, v in part_ms.items()}
+    step_ms = []
+    for _ in range(args.reps):
+        sync()
+        t0 = time.perf_counter()
+        state, _ = acting.actor_step(ro.env, state, policy, gen)
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    if not torch.isfinite(state.obs).all():
+        raise RuntimeError("obs not finite after the timed rollout steps")
+    wall_ms = statistics.median(step_ms)
+    summary = {
+        "card": card,
+        "config": args.config,
+        "rollout": True,
+        "torch": torch.__version__,
+        "envs": args.envs,
+        "substeps": SUBSTEPS,
+        "rollout_part_ms": parts,
+        "rollout_step_ms": step_ms,
+        "rollout_step_ms_median": wall_ms,
+        "env_steps_per_s_median": args.envs / (wall_ms / 1e3),
+    }
+    if dev.type == "cuda":
+        summary.update(_profile(lambda: acting.actor_step(ro.env, state, policy, gen), sync, wall_ms))
+    return summary
+
+
+def _profile(fn, sync, wall_ms) -> dict:
+    """One call of `fn` under torch.profiler: device kernels, device ms,
+    idle share against `wall_ms`, the biggest kernels and the port's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    events = prof.key_averages()
+    device_rows = [e for e in events if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in device_rows) / 1e3
+    top = sorted(device_rows, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+    port = {}
+    for e in device_rows:
+        name = _port_kernel(e.key)
+        if name:
+            row = port.setdefault(name, {"count": 0, "ms": 0.0})
+            row["count"] += e.count
+            row["ms"] += e.self_device_time_total / 1e3
+    return {
+        "profiled_device_kernels": sum(e.count for e in device_rows),
+        "profiled_cuda_launch_calls": sum(
+            e.count for e in events if e.key in ("cudaLaunchKernel", "cuLaunchKernel")
+        ),
+        "profiled_device_ms": device_ms,
+        "device_idle_share": 1.0 - device_ms / wall_ms,
+        "top_device_kernels": [
+            {"name": e.key[:80], "count": e.count, "ms": e.self_device_time_total / 1e3} for e in top
+        ],
+        "port_kernels": port,
+    }
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", choices=sorted(CTRL_SCALE), default="rodent-full-clips")
@@ -120,6 +262,7 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default=None, help="also write the JSON summary here")
+    ap.add_argument("--rollout", action="store_true", help="profile a rollout control step (policy + env)")
     args = ap.parse_args()
 
     dev = torch.device(args.device)
@@ -135,6 +278,9 @@ def main() -> None:
         ).stdout.strip().splitlines()[0]
     print(card)
     tf.set_full_f32()
+    if args.rollout:
+        _write(rollout_main(args, dev, sync, card), args.out)
+        return
     snap = tm.load_snapshot(args.config)
     snap.opt.solver = SOLVERS[args.solver]
     plan, model = tm.put_model(snap, device=dev)
@@ -193,42 +339,16 @@ def main() -> None:
     }
 
     if cuda:
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
         data = data.replace(ctrl=ctrl())
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            data = tf.n_step(plan, model, data, SUBSTEPS)
-            sync()
-        events = prof.key_averages()
-        device_rows = [e for e in events if e.device_type == DeviceType.CUDA]
-        device_ms = sum(e.self_device_time_total for e in device_rows) / 1e3
-        top = sorted(device_rows, key=lambda e: e.self_device_time_total, reverse=True)[:8]
-        summary.update({
-            "profiled_device_kernels": sum(e.count for e in device_rows),
-            "profiled_cuda_launch_calls": sum(
-                e.count for e in events if e.key in ("cudaLaunchKernel", "cuLaunchKernel")
-            ),
-            "profiled_device_ms": device_ms,
-            "device_idle_share": 1.0 - device_ms / wall_ms,
-            "top_device_kernels": [
-                {"name": e.key[:80], "count": e.count, "ms": e.self_device_time_total / 1e3}
-                for e in top
-            ],
-        })
-        port = {}
-        for e in device_rows:
-            name = _port_kernel(e.key)
-            if name:
-                row = port.setdefault(name, {"count": 0, "ms": 0.0})
-                row["count"] += e.count
-                row["ms"] += e.self_device_time_total / 1e3
-        summary["port_kernels"] = port
+        summary.update(_profile(lambda: tf.n_step(plan, model, data, SUBSTEPS), sync, wall_ms))
+    _write(summary, args.out)
 
+
+def _write(summary: dict, out: str | None) -> None:
     line = json.dumps(summary)
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "w") as f:
+    if out:
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        with open(out, "w") as f:
             f.write(line + "\n")
     print(line)
 

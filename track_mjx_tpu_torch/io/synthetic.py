@@ -1,0 +1,104 @@
+"""Synthetic reference-clip generation on the compiled model.
+
+Port of track_mjx_tpu/io/synthetic.py. The random draws are the JAX
+package's, numpy `RandomState` in the same order, so qpos and the finite
+difference velocities equal its clips'. Body positions and quaternions come
+from the port's own forward kinematics, run in float64 over every frame of
+every clip at once on `device`, where the JAX package runs MuJoCo C's
+`mj_kinematics` frame by frame; `mj_model` may be a `load_snapshot` result,
+so no MuJoCo is needed.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from track_mjx_tpu_torch.io.load import ReferenceClip, clip_from_numpy
+from track_mjx_tpu_torch.physics import kinematics as phys_kinematics
+from track_mjx_tpu_torch.physics import model as phys_model
+
+
+def body_frames(mj_model: Any, qpos: np.ndarray, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(xpos, xquat) in float64 of every body but the world body,
+    [F, nbody - 1, 3] and [F, nbody - 1, 4], for the poses qpos [F, nq]."""
+    plan, model = phys_model.put_model(mj_model, device=device)
+    model = phys_model.Model(
+        **{f.name: getattr(model, f.name).double() for f in dataclasses.fields(model)}
+    )
+    data = phys_model.make_data(plan, model, qpos.shape[0]).replace(
+        qpos=torch.as_tensor(qpos, dtype=torch.float64, device=model.qpos0.device)
+    )
+    data = phys_kinematics.kinematics(plan, model, data)
+    return data.xpos[:, 1:], data.xquat[:, 1:]
+
+
+def synthesize_clips(
+    mj_model: Any,
+    n_clips: int = 2,
+    n_frames: int = 250,
+    mocap_hz: float = 50.0,
+    seed: int = 0,
+    joint_amplitude: float = 0.2,
+    root_speed: float = 0.05,
+    device: torch.device | str = "cuda",
+) -> ReferenceClip:
+    """Generates (n_clips, n_frames, ...) kinematically-consistent clips on
+    `device`."""
+    rng = np.random.RandomState(seed)
+    nq = mj_model.nq
+    qpos_all = np.zeros((n_clips, n_frames, nq))
+    t = np.arange(n_frames) / mocap_hz
+    for c in range(n_clips):
+        qpos = np.tile(mj_model.qpos0, (n_frames, 1))
+        # slow root drift in the horizontal plane
+        heading = rng.uniform(0, 2 * np.pi)
+        qpos[:, 0] += root_speed * t * np.cos(heading)
+        qpos[:, 1] += root_speed * t * np.sin(heading)
+        # band-limited joint motion within ranges
+        for j in range(mj_model.njnt):
+            if mj_model.jnt_type[j] not in (2, 3):  # slide/hinge only
+                continue
+            adr = mj_model.jnt_qposadr[j]
+            freq = rng.uniform(0.3, 2.0)
+            phase = rng.uniform(0, 2 * np.pi)
+            amp = joint_amplitude * rng.uniform(0.2, 1.0)
+            wave = amp * np.sin(2 * np.pi * freq * t + phase)
+            if mj_model.jnt_limited[j]:
+                lo, hi = mj_model.jnt_range[j]
+                center = qpos[0, adr]
+                span = min(center - lo, hi - center)
+                wave = np.clip(wave, -0.9 * span, 0.9 * span)
+            qpos[:, adr] += wave
+        qpos_all[c] = qpos
+
+    xpos, xquat = body_frames(mj_model, qpos_all.reshape(n_clips * n_frames, nq), device)
+    nb = xpos.shape[1]
+
+    # velocities by finite difference at the mocap rate (translational and
+    # joint; the angular velocity stays zero, as in the JAX package)
+    qvel_all = np.zeros((n_clips, n_frames, mj_model.nv))
+    dt = 1.0 / mocap_hz
+    qvel_all[:, 1:, :3] = np.diff(qpos_all[:, :, :3], axis=1) / dt
+    qvel_all[:, 1:, 6:] = np.diff(qpos_all[:, :, 7:], axis=1) / dt
+
+    clip = clip_from_numpy(
+        {
+            "position": qpos_all[:, :, :3],
+            "quaternion": qpos_all[:, :, 3:7],
+            "joints": qpos_all[:, :, 7:],
+            "body_positions": np.zeros((0,)),
+            "velocity": qvel_all[:, :, :3],
+            "angular_velocity": qvel_all[:, :, 3:6],
+            "joints_velocity": qvel_all[:, :, 6:],
+            "body_quaternions": np.zeros((0,)),
+        },
+        xpos.device,
+    )
+    return clip.replace(
+        body_positions=xpos.reshape(n_clips, n_frames, nb, 3).float(),
+        body_quaternions=xquat.reshape(n_clips, n_frames, nb, 4).float(),
+    )

@@ -19,6 +19,7 @@ a card raises.
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import types
 from typing import Any, Mapping
@@ -284,19 +285,28 @@ def load_snapshot(name: str = "rodent-full-clips") -> Any:
     SNAPSHOTS; .npz written by tools/export_torch_model.py) as an object with
     MjModel's attribute names: `m.nv`, `m.body_parentid`, `m.opt.timestep`,
     ... Sizes and scalar options come back as Python numbers, array fields as
-    numpy arrays."""
+    numpy arrays. The walker's index tables are under `m.walker`
+    (`joint_idxs`, `body_idxs`, `endeff_idxs`, `torso_idx`)."""
     if name not in SNAPSHOTS:
         raise ValueError(f"no snapshot for {name!r}; have {sorted(SNAPSHOTS)}")
-    snap = types.SimpleNamespace(opt=types.SimpleNamespace())
+    snap = types.SimpleNamespace(opt=types.SimpleNamespace(), walker=types.SimpleNamespace())
     with np.load(SNAPSHOTS[name], allow_pickle=False) as z:
         for key in z.files:
             val = z[key]
             val = val.item() if val.ndim == 0 else val
-            if key.startswith("opt."):
-                setattr(snap.opt, key[4:], val)
-            else:
-                setattr(snap, key, val)
+            group, _, field = key.rpartition(".")
+            setattr(getattr(snap, group) if group else snap, field, val)
     return snap
+
+
+def load_workload_config(name: str = "rodent-full-clips") -> dict:
+    """The sections of workload config `name` that the port reads (env_args,
+    reward_weights, reference_config, network_config, train_config), from
+    the JSON that tools/export_torch_model.py writes beside the snapshot."""
+    if name not in SNAPSHOTS:
+        raise ValueError(f"no snapshot for {name!r}; have {sorted(SNAPSHOTS)}")
+    with open(os.path.splitext(SNAPSHOTS[name])[0] + ".json") as f:
+        return json.load(f)
 
 
 # ---------------------------------------------------------------------------
