@@ -1,4 +1,5 @@
-"""Smoke run of the torch port's physics control steps on one NVIDIA GPU.
+"""Smoke run of the torch port on one NVIDIA GPU: the physics control
+steps, the rodent rollout and the rodent trainer.
 
 Usage (from the repository root, on a machine with a CUDA device and nvcc):
 
@@ -57,7 +58,25 @@ It imports nothing of JAX. Phases, each of which raises on failure:
    every substep must launch cholesky once, cho_solve once, solve_spd
    iterations + 1 times and cg_solve never, the state must stay finite and
    contacts active; 64 envs are compared with the CPU as in 3.
-8. Standalone linalg kernels against plain: from 4096 contact-rich states
+8. Rodent training: the port's trainer through its entry point,
+   track_mjx_tpu_torch.train.main(load_config("rodent-full-clips", ...)),
+   at the config's widths and 4096 envs, cut in depth only (TRAIN_OVERRIDES:
+   8 synthetic clips of 80 frames written to build/, episodes of 25 control
+   steps, 4 minibatches of 1024 trajectories, one epoch of 2 training steps
+   of one unroll each, 4 passes, one eval of 128 envs). cg_solve must launch
+   exactly as often as the reset, the unrolls, the reset after the epoch and
+   the eval need (the formula is printed), the plain version and the other
+   kernels never; every loss metric and parameter must be finite, env_steps
+   must follow the JAX package's formula, and the checkpoint, loaded back by
+   CheckpointStore.for_eval and load_inference_fn, must act as the trained
+   policy bit for bit. One learning half (the normalizer update and 4 passes
+   over 4 minibatches) runs on the card and on the CPU from the state that
+   the last training step's learning half started from, on 64 trajectories
+   of its batch with the same permutations and noises; loss terms, the first
+   minibatch's gradients and the parameters after it are held to bars. Training sps, eval sps and the
+   host ms of rollout, normalizer update and SGD per training step come from
+   the trainer's own metrics. Runs after phase 7, before phase 9.
+9. Standalone linalg kernels against plain: from 4096 contact-rich states
    of the same model, made on the card with the port's stages, qM goes
    through cholesky, its factor and qfrc_smooth through cho_solve, the
    first Newton iteration's H (and Euler's M + h D) through solve_spd, each
@@ -71,7 +90,7 @@ It imports nothing of JAX. Phases, each of which raises on failure:
    time where the host is the slower), its share of its bound and its
    ratio to the library call. This phase comes last: it starts
    torch.profiler, which no host-clock rate should run after.
-9. Prints the kernels' JSON line (each kernel's launches on every path
+10. Prints the kernels' JSON line (each kernel's launches on every path
    that runs it under "launches_by_path") and, last, {"ok": true,
    "device": {...}}.
 """
@@ -80,11 +99,14 @@ from __future__ import annotations
 
 import ctypes
 import json
+import math
 import os
+import shutil
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -194,6 +216,37 @@ ROLLOUT_F64_FLOOR = 1e-6
 POLICY_REL = 1e-5
 REWARD_TERMS = ("pos_reward", "quat_reward", "joint_reward", "angvel_reward", "bodypos_reward",
                 "endeff_reward", "ctrl_cost", "ctrl_diff_cost", "energy_cost", "var_cost", "jerk_cost")
+
+# --- rodent training: the trainer through train.main, at full width
+TRAIN_CLIPS = 8
+TRAIN_CLIP_LENGTH = 80  # episodes (and the eval's) of 80 - 50 - 5 = 25 control steps
+# The cuts are depth only: the config's widths and N_ENVS envs, batch_size
+# 1024 (a minibatch is the reference's [1024, 20]); 4 minibatches (16 in the
+# config) make one unroll per training step; num_timesteps = eval_every =
+# reset_every = 163,840 make one epoch of 2 training steps and one eval.
+TRAIN_OVERRIDES = [
+    f"reference_config.clip_length={TRAIN_CLIP_LENGTH}",
+    "train_setup.train_subset_ratio=null",
+    "train_setup.eval_every=163840",
+    "train_setup.reset_every=163840",
+    "train_setup.train_config.num_timesteps=163840",
+    f"train_setup.train_config.num_envs={N_ENVS}",
+    "train_setup.train_config.num_minibatches=4",
+]
+TRAIN_CPU_TRAJ = 64  # trajectories of the first batch in the card-against-CPU learning half
+# Card against CPU over one learning half (4 passes x 4 minibatches of 16
+# trajectories x 20 steps), both in full float32 from the same state: the
+# networks' sums (up to 1024 terms) and the loss's means run in another
+# order. Loss terms relative to max(1, |cpu|); the first minibatch's
+# gradients relative to each tensor's largest element; parameters in units
+# of the learning rate, since Adam moves each parameter by about lr per
+# step whatever the gradient's size; the normalizer's Welford sums.
+# Measured on an NVIDIA H100: 1.2e-6, 1.1e-5, 1.2e-3 lr and 1.1e-9; the
+# bars leave 8-90x.
+TRAIN_LOSS_REL = 1e-5
+TRAIN_GRAD_REL = 1e-4
+TRAIN_PARAM_LR = 1e-2
+TRAIN_NORM_REL = 1e-7
 
 # --- rodent under the Newton solver: the standalone linalg kernels
 NEWTON_CONTROL_STEPS = 3  # timed, after one warm-up control step
@@ -705,6 +758,193 @@ class Phases:
         return launches
 
     # -----------------------------------------------------------------------
+    # rodent training: the trainer through its entry point
+    # -----------------------------------------------------------------------
+
+    def training(self) -> int:
+        """Rodent PPO training at full width and N_ENVS envs through
+        train.main (phase 8); returns cg_solve's launches in the phase."""
+        from track_mjx_tpu_torch import train as ttrain
+        from track_mjx_tpu_torch.agent import checkpointing
+        from track_mjx_tpu_torch.envs.base import map_tensors
+        from track_mjx_tpu_torch.io import load
+        from track_mjx_tpu_torch.io.synthetic import synthesize_clips
+        from track_mjx_tpu_torch.utils.config import load_config
+
+        tk = self.tk
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        phase_t0 = time.perf_counter()
+        root = os.path.join(REPO, "build", "chip_smoke_train")
+        shutil.rmtree(root, ignore_errors=True)
+        os.makedirs(root)
+        clips = synthesize_clips(self.tm.load_snapshot("rodent-full-clips"), n_clips=TRAIN_CLIPS,
+                                 n_frames=TRAIN_CLIP_LENGTH, mocap_hz=50, seed=SEED, device=self.dev)
+        load.save_npz(clips, os.path.join(root, "clips.npz"))
+        cfg = load_config("rodent-full-clips", [
+            f"device={self.dev.type}",
+            f"data_path={os.path.join(root, 'clips.npz')}",
+            f"logging_config.model_path={os.path.join(root, 'ckpts')}",
+            *TRAIN_OVERRIDES,
+        ])
+        tc, net = cfg.train_setup.train_config, cfg.network_config
+        widths = (net.encoder_layer_sizes, net.decoder_layer_sizes, net.critic_layer_sizes, net.intention_size)
+        assert widths == ([1024, 512, 512, 512, 512], [512, 512, 512, 256, 256], [512] * 5 + [256], 60), widths
+        per_step = tc.batch_size * tc.unroll_length * tc.num_minibatches * tc.action_repeat
+        num_evals = int(tc.num_timesteps / cfg.train_setup.eval_every)
+        resets_per_eval = cfg.train_setup.eval_every // cfg.train_setup.reset_every
+        steps = -(-tc.num_timesteps // (max(num_evals - 1, 1) * per_step * max(resets_per_eval, 1)))
+        unrolls = tc.batch_size * tc.num_minibatches // tc.num_envs
+        episode = TRAIN_CLIP_LENGTH - cfg.reference_config.random_init_range - cfg.reference_config.traj_length
+
+        captured, progress = {}, []
+
+        def on_batch(state, data, make_learner):  # the last step's state and batch, before its learning half
+            captured["make_learner"] = make_learner
+            captured["state"] = checkpointing.cpu_copy(state.state_dict())
+            captured["data"] = map_tensors(lambda x: x[:TRAIN_CPU_TRAJ].detach().to("cpu", copy=True), data)
+            captured["obs"] = data.observation[:, 0].clone()
+
+        plain_calls = [0]
+        plain = tk.cg_solve_plain
+
+        def counting_plain(*args, **kwargs):
+            plain_calls[0] += 1
+            return plain(*args, **kwargs)
+
+        tk.cg_solve_plain = counting_plain
+        others = (tk.ell_cg_solve, self.bl.cholesky, self.bl.cho_solve, self.bl.solve_spd)
+        for op in (tk.cg_solve, *others):
+            op.launches = 0  # the trainer's run: the path's launches
+        t0 = time.perf_counter()
+        make_policy, params = ttrain.main(cfg, progress_fn=lambda s, m: progress.append((s, m)),
+                                          batch_callback=on_batch)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = tk.cg_solve.launches
+        tk.cg_solve_plain = plain
+        # reset, the unrolls, the reset after each epoch, and per eval a reset
+        # and its episode, with the initial eval only when num_evals > 1
+        evals = max(num_evals - 1, 1) + (1 if num_evals > 1 else 0)
+        epochs = max(num_evals - 1, 1) * max(resets_per_eval, 1)
+        expected = (1 + epochs * steps * unrolls * tc.unroll_length * SUBSTEPS
+                    + (epochs if resets_per_eval > 0 else 0) + evals * (1 + episode * SUBSTEPS))
+        print(f"training: cg_solve launches {launches}, expected 1 (reset) + {epochs} epoch x {steps} training "
+              f"steps x {unrolls} unroll x {tc.unroll_length} steps x {SUBSTEPS} + "
+              f"{epochs if resets_per_eval > 0 else 0} (reset after the epoch) + {evals} eval x (1 + {episode} "
+              f"x {SUBSTEPS}) = {expected}; cg_solve_plain calls {plain_calls[0]}; "
+              f"{', '.join(f'{op.__name__} {op.launches}' for op in others)}")
+        assert launches == expected, f"cg_solve launched {launches} times, expected {expected}"
+        assert plain_calls[0] == 0, f"the trainer called cg_solve_plain {plain_calls[0]} times"
+        for op in others:
+            assert op.launches == 0, f"the trainer launched {op.__name__}"
+
+        final = progress[-1][1]
+        losses = {k: v for k, v in final.items() if k.startswith("training/") and k.endswith("loss")}
+        assert len(losses) == 5 and all(math.isfinite(v) for v in losses.values()), losses
+        run_dir = os.path.join(root, "ckpts", os.listdir(os.path.join(root, "ckpts"))[0])
+        store = checkpointing.CheckpointStore(run_dir)
+        stored = store.training_state()
+        for group in ("policy", "value"):
+            for k, v in stored["params"][group].items():
+                assert torch.isfinite(v).all(), f"{group} parameter {k} is not finite"
+        env_steps = 0
+        for _ in range(epochs * steps):  # ppo.py: jnp.int32(env_steps + per_step / 1e3), in float32
+            env_steps = int(np.int32(np.float32(env_steps) + np.float32(per_step / 1e3)))
+        assert stored["env_steps"] == env_steps == progress[-1][0], (stored["env_steps"], env_steps)
+        print(f"training: {train_s:.1f} s in train.main; every loss metric and parameter finite; env_steps "
+              f"{stored['env_steps']} thousand (JAX formula: {epochs * steps} x int32(float32(e) + "
+              f"{per_step / 1e3}) = {env_steps}); losses {json.dumps(losses)}")
+        print(f"training sps {final['training/sps']:.1f}, eval sps {final['eval/sps']:.1f} (the trainer's metrics); "
+              f"host ms per training step: rollout {final['training/rollout_ms']:.1f}, normalizer update "
+              f"{final['training/normalizer_update_ms']:.3f}, sgd {final['training/sgd_ms']:.1f}; eval "
+              f"{final['eval/epoch_eval_time']:.1f} s for {tc.get('num_eval_envs', 128)} envs x {episode} steps; "
+              f"eval episode reward {final['eval/episode_reward']:.4f}, length {final['eval/avg_episode_length']:.2f} "
+              f"({self.card})")
+
+        # the checkpoint's policy acts as the trained one, bit for bit
+        bundle = store.for_eval(device=self.dev)
+        loaded = checkpointing.load_inference_fn(bundle["cfg"], bundle["policy"], device=self.dev)
+        trained = make_policy(params[0], deterministic=True)
+        obs = captured["obs"]
+        same = torch.equal(loaded(obs)[0], trained(obs)[0])
+        print(f"training: checkpoint {os.path.basename(run_dir)}/PPONetwork_{store.resolve_step(None)} loaded "
+              f"for eval; its actions on {obs.shape[0]} observations equal the trained policy's bit for bit: {same}")
+        assert same, "the checkpoint's policy acts otherwise than the trained one"
+
+        self.learning_half_versus_cpu(bundle["cfg"], captured)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"training phase: {time.perf_counter() - phase_t0:.1f} s, peak memory {peak} B ({self.card})")
+        del make_policy, params, captured, bundle, loaded, trained
+        torch.cuda.empty_cache()
+        return launches
+
+    def learning_half_versus_cpu(self, cfg, captured) -> None:
+        """One learning half (the normalizer update, then the passes over the
+        minibatches) on the card and on the CPU from the same training state,
+        on TRAIN_CPU_TRAJ trajectories of the phase's last batch (its state
+        has taken a training step: Adam's bias correction and the normalizer
+        are not at their start), with the same permutations and noises; the
+        first minibatch's gradients too. Both sides run the trainer's own
+        Learner (`make_learner`, handed over by ppo.train's batch_callback)
+        over networks built from the checkpoint's config."""
+        from track_mjx_tpu_torch.agent import checkpointing, running_statistics
+        from track_mjx_tpu_torch.agent.mlp_ppo import ppo
+        from track_mjx_tpu_torch.envs.base import map_tensors
+
+        tc, net = cfg["train_setup"]["train_config"], cfg["network_config"]
+        n, mbs, passes = TRAIN_CPU_TRAJ, tc["num_minibatches"], tc["num_updates_per_batch"]
+        unroll, actions, latents = tc["unroll_length"], net["action_size"], net["intention_size"]
+        gen = torch.Generator().manual_seed(SEED)
+        draws = [ppo.UpdateDraws(torch.randperm(n, generator=gen), [
+            (torch.randn(unroll, n // mbs, latents, generator=gen), torch.randn(unroll, n // mbs, actions, generator=gen))
+            for _ in range(mbs)]) for _ in range(passes)]
+        sides = {}
+        for dev in (self.dev, torch.device("cpu")):
+            networks = checkpointing.make_ppo_network_from_cfg(cfg, dev)
+            learner = captured["make_learner"](networks)
+            assert (learner.num_minibatches, learner.num_updates_per_batch) == (mbs, passes)
+            state = ppo.TrainingState(
+                networks, learner.optimizer, running_statistics.init_state(net["observation_size"], dev), 0)
+            state.load_state_dict(captured["state"])
+            data = map_tensors(lambda x: x.to(dev), captured["data"])
+            move = lambda d: ppo.UpdateDraws(d.permutation.to(dev), [(a.to(dev), b.to(dev)) for a, b in d.noises])  # noqa: E731
+            dev_draws = [move(d) for d in draws]
+            # the first minibatch's gradients, from the updated normalizer
+            normalizer = running_statistics.update(state.normalizer_params, data.observation)
+            first = map_tensors(lambda x: x[dev_draws[0].permutation[: n // mbs]], data)
+            loss, _ = learner.loss_fn(normalizer, first, *dev_draws[0].noises[0], 1)
+            loss.backward()
+            grads = {k: p.grad.detach().cpu().clone() for m in (networks.policy_network, networks.value_network)
+                     for k, p in m.named_parameters()}
+            learner.optimizer.zero_grad()
+            metrics = learner(state, data, 1, draws=dev_draws)
+            sides[dev.type] = {
+                "grads": grads,
+                "metrics": [{k: float(v) for k, v in m.items()} for m in metrics],
+                "params": {k: v.detach().cpu() for m in (networks.policy_network, networks.value_network)
+                           for k, v in m.state_dict().items()},
+                "normalizer": checkpointing.normalizer_to_dict(state.normalizer_params),
+            }
+        card, cpu = sides[self.dev.type], sides["cpu"]
+        loss_err = max(abs(a[k] - b[k]) / max(1.0, abs(b[k])) for a, b in zip(card["metrics"], cpu["metrics"]) for k in b)
+        grad_err = max(float((card["grads"][k] - g).abs().max() / g.abs().max().clamp(min=1e-30))
+                       for k, g in cpu["grads"].items())
+        lr = tc["learning_rate"]
+        param_err = max(float((card["params"][k] - p).abs().max()) / lr for k, p in cpu["params"].items())
+        norm_err = max(_rel(card["normalizer"][k], v) for k, v in cpu["normalizer"].items())
+        print(f"training, one learning half card vs CPU ({n} trajectories x {unroll} steps of the last batch, "
+              f"{passes} passes x {mbs} minibatches, same state, permutations and noises, full width): loss terms "
+              f"of every step worst rel err {loss_err:.3e} (bar {TRAIN_LOSS_REL:.0e}); first minibatch's gradients "
+              f"worst err relative to each tensor's largest element {grad_err:.3e} (bar {TRAIN_GRAD_REL:.0e}); "
+              f"parameters after the half worst {param_err:.3e} lr (bar {TRAIN_PARAM_LR:.0e} lr); normalizer "
+              f"{norm_err:.3e} (bar {TRAIN_NORM_REL:.0e})")
+        assert loss_err < TRAIN_LOSS_REL, f"the card's loss terms disagree with the CPU's: {loss_err:.3e}"
+        assert grad_err < TRAIN_GRAD_REL, f"the card's gradients disagree with the CPU's: {grad_err:.3e}"
+        assert param_err < TRAIN_PARAM_LR, f"the card's parameters disagree with the CPU's: {param_err:.3e} lr"
+        assert norm_err < TRAIN_NORM_REL, f"the card's normalizer disagrees with the CPU's: {norm_err:.3e}"
+
+    # -----------------------------------------------------------------------
     # fly
     # -----------------------------------------------------------------------
 
@@ -1014,7 +1254,8 @@ class Phases:
             })
         return records
 
-    def newton(self) -> list:
+    def newton_main_path(self):
+        """Phase 7; returns what the standalone kernels' phase needs."""
         tk, tm, bl = self.tk, self.tm, self.bl
         snap = tm.load_snapshot("rodent-full-clips")
         snap.opt.solver = tm.SOLVER_NEWTON
@@ -1048,8 +1289,11 @@ class Phases:
         for name, bar in NEWTON_SUBSTEP_REL.items():
             assert worst[name] < bar, f"card and CPU {name} differ after one substep: {worst[name]:.3e}"
 
-        # last: the kernels' timings start torch.profiler, which the main
-        # path's host-clock rate must not run after
+        return plan, model, launches
+
+    def newton_kernels(self, plan, model, launches) -> list:
+        """Phase 9, last: the kernels' timings start torch.profiler, which
+        no host-clock rate may run after."""
         records = self.linalg_kernels(self.newton_matrices(plan, model))
         for r in records:
             r["launches"] = launches[r["name"]]
@@ -1077,11 +1321,15 @@ def main() -> None:
     phases = Phases(card)
     kernels = phases.rodent()
     rollout_launches = phases.rollout()
-    kernels += phases.fly() + phases.newton()
+    kernels += phases.fly()
+    newton = phases.newton_main_path()
+    training_launches = phases.training()
+    kernels += phases.newton_kernels(*newton)
     for k in kernels:  # each kernel's launches on every path that runs it, as counted there
         if k["name"] == "cg_solve":
             k["launches_by_path"] = {"rodent control steps (phase 3)": k["launches"],
-                                     "rodent rollout, reset + one unroll (phase 4)": rollout_launches}
+                                     "rodent rollout, reset + one unroll (phase 4)": rollout_launches,
+                                     "rodent training, train.main (phase 8)": training_launches}
         elif k["name"] == "ell_cg_solve":
             k["launches_by_path"] = {"fly control steps (phase 6)": k["launches"]}
         else:

@@ -64,10 +64,10 @@ def _clips(n_clips=10, n_frames=6, seed=0):
 
 
 def test_npz_round_trip(tmp_path):
-    clip = tload.select_clips(tload.clip_from_numpy(_clips()), [1, 4, 7])
+    clip = tload.select_clips(tload.clip_from_numpy(_clips(), device="cpu"), [1, 4, 7])
     path = tmp_path / "clips.npz"
     tload.save_npz(clip, path)
-    back = tload.load_data(path)
+    back = tload.load_data(path, device="cpu")
     for k in CLIP_FIELDS + ("original_clip_idx",):
         assert torch.equal(getattr(back, k), getattr(clip, k)), k
 
@@ -76,7 +76,7 @@ def test_npz_round_trip(tmp_path):
 def test_split_and_select_match_jax(seed):
     arrays = _clips(n_clips=23)
     jclip = jload.ReferenceClip(**{k: np.asarray(v) for k, v in arrays.items()})
-    tclip = tload.clip_from_numpy(arrays)
+    tclip = tload.clip_from_numpy(arrays, device="cpu")
     jtrain, jtest = jload.generate_train_test_split(jclip, test_ratio=0.3, seed=seed)
     ttrain, ttest = tload.generate_train_test_split(tclip, test_ratio=0.3, seed=seed)
     for jpart, tpart in ((jtrain, ttrain), (jtest, ttest)):
@@ -94,7 +94,7 @@ def test_h5_reader_reads_the_jax_writer(tmp_path):
     arrays = _clips(n_clips=4)
     path = tmp_path / "clips.h5"
     jload.save_reference_clip_data(jload.ReferenceClip(**arrays), path)
-    got = tload.load_data(path)
+    got = tload.load_data(path, device="cpu")
     want = jload.load_data(path)
     for k in CLIP_FIELDS:
         np.testing.assert_array_equal(getattr(got, k).numpy(), np.asarray(getattr(want, k)), err_msg=k)
@@ -108,7 +108,7 @@ def test_port_imports_with_jax_h5py_and_yaml_blocked(tmp_path):
     """The env, io and agent modules and chip_smoke.py import where none of
     jax, flax, mujoco, h5py, yaml or the JAX package can be imported;
     .npz clips load there, and an .h5 read says what is missing."""
-    tload.save_npz(tload.clip_from_numpy(_clips(n_clips=2)), tmp_path / "c.npz")
+    tload.save_npz(tload.clip_from_numpy(_clips(n_clips=2), device="cpu"), tmp_path / "c.npz")
     code = (
         "import sys\n"
         "for m in ('jax', 'flax', 'mujoco', 'h5py', 'yaml', 'track_mjx_tpu'):\n"
@@ -119,16 +119,17 @@ def test_port_imports_with_jax_h5py_and_yaml_blocked(tmp_path):
         "import track_mjx_tpu_torch.agent.acting, track_mjx_tpu_torch.agent.mlp_ppo.ppo_networks\n"
         "import track_mjx_tpu_torch.agent.mlp_ppo.intention_network\n"
         "from track_mjx_tpu_torch.io import load\n"
-        f"clip = load.load_data({str(tmp_path / 'c.npz')!r})\n"
+        f"clip = load.load_data({str(tmp_path / 'c.npz')!r}, device='cpu')\n"
         "assert clip.joints.shape == (2, 6, 5)\n"
         "try:\n"
-        f"    load.load_data({str(tmp_path / 'c.h5')!r})\n"
+        f"    load.load_data({str(tmp_path / 'c.h5')!r}, device='cpu')\n"
         "except ImportError as e:\n"
         "    assert 'h5py' in str(e)\n"
         "else:\n"
         "    raise AssertionError('an .h5 read without h5py did not raise')\n"
-        "from track_mjx_tpu_torch.physics import model\n"
-        "assert model.load_workload_config()['train_config']['unroll_length'] == 20\n"
+        "import track_mjx_tpu_torch.train, track_mjx_tpu_torch.agent.mlp_ppo.ppo\n"
+        "from track_mjx_tpu_torch.utils.config import load_config\n"
+        "assert load_config('rodent-full-clips').train_setup.train_config.unroll_length == 20\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -12,11 +12,12 @@ underscores). The fields are found by running the JAX package's put_model on
 a proxy that records every attribute it reads, so the snapshot follows
 put_model if that changes. Beside them, under `walker.` keys, go the
 walker's index tables (joint, body and end-effector ids and the torso's),
-which the JAX walker resolves by name with MuJoCo. The config's env_args,
-reward_weights, reference_config, network_config and train_config go to
-<name>.json beside the snapshot (the port reads them with the standard
-library: where it runs there may be no YAML reader). This tool needs mujoco
-and the JAX package; the port that reads the snapshot needs neither.
+which the JAX walker resolves by name with MuJoCo. The whole workload config
+(data_path, env_config, reference_config, network_config, train_setup,
+logging_config, walker_config) goes to <name>.json beside the snapshot: the
+port's `utils.config.load_config` reads it with the standard library, as the
+JAX package reads its YAML. This tool needs mujoco and the JAX package; the
+port that reads the snapshot needs neither.
 """
 
 from __future__ import annotations
@@ -31,9 +32,6 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = ("rodent-full-clips", "fly-mc-intention")
 
-
-# the config sections the port reads from <name>.json
-CONFIG_SECTIONS = ("env_args", "reward_weights", "reference_config", "network_config", "train_config")
 
 
 def default_out(config: str) -> str:
@@ -111,18 +109,10 @@ def export_arrays(config: str) -> dict:
 
 
 def config_sections(config: str) -> dict:
-    """The sections of `config` that the port reads, as plain JSON values."""
+    """The whole of workload config `config`, as plain JSON values."""
     from track_mjx_tpu.utils.config import load_config
 
-    cfg = load_config(config)
-    where = {
-        "env_args": cfg.env_config.env_args,
-        "reward_weights": cfg.env_config.reward_weights,
-        "reference_config": cfg.reference_config,
-        "network_config": cfg.network_config,
-        "train_config": cfg.train_setup.train_config,
-    }
-    return {k: where[k].to_dict() for k in CONFIG_SECTIONS}
+    return load_config(config).to_dict()
 
 
 def snapshot_arrays(m) -> dict:
@@ -152,7 +142,7 @@ def main(argv):
     with open(json_out, "w") as f:
         json.dump(config_sections(args.config), f, indent=1, sort_keys=True)
         f.write("\n")
-    print(f"wrote {', '.join(CONFIG_SECTIONS)} to {json_out}")
+    print(f"wrote the {args.config} config to {json_out}")
 
 
 if __name__ == "__main__":

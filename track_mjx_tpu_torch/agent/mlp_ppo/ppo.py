@@ -1,0 +1,457 @@
+"""PPO trainer of the MLP intention pipeline, on one device.
+
+Port of track_mjx_tpu/agent/mlp_ppo/ppo.py. The JAX trainer jits a whole
+epoch as one SPMD program; here a training step is eager PyTorch on one
+device, with the same structure:
+
+- the rollout: batch_size * num_minibatches / num_envs unrolls of
+  unroll_length steps with the truncation flags, laid out [unrolls, T,
+  envs] -> [unrolls, envs, T] -> [unrolls * envs, T], so trajectory index =
+  unroll * num_envs + env;
+- the Welford normalizer update over every observation of the batch;
+- num_updates_per_batch passes, each a permutation of the trajectories cut
+  into num_minibatches minibatches, one clipped Adam step per minibatch;
+- env_steps counted in thousands, truncated to int32 after each training
+  step, as the JAX package adds a float32 to an int32;
+- the KL schedule driven by the eval iteration `it`, not by env steps;
+- an eval (and a checkpoint) per epoch, the initial ones only when
+  num_evals > 1; `num_resets_per_eval` resets the envs after each epoch.
+
+The phases run under `torch.profiler.record_function("rollout" |
+"normalizer_update" | "sgd")`, the counterparts of the JAX named scopes; on
+the card the trainer synchronizes at each phase's end and reports each
+phase's host ms per training step as training/{phase}_ms.
+
+One `torch.Generator` on the device drives the env resets, the rollout's
+policy noise, the permutations and the loss's latent and entropy noises, a
+second the evals; the networks' initial weights are drawn on the CPU. The
+streams differ from JAX's; `Learner.__call__` takes explicit draws so that
+a test can feed the JAX ones.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import functools
+import logging
+import math
+import time
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from track_mjx_tpu_torch.agent import acting, checkpointing, gradients, running_statistics, types
+from track_mjx_tpu_torch.agent.mlp_ppo import losses, ppo_networks
+from track_mjx_tpu_torch.envs import wrappers
+from track_mjx_tpu_torch.envs.base import Env, map_tensors
+from track_mjx_tpu_torch.physics.model import _device
+
+Metrics = types.Metrics
+STEPS_IN_THOUSANDS = 1e3
+PHASES = ("rollout", "normalizer_update", "sgd")
+
+
+@dataclasses.dataclass
+class TrainingState:
+    """Learner state. The parameters live in the networks' modules and the
+    Adam moments in the optimizer, both updated in place; the normalizer and
+    env_steps are replaced at each training step."""
+
+    networks: ppo_networks.PPOImitationNetworks
+    optimizer: torch.optim.Optimizer
+    normalizer_params: running_statistics.RunningStatisticsState
+    env_steps: int
+
+    @property
+    def params(self) -> losses.PPONetworkParams:
+        return losses.PPONetworkParams(
+            self.networks.policy_network.state_dict(), self.networks.value_network.state_dict()
+        )
+
+    def policy_params(self) -> Tuple[running_statistics.RunningStatisticsState, dict]:
+        """(normalizer, policy state dict): what a policy needs."""
+        return self.normalizer_params, self.networks.policy_network.state_dict()
+
+    def state_dict(self) -> dict:
+        """The whole state as nested dicts of tensors (live references)."""
+        return {
+            "optimizer_state": self.optimizer.state_dict(),
+            "params": self.params._asdict(),
+            "normalizer_params": checkpointing.normalizer_to_dict(self.normalizer_params),
+            "env_steps": self.env_steps,
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        """Copies `state` in: the optimizer would otherwise keep the given
+        step counts (it moves the moments to the parameters' device but
+        keeps a CPU step tensor as it is) and count on in the caller's dict."""
+        self.networks.policy_network.load_state_dict(state["params"]["policy"])
+        self.networks.value_network.load_state_dict(state["params"]["value"])
+        self.optimizer.load_state_dict(copy.deepcopy(state["optimizer_state"]))
+        device = self.normalizer_params.mean.device
+        self.normalizer_params = checkpointing.normalizer_from_dict(state["normalizer_params"], device)
+        self.env_steps = int(state["env_steps"])
+
+
+class UpdateDraws(NamedTuple):
+    """The draws of one pass over the batch: the permutation of the
+    trajectories [N] and, per minibatch, the latent noise [T, N / M,
+    latents] and the entropy noise [T, N / M, action_size]."""
+
+    permutation: torch.Tensor
+    noises: Sequence[Tuple[torch.Tensor, torch.Tensor]]
+
+
+def next_env_steps(env_steps: int, env_step_per_training_step: int) -> int:
+    """env_steps in thousands after one training step: int32(float32(env_steps)
+    + float32(steps / 1000)), the JAX package's weakly typed sum."""
+    return int(np.int32(np.float32(env_steps) + np.float32(env_step_per_training_step / STEPS_IN_THOUSANDS)))
+
+
+def _clock(device: torch.device) -> float:
+    """The host clock once the device's queued work is done."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter()
+
+
+class Learner:
+    """The learning half of a training step: the normalizer update over the
+    batch's observations, then num_updates_per_batch passes of
+    num_minibatches clipped Adam steps. `phase_s` sums each phase's host
+    seconds."""
+
+    def __init__(
+        self,
+        loss_fn: Callable,
+        optimizer: torch.optim.Optimizer,
+        num_minibatches: int,
+        num_updates_per_batch: int,
+    ):
+        self.loss_fn = loss_fn
+        self.optimizer = optimizer
+        self.update_fn = gradients.gradient_update_fn(loss_fn, optimizer)
+        self.num_minibatches = num_minibatches
+        self.num_updates_per_batch = num_updates_per_batch
+        self.phase_s = dict.fromkeys(PHASES[1:], 0.0)
+
+    def __call__(
+        self,
+        training_state: TrainingState,
+        data: types.Transition,
+        it,
+        generator: Optional[torch.Generator] = None,
+        draws: Optional[Sequence[UpdateDraws]] = None,
+    ) -> List[Dict[str, torch.Tensor]]:
+        """Updates `training_state` in place from the batch-major batch `data`
+        [N, T, ...]; returns each gradient step's loss metrics. The draws come
+        from `generator` (per pass, the permutation, then per minibatch the
+        latent and the entropy noise), or from `draws`."""
+        device = data.observation.device
+        t0 = time.perf_counter()
+        with record_function("normalizer_update"):
+            training_state.normalizer_params = running_statistics.update(
+                training_state.normalizer_params, data.observation
+            )
+        t1 = _clock(device)
+        self.phase_s["normalizer_update"] += t1 - t0
+        n = data.observation.shape[0]
+        metrics = []
+        with record_function("sgd"):
+            for u in range(self.num_updates_per_batch):
+                if draws is None:
+                    perm = torch.randperm(n, generator=generator, device=device)
+                else:
+                    perm = draws[u].permutation.to(device)
+                shuffled = map_tensors(
+                    lambda x: x[perm].reshape((self.num_minibatches, -1) + x.shape[1:]), data
+                )
+                for m in range(self.num_minibatches):
+                    minibatch = map_tensors(lambda x: x[m], shuffled)
+                    latent, entropy = (generator, generator) if draws is None else draws[u].noises[m]
+                    _, step_metrics = self.update_fn(
+                        training_state.normalizer_params, minibatch, latent, entropy, it
+                    )
+                    metrics.append({k: v.detach() for k, v in step_metrics.items()})
+        self.phase_s["sgd"] += _clock(device) - t1
+        return metrics
+
+
+def _mean_metrics(metrics: Sequence[Dict[str, torch.Tensor]]) -> Dict[str, float]:
+    """Each metric's mean over the gradient steps, on the host."""
+    means = torch.stack([torch.stack([m[k] for m in metrics]).mean() for k in metrics[0]]).tolist()
+    return dict(zip(metrics[0], means))
+
+
+def _stack_unrolls(unrolls: Sequence[types.Transition]) -> types.Transition:
+    """[unrolls][T, envs, ...] -> [unrolls * envs, T, ...]."""
+    stacked = acting._stack(list(unrolls))
+    return map_tensors(lambda x: x.transpose(1, 2).reshape((-1,) + x.shape[1:2] + x.shape[3:]), stacked)
+
+
+def train(
+    environment: Env,
+    num_timesteps: int,
+    episode_length: int,
+    ckpt_mgr: Optional[checkpointing.CheckpointManager] = None,
+    config_dict: Optional[dict] = None,
+    checkpoint_to_restore: Optional[str] = None,
+    action_repeat: int = 1,
+    num_envs: int = 1,
+    max_devices_per_host: Optional[int] = None,
+    num_eval_envs: int = 128,
+    learning_rate: float = 1e-4,
+    entropy_cost: float = 1e-4,
+    kl_weight: float = 1e-3,
+    discounting: float = 0.9,
+    seed: int = 0,
+    unroll_length: int = 10,
+    batch_size: int = 32,
+    num_minibatches: int = 16,
+    num_updates_per_batch: int = 2,
+    num_evals: int = 20,
+    num_resets_per_eval: int = 0,
+    normalize_observations: bool = False,
+    reward_scaling: float = 1.0,
+    clipping_epsilon: float = 0.3,
+    gae_lambda: float = 0.95,
+    deterministic_eval: bool = False,
+    network_factory=ppo_networks.make_intention_ppo_networks,
+    progress_fn: Callable[[int, Metrics], None] = lambda *args: None,
+    normalize_advantage: bool = True,
+    eval_env: Optional[Env] = None,
+    eval_env_test_set: Optional[Env] = None,
+    policy_params_fn: Callable[..., None] = lambda *args, **kwargs: None,
+    randomization_fn=None,
+    get_activation: bool = True,
+    use_lstm: bool = False,
+    use_kl_schedule: bool = True,
+    kl_ramp_up_frac: float = 0.25,
+    freeze_decoder: bool = False,
+    checkpoint_callback: Optional[Callable[[int], None]] = None,
+    epoch_steps_per_call: Optional[int] = None,
+    profile_dir: Optional[str] = None,
+    rollout_bf16: bool = False,
+    *,
+    device: torch.device | str = "cuda",
+    batch_callback: Optional[Callable[[TrainingState, types.Transition, Callable], None]] = None,
+):
+    """Trains an intention PPO policy; returns (make_policy, (normalizer,
+    policy state dict), metrics). `make_policy(normalizer, deterministic)`
+    acts with the trained networks. `batch_callback(training_state, data,
+    make_learner)`, if given, sees each training step's state and batch
+    before the learning half changes the state; `make_learner(networks)` is
+    the trainer's own Learner (loss, optimizer, minibatches and passes) over
+    other networks of the same shapes, e.g. a copy on another device."""
+    del get_activation  # the port's inference policy has no activation taps
+    if batch_size * num_minibatches % num_envs:
+        raise ValueError(f"batch_size * num_minibatches ({batch_size * num_minibatches}) is no multiple of num_envs")
+    unsupported = {
+        "freeze_decoder": freeze_decoder,
+        # the JAX package's only checkpoint callback writes the preemption
+        # run state, which train.py refuses
+        "checkpoint_callback": checkpoint_callback is not None,
+        "randomization_fn": randomization_fn is not None,
+        "rollout_bf16": rollout_bf16,
+        "use_lstm": use_lstm,
+        "more than one device": max_devices_per_host not in (None, 1),
+        "a foreign (non-tracking) env": not isinstance(environment, Env),
+        # the phases are record_function scopes: a torch.profiler around the
+        # call traces them
+        "profile_dir": profile_dir is not None,
+    }
+    for what, asked in unsupported.items():
+        if asked:
+            raise NotImplementedError(f"{what}: not ported (ROADMAP 5b/5d/5e)")
+    device = _device(device)
+    xt = time.time()
+    config_dict = config_dict if config_dict is not None else {"network_config": {}, "env_config": {"render_interval": 1}}
+
+    env_step_per_training_step = batch_size * unroll_length * num_minibatches * action_repeat
+    num_evals_after_init = max(num_evals - 1, 1)
+    num_training_steps_per_epoch = int(
+        np.ceil(num_timesteps / (num_evals_after_init * env_step_per_training_step * max(num_resets_per_eval, 1)))
+    )
+    # The JAX package may split an epoch's training steps over several device
+    # calls (a bound on a TPU runtime's call time) and then runs chunk x
+    # num_chunks steps; the port runs the same count in one loop.
+    chunk = max(1, min(int(epoch_steps_per_call or num_training_steps_per_epoch), num_training_steps_per_epoch))
+    steps_per_epoch = chunk * math.ceil(num_training_steps_per_epoch / chunk)
+
+    seeds = torch.Generator().manual_seed(seed)
+
+    def generator(dev):
+        return torch.Generator(device=dev).manual_seed(int(torch.randint(2**62, (1,), generator=seeds)))
+
+    key_init, key_env, key_train, key_eval, key_eval_test = (generator("cpu"),) + tuple(
+        generator(device) for _ in range(4)
+    )
+
+    env = wrappers.wrap(environment, episode_length=episode_length, action_repeat=action_repeat)
+    env_state = env.reset(key_env, num_envs)
+    obs_size = env_state.obs.shape[-1]
+    reference_obs_size = int(env_state.info.get("reference_obs_size", obs_size))
+    proprioceptive_obs_size = int(env_state.info.get("proprioceptive_obs_size", 0))
+    config_dict.setdefault("network_config", {}).update(
+        {
+            "observation_size": obs_size,
+            "action_size": env.action_size,
+            "normalize_observations": normalize_observations,
+            "reference_obs_size": reference_obs_size,
+            "proprioceptive_obs_size": proprioceptive_obs_size,
+        }
+    )
+
+    normalize = running_statistics.normalize if normalize_observations else types.identity_observation_preprocessor
+    ppo_network = network_factory(
+        obs_size, reference_obs_size, env.action_size, preprocess_observations_fn=normalize,
+        generator=key_init, device=device,
+    )
+    make_policy = ppo_networks.make_inference_fn(ppo_network)
+    kl_schedule = None
+    if use_kl_schedule:
+        kl_schedule = losses.create_ramp_schedule(
+            max_value=kl_weight, ramp_steps=int(num_evals * kl_ramp_up_frac), schedule="linear"
+        )
+
+    def make_learner(networks: ppo_networks.PPOImitationNetworks) -> Learner:
+        """The learning half over `networks`: the clipped Adam of both
+        networks' parameters and the PPO loss at this call's settings."""
+        optimizer = gradients.make_optimizer(
+            [*networks.policy_network.parameters(), *networks.value_network.parameters()], learning_rate
+        )
+        loss_fn = functools.partial(
+            losses.compute_ppo_loss,
+            ppo_network=networks,
+            entropy_cost=entropy_cost,
+            kl_weight=kl_weight,
+            discounting=discounting,
+            reward_scaling=reward_scaling,
+            gae_lambda=gae_lambda,
+            clipping_epsilon=clipping_epsilon,
+            normalize_advantage=normalize_advantage,
+            kl_schedule=kl_schedule,
+        )
+        return Learner(loss_fn, optimizer, num_minibatches, num_updates_per_batch)
+
+    learner = make_learner(ppo_network)
+    training_state = TrainingState(ppo_network, learner.optimizer, running_statistics.init_state(obs_size, device), 0)
+    if checkpoint_to_restore is not None:
+        training_state.load_state_dict(checkpointing.load_training_state(checkpoint_to_restore))
+        logging.info("Restored latest checkpoint at %s", checkpoint_to_restore)
+
+    unrolls_per_step = batch_size * num_minibatches // num_envs
+    rollout_s = [0.0]  # host seconds of the epoch's rollouts
+
+    def training_step(it) -> List[Dict[str, torch.Tensor]]:
+        nonlocal env_state
+        policy = make_policy(training_state.normalizer_params)
+        t0 = time.perf_counter()
+        with record_function("rollout"):
+            unrolls = []
+            for _ in range(unrolls_per_step):
+                env_state, data = acting.generate_unroll(
+                    env, env_state, policy, key_train, unroll_length, extra_fields=("truncation",)
+                )
+                unrolls.append(data)
+            data = _stack_unrolls(unrolls)
+        rollout_s[0] += _clock(device) - t0
+        assert data.discount.shape[1:] == (unroll_length,)
+        if batch_callback is not None:
+            batch_callback(training_state, data, make_learner)
+        metrics = learner(training_state, data, it, generator=key_train)
+        training_state.env_steps = next_env_steps(training_state.env_steps, env_step_per_training_step)
+        return metrics
+
+    training_walltime = 0.0
+
+    def training_epoch_with_timing(it) -> Metrics:
+        nonlocal training_walltime
+        t = time.time()
+        rollout_s[0] = 0.0
+        learner.phase_s = dict.fromkeys(learner.phase_s, 0.0)
+        step_metrics = []
+        for _ in range(steps_per_epoch):
+            step_metrics += training_step(it)
+        loss_metrics = _mean_metrics(step_metrics)  # waits for the last step
+        epoch_training_time = time.time() - t
+        training_walltime += epoch_training_time
+        # as in the JAX package, the steps of one epoch times the resets per
+        # eval (an epoch is one of num_resets_per_eval between evals)
+        sps = steps_per_epoch * env_step_per_training_step * max(num_resets_per_eval, 1) / epoch_training_time
+        phase_ms = {"rollout": rollout_s[0], **learner.phase_s}
+        return {
+            "training/sps": sps,
+            "training/walltime": training_walltime,
+            **{f"training/{name}": value for name, value in loss_metrics.items()},
+            **{f"training/{k}_ms": 1e3 * v / steps_per_epoch for k, v in phase_ms.items()},
+        }
+
+    # ---- evaluators ------------------------------------------------------
+    def make_evaluator(env_: Env, key: torch.Generator) -> acting.Evaluator:
+        return acting.Evaluator(
+            wrappers.wrap(env_, episode_length=episode_length, action_repeat=action_repeat),
+            functools.partial(make_policy, deterministic=deterministic_eval),
+            num_eval_envs=num_eval_envs,
+            episode_length=episode_length,
+            action_repeat=action_repeat,
+            key=key,
+        )
+
+    evaluator = make_evaluator(environment if eval_env is None else eval_env, key_eval)
+    evaluator_test_set = None
+    if eval_env_test_set is not None:
+        evaluator_test_set = make_evaluator(eval_env_test_set, key_eval_test)
+
+    def evaluate(training_metrics: Metrics) -> Metrics:
+        metrics = evaluator.run_evaluation(training_state.normalizer_params, training_metrics)
+        if evaluator_test_set is not None:
+            metrics = evaluator_test_set.run_evaluation(
+                training_state.normalizer_params, metrics, data_split="test_set"
+            )
+        return metrics
+
+    def save(step: int) -> None:
+        if ckpt_mgr is not None:
+            ckpt_mgr.save(step, training_state.policy_params(), training_state.state_dict(), config_dict)
+
+    start_it = 0
+    logging.info("Starting at iteration %s with %s evals left", start_it, num_evals_after_init)
+
+    # ---- initial eval + checkpoint ---------------------------------------
+    metrics = {}
+    if num_evals > 1:
+        metrics = evaluate({})
+        logging.info(metrics)
+        progress_fn(start_it, metrics)
+        save(0)
+
+    training_metrics = {}
+    start_it += 1
+    current_step = 0
+    for it in range(start_it, num_evals_after_init + start_it):
+        logging.info("starting iteration %s %s", it, time.time() - xt)
+        for _ in range(max(num_resets_per_eval, 1)):
+            training_metrics = training_epoch_with_timing(it)
+            current_step = training_state.env_steps
+            if num_resets_per_eval > 0:
+                env_state = env.reset(key_env, num_envs)
+
+        metrics = evaluate(training_metrics)
+        render_interval = config_dict.get("env_config", {}).get("render_interval", 1)
+        policy_params_fn(
+            current_step=it,
+            jit_logging_inference_fn=make_policy(training_state.normalizer_params, deterministic=True),
+            params=training_state.policy_params(),
+            policy_params_fn_key=key_eval,
+            render_video=(it % render_interval == 0),
+        )
+        logging.info(metrics)
+        progress_fn(current_step, metrics)
+        save(it)
+
+    logging.info("total steps: %s", current_step)
+    return make_policy, training_state.policy_params(), metrics

@@ -7,6 +7,9 @@ decoder pinned over agent/ppo_factory.py.
 from __future__ import annotations
 
 import functools
+from typing import Any, Mapping, Optional
+
+import torch
 
 from track_mjx_tpu_torch.agent import ppo_factory
 
@@ -17,3 +20,19 @@ make_intention_ppo_networks = functools.partial(
     ppo_factory.make_intention_ppo_networks, recurrent_decoder=False
 )
 params_from_flax = ppo_factory.params_from_flax
+
+
+def network_factory(network_config: Mapping[str, Any], generator: Optional[torch.Generator] = None):
+    """make_intention_ppo_networks at a config's `network_config` widths:
+    f(observation_size, reference_obs_size, action_size, **kw)."""
+    net = network_config
+    if net.get("arch_name", "intention") != "intention":
+        raise ValueError(f"Unknown network architecture: {net['arch_name']}")
+    return functools.partial(
+        make_intention_ppo_networks,
+        intention_latent_size=net["intention_size"],
+        encoder_hidden_layer_sizes=tuple(net["encoder_layer_sizes"]),
+        decoder_hidden_layer_sizes=tuple(net["decoder_layer_sizes"]),
+        value_hidden_layer_sizes=tuple(net["critic_layer_sizes"]),
+        generator=generator,
+    )

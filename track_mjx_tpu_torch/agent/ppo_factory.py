@@ -13,7 +13,8 @@ Port of the feed-forward half of track_mjx_tpu/agent/ppo_factory.py.
   action; the port draws the latent noise [B, latents] first, then the
   action noise [B, action_size]. Deterministic extras: latent_mean and
   latent_logvar; stochastic extras add log_prob, raw_action and logits.
-- `params_from_flax` carries the JAX package's parameters across.
+- `params_from_flax` carries the JAX package's parameters across, and
+  `optimizer_state_from_optax` its Adam moments and count.
 """
 
 from __future__ import annotations
@@ -165,3 +166,40 @@ def params_from_flax(
         }
     )
     return PPOParams(norm, _state_dict(policy_params, "module."), _state_dict(value_params, "mlp."))
+
+
+def _tree(x, name: str):
+    return x[name] if isinstance(x, Mapping) else getattr(x, name)
+
+
+def optimizer_state_from_optax(
+    count: Any,
+    mu: Any,
+    nu: Any,
+    networks: PPOImitationNetworks,
+    optimizer: torch.optim.Optimizer,
+) -> dict:
+    """The state dict of `optimizer` (a `torch.optim.Adam` over the policy's
+    parameters, then the value's, as `gradients.make_optimizer` is given
+    them) holding the JAX training state's optax Adam moments `mu` and `nu`
+    (PPONetworkParams of flax trees, or mappings with `policy` and `value`)
+    and step `count`. Load it with `optimizer.load_state_dict`."""
+    named = [(n, p) for n, p in networks.policy_network.named_parameters()]
+    named += [(n, p) for n, p in networks.value_network.named_parameters()]
+    moments = {}
+    for key, tree in (("exp_avg", mu), ("exp_avg_sq", nu)):
+        flat = {**_state_dict(_tree(tree, "policy"), "module."), **_state_dict(_tree(tree, "value"), "mlp.")}
+        moments[key] = flat
+    step = float(np.asarray(count))
+    state = {
+        i: {
+            "step": torch.tensor(step, dtype=torch.float32),
+            "exp_avg": moments["exp_avg"][n].to(p.device),
+            "exp_avg_sq": moments["exp_avg_sq"][n].to(p.device),
+        }
+        for i, (n, p) in enumerate(named)
+    }
+    groups = optimizer.state_dict()["param_groups"]
+    if sum(len(g["params"]) for g in groups) != len(named):
+        raise ValueError("the optimizer does not hold the policy's and the value's parameters")
+    return {"state": state, "param_groups": groups}

@@ -1,13 +1,17 @@
-"""Running observation statistics: state, normalize and denormalize.
+"""Running observation statistics: state, Welford update, normalize and
+denormalize.
 
-Port of the inference half of track_mjx_tpu/agent/running_statistics.py
-(the Welford `update` comes with the trainer). The state holds one flat
-observation's statistics as float32 tensors.
+Port of track_mjx_tpu/agent/running_statistics.py. The state holds one flat
+observation's statistics as float32 tensors; `update` reduces over every
+leading batch dim of its batch on the batch's device (one device: the JAX
+package's `pmap_axis_name` has no counterpart).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+from typing import Optional
 
 import torch
 
@@ -34,6 +38,45 @@ def init_state(size: int, device: torch.device | str = "cuda") -> RunningStatist
         summed_variance=zeros.clone(),
         std=torch.ones_like(zeros),
     )
+
+
+def update(
+    state: RunningStatisticsState,
+    batch: torch.Tensor,
+    *,
+    weights: Optional[torch.Tensor] = None,
+    std_min_value: float = 1e-6,
+    std_max_value: float = 1e6,
+    validate_shapes: bool = True,
+    mask: Optional[torch.Tensor] = None,
+) -> RunningStatisticsState:
+    """Welford update over all leading batch dims of `batch` [..., size].
+
+    `weights` (shaped like the batch dims) weight each sample; dims where
+    `mask` > 0 keep their old statistics."""
+    batch_dims = tuple(batch.shape[: batch.dim() - state.mean.dim()])
+    if validate_shapes and tuple(batch.shape[len(batch_dims):]) != tuple(state.mean.shape):
+        raise ValueError(f"batch {tuple(batch.shape)} does not end in {tuple(state.mean.shape)}")
+    axes = tuple(range(len(batch_dims)))
+    step_increment = float(math.prod(batch_dims)) if weights is None else weights.sum()
+    count = state.count + step_increment
+
+    diff_to_old_mean = batch - state.mean
+    if weights is not None:
+        diff_to_old_mean = diff_to_old_mean * weights.reshape(weights.shape + (1,) * (batch.dim() - weights.dim()))
+    new_mean = state.mean + diff_to_old_mean.sum(axes) / count
+    variance_update = (diff_to_old_mean * (batch - new_mean)).sum(axes)
+    # the cross-term sum is non-negative only in exact arithmetic: a constant
+    # dim can drive it below zero in float32, and sqrt would NaN its std
+    new_summed_variance = torch.clamp(state.summed_variance + variance_update, min=0.0)
+    new_std = torch.clamp(torch.sqrt(new_summed_variance / count), std_min_value, std_max_value)
+
+    if mask is not None:
+        keep = mask > 0
+        new_mean = torch.where(keep, state.mean, new_mean)
+        new_summed_variance = torch.where(keep, state.summed_variance, new_summed_variance)
+        new_std = torch.where(keep, state.std, new_std)
+    return RunningStatisticsState(count=count, mean=new_mean, summed_variance=new_summed_variance, std=new_std)
 
 
 def normalize(batch: torch.Tensor, mean_std: RunningStatisticsState, max_abs_value=None):

@@ -14,6 +14,7 @@ import torch
 Observation = torch.Tensor
 Action = torch.Tensor
 Extra = Dict[str, Any]
+Metrics = Dict[str, Any]
 PreprocessObservationFn = Callable[[Observation, Any], Observation]
 
 

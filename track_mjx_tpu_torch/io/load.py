@@ -5,7 +5,8 @@ Port of track_mjx_tpu/io/load.py. `ReferenceClip` holds float32 tensors,
 `.npz` (`save_npz`, `load_npz`), which needs numpy alone; the HDF5 readers
 and writer of the JAX package (stac-mjx flat and grouped "all_clips"
 layouts) import h5py, and the stac-mjx reader PyYAML, inside the function
-that needs them, so nothing else here depends on either.
+that needs them, so nothing else here depends on either. Every reader puts
+its tensors on the card unless the caller names another device.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
+
+from track_mjx_tpu_torch.physics.model import _device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,9 +67,10 @@ CLIP_KEYS = (
 )
 
 
-def clip_from_numpy(arrays, device: torch.device | str = "cpu") -> ReferenceClip:
+def clip_from_numpy(arrays, device: torch.device | str = "cuda") -> ReferenceClip:
     """ReferenceClip of float32 tensors on `device` from a mapping of
     feature name -> array (CLIP_KEYS, optionally `original_clip_idx`)."""
+    device = _device(device)
     fields = {k: torch.as_tensor(np.array(arrays[k]), dtype=torch.float32, device=device) for k in CLIP_KEYS}
     if "original_clip_idx" in arrays and arrays["original_clip_idx"] is not None:
         fields["original_clip_idx"] = torch.as_tensor(
@@ -89,7 +93,7 @@ def save_npz(clip: ReferenceClip, path: Union[str, Path]) -> None:
     np.savez(path, **clip_to_numpy(clip))
 
 
-def load_npz(path: Union[str, Path], device: torch.device | str = "cpu") -> ReferenceClip:
+def load_npz(path: Union[str, Path], device: torch.device | str = "cuda") -> ReferenceClip:
     """Reads a ReferenceClip written by `save_npz`."""
     with np.load(path, allow_pickle=False) as z:
         return clip_from_numpy({k: z[k] for k in z.files}, device)
@@ -114,7 +118,7 @@ def _yaml_load(text: str):
     return yaml.safe_load(text)
 
 
-def load_data(data_path: Union[str, Path], device: torch.device | str = "cpu") -> ReferenceClip:
+def load_data(data_path: Union[str, Path], device: torch.device | str = "cuda") -> ReferenceClip:
     """Loads clips: `.npz` directly, `.h5` trying the stac-mjx flat format,
     then the grouped format."""
     if str(data_path).endswith(".npz"):
@@ -142,7 +146,7 @@ def _from_qpos(qpos, qvel, xpos, xquat, device) -> ReferenceClip:
 
 
 def make_singleclip_data(
-    traj_data_path: Union[str, Path], device: torch.device | str = "cpu"
+    traj_data_path: Union[str, Path], device: torch.device | str = "cuda"
 ) -> ReferenceClip:
     """Single-clip loader from flat qpos/qvel/xpos/xquat datasets."""
     with _h5py().File(traj_data_path, "r") as data:
@@ -153,7 +157,7 @@ def make_singleclip_data(
 def make_multiclip_data(
     traj_data_path: Union[str, Path],
     n_frames_per_clip: Optional[int] = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> ReferenceClip:
     """stac-mjx flat HDF5 -> (clips, frames, dims) ReferenceClip."""
 
@@ -172,7 +176,7 @@ def make_multiclip_data(
 
 
 def load_reference_clip_data(
-    filepath: Union[str, Path], group_name: str = "all_clips", device: torch.device | str = "cpu"
+    filepath: Union[str, Path], group_name: str = "all_clips", device: torch.device | str = "cuda"
 ) -> ReferenceClip:
     """Grouped-HDF5 loader ("all_clips/<feature>" datasets)."""
     with _h5py().File(filepath, "r") as f:

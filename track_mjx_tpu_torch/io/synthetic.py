@@ -7,17 +7,25 @@ from the port's own forward kinematics, run in float64 over every frame of
 every clip at once on `device`, where the JAX package runs MuJoCo C's
 `mj_kinematics` frame by frame; `mj_model` may be a `load_snapshot` result,
 so no MuJoCo is needed.
+
+As a script it writes clips of a workload's walker to an .npz that the
+trainer's `data_path` reads:
+
+    python -m track_mjx_tpu_torch.io.synthetic --config rodent-full-clips \
+        --clips 8 --frames 250 --out build/clips.npz [--device cpu]
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import os
 from typing import Any
 
 import numpy as np
 import torch
 
-from track_mjx_tpu_torch.io.load import ReferenceClip, clip_from_numpy
+from track_mjx_tpu_torch.io.load import ReferenceClip, clip_from_numpy, save_npz
 from track_mjx_tpu_torch.physics import kinematics as phys_kinematics
 from track_mjx_tpu_torch.physics import model as phys_model
 
@@ -102,3 +110,26 @@ def synthesize_clips(
         body_positions=xpos.reshape(n_clips, n_frames, nb, 3).float(),
         body_quaternions=xquat.reshape(n_clips, n_frames, nb, 4).float(),
     )
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description="Writes synthetic clips of a workload's walker to an .npz.")
+    ap.add_argument("--config", default="rodent-full-clips", choices=sorted(phys_model.SNAPSHOTS))
+    ap.add_argument("--clips", type=int, default=8)
+    ap.add_argument("--frames", type=int, default=250)
+    ap.add_argument("--mocap-hz", type=int, default=50)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--out", required=True)
+    args = ap.parse_args(argv)
+    clips = synthesize_clips(
+        phys_model.load_snapshot(args.config), n_clips=args.clips, n_frames=args.frames,
+        mocap_hz=args.mocap_hz, seed=args.seed, device=args.device,
+    )
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    save_npz(clips, args.out)
+    print(f"wrote {args.clips} clips of {args.frames} frames to {args.out}")
+
+
+if __name__ == "__main__":
+    main()

@@ -19,7 +19,6 @@ a card raises.
 from __future__ import annotations
 
 import dataclasses
-import json
 import os
 import types
 from typing import Any, Mapping
@@ -297,16 +296,6 @@ def load_snapshot(name: str = "rodent-full-clips") -> Any:
             group, _, field = key.rpartition(".")
             setattr(getattr(snap, group) if group else snap, field, val)
     return snap
-
-
-def load_workload_config(name: str = "rodent-full-clips") -> dict:
-    """The sections of workload config `name` that the port reads (env_args,
-    reward_weights, reference_config, network_config, train_config), from
-    the JSON that tools/export_torch_model.py writes beside the snapshot."""
-    if name not in SNAPSHOTS:
-        raise ValueError(f"no snapshot for {name!r}; have {sorted(SNAPSHOTS)}")
-    with open(os.path.splitext(SNAPSHOTS[name])[0] + ".json") as f:
-        return json.load(f)
 
 
 # ---------------------------------------------------------------------------

@@ -22,16 +22,16 @@ from typing import Optional
 
 import torch
 
+from track_mjx_tpu_torch import workload
 from track_mjx_tpu_torch.agent import running_statistics
 from track_mjx_tpu_torch.agent.mlp_ppo import ppo_networks
 from track_mjx_tpu_torch.envs import wrappers
 from track_mjx_tpu_torch.envs.base import Wrapper
-from track_mjx_tpu_torch.envs.task.reward import RewardConfig
 from track_mjx_tpu_torch.envs.task.tracking import MultiClipTracking
-from track_mjx_tpu_torch.envs.walker.rodent import Rodent
 from track_mjx_tpu_torch.io.load import ReferenceClip
 from track_mjx_tpu_torch.io.synthetic import synthesize_clips
 from track_mjx_tpu_torch.physics import model as phys_model
+from track_mjx_tpu_torch.utils.config import load_config
 
 
 @dataclasses.dataclass
@@ -63,38 +63,25 @@ def make_rollout(
     `seed`); networks initialized from a generator seeded with `seed`."""
     if config != "rodent-full-clips":
         raise NotImplementedError(f"{config}: only the rodent's env is ported")
-    cfg = phys_model.load_workload_config(config)
-    env_args, ref, net = cfg["env_args"], cfg["reference_config"], cfg["network_config"]
-    train = cfg["train_config"]
-    snap = phys_model.load_snapshot(config)
+    cfg = load_config(config)
+    env_args, ref = cfg.env_config.env_args, cfg.reference_config
+    train = cfg.train_setup.train_config
     if clips is None:
         clips = synthesize_clips(
-            snap, n_clips=n_clips, n_frames=ref["clip_length"], mocap_hz=env_args["mocap_hz"],
-            seed=seed, device=device,
+            phys_model.load_snapshot(config), n_clips=n_clips, n_frames=ref.clip_length,
+            mocap_hz=env_args.mocap_hz, seed=seed, device=device,
         )
-    tracking = MultiClipTracking(
-        clips,
-        Rodent.from_snapshot(snap),
-        RewardConfig(**cfg["reward_weights"]),
-        **env_args,
-        **ref,
-        device=device,
-    )
-    episode_length = ref["clip_length"] - ref["random_init_range"] - ref["traj_length"]
+    tracking = workload.make_env(cfg, clips, device=device)
+    episode_length = workload.episode_length(cfg, tracking)
     env = wrappers.wrap(
-        tracking, episode_length=episode_length, action_repeat=train["action_repeat"], use_lstm=train["use_lstm"]
+        tracking, episode_length=episode_length, action_repeat=train.action_repeat, use_lstm=train.use_lstm
     )
-    networks = ppo_networks.make_intention_ppo_networks(
+    networks = ppo_networks.network_factory(cfg.network_config, torch.Generator().manual_seed(seed))(
         tracking.observation_size,
         tracking.reference_obs_size,
         tracking.action_size,
         preprocess_observations_fn=running_statistics.normalize,
-        intention_latent_size=net["intention_size"],
-        encoder_hidden_layer_sizes=net["encoder_layer_sizes"],
-        decoder_hidden_layer_sizes=net["decoder_layer_sizes"],
-        value_hidden_layer_sizes=net["critic_layer_sizes"],
-        generator=torch.Generator().manual_seed(seed),
         device=device,
     )
     normalizer = running_statistics.init_state(tracking.observation_size, device=tracking.device)
-    return Rollout(env, tracking, networks, normalizer, cfg, train["unroll_length"], episode_length)
+    return Rollout(env, tracking, networks, normalizer, cfg, train.unroll_length, episode_length)

@@ -1,0 +1,170 @@
+"""Training entry point: config, data, env, trainer, checkpoints.
+
+Port of the MLP pipeline of track_mjx_tpu/train.py:
+
+- the config is the port's exported JSON of a workload
+  (`utils.config.load_config`) with dotted overrides; `device` (top level,
+  default "cuda") names where the trainer runs;
+- resume: with `train_setup.checkpoint_to_restore` set, the checkpoint's
+  stored config is authoritative, its training state is restored and the
+  eval iteration count starts again at 0;
+- checkpoints go to <logging_config.model_path>/<run_id>, PPONetwork_<step>;
+- the clips come from `data_path` (`.npz`, or `.h5` where h5py is
+  installed) through `io.load.load_data`, split by `train_subset_ratio` or
+  `train_test_split_info`, the test clips evaluated as `eval_env_test_set`;
+- episode_length = (clip_length - random_init_range - traj_length) *
+  steps per reference frame; num_evals = num_timesteps / eval_every;
+  num_resets_per_eval = eval_every // reset_every;
+- progress goes to `logging`.
+
+Not ported (ROADMAP 5b/5e), and refused rather than skipped: the LSTM
+pipeline, decoder freezing, multi-host `distributed`, preemption run-state
+files (`restore_from_run_state`) and `-m` multirun. There is no wandb and no
+rendering.
+
+Usage:
+    python -m track_mjx_tpu_torch.train [--config-name NAME] [key.sub=value ...]
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import sys
+from datetime import datetime
+from pathlib import Path
+
+from track_mjx_tpu_torch import workload
+from track_mjx_tpu_torch.agent import checkpointing
+from track_mjx_tpu_torch.agent.mlp_ppo import ppo, ppo_networks
+from track_mjx_tpu_torch.io import load
+from track_mjx_tpu_torch.physics import forward as phys_forward
+from track_mjx_tpu_torch.utils.config import ConfigDict, load_config
+
+
+def _refuse_unported(cfg: ConfigDict) -> None:
+    train_setup = cfg["train_setup"]
+    refused = {
+        "distributed": bool(cfg.get("distributed")),
+        "train_setup.restore_from_run_state (preemption run states)": train_setup.get("restore_from_run_state")
+        is not None,
+        "train_setup.freeze_decoder": bool(train_setup.get("freeze_decoder", False)),
+        "train_setup.train_config.use_lstm (the LSTM pipeline)": bool(train_setup["train_config"].get("use_lstm")),
+    }
+    for what, asked in refused.items():
+        if asked:
+            raise NotImplementedError(f"{what}: not ported (ROADMAP 5b/5e)")
+
+
+def main(cfg: ConfigDict, progress_fn=None, batch_callback=None):
+    """Runs training from a loaded config; returns (make_policy, (normalizer,
+    policy state dict)). `progress_fn(num_steps_thousands, metrics)` is
+    called beside the logging of progress; `batch_callback(training_state,
+    data, make_learner)` goes to the trainer (`ppo.train`)."""
+    _refuse_unported(cfg)
+    device = cfg.get("device", "cuda")
+
+    if cfg["train_setup"].get("checkpoint_to_restore") is not None:
+        checkpoint_to_restore = str(Path(cfg["train_setup"]["checkpoint_to_restore"]).resolve())
+        # the checkpoint's stored config is authoritative on resume
+        cfg = ConfigDict(checkpointing.load_config_from_checkpoint(checkpoint_to_restore))
+        cfg["train_setup"]["checkpoint_to_restore"] = checkpoint_to_restore
+        cfg["device"] = device
+        checkpoint_path = checkpoint_to_restore
+        run_id = os.path.basename(checkpoint_path)
+        _refuse_unported(cfg)
+    else:
+        run_id = datetime.now().strftime("%y%m%d_%H%M%S_%f")
+        model_path = Path(cfg["logging_config"]["model_path"])
+        if not model_path.is_absolute():
+            model_path = Path.cwd() / model_path
+        checkpoint_path = str(model_path / run_id)
+
+    cfg_dict = cfg.to_dict()
+    logging.info("Configs: %s", cfg_dict)
+    train_setup = cfg["train_setup"]
+    ckpt_mgr = checkpointing.CheckpointManager(
+        checkpoint_path,
+        max_to_keep=train_setup.get("checkpoint_max_to_keep"),
+        keep_period=train_setup.get("checkpoint_keep_period"),
+    )
+    logging.info("run_id: %s", run_id)
+    logging.info("Training checkpoint path: %s", checkpoint_path)
+
+    phys_forward.set_full_f32()
+    logging.info("Loading data: %s", cfg["data_path"])
+    all_clips = load.load_data(cfg["data_path"], device=device)
+    test_clips = None
+    if train_setup.get("train_test_split_info") is not None:
+        with open(train_setup["train_test_split_info"], "r") as f:
+            split_info = json.load(f)
+        if train_setup.get("train_subset_ratio") is None:
+            train_idx = split_info["train"]
+        else:
+            train_idx = split_info["train_subset"][f"{train_setup['train_subset_ratio']:.2f}"]
+        test_clips = load.select_clips(all_clips, split_info["test"])
+        train_clips = load.select_clips(all_clips, train_idx)
+    elif train_setup.get("train_subset_ratio") is not None:
+        train_clips, test_clips = load.generate_train_test_split(
+            all_clips, test_ratio=1 - train_setup["train_subset_ratio"]
+        )
+    else:
+        train_clips = all_clips
+    env = workload.make_env(cfg, train_clips, device=device)
+    test_env = None if test_clips is None else workload.make_env(cfg, test_clips, device=device)
+
+    episode_length = workload.episode_length(cfg, env)
+    logging.info("episode_length %s", episode_length)
+    train_config = dict(train_setup["train_config"])
+    network_config = cfg["network_config"]
+
+    def progress(num_steps, metrics):
+        logging.info("num_steps_thousands %s: %s", num_steps, metrics)
+        if progress_fn is not None:
+            progress_fn(num_steps, metrics)
+
+    make_inference_fn, params, _ = ppo.train(
+        environment=env,
+        **train_config,
+        num_evals=int(train_config["num_timesteps"] / train_setup["eval_every"]),
+        num_resets_per_eval=train_setup["eval_every"] // train_setup["reset_every"],
+        episode_length=episode_length,
+        kl_weight=network_config["kl_weight"],
+        network_factory=ppo_networks.network_factory(network_config),
+        ckpt_mgr=ckpt_mgr,
+        checkpoint_to_restore=train_setup.get("checkpoint_to_restore"),
+        config_dict=cfg_dict,
+        use_kl_schedule=network_config["kl_schedule"],
+        eval_env_test_set=test_env,
+        progress_fn=progress,
+        device=device,
+        batch_callback=batch_callback,
+    )
+    return make_inference_fn, params
+
+
+def cli(argv=None):
+    """python -m track_mjx_tpu_torch.train [--config-name NAME] [a.b=c ...]"""
+    logging.basicConfig(level=logging.INFO)
+    args = sys.argv[1:] if argv is None else list(argv)
+    config_name = "rodent-full-clips"
+    overrides = []
+    i = 0
+    while i < len(args):
+        if args[i] in ("--config-name", "-cn"):
+            config_name = args[i + 1]
+            i += 2
+        elif args[i].startswith("--config-name="):
+            config_name = args[i].split("=", 1)[1]
+            i += 1
+        elif args[i] in ("-m", "--multirun"):
+            raise NotImplementedError("-m/--multirun: not ported; run one job per call")
+        else:
+            overrides.append(args[i])
+            i += 1
+    return main(load_config(config_name, overrides))
+
+
+if __name__ == "__main__":
+    cli()
