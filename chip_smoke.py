@@ -1,5 +1,6 @@
 """Smoke run of the torch port on one NVIDIA GPU: the physics control
-steps, the rodent rollout and the rodent trainer.
+steps, the rodent rollout, and the trainer on the rodent (MLP and LSTM
+pipelines) and on the fly.
 
 Usage (from the repository root, on a machine with a CUDA device and nvcc):
 
@@ -76,7 +77,24 @@ It imports nothing of JAX. Phases, each of which raises on failure:
    minibatch's gradients and the parameters after it are held to bars. Training sps, eval sps and the
    host ms of rollout, normalizer update and SGD per training step come from
    the trainer's own metrics. Runs after phase 7, before phase 9.
-9. Standalone linalg kernels against plain: from 4096 contact-rich states
+9. Fly training: phase 8 on fly-mc-intention (the fly's tracking env, the
+   intention networks at the config's widths: encoder [256, 256], decoder
+   [256, 256] + 2 x 36, critic [256, 256], intention 60), with the same
+   cuts (8 synthetic clips of 80 frames at 500 Hz, episodes of 25 control
+   steps, one control step per frame); ell_cg_solve must launch exactly as
+   the formula says and cg_solve, the plain version and the other kernels
+   never; the same checks of losses, parameters, env_steps, checkpoint and
+   learning half. Also, on N_CPU envs one env step from a reset: the env
+   layer (obs, reward, the reward terms, flags) on the card's own physics
+   output against the CPU's, as phase 4 holds the rodent's.
+10. Rodent LSTM training: phase 8 with use_lstm (the LSTM pipeline:
+   2 LSTM layers of 128, the JAX LSTM trainer's defaults, then a projection
+   to 2 x 38; plain adam; the passes on the pre-update normalizer), the
+   same cuts and checks; the stored rollout carry must be finite and
+   [N_ENVS, 2, 128], the checkpoint's recurrent policy must act (and carry
+   on) as the trained one from the same carry, and the learning half runs
+   backpropagation through time over the unroll of 20.
+11. Standalone linalg kernels against plain: from 4096 contact-rich states
    of the same model, made on the card with the port's stages, qM goes
    through cholesky, its factor and qfrc_smooth through cho_solve, the
    first Newton iteration's H (and Euler's M + h D) through solve_spd, each
@@ -90,9 +108,9 @@ It imports nothing of JAX. Phases, each of which raises on failure:
    time where the host is the slower), its share of its bound and its
    ratio to the library call. This phase comes last: it starts
    torch.profiler, which no host-clock rate should run after.
-10. Prints the kernels' JSON line (each kernel's launches on every path
-   that runs it under "launches_by_path") and, last, {"ok": true,
-   "device": {...}}.
+12. Prints the seconds of each phase and the total, the kernels' JSON line
+   (each kernel's launches on every path that runs it under
+   "launches_by_path") and, last, {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -110,6 +128,7 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()
 N_ENVS = 4096
 N_CPU = 64
 SUBSTEPS = 10
@@ -234,6 +253,20 @@ TRAIN_OVERRIDES = [
     "train_setup.train_config.num_minibatches=4",
 ]
 TRAIN_CPU_TRAJ = 64  # trajectories of the first batch in the card-against-CPU learning half
+# each training path's config widths (encoder, decoder, critic, intention),
+# asserted: the cuts are depth only
+TRAIN_WIDTHS = {
+    "rodent-full-clips": ([1024, 512, 512, 512, 512], [512, 512, 512, 256, 256], [512] * 5 + [256], 60),
+    "fly-mc-intention": ([256, 256], [256, 256], [256, 256], 60),
+}
+# the rodent's LSTM pipeline at the JAX LSTM trainer's own carry widths
+# (track_mjx_tpu/agent/lstm_ppo/ppo.py's defaults; no YAML sets them)
+LSTM_CARRY = (2, 128)  # hidden_layer_num, hidden_state_size
+LSTM_OVERRIDES = [
+    "train_setup.train_config.use_lstm=true",
+    f"network_config.hidden_layer_num={LSTM_CARRY[0]}",
+    f"network_config.hidden_state_size={LSTM_CARRY[1]}",
+]
 # Card against CPU over one learning half (4 passes x 4 minibatches of 16
 # trajectories x 20 steps), both in full float32 from the same state: the
 # networks' sums (up to 1024 terms) and the loss's means run in another
@@ -761,9 +794,11 @@ class Phases:
     # rodent training: the trainer through its entry point
     # -----------------------------------------------------------------------
 
-    def training(self) -> int:
-        """Rodent PPO training at full width and N_ENVS envs through
-        train.main (phase 8); returns cg_solve's launches in the phase."""
+    def training(self, config: str = "rodent-full-clips", extra=(), what: str = "rodent training",
+                 phase: int = 8) -> int:
+        """PPO training of workload `config` (with `extra` overrides) at full
+        width and N_ENVS envs through train.main (phases 8-10); returns the
+        launches of the path's fused solve in the phase."""
         from track_mjx_tpu_torch import train as ttrain
         from track_mjx_tpu_torch.agent import checkpointing
         from track_mjx_tpu_torch.envs.base import map_tensors
@@ -775,21 +810,26 @@ class Phases:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         phase_t0 = time.perf_counter()
-        root = os.path.join(REPO, "build", "chip_smoke_train")
+        root = os.path.join(REPO, "build", f"chip_smoke_train_{phase}")
         shutil.rmtree(root, ignore_errors=True)
         os.makedirs(root)
-        clips = synthesize_clips(self.tm.load_snapshot("rodent-full-clips"), n_clips=TRAIN_CLIPS,
-                                 n_frames=TRAIN_CLIP_LENGTH, mocap_hz=50, seed=SEED, device=self.dev)
+        mocap_hz = load_config(config).env_config.env_args.mocap_hz
+        clips = synthesize_clips(self.tm.load_snapshot(config), n_clips=TRAIN_CLIPS,
+                                 n_frames=TRAIN_CLIP_LENGTH, mocap_hz=mocap_hz, seed=SEED, device=self.dev)
         load.save_npz(clips, os.path.join(root, "clips.npz"))
-        cfg = load_config("rodent-full-clips", [
+        cfg = load_config(config, [
             f"device={self.dev.type}",
             f"data_path={os.path.join(root, 'clips.npz')}",
             f"logging_config.model_path={os.path.join(root, 'ckpts')}",
             *TRAIN_OVERRIDES,
+            *extra,
         ])
         tc, net = cfg.train_setup.train_config, cfg.network_config
+        lstm = bool(tc.use_lstm)
         widths = (net.encoder_layer_sizes, net.decoder_layer_sizes, net.critic_layer_sizes, net.intention_size)
-        assert widths == ([1024, 512, 512, 512, 512], [512, 512, 512, 256, 256], [512] * 5 + [256], 60), widths
+        assert widths == TRAIN_WIDTHS[config], widths
+        if lstm:
+            assert (net.hidden_layer_num, net.hidden_state_size) == LSTM_CARRY
         per_step = tc.batch_size * tc.unroll_length * tc.num_minibatches * tc.action_repeat
         num_evals = int(tc.num_timesteps / cfg.train_setup.eval_every)
         resets_per_eval = cfg.train_setup.eval_every // cfg.train_setup.reset_every
@@ -804,38 +844,44 @@ class Phases:
             captured["state"] = checkpointing.cpu_copy(state.state_dict())
             captured["data"] = map_tensors(lambda x: x[:TRAIN_CPU_TRAJ].detach().to("cpu", copy=True), data)
             captured["obs"] = data.observation[:, 0].clone()
+            if lstm:
+                captured["carry"] = tuple(x.clone() for x in state.hidden_state)
 
+        # the path's fused solve, and its plain version counted
+        solve = "ell_cg_solve" if config == "fly-mc-intention" else "cg_solve"
+        kernel = getattr(tk, solve)
         plain_calls = [0]
-        plain = tk.cg_solve_plain
+        plain = getattr(tk, f"{solve}_plain")
 
         def counting_plain(*args, **kwargs):
             plain_calls[0] += 1
             return plain(*args, **kwargs)
 
-        tk.cg_solve_plain = counting_plain
-        others = (tk.ell_cg_solve, self.bl.cholesky, self.bl.cho_solve, self.bl.solve_spd)
-        for op in (tk.cg_solve, *others):
+        setattr(tk, f"{solve}_plain", counting_plain)
+        others = [op for op in (tk.cg_solve, tk.ell_cg_solve, self.bl.cholesky, self.bl.cho_solve, self.bl.solve_spd)
+                  if op is not kernel]
+        for op in (kernel, *others):
             op.launches = 0  # the trainer's run: the path's launches
         t0 = time.perf_counter()
         make_policy, params = ttrain.main(cfg, progress_fn=lambda s, m: progress.append((s, m)),
                                           batch_callback=on_batch)
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
-        launches = tk.cg_solve.launches
-        tk.cg_solve_plain = plain
+        launches = kernel.launches
+        setattr(tk, f"{solve}_plain", plain)
         # reset, the unrolls, the reset after each epoch, and per eval a reset
         # and its episode, with the initial eval only when num_evals > 1
         evals = max(num_evals - 1, 1) + (1 if num_evals > 1 else 0)
         epochs = max(num_evals - 1, 1) * max(resets_per_eval, 1)
         expected = (1 + epochs * steps * unrolls * tc.unroll_length * SUBSTEPS
                     + (epochs if resets_per_eval > 0 else 0) + evals * (1 + episode * SUBSTEPS))
-        print(f"training: cg_solve launches {launches}, expected 1 (reset) + {epochs} epoch x {steps} training "
+        print(f"{what}: {solve} launches {launches}, expected 1 (reset) + {epochs} epoch x {steps} training "
               f"steps x {unrolls} unroll x {tc.unroll_length} steps x {SUBSTEPS} + "
               f"{epochs if resets_per_eval > 0 else 0} (reset after the epoch) + {evals} eval x (1 + {episode} "
-              f"x {SUBSTEPS}) = {expected}; cg_solve_plain calls {plain_calls[0]}; "
+              f"x {SUBSTEPS}) = {expected}; {solve}_plain calls {plain_calls[0]}; "
               f"{', '.join(f'{op.__name__} {op.launches}' for op in others)}")
-        assert launches == expected, f"cg_solve launched {launches} times, expected {expected}"
-        assert plain_calls[0] == 0, f"the trainer called cg_solve_plain {plain_calls[0]} times"
+        assert launches == expected, f"{solve} launched {launches} times, expected {expected}"
+        assert plain_calls[0] == 0, f"the trainer called {solve}_plain {plain_calls[0]} times"
         for op in others:
             assert op.launches == 0, f"the trainer launched {op.__name__}"
 
@@ -852,34 +898,77 @@ class Phases:
         for _ in range(epochs * steps):  # ppo.py: jnp.int32(env_steps + per_step / 1e3), in float32
             env_steps = int(np.int32(np.float32(env_steps) + np.float32(per_step / 1e3)))
         assert stored["env_steps"] == env_steps == progress[-1][0], (stored["env_steps"], env_steps)
-        print(f"training: {train_s:.1f} s in train.main; every loss metric and parameter finite; env_steps "
+        print(f"{what}: {train_s:.1f} s in train.main; every loss metric and parameter finite; env_steps "
               f"{stored['env_steps']} thousand (JAX formula: {epochs * steps} x int32(float32(e) + "
               f"{per_step / 1e3}) = {env_steps}); losses {json.dumps(losses)}")
-        print(f"training sps {final['training/sps']:.1f}, eval sps {final['eval/sps']:.1f} (the trainer's metrics); "
+        if lstm:
+            carry = stored["hidden_state"]
+            shapes = [tuple(x.shape) for x in carry]
+            finite = all(bool(torch.isfinite(x).all()) for x in carry)
+            print(f"{what}: the stored rollout carry (h, c) has shapes {shapes}, finite {finite}, "
+                  f"max |h| {float(carry[0].abs().max()):.4f}")
+            assert shapes == [(N_ENVS, *LSTM_CARRY)] * 2 and finite, "the rollout carry is off"
+        print(f"{what} sps {final['training/sps']:.1f}, eval sps {final['eval/sps']:.1f} (the trainer's metrics); "
               f"host ms per training step: rollout {final['training/rollout_ms']:.1f}, normalizer update "
               f"{final['training/normalizer_update_ms']:.3f}, sgd {final['training/sgd_ms']:.1f}; eval "
               f"{final['eval/epoch_eval_time']:.1f} s for {tc.get('num_eval_envs', 128)} envs x {episode} steps; "
               f"eval episode reward {final['eval/episode_reward']:.4f}, length {final['eval/avg_episode_length']:.2f} "
               f"({self.card})")
 
-        # the checkpoint's policy acts as the trained one, bit for bit
+        # the checkpoint's policy acts as the trained one, bit for bit (the
+        # recurrent one from the same carry)
         bundle = store.for_eval(device=self.dev)
         loaded = checkpointing.load_inference_fn(bundle["cfg"], bundle["policy"], device=self.dev)
         trained = make_policy(params[0], deterministic=True)
         obs = captured["obs"]
-        same = torch.equal(loaded(obs)[0], trained(obs)[0])
-        print(f"training: checkpoint {os.path.basename(run_dir)}/PPONetwork_{store.resolve_step(None)} loaded "
-              f"for eval; its actions on {obs.shape[0]} observations equal the trained policy's bit for bit: {same}")
+        if lstm:
+            got, want = loaded(obs, None, captured["carry"]), trained(obs, None, captured["carry"])
+            same = torch.equal(got[0], want[0]) and all(torch.equal(a, b) for a, b in zip(got[2], want[2]))
+        else:
+            same = torch.equal(loaded(obs)[0], trained(obs)[0])
+        print(f"{what}: checkpoint {os.path.basename(run_dir)}/PPONetwork_{store.resolve_step(None)} loaded "
+              f"for eval; its actions{' and carry' if lstm else ''} on {obs.shape[0]} observations equal the "
+              f"trained policy's bit for bit: {same}")
         assert same, "the checkpoint's policy acts otherwise than the trained one"
 
-        self.learning_half_versus_cpu(bundle["cfg"], captured)
+        self.learning_half_versus_cpu(bundle["cfg"], captured, what)
+        if config == "fly-mc-intention":
+            self.fly_env_layer_versus_cpu(cfg, clips)
         peak = torch.cuda.max_memory_allocated()
-        print(f"training phase: {time.perf_counter() - phase_t0:.1f} s, peak memory {peak} B ({self.card})")
+        print(f"{what} phase: {time.perf_counter() - phase_t0:.1f} s, peak memory {peak} B ({self.card})")
         del make_policy, params, captured, bundle, loaded, trained
         torch.cuda.empty_cache()
         return launches
 
-    def learning_half_versus_cpu(self, cfg, captured) -> None:
+    def fly_env_layer_versus_cpu(self, cfg, clips) -> None:
+        """The fly's env layer, card against CPU, on N_CPU envs: one env step
+        from a reset on the card, the CPU's env handed the card's physics
+        output (phase 4's check of the rodent)."""
+        from track_mjx_tpu_torch import workload
+        from track_mjx_tpu_torch.envs.base import map_tensors
+
+        env = workload.make_env(cfg, clips, device=self.dev)
+        state = env.reset(self.gen, N_CPU)
+        action = self.uniform((N_CPU, env.action_size), -1.0, 1.0)
+        card = env.step(state, action)
+        cpu_env = workload.make_env(cfg, clips.to("cpu"), device="cpu")
+        to_cpu = lambda tree: map_tensors(lambda t: t.cpu(), tree)  # noqa: E731
+        cpu_env.pipeline_step = lambda data, ctrl: to_cpu(card.pipeline_state)
+        layer = cpu_env.step(to_cpu(state), action.cpu())
+        worst = 0.0
+        for name in ("obs", "reward", *REWARD_TERMS):
+            a = card.obs if name == "obs" else (card.reward if name == "reward" else card.metrics[name])
+            b = layer.obs if name == "obs" else (layer.reward if name == "reward" else layer.metrics[name])
+            worst = max(worst, float(_per_env(a.reshape(N_CPU, -1).cpu(), b.reshape(N_CPU, -1)).max()))
+        flags = ("done", "too_far", "bad_pose", "bad_quat", "fall", "nan")
+        flags_equal = all(torch.equal(card.metrics[k].cpu(), layer.metrics[k]) for k in flags)
+        print(f"fly training, env layer card vs CPU on the card's physics, {N_CPU} envs, one step from a reset: "
+              f"worst per-env rel err {worst:.3e} over obs, reward and the reward terms (bar "
+              f"{ROLLOUT_LAYER_REL:.0e}); flags equal {flags_equal}; done on the card {int(card.done.sum())}")
+        assert worst < ROLLOUT_LAYER_REL, f"the card's fly env layer disagrees with the CPU's: {worst:.3e}"
+        assert flags_equal, "the card's fly flags disagree with the CPU's on the same physics"
+
+    def learning_half_versus_cpu(self, cfg, captured, what: str) -> None:
         """One learning half (the normalizer update, then the passes over the
         minibatches) on the card and on the CPU from the same training state,
         on TRAIN_CPU_TRAJ trajectories of the phase's last batch (its state
@@ -910,8 +999,11 @@ class Phases:
             data = map_tensors(lambda x: x.to(dev), captured["data"])
             move = lambda d: ppo.UpdateDraws(d.permutation.to(dev), [(a.to(dev), b.to(dev)) for a, b in d.noises])  # noqa: E731
             dev_draws = [move(d) for d in draws]
-            # the first minibatch's gradients, from the updated normalizer
-            normalizer = running_statistics.update(state.normalizer_params, data.observation)
+            # the first minibatch's gradients, from the normalizer its passes
+            # run on (the LSTM trainer's passes run on the pre-update one)
+            normalizer = state.normalizer_params
+            if not learner.normalizer_after_sgd:
+                normalizer = running_statistics.update(normalizer, data.observation)
             first = map_tensors(lambda x: x[dev_draws[0].permutation[: n // mbs]], data)
             loss, _ = learner.loss_fn(normalizer, first, *dev_draws[0].noises[0], 1)
             loss.backward()
@@ -933,7 +1025,7 @@ class Phases:
         lr = tc["learning_rate"]
         param_err = max(float((card["params"][k] - p).abs().max()) / lr for k, p in cpu["params"].items())
         norm_err = max(_rel(card["normalizer"][k], v) for k, v in cpu["normalizer"].items())
-        print(f"training, one learning half card vs CPU ({n} trajectories x {unroll} steps of the last batch, "
+        print(f"{what}, one learning half card vs CPU ({n} trajectories x {unroll} steps of the last batch, "
               f"{passes} passes x {mbs} minibatches, same state, permutations and noises, full width): loss terms "
               f"of every step worst rel err {loss_err:.3e} (bar {TRAIN_LOSS_REL:.0e}); first minibatch's gradients "
               f"worst err relative to each tensor's largest element {grad_err:.3e} (bar {TRAIN_GRAD_REL:.0e}); "
@@ -1292,7 +1384,7 @@ class Phases:
         return plan, model, launches
 
     def newton_kernels(self, plan, model, launches) -> list:
-        """Phase 9, last: the kernels' timings start torch.profiler, which
+        """Phase 11, last: the kernels' timings start torch.profiler, which
         no host-clock rate may run after."""
         records = self.linalg_kernels(self.newton_matrices(plan, model))
         for r in records:
@@ -1319,21 +1411,37 @@ def main() -> None:
             print("  ptxas:", line.strip())
     tf.set_full_f32()
     phases = Phases(card)
-    kernels = phases.rodent()
-    rollout_launches = phases.rollout()
-    kernels += phases.fly()
-    newton = phases.newton_main_path()
-    training_launches = phases.training()
-    kernels += phases.newton_kernels(*newton)
+    seconds = {"build": build_s}
+
+    def timed(name, fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    kernels = timed("2-3 rodent", phases.rodent)
+    rollout_launches = timed("4 rodent rollout", phases.rollout)
+    kernels += timed("5-6 fly", phases.fly)
+    newton = timed("7 rodent Newton", phases.newton_main_path)
+    training_launches = timed("8 rodent training", phases.training)
+    fly_training_launches = timed("9 fly training", phases.training, "fly-mc-intention", what="fly training",
+                                  phase=9)
+    lstm_training_launches = timed("10 rodent LSTM training", phases.training, extra=LSTM_OVERRIDES,
+                                   what="rodent LSTM training", phase=10)
+    kernels += timed("11 standalone linalg", phases.newton_kernels, *newton)
     for k in kernels:  # each kernel's launches on every path that runs it, as counted there
         if k["name"] == "cg_solve":
             k["launches_by_path"] = {"rodent control steps (phase 3)": k["launches"],
                                      "rodent rollout, reset + one unroll (phase 4)": rollout_launches,
-                                     "rodent training, train.main (phase 8)": training_launches}
+                                     "rodent training, train.main (phase 8)": training_launches,
+                                     "rodent LSTM training, train.main (phase 10)": lstm_training_launches}
         elif k["name"] == "ell_cg_solve":
-            k["launches_by_path"] = {"fly control steps (phase 6)": k["launches"]}
+            k["launches_by_path"] = {"fly control steps (phase 6)": k["launches"],
+                                     "fly training, train.main (phase 9)": fly_training_launches}
         else:
             k["launches_by_path"] = {"rodent Newton control steps (phase 7)": k["launches"]}
+    print("seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+          + f"; total since start {time.perf_counter() - T_START:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,7 @@
 draws equal, bodies from the port's float64 kinematics against MuJoCo C's),
 the .npz round trip, select_clips, the train/test split, and the .h5
 reader on a file the JAX package wrote. Also: the port's new modules
-import with jax, flax, mujoco, h5py and yaml blocked."""
+import with jax, flax, optax, mujoco, h5py and yaml blocked."""
 
 import os
 import subprocess
@@ -105,13 +105,14 @@ def test_h5_reader_reads_the_jax_writer(tmp_path):
 
 
 def test_port_imports_with_jax_h5py_and_yaml_blocked(tmp_path):
-    """The env, io and agent modules and chip_smoke.py import where none of
-    jax, flax, mujoco, h5py, yaml or the JAX package can be imported;
+    """The env, io and agent modules (both pipelines) and chip_smoke.py
+    import where none of jax, flax, optax, mujoco, h5py, yaml or the JAX
+    package can be imported;
     .npz clips load there, and an .h5 read says what is missing."""
     tload.save_npz(tload.clip_from_numpy(_clips(n_clips=2), device="cpu"), tmp_path / "c.npz")
     code = (
         "import sys\n"
-        "for m in ('jax', 'flax', 'mujoco', 'h5py', 'yaml', 'track_mjx_tpu'):\n"
+        "for m in ('jax', 'flax', 'optax', 'mujoco', 'h5py', 'yaml', 'track_mjx_tpu'):\n"
         "    sys.modules[m] = None\n"
         "import chip_smoke\n"
         "import track_mjx_tpu_torch.envs.wrappers, track_mjx_tpu_torch.envs.task.tracking\n"
@@ -128,6 +129,10 @@ def test_port_imports_with_jax_h5py_and_yaml_blocked(tmp_path):
         "else:\n"
         "    raise AssertionError('an .h5 read without h5py did not raise')\n"
         "import track_mjx_tpu_torch.train, track_mjx_tpu_torch.agent.mlp_ppo.ppo\n"
+        "import track_mjx_tpu_torch.envs.walker.fly, track_mjx_tpu_torch.workload, track_mjx_tpu_torch.rollout\n"
+        "import track_mjx_tpu_torch.agent.lstm_ppo.ppo, track_mjx_tpu_torch.agent.lstm_ppo.losses\n"
+        "import track_mjx_tpu_torch.agent.lstm_ppo.acting, track_mjx_tpu_torch.agent.lstm_ppo.ppo_networks\n"
+        "import track_mjx_tpu_torch.agent.lstm_ppo.intention_network, track_mjx_tpu_torch.agent.checkpointing\n"
         "from track_mjx_tpu_torch.utils.config import load_config\n"
         "assert load_config('rodent-full-clips').train_setup.train_config.unroll_length == 20\n"
         "print('ok')\n"

@@ -5,7 +5,10 @@
   one: it trains, reports finite metrics, writes checkpoints, loads one
   back for eval (its policy acts as the trained one, bit for bit) and
   resumes from it (stored config authoritative, training state restored,
-  stored steps left as they were). The checkpoint manager writes and
+  stored steps left as they were). The same for the fly (fly-mc-intention)
+  and for the rodent's LSTM pipeline (use_lstm, the carry in the
+  checkpoint, a recurrent policy loaded back, a resume from the stored
+  carry). The checkpoint manager writes and
   prunes the steps that Orbax's does; the CLI parses its arguments.
 - `utils.config`: the exported JSON equals the JAX package's YAML config,
   and dotted overrides parse as the JAX package's do where JSON and YAML
@@ -23,12 +26,11 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import jax_reset_draws, port_clip, port_reward_config, port_walker
+from torch_parity import fed_reset, jax_reset_draws, toy_envs
 from track_mjx_tpu.agent import acting as jacting
 from track_mjx_tpu.agent import running_statistics as jrs
 from track_mjx_tpu.agent.mlp_ppo import ppo_networks as jpn
 from track_mjx_tpu.envs import wrappers as jwrappers
-from track_mjx_tpu.testing import make_toy_env
 from track_mjx_tpu.utils import config as jconfig
 from track_mjx_tpu_torch import train
 from track_mjx_tpu_torch.agent import acting, checkpointing
@@ -145,6 +147,82 @@ def test_resume_restores_the_state_and_trains_on(trained):
     assert checkpointing.load_config_from_checkpoint(str(run_dir))["train_setup"]["train_config"]["num_envs"] == N_ENVS
 
 
+def _tiny_run(root, name, extra=()):
+    """train.main of workload `name` at TINY's sizes on 2 synthetic clips
+    of 20 frames at the config's mocap rate; returns (run dir, make_policy,
+    params, progress, the batches' (training state's carry, data))."""
+    cfg = tconfig.load_config(name)
+    clips = synthesize_clips(tm.load_snapshot(name), n_clips=2, n_frames=20,
+                             mocap_hz=cfg.env_config.env_args.mocap_hz, seed=0, device="cpu")
+    load.save_npz(clips, root / "clips.npz")
+    cfg = tconfig.load_config(
+        name, [f"data_path={root / 'clips.npz'}", f"logging_config.model_path={root / 'ckpts'}", *TINY, *extra]
+    )
+    progress, batches = [], []
+    make_policy, params = train.main(
+        cfg, progress_fn=lambda step, metrics: progress.append((step, metrics)),
+        batch_callback=lambda state, data, _: batches.append((getattr(state, "hidden_state", None), data)),
+    )
+    (run_dir,) = list((root / "ckpts").iterdir())
+    return run_dir, make_policy, params, progress, batches
+
+
+def test_fly_cli_trains_on_the_fly(tmp_path):
+    """The fly-mc-intention workload through the entry point: the fly's env
+    (one control step per 500 Hz frame), finite metrics, a checkpoint whose
+    policy acts as the trained one."""
+    run_dir, make_policy, params, progress, batches = _tiny_run(tmp_path, "fly-mc-intention")
+    final = progress[-1][1]
+    for name in ("total_loss", "policy_loss", "v_loss", "kl_latent_loss", "entropy_loss", "sps"):
+        assert math.isfinite(final[f"training/{name}"]), name
+    assert np.isfinite(final["eval/episode_reward"]) and 1 <= final["eval/avg_episode_length"] <= 5
+    bundle = checkpointing.CheckpointStore(str(run_dir)).for_eval(device="cpu")
+    net = bundle["cfg"]["network_config"]
+    assert bundle["cfg"]["env_config"]["walker_name"] == "fly" and net["action_size"] == 36
+    assert batches[0][1].observation.shape == (8, 2, net["observation_size"])
+    loaded = checkpointing.load_inference_fn(bundle["cfg"], bundle["policy"], device="cpu")
+    obs = batches[-1][1].observation[:, 0]
+    assert torch.equal(loaded(obs)[0], make_policy(params[0], deterministic=True)(obs)[0])
+
+
+LSTM = ["train_setup.train_config.use_lstm=true", "network_config.hidden_state_size=16",
+        "network_config.hidden_layer_num=2"]
+
+
+def test_lstm_cli_trains_checkpoints_and_resumes(tmp_path, monkeypatch):
+    """The LSTM pipeline through the entry point: it trains, its checkpoint
+    holds the rollout carry and loads back as a recurrent policy that acts
+    as the trained one from the same carry, and a resume through the CLI
+    starts its first rollout from the stored carry and optimizer state."""
+    run_dir, make_policy, params, progress, batches = _tiny_run(tmp_path, "rodent-full-clips", LSTM)
+    final = progress[-1][1]
+    for name in ("total_loss", "policy_loss", "v_loss", "kl_latent_loss", "entropy_loss", "sps"):
+        assert math.isfinite(final[f"training/{name}"]), name
+    assert "training/kl_weight" not in final  # no KL schedule in the LSTM pipeline
+    (h0, c0), first = batches[0]
+    assert h0.shape == (N_ENVS, 2, 16) and not h0.any() and not c0.any()
+    assert torch.equal(first.extras["hidden_state"][:N_ENVS, 0], h0)
+    store = checkpointing.CheckpointStore(str(run_dir))
+    state = store.training_state()
+    h, c = state["hidden_state"]
+    assert h.shape == c.shape == (N_ENVS, 2, 16) and h.any() and torch.isfinite(h).all()
+    assert int(state["optimizer_state"]["state"][0]["step"]) == ADAM_STEPS
+    bundle = store.for_eval(device="cpu")
+    loaded = checkpointing.load_inference_fn(bundle["cfg"], bundle["policy"], device="cpu")
+    trained_policy = make_policy(params[0], deterministic=True)
+    obs = batches[-1][1].observation[:N_ENVS, 0]
+    got, want = loaded(obs, None, (h, c)), trained_policy(obs, None, (h, c))
+    assert torch.equal(got[0], want[0]) and all(torch.equal(a, b) for a, b in zip(got[2], want[2]))
+
+    seen = []
+    main = train.main
+    monkeypatch.setattr(train, "main", lambda cfg: main(cfg, batch_callback=lambda st, data, _: seen.append(
+        (int(st.optimizer.state_dict()["state"][0]["step"]), st.hidden_state))))
+    train.cli(["--config-name", "rodent-full-clips", f"train_setup.checkpoint_to_restore={run_dir}", "device=cpu"])
+    assert seen[0][0] == ADAM_STEPS and len(seen) == 2
+    assert torch.equal(seen[0][1][0], h) and torch.equal(seen[0][1][1], c)
+
+
 @pytest.mark.parametrize(
     "max_to_keep, keep_period, runs",
     [
@@ -199,13 +277,19 @@ def test_cli_reads_the_config_name_and_overrides(monkeypatch, argv, name, overri
 
 
 @pytest.mark.parametrize(
-    "override",
-    ["train_setup.train_config.use_lstm=true", "train_setup.restore_from_run_state=run.json",
-     "train_setup.freeze_decoder=true", "distributed=true"],
+    "overrides",
+    [
+        # the LSTM pipeline is ported; decoder freezing is not, in either pipeline
+        pytest.param(["train_setup.train_config.use_lstm=true", "train_setup.freeze_decoder=true"],
+                     id="train_setup.train_config.use_lstm=true"),
+        pytest.param(["train_setup.restore_from_run_state=run.json"], id="train_setup.restore_from_run_state=run.json"),
+        pytest.param(["train_setup.freeze_decoder=true"], id="train_setup.freeze_decoder=true"),
+        pytest.param(["distributed=true"], id="distributed=true"),
+    ],
 )
-def test_unported_options_are_refused(override):
+def test_unported_options_are_refused(overrides):
     with pytest.raises(NotImplementedError):
-        train.main(tconfig.load_config("rodent-full-clips", [override, "device=cpu"]))
+        train.main(tconfig.load_config("rodent-full-clips", [*overrides, "device=cpu"]))
 
 
 @pytest.mark.parametrize("entry", ["clip_from_numpy", "load_data", "train.main"])
@@ -270,34 +354,10 @@ B, EPISODE, NOISE = 6, 3, 1e-3
 EVAL_REL = 5e-5
 
 
-class _FedReset(Wrapper):
-    """Resets from given draws (the JAX reset's) instead of a generator."""
-
-    def __init__(self, env, draws):
-        super().__init__(env)
-        self.draws = draws
-
-    def reset(self, rng, batch_size):
-        start, clip, qn, vn = (torch.as_tensor(np.array(d)) for d in self.draws)
-        return self.env.reset_from_clip(start.long(), qn, vn, clip_idx=clip.long())
-
-
-def _toy_envs():
-    tf.set_full_f32()
-    jenv = make_toy_env()
-    tenv = tt.MultiClipTracking(
-        port_clip(jenv._reference_clips), port_walker(jenv.walker), port_reward_config(jenv._reward_config),
-        physics_steps_per_control_step=jenv._n_frames, reset_noise_scale=NOISE, solver="cg", iterations=4,
-        ls_iterations=4, mj_model_timestep=0.005, mocap_hz=50, clip_length=60, random_init_range=10,
-        traj_length=5, device="cpu",
-    )
-    return jenv, tenv
-
-
 def test_evaluator_matches_jax():
     """One eval of the JAX evaluator and of the port's on the same draws and
     weights (the test-set split's metric names too)."""
-    jenv, tenv = _toy_envs()
+    jenv, tenv = toy_envs(NOISE)
     obs_size, ref_size, nu = jenv.observation_size, tenv.reference_obs_size, jenv.plan.nu
     kw = dict(intention_latent_size=4, encoder_hidden_layer_sizes=[16], decoder_hidden_layer_sizes=[16],
               value_hidden_layer_sizes=[16])
@@ -321,7 +381,7 @@ def test_evaluator_matches_jax():
                                   jax.tree.map(np.asarray, norm), device="cpu")
     tnet.policy_network.load_state_dict(params.policy)
     teval = acting.Evaluator(
-        wrappers.wrap(_FedReset(tenv, draws), episode_length=EPISODE),
+        wrappers.wrap(fed_reset(tenv, draws), episode_length=EPISODE),
         functools.partial(tpn.make_inference_fn(tnet), deterministic=True),
         num_eval_envs=B, episode_length=EPISODE, action_repeat=1, key=torch.Generator().manual_seed(0),
     )
@@ -351,7 +411,7 @@ class _Poison(Wrapper):
 def test_eval_wrapper_sums_the_first_episode_only():
     """An env whose episode ends at step 1 stops adding to its sums; NaN and
     inf term metrics add nothing."""
-    _, tenv = _toy_envs()
+    _, tenv = toy_envs(NOISE)
     env = acting.EvalWrapper(_Poison(wrappers.wrap(tenv, episode_length=1)))
     state = env.reset(torch.Generator().manual_seed(0), 3)
     assert set(state.info["eval_metrics"].episode_metrics) == set(tt.METRIC_KEYS) | {"reward"}

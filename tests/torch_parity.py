@@ -350,3 +350,41 @@ def assert_state_close(got, want, rel, what, reward_config=None, frame_rel=1e-6)
         g = getattr(got.info["reference_frame"], f.name)
         assert per_env_rel(g, np.asarray(getattr(info_w["reference_frame"], f.name))).max() < frame_rel, f.name
     return exempt
+
+
+# ---------------------------------------------------------------------------
+# the toy walker's tracking env in both packages
+# ---------------------------------------------------------------------------
+
+
+def toy_envs(noise: float = 1e-3):
+    """`testing.make_toy_env()` and the port's MultiClipTracking on its
+    clips, walker and reward config (CPU)."""
+    from track_mjx_tpu.testing import make_toy_env
+    from track_mjx_tpu_torch.envs.task import tracking as tt
+    from track_mjx_tpu_torch.physics import forward as tf
+
+    tf.set_full_f32()
+    jenv = make_toy_env()
+    tenv = tt.MultiClipTracking(
+        port_clip(jenv._reference_clips), port_walker(jenv.walker), port_reward_config(jenv._reward_config),
+        physics_steps_per_control_step=jenv._n_frames, reset_noise_scale=noise, solver="cg", iterations=4,
+        ls_iterations=4, mj_model_timestep=0.005, mocap_hz=50, clip_length=60, random_init_range=10,
+        traj_length=5, device="cpu",
+    )
+    return jenv, tenv
+
+
+def fed_reset(env, draws):
+    """`env` (the port's) resetting from given draws (the JAX reset's:
+    start frame, clip, qpos noise, qvel noise) instead of a generator."""
+    import torch
+
+    from track_mjx_tpu_torch.envs.base import Wrapper
+
+    class FedReset(Wrapper):
+        def reset(self, rng, batch_size):
+            start, clip, qn, vn = (torch.as_tensor(np.array(d)) for d in draws)
+            return self.env.reset_from_clip(start.long(), qn, vn, clip_idx=clip.long())
+
+    return FedReset(env)

@@ -1,12 +1,18 @@
 """Rollout collection and evaluation: one policy and env step, the unroll,
 the eval wrapper and the evaluator.
 
-Port of the feed-forward half of track_mjx_tpu/agent/acting.py. The JAX
-scan over `unroll_length` becomes a Python loop, and its stacked outputs a
-Transition of [T, B, ...] tensors. `key` is a `torch.Generator` the policy
-draws from step after step (where the JAX package splits its key once per
-step), or a sequence of one policy key per step. The evaluator resets its
-envs from its own generator.
+Port of track_mjx_tpu/agent/acting.py. The JAX scan over `unroll_length`
+becomes a Python loop, and its stacked outputs a Transition of [T, B, ...]
+tensors. `key` is a `torch.Generator` the policy draws from step after step
+(where the JAX package splits its key once per step), or a sequence of one
+policy key per step. The evaluator resets its envs from its own generator.
+
+The recurrent actor (the LSTM pipeline) threads the policy's carry (h, c),
+each [B, layers, hidden]: a step records the carry that produced its action
+(the loss's re-unroll starts from it) as extras "hidden_state" and
+"cell_state", and where the step ended an episode the outgoing carry is
+reseeded from the wrapper's info["hidden_state"] (zeros); the carry it
+hands on is detached.
 """
 
 from __future__ import annotations
@@ -22,18 +28,21 @@ from track_mjx_tpu_torch.agent import types
 from track_mjx_tpu_torch.envs.base import Env, State, Wrapper
 
 
-def _record(env_state: State, nstate: State, actions, policy_extras, extra_fields) -> types.Transition:
+def _record(env_state: State, nstate: State, actions, policy_extras, extra_fields, carry_extras=None) -> types.Transition:
     """The Transition of one step."""
+    extras = {
+        "policy_extras": policy_extras,
+        "state_extras": {x: nstate.info[x] for x in extra_fields},
+    }
+    if carry_extras:
+        extras.update(carry_extras)
     return types.Transition(
         observation=env_state.obs,
         action=actions,
         reward=nstate.reward,
         discount=1 - nstate.done,
         next_observation=nstate.obs,
-        extras={
-            "policy_extras": policy_extras,
-            "state_extras": {x: nstate.info[x] for x in extra_fields},
-        },
+        extras=extras,
     )
 
 
@@ -48,6 +57,30 @@ def actor_step(
     actions, policy_extras = policy(env_state.obs, key)
     nstate = env.step(env_state, actions)
     return nstate, _record(env_state, nstate, actions, policy_extras, extra_fields)
+
+
+def recurrent_actor_step(
+    env: Env,
+    env_state: State,
+    policy,
+    key: types.Key,
+    carry,
+    extra_fields: Sequence[str] = (),
+):
+    """One step of a recurrent policy, `policy(obs, key, carry) -> (action,
+    extras, carry')`: returns (next state, Transition, next carry)."""
+    actions, policy_extras, carry_out = policy(env_state.obs, key, carry)
+    reseed = env_state.info["hidden_state"]
+    nstate = env.step(env_state, actions)
+    transition = _record(
+        env_state, nstate, actions, policy_extras, extra_fields, {"hidden_state": carry[0], "cell_state": carry[1]}
+    )
+    done = nstate.done > 0
+    next_carry = tuple(
+        torch.where(done.reshape((-1,) + (1,) * (live.dim() - 1)), init, live).detach()
+        for init, live in zip(reseed, carry_out)
+    )
+    return nstate, transition, next_carry
 
 
 def _stack(items: list):
@@ -80,6 +113,30 @@ def generate_unroll(
         state, transition = actor_step(env, state, policy, step_key, extra_fields=extra_fields)
         transitions.append(transition)
     return state, _stack(transitions)
+
+
+def recurrent_generate_unroll(
+    env: Env,
+    env_state: State,
+    policy,
+    key: Union[torch.Generator, Sequence[types.Key]],
+    carry,
+    unroll_length: int,
+    extra_fields: Sequence[str] = (),
+):
+    """generate_unroll for a recurrent policy: (final state, transitions
+    [T, B, ...], the carry after the last step)."""
+    if not isinstance(key, torch.Generator) and len(key) != unroll_length:
+        raise ValueError(f"{len(key)} step keys for an unroll of {unroll_length}")
+    transitions = []
+    state = env_state
+    for t in range(unroll_length):
+        step_key = key if isinstance(key, torch.Generator) else key[t]
+        state, transition, carry = recurrent_actor_step(
+            env, state, policy, step_key, carry, extra_fields=extra_fields
+        )
+        transitions.append(transition)
+    return state, _stack(transitions), carry
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,7 +189,9 @@ class EvalWrapper(Wrapper):
 class Evaluator:
     """Deterministic-policy evaluator with data-split metric prefixes: each
     run resets `num_eval_envs` envs from its generator and unrolls
-    episode_length // action_repeat steps."""
+    episode_length // action_repeat steps. With `recurrent` the policy is
+    `policy(obs, key, carry)` and the unroll starts from the wrapper's
+    initial carry, info["hidden_state"]."""
 
     def __init__(
         self,
@@ -142,8 +201,10 @@ class Evaluator:
         episode_length: int,
         action_repeat: int,
         key: torch.Generator,
+        recurrent: bool = False,
     ):
         self._key = key
+        self._recurrent = recurrent
         self._eval_walltime = 0.0
         self._eval_env = EvalWrapper(eval_env)
         self._eval_policy_fn = eval_policy_fn
@@ -155,6 +216,9 @@ class Evaluator:
         """The state after one eval unroll from a fresh reset."""
         first = self._eval_env.reset(self._key, self._num_eval_envs)
         policy = self._eval_policy_fn(policy_params)
+        if self._recurrent:
+            carry = first.info["hidden_state"]
+            return recurrent_generate_unroll(self._eval_env, first, policy, self._key, carry, self._length)[0]
         return generate_unroll(self._eval_env, first, policy, self._key, self._length)[0]
 
     def run_evaluation(

@@ -5,7 +5,8 @@ items per step with Orbax; the port saves the same three with `torch.save`
 (and the config as JSON) in the same layout, one directory per step:
 
     <checkpoint_path>/PPONetwork_<step>/policy.pt       (normalizer, policy state dict)
-    <checkpoint_path>/PPONetwork_<step>/train_state.pt  TrainingState.state_dict()
+    <checkpoint_path>/PPONetwork_<step>/train_state.pt  TrainingState.state_dict() (an LSTM
+                                                        run's with its rollout carry)
     <checkpoint_path>/PPONetwork_<step>/config.json     the run's config
 
 Tensors are stored on the CPU and read back with `weights_only=True`. A step
@@ -30,6 +31,7 @@ from typing import Callable, Optional
 import torch
 
 from track_mjx_tpu_torch.agent import running_statistics
+from track_mjx_tpu_torch.agent.lstm_ppo import ppo_networks as lstm_ppo_networks
 from track_mjx_tpu_torch.agent.mlp_ppo import ppo_networks
 from track_mjx_tpu_torch.physics.model import _device
 
@@ -151,14 +153,21 @@ class CheckpointStore:
         return {"cfg": self.config(step), "policy": self.policy(step, device)}
 
 
+def _networks_module(cfg: dict):
+    """The pipeline's network bindings: the LSTM one where the config's
+    train_config sets use_lstm."""
+    if bool(cfg["train_setup"]["train_config"].get("use_lstm", False)):
+        return lstm_ppo_networks
+    return ppo_networks
+
+
 def make_ppo_network_from_cfg(cfg: dict, device: torch.device | str = "cuda"):
     """The PPO networks of a checkpoint's config (network_config carries the
-    sizes the trainer recorded)."""
-    if bool(cfg["train_setup"]["train_config"].get("use_lstm", False)):
-        raise NotImplementedError("the LSTM pipeline is not ported")
+    sizes the trainer recorded; an LSTM run's also its hidden_state_size and
+    hidden_layer_num)."""
     net_cfg = cfg["network_config"]
     normalize = running_statistics.normalize if net_cfg["normalize_observations"] else (lambda x, y: x)
-    return ppo_networks.network_factory(net_cfg)(
+    return _networks_module(cfg).network_factory(net_cfg)(
         net_cfg["observation_size"],
         net_cfg["reference_obs_size"],
         net_cfg["action_size"],
@@ -170,11 +179,13 @@ def make_ppo_network_from_cfg(cfg: dict, device: torch.device | str = "cuda"):
 def load_inference_fn(
     cfg: dict, policy_params, deterministic: bool = True, device: torch.device | str = "cuda"
 ) -> Callable:
-    """A policy from a config and restored (normalizer, policy state dict)."""
+    """A policy from a config and restored (normalizer, policy state dict):
+    `policy(obs, key)`, or for an LSTM run the recurrent `policy(obs, key,
+    carry) -> (action, extras, carry')`."""
     networks = make_ppo_network_from_cfg(cfg, device)
     normalizer, params = policy_params
     networks.policy_network.load_state_dict(params)
-    return ppo_networks.make_inference_fn(networks)(normalizer, deterministic=deterministic)
+    return _networks_module(cfg).make_inference_fn(networks)(normalizer, deterministic=deterministic)
 
 
 def load_config_from_checkpoint(checkpoint_path: str, step: Optional[int] = None) -> dict:

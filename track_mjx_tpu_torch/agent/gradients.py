@@ -2,7 +2,7 @@
 
 Port of track_mjx_tpu/agent/gradients.py and of the optimizer chain of
 track_mjx_tpu/agent/mlp_ppo/ppo.py (`optax.chain(clip_by_global_norm(10),
-adam(lr))`). The clip is optax's, not `torch.nn.utils.clip_grad_norm_`
+adam(lr))`; the LSTM trainer's is `adam(lr)` alone, no clip). The clip is optax's, not `torch.nn.utils.clip_grad_norm_`
 (which scales by max_norm / (norm + 1e-6) and always rescales): gradients
 whose global norm, over the policy and the value parameters together, is
 below max_norm are left alone, the others become g / norm * max_norm. Adam
@@ -14,7 +14,7 @@ networks' parameters, as `PPONetworkParams` is one optax tree.
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, Sequence
+from typing import Callable, Iterable, Optional, Sequence
 
 import torch
 
@@ -45,18 +45,20 @@ def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float = MAX_GR
 def gradient_update_fn(
     loss_fn: Callable,
     optimizer: torch.optim.Optimizer,
-    max_grad_norm: float = MAX_GRAD_NORM,
+    max_grad_norm: Optional[float] = MAX_GRAD_NORM,
 ) -> Callable:
     """f(*args) -> (loss, aux): the gradient of `loss_fn(*args) -> (loss,
-    aux)` in the optimizer's parameters, clipped by global norm, then one
-    optimizer step, in place."""
+    aux)` in the optimizer's parameters, clipped by global norm (not with
+    `max_grad_norm` None: the LSTM trainer's plain adam), then one optimizer
+    step, in place."""
     params = [p for group in optimizer.param_groups for p in group["params"]]
 
     def f(*args, **kwargs):
         optimizer.zero_grad()
         loss, aux = loss_fn(*args, **kwargs)
         loss.backward()
-        clip_by_global_norm_([p.grad for p in params if p.grad is not None], max_grad_norm)
+        if max_grad_norm is not None:
+            clip_by_global_norm_([p.grad for p in params if p.grad is not None], max_grad_norm)
         optimizer.step()
         return loss, aux
 

@@ -1,10 +1,11 @@
-"""Intention-bottleneck (CoMic-style VAE) policy, feed-forward decoder.
+"""Intention-bottleneck (CoMic-style VAE) policy, with a feed-forward or a
+recurrent decoder.
 
-Port of the feed-forward half of track_mjx_tpu/agent/intention.py. The
-observation is split into its reference slice (what to do) and its
-egocentric slice (body state); the reference slice is compressed into a
-diagonal-Gaussian intention (encoder), and the decoder maps [intention,
-egocentric] to action-distribution parameters.
+Port of track_mjx_tpu/agent/intention.py. The observation is split into its
+reference slice (what to do) and its egocentric slice (body state); the
+reference slice is compressed into a diagonal-Gaussian intention (encoder),
+and the decoder maps [intention, egocentric] to action-distribution
+parameters.
 
 - trunks are Dense -> silu -> LayerNorm blocks; the decoder's last Dense
   is left raw. LayerNorm uses flax's epsilon, 1e-6 (torch's default is
@@ -12,16 +13,27 @@ egocentric] to action-distribution parameters.
 - trunk layers and the decoder output start lecun_uniform, the encoder's
   `fc2_mean` and `fc2_logvar` flax's default `lecun_normal`, biases zero;
 - the latent is mean + exp(logvar / 2) * noise, with the noise given or
-  drawn from a generator, or the mean itself when deterministic.
+  drawn from a generator, or the mean itself when deterministic;
+- the recurrent decoder (the LSTM pipeline) is a stack of flax
+  `nn.LSTMCell`s and a Dense projection, and its latent is always the mean
+  (the reference turns the reparameterization off there). Its carry is
+  (h, c), each [B, layers, hidden]; a flax cell's own carry is (c, h).
+  A cell keeps flax's gates (i, f, g, o) in torch's layout: `weight_ih`
+  [4 hidden, in] holds the input-side kernels, which have no bias,
+  `weight_hh` [4 hidden, hidden] and `bias_hh` the hidden-side ones; the
+  input kernels start lecun_uniform, the hidden ones orthogonal (per gate),
+  the bias zero.
 
 Module names follow the flax parameter tree: `encoder.trunk.hidden_i`,
 `encoder.trunk.LayerNorm_i`, `encoder.fc2_mean`, `encoder.fc2_logvar`,
-`decoder.trunk.hidden_i`.
+`decoder.trunk.hidden_i`; `lstm_decoder.lstm_i` (a cell, whose flax gates
+`ii`, `if`, ..., `ho` `ppo_factory.params_from_flax` stacks) and
+`lstm_decoder.lstm_projection`.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -29,7 +41,7 @@ from torch import nn
 
 from track_mjx_tpu_torch.agent import types
 from track_mjx_tpu_torch.agent.distribution import Noise, standard_normal
-from track_mjx_tpu_torch.agent.networks import ActivationFn, dense, lecun_normal_
+from track_mjx_tpu_torch.agent.networks import ActivationFn, dense, lecun_normal_, lecun_uniform_
 from track_mjx_tpu_torch.physics.model import _device
 
 LAYER_NORM_EPS = 1e-6  # flax.linen.LayerNorm's default
@@ -104,6 +116,63 @@ class Decoder(nn.Module):
         return self.trunk(x)
 
 
+Carry = Tuple[torch.Tensor, torch.Tensor]  # (h, c), each [B, layers, hidden]
+
+
+class LSTMCell(nn.Module):
+    """flax `nn.LSTMCell`: i, f, o = sigmoid, g = tanh of W_i x + W_h h + b_h;
+    c' = f c + i g, h' = o tanh(c'). `forward(x, h, c)` returns (h', c')."""
+
+    def __init__(self, in_size: int, hidden_size: int, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.weight_ih = nn.Parameter(torch.empty(4 * hidden_size, in_size))
+        self.weight_hh = nn.Parameter(torch.empty(4 * hidden_size, hidden_size))
+        self.bias_hh = nn.Parameter(torch.zeros(4 * hidden_size))
+        with torch.no_grad():
+            for gate in range(4):
+                rows = slice(gate * hidden_size, (gate + 1) * hidden_size)
+                lecun_uniform_(self.weight_ih[rows], generator)
+                # flax's orthogonal on a (hidden, hidden) kernel; torch's on
+                # its transpose is as orthogonal
+                nn.init.orthogonal_(self.weight_hh[rows], generator=generator)
+
+    def forward(self, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor) -> Carry:
+        gates = F.linear(x, self.weight_ih) + F.linear(h, self.weight_hh, self.bias_hh)
+        i, f, g, o = gates.chunk(4, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        return torch.sigmoid(o) * torch.tanh(c), c
+
+
+class RecurrentDecoder(nn.Module):
+    """Stacked LSTM cells, then a Dense projection to the distribution's
+    parameters. `forward(x, carry)` returns (parameters, carry')."""
+
+    def __init__(
+        self,
+        in_size: int,
+        out_size: int,
+        hidden_size: int = 128,
+        num_layers: int = 2,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.cells = []  # registered by flax's names, lstm_i
+        for layer in range(num_layers):
+            self.add_module(f"lstm_{layer}", LSTMCell(in_size if layer == 0 else hidden_size, hidden_size, generator))
+            self.cells.append(getattr(self, f"lstm_{layer}"))
+        self.lstm_projection = dense(hidden_size, out_size, generator)
+
+    def forward(self, x: torch.Tensor, carry: Carry):
+        h_stack, c_stack = carry
+        next_h, next_c = [], []
+        for layer, cell in enumerate(self.cells):
+            x, c = cell(x, h_stack[:, layer], c_stack[:, layer])
+            next_h.append(x)
+            next_c.append(c)
+        return self.lstm_projection(x), (torch.stack(next_h, dim=1), torch.stack(next_c, dim=1))
+
+
 def sample_latent(mean: torch.Tensor, logvar: torch.Tensor, noise: Noise) -> torch.Tensor:
     """Reparameterized draw from N(mean, exp(logvar))."""
     return mean + torch.exp(0.5 * logvar) * standard_normal(noise, logvar)
@@ -138,17 +207,46 @@ class IntentionPolicy(nn.Module):
         return logits, mean, logvar
 
 
-class FeedForwardIntentionPolicy(nn.Module):
-    """The intention policy behind the observation normalizer:
-    `forward(processor_params, obs, noise)`."""
+class RecurrentIntentionPolicy(nn.Module):
+    """Encoder + recurrent decoder; the latent is the encoder's mean.
+    `forward(obs, carry)` returns (logits, latent_mean, latent_logvar,
+    carry')."""
 
-    def __init__(self, module: IntentionPolicy, preprocess_observations_fn: types.PreprocessObservationFn):
+    def __init__(
+        self,
+        total_obs_size: int,
+        encoder_layers: Sequence[int],
+        out_size: int,
+        reference_obs_size: int,
+        latents: int = 60,
+        hidden_size: int = 128,
+        num_lstm_layers: int = 2,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.reference_obs_size = reference_obs_size
+        self.encoder = Encoder(reference_obs_size, encoder_layers, latents, generator)
+        egocentric = total_obs_size - reference_obs_size
+        self.lstm_decoder = RecurrentDecoder(latents + egocentric, out_size, hidden_size, num_lstm_layers, generator)
+
+    def forward(self, obs: torch.Tensor, carry: Carry):
+        mean, logvar = self.encoder(obs[..., : self.reference_obs_size])
+        logits, carry = self.lstm_decoder(torch.cat([mean, obs[..., self.reference_obs_size :]], dim=-1), carry)
+        return logits, mean, logvar, carry
+
+
+class NormalizedIntentionPolicy(nn.Module):
+    """An intention policy behind the observation normalizer:
+    `forward(processor_params, obs, arg)`, `arg` the feed-forward policy's
+    noise or the recurrent policy's carry."""
+
+    def __init__(self, module: nn.Module, preprocess_observations_fn: types.PreprocessObservationFn):
         super().__init__()
         self.module = module
         self.preprocess_observations_fn = preprocess_observations_fn
 
-    def forward(self, processor_params, obs: torch.Tensor, noise: Optional[Noise] = None):
-        return self.module(self.preprocess_observations_fn(obs, processor_params), noise)
+    def forward(self, processor_params, obs: torch.Tensor, arg=None):
+        return self.module(self.preprocess_observations_fn(obs, processor_params), arg)
 
 
 def make_feedforward_intention_policy(
@@ -161,7 +259,7 @@ def make_feedforward_intention_policy(
     decoder_hidden_layer_sizes: Sequence[int] = (1024, 1024),
     generator: Optional[torch.Generator] = None,
     device: torch.device | str = "cuda",
-) -> FeedForwardIntentionPolicy:
+) -> NormalizedIntentionPolicy:
     """Feed-forward intention policy with normalizer preprocessing, its
     weights drawn on the CPU from `generator`, then moved to `device`."""
     module = IntentionPolicy(
@@ -172,4 +270,34 @@ def make_feedforward_intention_policy(
         latent_size,
         generator,
     )
-    return FeedForwardIntentionPolicy(module, preprocess_observations_fn).to(_device(device))
+    return NormalizedIntentionPolicy(module, preprocess_observations_fn).to(_device(device))
+
+
+def make_recurrent_intention_policy(
+    action_param_size: int,
+    latent_size: int,
+    hidden_state_size: int,
+    hidden_layer_num: int,
+    total_obs_size: int,
+    reference_obs_size: int,
+    preprocess_observations_fn: types.PreprocessObservationFn = types.identity_observation_preprocessor,
+    encoder_hidden_layer_sizes: Sequence[int] = (1024, 1024),
+    decoder_hidden_layer_sizes: Sequence[int] = (1024, 1024),
+    generator: Optional[torch.Generator] = None,
+    device: torch.device | str = "cuda",
+) -> NormalizedIntentionPolicy:
+    """Recurrent intention policy with normalizer preprocessing. As in the
+    reference, the decoder's hidden widths are not used: only the output
+    width, the action parameters, is."""
+    del decoder_hidden_layer_sizes
+    module = RecurrentIntentionPolicy(
+        total_obs_size,
+        tuple(encoder_hidden_layer_sizes),
+        action_param_size,
+        reference_obs_size,
+        latent_size,
+        hidden_state_size,
+        hidden_layer_num,
+        generator,
+    )
+    return NormalizedIntentionPolicy(module, preprocess_observations_fn).to(_device(device))

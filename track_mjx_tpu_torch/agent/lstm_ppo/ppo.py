@@ -1,0 +1,277 @@
+"""PPO trainer of the LSTM intention pipeline, on one device.
+
+Port of track_mjx_tpu/agent/lstm_ppo/ppo.py. It shares the MLP trainer's
+structure and pieces (agent/mlp_ppo/ppo.py: the batch layout, the Learner,
+env_steps in thousands, the phases and their host ms, one device generator
+for resets, rollout noise, permutations and loss noises, a second for the
+evals) and keeps the reference's differences from it:
+
+- the policy's LSTM carry (h, c) per env is threaded through the rollout
+  (`acting.recurrent_generate_unroll`, which records each step's pre-step
+  carry for the loss and reseeds a finished episode's carry with zeros)
+  and kept in `TrainingState.hidden_state` from one training step to the
+  next, across env resets too; it starts as the wrapper's zero carry, and
+  a checkpoint stores it;
+- the optimizer is plain adam, with no global-norm clip;
+- no KL schedule: the loss's KL weight is fixed;
+- the passes run on the normalizer the training step started with; the
+  normalizer update from the batch comes after them;
+- no freeze_decoder and no test-split evaluator (`eval_env_test_set` is
+  accepted and ignored, as in the reference).
+
+The widths of the carry come from `config_dict["network_config"]`
+(hidden_state_size, hidden_layer_num), as in the reference.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import functools
+import logging
+import time
+from typing import Callable, Dict, List, Optional, Tuple
+
+import torch
+from torch.profiler import record_function
+
+from track_mjx_tpu_torch.agent import checkpointing, gradients, running_statistics, types
+from track_mjx_tpu_torch.agent.lstm_ppo import acting
+from track_mjx_tpu_torch.agent.lstm_ppo import losses, ppo_networks
+from track_mjx_tpu_torch.agent.mlp_ppo import ppo as mlp_ppo
+from track_mjx_tpu_torch.envs import wrappers
+from track_mjx_tpu_torch.envs.base import Env
+from track_mjx_tpu_torch.physics.model import _device
+
+Metrics = types.Metrics
+UpdateDraws = mlp_ppo.UpdateDraws
+next_env_steps = mlp_ppo.next_env_steps
+
+
+@dataclasses.dataclass
+class TrainingState(mlp_ppo.TrainingState):
+    """The MLP trainer's state and the per-env rollout carry (h, c), each
+    [num_envs, hidden_layer_num, hidden_state_size]."""
+
+    hidden_state: Tuple[torch.Tensor, torch.Tensor] = None
+
+    def state_dict(self) -> dict:
+        return {**super().state_dict(), "hidden_state": self.hidden_state}
+
+    def load_state_dict(self, state: dict) -> None:
+        super().load_state_dict(state)
+        device = self.normalizer_params.mean.device
+        self.hidden_state = tuple(copy.deepcopy(s).to(device) for s in state["hidden_state"])
+
+
+def train(
+    environment: Env,
+    num_timesteps: int,
+    episode_length: int,
+    ckpt_mgr: Optional[checkpointing.CheckpointManager] = None,
+    config_dict: Optional[dict] = None,
+    checkpoint_to_restore: Optional[str] = None,
+    action_repeat: int = 1,
+    num_envs: int = 1,
+    max_devices_per_host: Optional[int] = None,
+    num_eval_envs: int = 128,
+    learning_rate: float = 1e-4,
+    entropy_cost: float = 1e-4,
+    kl_weight: float = 1e-3,
+    discounting: float = 0.9,
+    seed: int = 0,
+    unroll_length: int = 10,
+    batch_size: int = 32,
+    num_minibatches: int = 16,
+    num_updates_per_batch: int = 2,
+    num_evals: int = 20,
+    num_resets_per_eval: int = 0,
+    normalize_observations: bool = False,
+    reward_scaling: float = 1.0,
+    clipping_epsilon: float = 0.3,
+    gae_lambda: float = 0.95,
+    deterministic_eval: bool = False,
+    network_factory=ppo_networks.make_intention_ppo_networks,
+    progress_fn: Callable[[int, Metrics], None] = lambda *args: None,
+    normalize_advantage: bool = True,
+    eval_env: Optional[Env] = None,
+    eval_env_test_set: Optional[Env] = None,
+    policy_params_fn: Callable[..., None] = lambda *args, **kwargs: None,
+    randomization_fn=None,
+    get_activation: bool = False,
+    use_lstm: bool = True,
+    use_kl_schedule: bool = False,
+    kl_ramp_up_frac: float = 0.25,
+    freeze_decoder: bool = False,
+    checkpoint_callback: Optional[Callable[[int], None]] = None,
+    epoch_steps_per_call: Optional[int] = None,
+    profile_dir: Optional[str] = None,
+    rollout_bf16: bool = False,
+    *,
+    device: torch.device | str = "cuda",
+    batch_callback: Optional[Callable[[TrainingState, types.Transition, Callable], None]] = None,
+):
+    """Trains an LSTM intention PPO policy; returns (make_policy,
+    (normalizer, policy state dict), metrics), `make_policy(normalizer,
+    deterministic)` a recurrent policy. `batch_callback` as in the MLP
+    trainer; its Learner runs plain adam and the normalizer update last."""
+    del use_kl_schedule, kl_ramp_up_frac, eval_env_test_set, get_activation, use_lstm
+    if batch_size * num_minibatches % num_envs:
+        raise ValueError(f"batch_size * num_minibatches ({batch_size * num_minibatches}) is no multiple of num_envs")
+    unsupported = {
+        "freeze_decoder": freeze_decoder,
+        "checkpoint_callback": checkpoint_callback is not None,
+        "randomization_fn": randomization_fn is not None,
+        "rollout_bf16": rollout_bf16,
+        "more than one device": max_devices_per_host not in (None, 1),
+        "a foreign (non-tracking) env": not isinstance(environment, Env),
+        "profile_dir": profile_dir is not None,
+    }
+    for what, asked in unsupported.items():
+        if asked:
+            raise NotImplementedError(f"{what}: not ported (ROADMAP 5d/5e)")
+    device = _device(device)
+    xt = time.time()
+    config_dict = config_dict if config_dict is not None else {
+        "network_config": {"hidden_state_size": 128, "hidden_layer_num": 2},
+        "env_config": {"render_interval": 1},
+    }
+    hidden_state_size = config_dict["network_config"]["hidden_state_size"]
+    hidden_layer_num = config_dict["network_config"]["hidden_layer_num"]
+
+    env_step_per_training_step = batch_size * unroll_length * num_minibatches * action_repeat
+    key_init, key_env, key_train, key_eval = mlp_ppo.seeded_generators(seed, device, 3)
+
+    wrap = functools.partial(
+        wrappers.wrap, episode_length=episode_length, action_repeat=action_repeat, use_lstm=True,
+        hidden_state_dim=hidden_state_size, hidden_layer_num=hidden_layer_num,
+    )
+    env = wrap(environment)
+    env_state = env.reset(key_env, num_envs)
+    obs_size = env_state.obs.shape[-1]
+    reference_obs_size = int(env_state.info["reference_obs_size"])
+    proprioceptive_obs_size = int(env_state.info.get("proprioceptive_obs_size", 0))
+    config_dict.setdefault("network_config", {}).update(
+        {
+            "observation_size": obs_size,
+            "action_size": env.action_size,
+            "normalize_observations": normalize_observations,
+            "reference_obs_size": reference_obs_size,
+            "proprioceptive_obs_size": proprioceptive_obs_size,
+        }
+    )
+
+    normalize = running_statistics.normalize if normalize_observations else types.identity_observation_preprocessor
+    ppo_network = network_factory(
+        obs_size, reference_obs_size, env.action_size, preprocess_observations_fn=normalize,
+        generator=key_init, device=device,
+    )
+    make_policy = ppo_networks.make_inference_fn(ppo_network)
+
+    def make_learner(networks: ppo_networks.PPOImitationNetworks) -> mlp_ppo.Learner:
+        """The learning half over `networks`: plain adam over both networks'
+        parameters, the LSTM loss at this call's settings, the normalizer
+        updated after the passes."""
+        optimizer = gradients.make_optimizer(
+            [*networks.policy_network.parameters(), *networks.value_network.parameters()], learning_rate
+        )
+        loss_fn = functools.partial(
+            losses.compute_ppo_loss,
+            ppo_network=networks,
+            entropy_cost=entropy_cost,
+            kl_weight=kl_weight,
+            discounting=discounting,
+            reward_scaling=reward_scaling,
+            gae_lambda=gae_lambda,
+            clipping_epsilon=clipping_epsilon,
+            normalize_advantage=normalize_advantage,
+        )
+        return mlp_ppo.Learner(
+            loss_fn, optimizer, num_minibatches, num_updates_per_batch, max_grad_norm=None, normalizer_after_sgd=True
+        )
+
+    learner = make_learner(ppo_network)
+    training_state = TrainingState(
+        ppo_network, learner.optimizer, running_statistics.init_state(obs_size, device), 0,
+        hidden_state=tuple(s.clone() for s in env_state.info["hidden_state"]),
+    )
+    if checkpoint_to_restore is not None:
+        training_state.load_state_dict(checkpointing.load_training_state(checkpoint_to_restore))
+        logging.info("Restored latest checkpoint at %s", checkpoint_to_restore)
+
+    unrolls_per_step = batch_size * num_minibatches // num_envs
+    epoch = mlp_ppo.EpochTimer(
+        learner,
+        mlp_ppo.steps_per_epoch(
+            num_timesteps, num_evals, env_step_per_training_step, num_resets_per_eval, epoch_steps_per_call
+        ),
+        env_step_per_training_step,
+        num_resets_per_eval,
+    )
+
+    def training_step() -> List[Dict[str, torch.Tensor]]:
+        nonlocal env_state
+        policy = make_policy(training_state.normalizer_params)
+        carry = training_state.hidden_state
+        t0 = time.perf_counter()
+        with record_function("rollout"):
+            unrolls = []
+            for _ in range(unrolls_per_step):
+                env_state, data, carry = acting.generate_unroll(
+                    env, env_state, policy, key_train, carry, unroll_length, extra_fields=("truncation",)
+                )
+                unrolls.append(data)
+            data = mlp_ppo._stack_unrolls(unrolls)
+        epoch.rollout_s += mlp_ppo._clock(device) - t0
+        assert data.discount.shape[1:] == (unroll_length,)
+        if batch_callback is not None:
+            batch_callback(training_state, data, make_learner)
+        metrics = learner(training_state, data, 0, generator=key_train)  # step 0: no KL schedule
+        training_state.hidden_state = carry
+        training_state.env_steps = next_env_steps(training_state.env_steps, env_step_per_training_step)
+        return metrics
+
+    evaluator = acting.Evaluator(
+        wrap(environment if eval_env is None else eval_env),
+        functools.partial(make_policy, deterministic=deterministic_eval),
+        num_eval_envs=num_eval_envs,
+        episode_length=episode_length,
+        action_repeat=action_repeat,
+        key=key_eval,
+    )
+
+    def save(step: int) -> None:
+        if ckpt_mgr is not None:
+            ckpt_mgr.save(step, training_state.policy_params(), training_state.state_dict(), config_dict)
+
+    # ---- initial eval + checkpoint ---------------------------------------
+    metrics = {}
+    if num_evals > 1:
+        metrics = evaluator.run_evaluation(training_state.normalizer_params, {})
+        logging.info(metrics)
+        progress_fn(0, metrics)
+        save(0)
+
+    training_metrics = {}
+    current_step = 0
+    for it in range(1, max(num_evals - 1, 1) + 1):
+        logging.info("starting iteration %s %s", it, time.time() - xt)
+        for _ in range(max(num_resets_per_eval, 1)):
+            training_metrics = epoch(training_step)
+            current_step = training_state.env_steps
+            if num_resets_per_eval > 0:
+                env_state = env.reset(key_env, num_envs)  # the carry goes on (reference)
+
+        metrics = evaluator.run_evaluation(training_state.normalizer_params, training_metrics)
+        logging.info(metrics)
+        progress_fn(current_step, metrics)
+        policy_params_fn(
+            current_step=it,
+            jit_logging_inference_fn=make_policy(training_state.normalizer_params, deterministic=True),
+            params=training_state.policy_params(),
+            policy_params_fn_key=key_eval,
+        )
+        save(it)
+
+    logging.info("total steps: %s", current_step)
+    return make_policy, training_state.policy_params(), metrics

@@ -17,6 +17,9 @@ device, with the same structure:
 - an eval (and a checkpoint) per epoch, the initial ones only when
   num_evals > 1; `num_resets_per_eval` resets the envs after each epoch.
 
+`Learner`, `EpochTimer`, `steps_per_epoch` and `seeded_generators` serve
+the LSTM trainer (agent/lstm_ppo/ppo.py) too.
+
 The phases run under `torch.profiler.record_function("rollout" |
 "normalizer_update" | "sgd")`, the counterparts of the JAX named scopes; on
 the card the trainer synchronizes at each phase's end and reports each
@@ -121,7 +124,10 @@ def _clock(device: torch.device) -> float:
 class Learner:
     """The learning half of a training step: the normalizer update over the
     batch's observations, then num_updates_per_batch passes of
-    num_minibatches clipped Adam steps. `phase_s` sums each phase's host
+    num_minibatches Adam steps (clipped by global norm unless
+    `max_grad_norm` is None). With `normalizer_after_sgd` (the LSTM
+    trainer's order) the passes run on the normalizer the step started
+    with and the update comes after them. `phase_s` sums each phase's host
     seconds."""
 
     def __init__(
@@ -130,13 +136,24 @@ class Learner:
         optimizer: torch.optim.Optimizer,
         num_minibatches: int,
         num_updates_per_batch: int,
+        max_grad_norm: Optional[float] = gradients.MAX_GRAD_NORM,
+        normalizer_after_sgd: bool = False,
     ):
         self.loss_fn = loss_fn
         self.optimizer = optimizer
-        self.update_fn = gradients.gradient_update_fn(loss_fn, optimizer)
+        self.update_fn = gradients.gradient_update_fn(loss_fn, optimizer, max_grad_norm)
         self.num_minibatches = num_minibatches
         self.num_updates_per_batch = num_updates_per_batch
+        self.normalizer_after_sgd = normalizer_after_sgd
         self.phase_s = dict.fromkeys(PHASES[1:], 0.0)
+
+    def _update_normalizer(self, training_state: TrainingState, observation: torch.Tensor) -> None:
+        t0 = time.perf_counter()
+        with record_function("normalizer_update"):
+            training_state.normalizer_params = running_statistics.update(
+                training_state.normalizer_params, observation
+            )
+        self.phase_s["normalizer_update"] += _clock(observation.device) - t0
 
     def __call__(
         self,
@@ -151,13 +168,9 @@ class Learner:
         from `generator` (per pass, the permutation, then per minibatch the
         latent and the entropy noise), or from `draws`."""
         device = data.observation.device
-        t0 = time.perf_counter()
-        with record_function("normalizer_update"):
-            training_state.normalizer_params = running_statistics.update(
-                training_state.normalizer_params, data.observation
-            )
-        t1 = _clock(device)
-        self.phase_s["normalizer_update"] += t1 - t0
+        if not self.normalizer_after_sgd:
+            self._update_normalizer(training_state, data.observation)
+        t1 = time.perf_counter()
         n = data.observation.shape[0]
         metrics = []
         with record_function("sgd"):
@@ -177,6 +190,8 @@ class Learner:
                     )
                     metrics.append({k: v.detach() for k, v in step_metrics.items()})
         self.phase_s["sgd"] += _clock(device) - t1
+        if self.normalizer_after_sgd:
+            self._update_normalizer(training_state, data.observation)
         return metrics
 
 
@@ -190,6 +205,68 @@ def _stack_unrolls(unrolls: Sequence[types.Transition]) -> types.Transition:
     """[unrolls][T, envs, ...] -> [unrolls * envs, T, ...]."""
     stacked = acting._stack(list(unrolls))
     return map_tensors(lambda x: x.transpose(1, 2).reshape((-1,) + x.shape[1:2] + x.shape[3:]), stacked)
+
+
+def steps_per_epoch(
+    num_timesteps: int,
+    num_evals: int,
+    env_step_per_training_step: int,
+    num_resets_per_eval: int,
+    epoch_steps_per_call: Optional[int],
+) -> int:
+    """Training steps per epoch. The JAX package may split an epoch's
+    training steps over several device calls (a bound on a TPU runtime's
+    call time) and then runs chunk x num_chunks steps; the port runs the
+    same count in one loop."""
+    per_epoch = int(
+        np.ceil(num_timesteps / (max(num_evals - 1, 1) * env_step_per_training_step * max(num_resets_per_eval, 1)))
+    )
+    chunk = max(1, min(int(epoch_steps_per_call or per_epoch), per_epoch))
+    return chunk * math.ceil(per_epoch / chunk)
+
+
+def seeded_generators(seed: int, device: torch.device, n: int) -> list:
+    """A CPU generator (the networks' initial weights), then `n` on
+    `device`, each seeded from one CPU stream seeded with `seed`."""
+    seeds = torch.Generator().manual_seed(seed)
+
+    def generator(dev):
+        return torch.Generator(device=dev).manual_seed(int(torch.randint(2**62, (1,), generator=seeds)))
+
+    return [generator("cpu")] + [generator(device) for _ in range(n)]
+
+
+class EpochTimer:
+    """Runs the epochs of a trainer and reports each epoch's metrics: the
+    JAX package's training/sps (the steps of one epoch times the resets per
+    eval, an epoch being one of num_resets_per_eval between evals) and
+    walltime, the loss metrics' means, and each phase's host ms per
+    training step."""
+
+    def __init__(self, learner: Learner, steps: int, env_step_per_training_step: int, num_resets_per_eval: int):
+        self.learner = learner
+        self.steps = steps
+        self.env_steps_per_epoch = steps * env_step_per_training_step * max(num_resets_per_eval, 1)
+        self.rollout_s = 0.0  # host seconds of the epoch's rollouts, added by the training step
+        self.walltime = 0.0
+
+    def __call__(self, training_step: Callable[[], List[Dict[str, torch.Tensor]]]) -> Metrics:
+        t = time.time()
+        self.rollout_s = 0.0
+        self.learner.phase_s = dict.fromkeys(self.learner.phase_s, 0.0)
+        step_metrics = []
+        for _ in range(self.steps):
+            step_metrics += training_step()
+        loss_metrics = _mean_metrics(step_metrics)  # waits for the last step
+        epoch_training_time = time.time() - t
+        self.walltime += epoch_training_time
+        phase_ms = {"rollout": self.rollout_s, **self.learner.phase_s}
+        return {
+            "training/sps": self.env_steps_per_epoch / epoch_training_time,
+            "training/walltime": self.walltime,
+            **{f"training/{name}": value for name, value in loss_metrics.items()},
+            **{f"training/{k}_ms": 1e3 * v / self.steps for k, v in phase_ms.items()},
+        }
 
 
 def train(
@@ -272,23 +349,7 @@ def train(
 
     env_step_per_training_step = batch_size * unroll_length * num_minibatches * action_repeat
     num_evals_after_init = max(num_evals - 1, 1)
-    num_training_steps_per_epoch = int(
-        np.ceil(num_timesteps / (num_evals_after_init * env_step_per_training_step * max(num_resets_per_eval, 1)))
-    )
-    # The JAX package may split an epoch's training steps over several device
-    # calls (a bound on a TPU runtime's call time) and then runs chunk x
-    # num_chunks steps; the port runs the same count in one loop.
-    chunk = max(1, min(int(epoch_steps_per_call or num_training_steps_per_epoch), num_training_steps_per_epoch))
-    steps_per_epoch = chunk * math.ceil(num_training_steps_per_epoch / chunk)
-
-    seeds = torch.Generator().manual_seed(seed)
-
-    def generator(dev):
-        return torch.Generator(device=dev).manual_seed(int(torch.randint(2**62, (1,), generator=seeds)))
-
-    key_init, key_env, key_train, key_eval, key_eval_test = (generator("cpu"),) + tuple(
-        generator(device) for _ in range(4)
-    )
+    key_init, key_env, key_train, key_eval, key_eval_test = seeded_generators(seed, device, 4)
 
     env = wrappers.wrap(environment, episode_length=episode_length, action_repeat=action_repeat)
     env_state = env.reset(key_env, num_envs)
@@ -344,7 +405,12 @@ def train(
         logging.info("Restored latest checkpoint at %s", checkpoint_to_restore)
 
     unrolls_per_step = batch_size * num_minibatches // num_envs
-    rollout_s = [0.0]  # host seconds of the epoch's rollouts
+    epoch = EpochTimer(
+        learner,
+        steps_per_epoch(num_timesteps, num_evals, env_step_per_training_step, num_resets_per_eval, epoch_steps_per_call),
+        env_step_per_training_step,
+        num_resets_per_eval,
+    )
 
     def training_step(it) -> List[Dict[str, torch.Tensor]]:
         nonlocal env_state
@@ -358,37 +424,13 @@ def train(
                 )
                 unrolls.append(data)
             data = _stack_unrolls(unrolls)
-        rollout_s[0] += _clock(device) - t0
+        epoch.rollout_s += _clock(device) - t0
         assert data.discount.shape[1:] == (unroll_length,)
         if batch_callback is not None:
             batch_callback(training_state, data, make_learner)
         metrics = learner(training_state, data, it, generator=key_train)
         training_state.env_steps = next_env_steps(training_state.env_steps, env_step_per_training_step)
         return metrics
-
-    training_walltime = 0.0
-
-    def training_epoch_with_timing(it) -> Metrics:
-        nonlocal training_walltime
-        t = time.time()
-        rollout_s[0] = 0.0
-        learner.phase_s = dict.fromkeys(learner.phase_s, 0.0)
-        step_metrics = []
-        for _ in range(steps_per_epoch):
-            step_metrics += training_step(it)
-        loss_metrics = _mean_metrics(step_metrics)  # waits for the last step
-        epoch_training_time = time.time() - t
-        training_walltime += epoch_training_time
-        # as in the JAX package, the steps of one epoch times the resets per
-        # eval (an epoch is one of num_resets_per_eval between evals)
-        sps = steps_per_epoch * env_step_per_training_step * max(num_resets_per_eval, 1) / epoch_training_time
-        phase_ms = {"rollout": rollout_s[0], **learner.phase_s}
-        return {
-            "training/sps": sps,
-            "training/walltime": training_walltime,
-            **{f"training/{name}": value for name, value in loss_metrics.items()},
-            **{f"training/{k}_ms": 1e3 * v / steps_per_epoch for k, v in phase_ms.items()},
-        }
 
     # ---- evaluators ------------------------------------------------------
     def make_evaluator(env_: Env, key: torch.Generator) -> acting.Evaluator:
@@ -435,7 +477,7 @@ def train(
     for it in range(start_it, num_evals_after_init + start_it):
         logging.info("starting iteration %s %s", it, time.time() - xt)
         for _ in range(max(num_resets_per_eval, 1)):
-            training_metrics = training_epoch_with_timing(it)
+            training_metrics = epoch(functools.partial(training_step, it))
             current_step = training_state.env_steps
             if num_resets_per_eval > 0:
                 env_state = env.reset(key_env, num_envs)

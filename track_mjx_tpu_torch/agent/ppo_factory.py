@@ -1,10 +1,11 @@
 """PPO network bundle, inference factory and the flax weight converter.
 
-Port of the feed-forward half of track_mjx_tpu/agent/ppo_factory.py.
+Port of track_mjx_tpu/agent/ppo_factory.py, for both pipelines.
 
-- `make_intention_ppo_networks` builds the intention policy, the value MLP
-  and the NormalTanh action distribution; the networks are `nn.Module`s
-  whose weights come from flax's initializers, drawn from `generator`.
+- `make_intention_ppo_networks` builds the intention policy (feed-forward
+  decoder, or with `recurrent_decoder` the LSTM decoder), the value MLP and
+  the NormalTanh action distribution; the networks are `nn.Module`s whose
+  weights come from flax's initializers, drawn from `generator`.
 - `make_inference_fn(networks)(normalizer_params, deterministic)` returns
   `policy(obs, key) -> (action, extras)`, under `torch.no_grad()` (a
   rollout's actions; a trainer's loss recomputes what it differentiates).
@@ -13,8 +14,13 @@ Port of the feed-forward half of track_mjx_tpu/agent/ppo_factory.py.
   action; the port draws the latent noise [B, latents] first, then the
   action noise [B, action_size]. Deterministic extras: latent_mean and
   latent_logvar; stochastic extras add log_prob, raw_action and logits.
-- `params_from_flax` carries the JAX package's parameters across, and
-  `optimizer_state_from_optax` its Adam moments and count.
+  With `recurrent=True` the policy is `policy(obs, key, carry) -> (action,
+  extras, carry')`; its latent is the mean, so it draws only the action
+  noise (of a `PolicyNoise`, the `action` field).
+- `params_from_flax` carries the JAX package's parameters across (an
+  LSTM cell's eight gate Dense layers stacked into its `weight_ih`,
+  `weight_hh` and `bias_hh`), and `optimizer_state_from_optax` its Adam
+  moments and count, behind the global-norm clip or plain.
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ import torch
 from torch import nn
 
 from track_mjx_tpu_torch.agent import distribution, networks, running_statistics, types
-from track_mjx_tpu_torch.agent.intention import make_feedforward_intention_policy
+from track_mjx_tpu_torch.agent.intention import make_feedforward_intention_policy, make_recurrent_intention_policy
 from track_mjx_tpu_torch.physics.model import _device
 
 
@@ -49,17 +55,16 @@ def make_intention_ppo_networks(
     value_hidden_layer_sizes: Sequence[int] = (1024,) * 2,
     *,
     recurrent_decoder: bool = False,
+    hidden_state_size: int = 128,
+    hidden_layer_num: int = 2,
     generator: Optional[torch.Generator] = None,
     device: torch.device | str = "cuda",
 ) -> PPOImitationNetworks:
     """The intention policy, the value MLP and the NormalTanh distribution,
     their weights drawn on the CPU from `generator` (policy first), then
     moved to `device`."""
-    if recurrent_decoder:
-        raise NotImplementedError("the LSTM decoder is not ported")
     dist = distribution.NormalTanhDistribution(event_size=action_size)
-    policy = make_feedforward_intention_policy(
-        dist.param_size,
+    kw = dict(
         latent_size=intention_latent_size,
         total_obs_size=observation_size,
         reference_obs_size=reference_obs_size,
@@ -69,6 +74,12 @@ def make_intention_ppo_networks(
         generator=generator,
         device=device,
     )
+    if recurrent_decoder:
+        policy = make_recurrent_intention_policy(
+            dist.param_size, hidden_state_size=hidden_state_size, hidden_layer_num=hidden_layer_num, **kw
+        )
+    else:
+        policy = make_feedforward_intention_policy(dist.param_size, **kw)
     value = networks.make_value_network(
         observation_size,
         preprocess_observations_fn=preprocess_observations_fn,
@@ -79,13 +90,29 @@ def make_intention_ppo_networks(
     return PPOImitationNetworks(policy, value, dist)
 
 
-def make_inference_fn(ppo_networks: PPOImitationNetworks):
+def make_inference_fn(ppo_networks: PPOImitationNetworks, recurrent: bool = False):
     """Policy factory for acting: make_policy(normalizer_params,
-    deterministic) -> policy(obs, key) -> (action, extras)."""
+    deterministic) -> policy(obs, key) -> (action, extras), or with
+    `recurrent` policy(obs, key, carry) -> (action, extras, carry')."""
 
     def make_policy(params: Any, deterministic: bool = False) -> types.Policy:
         policy_network = ppo_networks.policy_network
         dist = ppo_networks.parametric_action_distribution
+
+        if recurrent:
+
+            @torch.no_grad()
+            def recurrent_policy(observations: torch.Tensor, key: types.Key, carry):
+                logits, latent_mean, latent_logvar, carry = policy_network(params, observations, carry)
+                extras = {"latent_mean": latent_mean, "latent_logvar": latent_logvar}
+                if deterministic:
+                    return dist.mode(logits), extras, carry
+                action_noise = key.action if isinstance(key, types.PolicyNoise) else key
+                raw_actions = dist.sample_no_postprocessing(logits, action_noise)
+                extras.update(log_prob=dist.log_prob(logits, raw_actions), raw_action=raw_actions, logits=logits)
+                return dist.postprocess(raw_actions), extras, carry
+
+            return recurrent_policy
 
         @torch.no_grad()
         def policy(observations: torch.Tensor, key: types.Key = None):
@@ -123,21 +150,34 @@ class PPOParams(NamedTuple):
     value: dict
 
 
+LSTM_GATES = ("i", "f", "g", "o")  # flax's gate names, torch's row order
+
+
+def _array(x) -> torch.Tensor:
+    return torch.as_tensor(np.array(x, np.float32))
+
+
 def _state_dict(tree: Mapping, prefix: str) -> dict:
     """A flax parameter tree ({"params": {...}} or its content) as a torch
     state dict: Dense kernels (in, out) become Linear weights (out, in),
-    LayerNorm scales become weights, names join with dots."""
+    LayerNorm scales become weights, an LSTM cell's gate kernels stack into
+    `weight_ih` and `weight_hh` and its hidden-side biases into `bias_hh`,
+    names join with dots."""
     tree = tree.get("params", tree)
     out = {}
 
     def walk(node, path):
-        if "kernel" in node:
-            out[path + ".weight"] = torch.as_tensor(np.array(node["kernel"], np.float32).T.copy())
+        if "hi" in node and "ii" in node:  # a flax LSTMCell
+            for side, name in (("i", "weight_ih"), ("h", "weight_hh")):
+                out[f"{path}.{name}"] = torch.cat([_array(node[side + g]["kernel"]).T for g in LSTM_GATES])
+            out[f"{path}.bias_hh"] = torch.cat([_array(node["h" + g]["bias"]) for g in LSTM_GATES])
+        elif "kernel" in node:
+            out[path + ".weight"] = _array(node["kernel"]).T.contiguous()
             if "bias" in node:
-                out[path + ".bias"] = torch.as_tensor(np.array(node["bias"], np.float32))
+                out[path + ".bias"] = _array(node["bias"])
         elif "scale" in node:
-            out[path + ".weight"] = torch.as_tensor(np.array(node["scale"], np.float32))
-            out[path + ".bias"] = torch.as_tensor(np.array(node["bias"], np.float32))
+            out[path + ".weight"] = _array(node["scale"])
+            out[path + ".bias"] = _array(node["bias"])
         else:
             for name, child in node.items():
                 walk(child, f"{path}.{name}" if path else name)
@@ -183,7 +223,9 @@ def optimizer_state_from_optax(
     parameters, then the value's, as `gradients.make_optimizer` is given
     them) holding the JAX training state's optax Adam moments `mu` and `nu`
     (PPONetworkParams of flax trees, or mappings with `policy` and `value`)
-    and step `count`. Load it with `optimizer.load_state_dict`."""
+    and step `count`: those of the MLP trainer's `chain(clip, adam)` state's
+    Adam, or of the LSTM trainer's plain `adam` state. Load it with
+    `optimizer.load_state_dict`."""
     named = [(n, p) for n, p in networks.policy_network.named_parameters()]
     named += [(n, p) for n, p in networks.value_network.named_parameters()]
     moments = {}

@@ -499,3 +499,4 @@ class MultiClipTracking(SingleClipTracking):
 
 register_environment("rodent_single_clip", SingleClipTracking)
 register_environment("rodent_multi_clip", MultiClipTracking)
+register_environment("fly_multi_clip", MultiClipTracking)

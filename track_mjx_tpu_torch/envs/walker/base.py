@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from track_mjx_tpu_torch.ops import quaternion as quat
+from track_mjx_tpu_torch.physics import model as phys_model
 
 
 def jnp_index(idx, n: int) -> np.ndarray:
@@ -36,6 +37,8 @@ class BaseWalker:
     """A walker's index tables and observation math, on [B, ...] tensors.
     `mj_model` is its compiled model (a `load_snapshot` result or a live
     MjModel), which the tracking env packs."""
+
+    SNAPSHOT = ""  # the workload whose snapshot holds a walker class's model and tables
 
     def __init__(
         self,
@@ -53,6 +56,23 @@ class BaseWalker:
         self._mj_model = mj_model
         self.reproduce_joint_index_quirk = reproduce_joint_index_quirk
         self._index_cache: dict = {}
+
+    @classmethod
+    def from_snapshot(cls, snapshot: Any = None, reproduce_joint_index_quirk: bool = True) -> "BaseWalker":
+        """The walker of a `load_snapshot` result (default: the snapshot of
+        `SNAPSHOT`): its compiled model and the index tables that
+        tools/export_torch_model.py resolved by name beside it."""
+        if snapshot is None:
+            snapshot = phys_model.load_snapshot(cls.SNAPSHOT)
+        w = snapshot.walker
+        return cls(
+            w.joint_idxs,
+            w.body_idxs,
+            w.endeff_idxs,
+            int(w.torso_idx),
+            mj_model=snapshot,
+            reproduce_joint_index_quirk=reproduce_joint_index_quirk,
+        )
 
     # ---- index accessors -------------------------------------------------
     @property

@@ -10,9 +10,15 @@ vmap wrapper between them.
   prev_ctrl at reset and swaps them back in wherever a step ends in done;
   the rest of the info (start frame, clip, action buffer) carries on, as in
   the JAX package.
+- ``LSTMAutoResetWrapperTracking`` (the LSTM pipeline's) does the same and
+  puts each env's initial LSTM carry in info["hidden_state"] at reset: (h,
+  c), zeros [B, layers, hidden] (flax's `initialize_carry`; the reference
+  passes a fixed PRNGKey(0) that a zero initializer ignores). A step leaves
+  it alone: `acting.recurrent_actor_step` reseeds a finished episode's
+  carry from it.
 
-The LSTM, render, domain-randomization, external-env and high-level
-wrappers are not ported yet.
+The render (`RenderRolloutWrapperTrackingLSTM` among them),
+domain-randomization, external-env and high-level wrappers are not ported.
 """
 
 from __future__ import annotations
@@ -28,11 +34,15 @@ def wrap(
     episode_length: int = 1000,
     action_repeat: int = 1,
     use_lstm: bool = False,
+    hidden_state_dim: int = 128,
+    hidden_layer_num: int = 2,
 ) -> Wrapper:
-    """The training wrapper stack: Episode -> AutoReset."""
+    """The training wrapper stack: Episode -> AutoReset (the LSTM one with
+    `use_lstm`)."""
+    env = EpisodeWrapper(env, episode_length, action_repeat)
     if use_lstm:
-        raise NotImplementedError("the LSTM auto-reset wrapper is not ported")
-    return AutoResetWrapperTracking(EpisodeWrapper(env, episode_length, action_repeat))
+        return LSTMAutoResetWrapperTracking(env, lstm_features=hidden_state_dim, hidden_layer_num=hidden_layer_num)
+    return AutoResetWrapperTracking(env)
 
 
 class EpisodeWrapper(Wrapper):
@@ -102,3 +112,28 @@ class AutoResetWrapperTracking(Wrapper):
         info = dict(state.info)
         info["prev_ctrl"] = _where_done(done, info["first_prev_ctrl"], info["prev_ctrl"])
         return state.replace(pipeline_state=pipeline_state, obs=obs, info=info)
+
+
+def initialize_lstm_hidden(
+    num_envs: int, lstm_features: int, hidden_layer_num: int, device: torch.device | str
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Zero per-env LSTM (h, c) stacks, [num_envs, hidden_layer_num,
+    lstm_features] each."""
+    shape = (num_envs, hidden_layer_num, lstm_features)
+    return torch.zeros(shape, device=device), torch.zeros(shape, device=device)
+
+
+class LSTMAutoResetWrapperTracking(AutoResetWrapperTracking):
+    """Auto-reset that also holds each env's initial LSTM carry."""
+
+    def __init__(self, env: Env, lstm_features: int = 128, hidden_layer_num: int = 2):
+        super().__init__(env)
+        self.lstm_features = lstm_features
+        self.hidden_layer_num = hidden_layer_num
+
+    def on_reset(self, state: State) -> State:
+        state = super().on_reset(state)
+        hidden = initialize_lstm_hidden(
+            state.obs.shape[0], self.lstm_features, self.hidden_layer_num, state.obs.device
+        )
+        return state.replace(info=dict(state.info, hidden_state=hidden))

@@ -13,6 +13,9 @@ trainer's `data_path` reads:
 
     python -m track_mjx_tpu_torch.io.synthetic --config rodent-full-clips \
         --clips 8 --frames 250 --out build/clips.npz [--device cpu]
+
+at the config's mocap rate (rodent-full-clips 50 Hz, fly-mc-intention
+500 Hz) unless --mocap-hz says otherwise.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch
 from track_mjx_tpu_torch.io.load import ReferenceClip, clip_from_numpy, save_npz
 from track_mjx_tpu_torch.physics import kinematics as phys_kinematics
 from track_mjx_tpu_torch.physics import model as phys_model
+from track_mjx_tpu_torch.utils.config import load_config
 
 
 def body_frames(mj_model: Any, qpos: np.ndarray, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -117,18 +121,20 @@ def main(argv=None) -> None:
     ap.add_argument("--config", default="rodent-full-clips", choices=sorted(phys_model.SNAPSHOTS))
     ap.add_argument("--clips", type=int, default=8)
     ap.add_argument("--frames", type=int, default=250)
-    ap.add_argument("--mocap-hz", type=int, default=50)
+    ap.add_argument("--mocap-hz", type=int, default=None, help="default: the config's env_args.mocap_hz")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", required=True)
     args = ap.parse_args(argv)
+    if args.mocap_hz is None:
+        args.mocap_hz = int(load_config(args.config).env_config.env_args.mocap_hz)
     clips = synthesize_clips(
         phys_model.load_snapshot(args.config), n_clips=args.clips, n_frames=args.frames,
         mocap_hz=args.mocap_hz, seed=args.seed, device=args.device,
     )
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     save_npz(clips, args.out)
-    print(f"wrote {args.clips} clips of {args.frames} frames to {args.out}")
+    print(f"wrote {args.clips} clips of {args.frames} frames at {args.mocap_hz} Hz to {args.out}")
 
 
 if __name__ == "__main__":

@@ -1,8 +1,8 @@
 """A workload's rollout: the wrapped tracking env and the intention policy.
 
-What the trainer's inner loop runs, without losses or an optimizer: the
-rodent-full-clips walker on its compiled-model snapshot, synthetic clips
-made on the device, the tracking env with the config's env_args, reward
+What the MLP trainer's inner loop runs, without losses or an optimizer: the
+workload's walker (rodent-full-clips: the rodent, fly-mc-intention: the
+fly) on its compiled-model snapshot, synthetic clips made on the device, the tracking env with the config's env_args, reward
 weights and reference_config, the Episode -> AutoReset wrappers (episode
 length clip_length - random_init_range - traj_length, as the JAX trainer
 sets it), and the intention policy and value networks at the config's
@@ -61,8 +61,6 @@ def make_rollout(
     """Builds the rollout of workload `config` on `device`: `clips`, or
     `n_clips` synthetic clips of the config's clip_length (numpy seed
     `seed`); networks initialized from a generator seeded with `seed`."""
-    if config != "rodent-full-clips":
-        raise NotImplementedError(f"{config}: only the rodent's env is ported")
     cfg = load_config(config)
     env_args, ref = cfg.env_config.env_args, cfg.reference_config
     train = cfg.train_setup.train_config
@@ -73,9 +71,7 @@ def make_rollout(
         )
     tracking = workload.make_env(cfg, clips, device=device)
     episode_length = workload.episode_length(cfg, tracking)
-    env = wrappers.wrap(
-        tracking, episode_length=episode_length, action_repeat=train.action_repeat, use_lstm=train.use_lstm
-    )
+    env = wrappers.wrap(tracking, episode_length=episode_length, action_repeat=train.action_repeat)
     networks = ppo_networks.network_factory(cfg.network_config, torch.Generator().manual_seed(seed))(
         tracking.observation_size,
         tracking.reference_obs_size,

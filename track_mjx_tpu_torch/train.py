@@ -1,6 +1,6 @@
 """Training entry point: config, data, env, trainer, checkpoints.
 
-Port of the MLP pipeline of track_mjx_tpu/train.py:
+Port of track_mjx_tpu/train.py, both pipelines:
 
 - the config is the port's exported JSON of a workload
   (`utils.config.load_config`) with dotted overrides; `device` (top level,
@@ -15,11 +15,19 @@ Port of the MLP pipeline of track_mjx_tpu/train.py:
 - episode_length = (clip_length - random_init_range - traj_length) *
   steps per reference frame; num_evals = num_timesteps / eval_every;
   num_resets_per_eval = eval_every // reset_every;
+- the walker is the config's (`env_config.walker_name`: rodent or fly,
+  `workload.WALKERS`);
+- the pipeline is the MLP one (agent/mlp_ppo), or with
+  `train_setup.train_config.use_lstm` the LSTM one (agent/lstm_ppo), whose
+  carry widths come from `network_config.hidden_state_size` and
+  `hidden_layer_num` (no YAML sets them: give them as overrides, e.g. 128
+  and 2, the JAX LSTM trainer's defaults);
 - progress goes to `logging`.
 
-Not ported (ROADMAP 5b/5e), and refused rather than skipped: the LSTM
-pipeline, decoder freezing, multi-host `distributed`, preemption run-state
-files (`restore_from_run_state`) and `-m` multirun. There is no wandb and no
+Not ported (ROADMAP 5d/5e), and refused rather than skipped: decoder
+freezing, multi-host `distributed`, preemption run-state files
+(`restore_from_run_state`) and `-m` multirun (the trainers refuse the bf16
+rollout and `randomization_fn`). There is no wandb and no
 rendering.
 
 Usage:
@@ -37,7 +45,10 @@ from pathlib import Path
 
 from track_mjx_tpu_torch import workload
 from track_mjx_tpu_torch.agent import checkpointing
-from track_mjx_tpu_torch.agent.mlp_ppo import ppo, ppo_networks
+from track_mjx_tpu_torch.agent.lstm_ppo import ppo as lstm_ppo
+from track_mjx_tpu_torch.agent.lstm_ppo import ppo_networks as lstm_ppo_networks
+from track_mjx_tpu_torch.agent.mlp_ppo import ppo as mlp_ppo
+from track_mjx_tpu_torch.agent.mlp_ppo import ppo_networks as mlp_ppo_networks
 from track_mjx_tpu_torch.io import load
 from track_mjx_tpu_torch.physics import forward as phys_forward
 from track_mjx_tpu_torch.utils.config import ConfigDict, load_config
@@ -50,11 +61,10 @@ def _refuse_unported(cfg: ConfigDict) -> None:
         "train_setup.restore_from_run_state (preemption run states)": train_setup.get("restore_from_run_state")
         is not None,
         "train_setup.freeze_decoder": bool(train_setup.get("freeze_decoder", False)),
-        "train_setup.train_config.use_lstm (the LSTM pipeline)": bool(train_setup["train_config"].get("use_lstm")),
     }
     for what, asked in refused.items():
         if asked:
-            raise NotImplementedError(f"{what}: not ported (ROADMAP 5b/5e)")
+            raise NotImplementedError(f"{what}: not ported (ROADMAP 5d/5e)")
 
 
 def main(cfg: ConfigDict, progress_fn=None, batch_callback=None):
@@ -123,6 +133,13 @@ def main(cfg: ConfigDict, progress_fn=None, batch_callback=None):
         logging.info("num_steps_thousands %s: %s", num_steps, metrics)
         if progress_fn is not None:
             progress_fn(num_steps, metrics)
+
+    if train_config.get("use_lstm"):
+        logging.info("Using LSTM pipeline")
+        ppo, ppo_networks = lstm_ppo, lstm_ppo_networks
+    else:
+        logging.info("Using MLP pipeline")
+        ppo, ppo_networks = mlp_ppo, mlp_ppo_networks
 
     make_inference_fn, params, _ = ppo.train(
         environment=env,

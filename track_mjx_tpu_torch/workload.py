@@ -17,12 +17,12 @@ import torch
 from track_mjx_tpu_torch.envs import base as envs
 from track_mjx_tpu_torch.envs.task import tracking  # noqa: F401  (registers the tracking envs)
 from track_mjx_tpu_torch.envs.task.reward import RewardConfig
+from track_mjx_tpu_torch.envs.walker.fly import Fly
 from track_mjx_tpu_torch.envs.walker.rodent import Rodent
 from track_mjx_tpu_torch.io.load import ReferenceClip
-from track_mjx_tpu_torch.physics import model as phys_model
 
-# walker_name -> (walker class, the workload whose snapshot holds its model)
-WALKERS = {"rodent": (Rodent, "rodent-full-clips")}
+# walker_name -> walker class (its SNAPSHOT names the workload whose snapshot holds its model)
+WALKERS = {"rodent": Rodent, "fly": Fly}
 
 
 def make_walker(cfg: Mapping[str, Any]):
@@ -30,9 +30,8 @@ def make_walker(cfg: Mapping[str, Any]):
     the solver options into the model it is given)."""
     name = cfg["env_config"]["walker_name"]
     if name not in WALKERS:
-        raise NotImplementedError(f"walker {name!r}: only {sorted(WALKERS)} is ported")
-    walker_cls, snapshot = WALKERS[name]
-    return walker_cls.from_snapshot(phys_model.load_snapshot(snapshot))
+        raise NotImplementedError(f"walker {name!r}: only {sorted(WALKERS)} are ported")
+    return WALKERS[name].from_snapshot()
 
 
 def make_env(cfg: Mapping[str, Any], clips: ReferenceClip, device: torch.device | str = "cuda") -> envs.Env:
