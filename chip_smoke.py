@@ -1,6 +1,7 @@
 """Smoke run of the torch port on one NVIDIA GPU: the physics control
-steps, the rodent rollout, and the trainer on the rodent (MLP and LSTM
-pipelines) and on the fly.
+steps, the rodent rollout, the trainer on the rodent (MLP and LSTM
+pipelines) and on the fly, and the rest of the physics (RK4 and implicit
+integrators, condim-1/4/6 contacts, frictionloss and equality rows).
 
 Usage (from the repository root, on a machine with a CUDA device and nvcc):
 
@@ -10,7 +11,8 @@ It imports nothing of JAX. Phases, each of which raises on failure:
 
 1. Device: requires CUDA, prints the card's name and power limit as
    nvidia-smi reports them, builds csrc/cg_solve.cu, csrc/ell_cg_solve.cu
-   and csrc/batched_linalg.cu for sm_90a in one nvcc call.
+   and csrc/batched_linalg.cu for sm_90a, one nvcc call per source, all
+   started together, then linked into one library.
 2. Rodent kernel against plain: 4096 contact-rich rodent states (the main
    path's batch) made on the card with the port's forward stages go through
    the cg_solve kernel and its plain PyTorch version; each output's error is
@@ -94,7 +96,36 @@ It imports nothing of JAX. Phases, each of which raises on failure:
    [N_ENVS, 2, 128], the checkpoint's recurrent policy must act (and carry
    on) as the trained one from the same carry, and the learning half runs
    backpropagation through time over the unroll of 20.
-11. Standalone linalg kernels against plain: from 4096 contact-rich states
+11. The rest of the physics: the compact cg_solve without the Euler solve
+   (with_euler=False, RK4 and implicit plans) against its plain version on
+   phase 2's states (each output within KERNEL_REL, and bitwise phase 2's
+   launch with the Euler solve) and on a second draw of 4096 contact-rich
+   rodent states; cg_solve_dense (K2's dense-J mode) against its plain
+   version, with and without the Euler solve, on 4096 contact-rich states
+   of the rodent with mixed condims (mixed_condim: the floor at condim 1,
+   the colliding body geoms at 1, 4 and 6 in turn), each output within
+   KERNEL_REL; every one of them also against the plain version run in
+   float64 (KERNEL_VS_F64, over the batch and per env). Both are timed by
+   CUDA events beside the plain version and the bound, with
+   cg_solve_dense's registers, shared memory and CTAs per SM. Then
+   five rodent paths at 4096 envs, 1 warm-up and 1 timed control step each
+   with exact launches per substep and no plain version run: RK4 (cg_solve
+   without Euler, 4), implicitfast (cg_solve without Euler and solve_spd, 1
+   each), implicit (cg_solve without Euler, 1), mixed condims
+   (cg_solve_dense, 1; every condim active) and frictionloss on every hinge
+   dof (cholesky 1, cho_solve 7, solve_spd 1; rows in both zones); and the
+   equality probes exported by tools/export_torch_model.py --probes
+   (connect, weld, joint, tendon, friction: cholesky 1, cho_solve 52,
+   solve_spd 1 per substep) from test_equality's draws, one control step
+   each. Each is held against the CPU on 64 envs as phase 3 is. The
+   mixed-condim and frictionloss paths (F64_PATHS) are also held against
+   float64 CPU runs on the worst and the median env, and the card's solve of
+   its own rows against the CPU's solve of them within phase 3's substep
+   bars, with the worst env taken apart; the frictionloss path's worst-env
+   qpos after the control step is held by that float64 rule in place of
+   phase 3's bar (QPOS_BY_F64). The env-steps/s of each is printed beside
+   phase 3's.
+12. Standalone linalg kernels against plain: from 4096 contact-rich states
    of the same model, made on the card with the port's stages, qM goes
    through cholesky, its factor and qfrc_smooth through cho_solve, the
    first Newton iteration's H (and Euler's M + h D) through solve_spd, each
@@ -108,7 +139,7 @@ It imports nothing of JAX. Phases, each of which raises on failure:
    time where the host is the slower), its share of its bound and its
    ratio to the library call. This phase comes last: it starts
    torch.profiler, which no host-clock rate should run after.
-12. Prints the seconds of each phase and the total, the kernels' JSON line
+13. Prints the seconds of each phase and the total, the kernels' JSON line
    (each kernel's launches on every path that runs it under
    "launches_by_path") and, last, {"ok": true, "device": {...}}.
 """
@@ -116,6 +147,7 @@ It imports nothing of JAX. Phases, each of which raises on failure:
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
 import math
 import os
@@ -308,11 +340,91 @@ NEWTON_STEP_REL = {"qpos_max": 5e-6, "qvel_median": 1e-5}
 # (through the Euler solve_spd) less, in two runs on an NVIDIA H100; the
 # bars leave 5-10x.
 NEWTON_SUBSTEP_REL = {"qacc_smooth": 5e-5, "qacc": 5e-5, "efc_force": 1e-5, "qvel": 1e-5}
+# --- the rest of the physics (phase 11): the rodent on RK4, implicitfast and
+# implicit, with mixed condims and with frictionloss; the equality probes
+REST_CONTROL_STEPS = 1  # timed, after one warm-up control step (held against the CPU)
+# The RK4 path's timestep. RK4 is explicit: at the workload's 0.002 the
+# rodent's lightly armatured, damped joints are past its stability limit,
+# and MuJoCo C's RK4 diverges within 4 steps (qvel 4.2, 331, 2,170, 3.3e8 from
+# qpos0 with 0.2 x U(-1, 1) controls; it then warns and resets). At 1e-3 it
+# still diverges, at 5e-4 it holds (6 control steps, 2 seeds); the path runs
+# at half that. Its 3 control steps then last 7.5 ms of simulated time, too
+# short for the rodent at qpos0 to fall onto the floor, so it starts with
+# the root RK4_DROP lower (the feet in contact).
+RK4_TIMESTEP = 2.5e-4
+RK4_DROP = 0.01
+# dof_frictionloss on every hinge dof of the frictionloss variant, chosen so
+# that the timed states hold rows in both zones (clamped at +-frictionloss,
+# and quadratic); the phase prints both shares and requires both.
+FRICTIONLOSS = 0.01
+PROBES = ("connect", "weld", "joint", "tendon", "friction")
+# The paths are held against the CPU as phase 3 holds the rodent (STEP_REL
+# over the warm-up control step; SUBSTEP_REL over one substep after it, its
+# qacc_eff only where the fused solve produces it: Euler plans). The paths
+# with rows off the compact layout (F64_PATHS) are also held against float64
+# CPU runs of the control step and of the substep, the card within
+# FLY_VS_F64 times the float32 CPU's distance on the worst and on the median
+# env, and the card's solve of its own rows against the CPU's solve of the
+# same rows within SUBSTEP_REL, with the worst env taken apart (its rows'
+# split, its solve's split on the same rows, the float64 solves of both row
+# sets). One bar is replaced (QPOS_BY_F64): the frictionloss path's qpos on
+# the worst env after the control step, which the float32 CPU run itself
+# misses by its distance to float64 (on an NVIDIA H100: 9.4e-3 against the
+# 1e-2 bar on its worst env, qvel 0.38; card and CPU after one substep from
+# the same state at most 9.2e-6 apart in qacc; PERF.md §6). It is held by
+# the float64 rule on the worst and the median env.
+F64_PATHS = ("rodent mixed condims", "rodent frictionloss")
+QPOS_BY_F64 = ("rodent frictionloss",)
+REST_SUBSTEP_REL = {k: v for k, v in SUBSTEP_REL.items() if k != "qacc_eff"}
+# cg_solve_dense and the no-Euler cg_solve against their plain versions:
+# each output within KERNEL_REL (the no-Euler cg_solve on phase 2's states,
+# where its four outputs must be bitwise those of phase 2's launch with the
+# Euler solve; cg_solve_dense on states of the rodent with mixed condims).
+# Also held, on those states and on a second draw of 4096 rodent states
+# (where two float32 CG solves can part by more than KERNEL_REL: on an
+# NVIDIA H100 the compact cg_solve's qacc sat 1.36e-4 from its plain
+# version's on one such draw, bar 1e-4), against the plain version run in
+# float64: per env, relative to max(1, max |float64|) of that env, the
+# kernel's worst env within KERNEL_VS_F64 times the float32 plain version's
+# worst env, plus KERNEL_F64_FLOOR, and so its median env.
+KERNEL_VS_F64 = 3.0
+KERNEL_F64_FLOOR = 1e-6
+
 REPLACES = {  # the TPU kernel bodies, track_mjx_tpu/ops/batched_linalg.py
     "cholesky": "track_mjx_tpu/ops/batched_linalg.py:86",
     "cho_solve": "track_mjx_tpu/ops/batched_linalg.py:248",
     "solve_spd": "track_mjx_tpu/ops/batched_linalg.py:263",
 }
+
+
+def mixed_condim(snap):
+    """The rodent snapshot `snap` (load_snapshot) with the floor at condim 1
+    and the colliding body geoms at condim 1, 4 and 6 in turn by geom id:
+    its contact slots mix all three (a contact takes the larger condim of
+    its two geoms), and its rows leave the compact layout for the dense J.
+    Edits and returns `snap`."""
+    from track_mjx_tpu_torch.physics import model as tm
+
+    plan, _ = tm.put_model(snap, device="cpu")
+    geoms = sorted({int(g) for _, _, g1, g2 in plan.pair_groups for g in (*g1, *g2)})
+    condim = np.array(snap.geom_condim).copy()
+    body = [g for g in geoms if snap.geom_type[g] != tm.GEOM_PLANE]
+    condim[[g for g in geoms if snap.geom_type[g] == tm.GEOM_PLANE]] = 1
+    for i, g in enumerate(body):
+        condim[g] = (1, 4, 6)[i % 3]
+    snap.geom_condim = condim
+    return snap
+
+
+def with_frictionloss(snap, value: float):
+    """`snap` with dof_frictionloss = `value` on every hinge dof (one
+    frictionloss row each). Edits and returns `snap`."""
+    from track_mjx_tpu_torch.physics import model as tm
+
+    floss = np.array(snap.dof_frictionloss).copy()
+    floss[np.asarray(snap.jnt_type)[np.asarray(snap.dof_jntid)] == tm.JNT_HINGE] = value
+    snap.dof_frictionloss = floss
+    return snap
 
 
 def _rel(a, b) -> float:
@@ -321,6 +433,29 @@ def _rel(a, b) -> float:
 
 def _per_env(a, b):
     return (a - b).abs().amax(1) / b.abs().amax(1).clamp(min=1.0)
+
+
+def _on_cpu(obj, dtype=None):
+    """The dataclass of tensors `obj` (Data, EfcData) with every tensor on
+    the CPU and, given `dtype`, every floating one in it."""
+    def move(t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        t = t.cpu()
+        return t.to(dtype) if dtype is not None and t.is_floating_point() else t
+
+    return dataclasses.replace(obj, **{f.name: move(getattr(obj, f.name)) for f in dataclasses.fields(obj)})
+
+
+def _f64_stats(card_e, cpu_e, stats, factor: float, floor: float) -> dict:
+    """For each of `stats` ("median", "max") of two float32 runs' per-env
+    distances to float64: (the card's, the reference float32 run's, the bar
+    factor x the reference's + floor)."""
+    out = {}
+    for stat in stats:
+        pick = (lambda e: float(e.median())) if stat == "median" else (lambda e: float(e.max()))
+        out[stat] = (pick(card_e), pick(cpu_e), factor * pick(cpu_e) + floor)
+    return out
 
 
 def _times(fn, reps: int) -> tuple[float, float]:
@@ -362,18 +497,22 @@ def _profiled_ms(fn, reps: int, kernel: str) -> float:
     return sum(e.self_device_time_total for e in rows) / 1e3 / count
 
 
-def solve_flops(n: int, nl: int, nc: int, rows_per_con: int, its: int, ls: int) -> int:
+def solve_flops(n: int, nl: int, nc: int, rows_per_con: int, its: int, ls: int, *,
+                dense_rows: int | None = None, with_euler: bool = True) -> int:
     """Floating-point operations of one env's fused solve as the kernels
     compute it (a multiply-add counts 2): qM and J builds, two Cholesky
     factorizations (n^3 / 3 each), its + 3 (L L^T)^-1 applies (2 n^2 each),
     the J, J^T and M products, and the linesearch's row passes (about 6
-    operations per limit or pyramid row and 60 per cone block)."""
-    e = nl + rows_per_con * nc
+    operations per limit or pyramid row and 60 per cone block). A dense J
+    of `dense_rows` rows (cg_solve_dense) is read, not built, and takes the
+    pyramidal solve's products; without the Euler solve, one factor and one
+    apply less."""
+    e = nl + rows_per_con * nc if dense_rows is None else dense_rows
     qm = 6 * n * (n + 1)
-    jb = nc * n * (36 + (8 if rows_per_con == 4 else 0)) + nl * n
-    factor = 2 * n**3 // 3
-    applies = (its + 3) * 2 * n * n
-    if rows_per_con == 4:  # incremental jar / M dx: 2 J, 1 M, 1 J^T per iteration
+    jb = 0 if dense_rows is not None else nc * n * (36 + (8 if rows_per_con == 4 else 0)) + nl * n
+    factor = (2 if with_euler else 1) * n**3 // 3
+    applies = (its + (3 if with_euler else 2)) * 2 * n * n
+    if rows_per_con == 4 or dense_rows is not None:  # incremental jar / M dx: 2 J, 1 M, 1 J^T per iteration
         mv_j, mv_jt, mv_m = 2 + its, 1 + its + 1, 1 + its
         row_pass = (ls + 1) * 6 * e
     else:  # fresh jar / M (x - smooth): 2 J, 2 M, 1 J^T per iteration
@@ -442,28 +581,35 @@ class Phases:
     def uniform(self, shape, lo, hi):
         return lo + (hi - lo) * torch.rand(shape, generator=self.gen, device=self.dev)
 
-    def solver_inputs(self, plan, model, qpos, qvel, ctrl, warm, inputs_of):
-        tf, tm = self.tf, self.tm
-        d = tm.make_data(plan, model, qpos.shape[0]).replace(
-            qpos=qpos, qvel=qvel, ctrl=ctrl, qacc_warmstart=warm
-        )
+    def pre_solve(self, plan, model, d):
+        """forward's stages before the solve: (data, constraint rows)."""
+        tf = self.tf
         d, efc = tf.fwd_position(plan, model, d)
         d = tf.fwd_velocity(plan, model, d)
         d = tf.fwd_actuation(plan, model, d)
-        d = tf.fwd_acceleration(plan, model, d)
-        return inputs_of(plan, model, d, efc)
+        return tf.fwd_acceleration(plan, model, d), efc
 
-    def main_path(self, plan, model, per_substep, control_steps, ctrl_scale, reset_noise=0.001):
-        """Warm-up + timed control steps of n_step(..., 10) on N_ENVS envs.
-        `per_substep` maps each kernel wrapper of the path (and any that
-        must not launch, to 0) to its launches per substep. Returns the
-        start, the controls, the state after the warm-up, the final state
-        and the launches by wrapper name."""
+    def solver_inputs(self, plan, model, qpos, qvel, ctrl, warm, inputs_of):
+        d = self.tm.make_data(plan, model, qpos.shape[0]).replace(
+            qpos=qpos, qvel=qvel, ctrl=ctrl, qacc_warmstart=warm
+        )
+        return inputs_of(plan, model, *self.pre_solve(plan, model, d))
+
+    def main_path(self, plan, model, per_substep, control_steps, ctrl_scale, reset_noise=0.001,
+                  data=None, contacts=True):
+        """Warm-up + timed control steps of n_step(..., 10) on N_ENVS envs,
+        from qpos0 with `reset_noise` on the joints after the free root, or
+        from `data`. `per_substep` maps each kernel wrapper of the path (and
+        any that must not launch, to 0) to its launches per substep. Returns
+        the start, the controls, the state after the warm-up, the final
+        state and the launches by wrapper name. With `contacts`, some contact
+        must be active."""
         tf, tm = self.tf, self.tm
-        data = tm.make_data(plan, model, N_ENVS)
-        qpos = data.qpos.clone()
-        qpos[:, 7:] += self.uniform((N_ENVS, plan.nq - 7), -reset_noise, reset_noise)
-        data = data.replace(qpos=qpos)
+        if data is None:
+            data = tm.make_data(plan, model, N_ENVS)
+            qpos = data.qpos.clone()
+            qpos[:, 7:] += self.uniform((N_ENVS, plan.nq - 7), -reset_noise, reset_noise)
+            data = data.replace(qpos=qpos)
         ctrls = [ctrl_scale * self.uniform((N_ENVS, plan.nu), -1.0, 1.0)
                  for _ in range(1 + control_steps)]
         start = tf.slim_data(data)
@@ -490,11 +636,12 @@ class Phases:
         for name in ("qpos", "qvel", "act", "qacc", "qacc_eff", "efc_force", "sensordata", "xpos"):
             t = getattr(data, name)
             assert t.shape[0] == N_ENVS and torch.isfinite(t).all(), f"{name} is not finite"
-        assert active > 0, "no contact is active"
-        env_steps = control_steps * N_ENVS / seconds
+        assert active > 0 or not contacts, "no contact is active"
+        env_steps = control_steps * N_ENVS / seconds if control_steps else None
         self.last_env_steps = env_steps
-        print(f"main path: {N_ENVS} envs x {control_steps} control steps x {SUBSTEPS} substeps in "
-              f"{seconds:.3f} s: {env_steps:.1f} env-steps/s, {env_steps * SUBSTEPS:.1f} env-substeps/s; "
+        timed = (f"{control_steps} control steps x {SUBSTEPS} substeps in {seconds:.3f} s: {env_steps:.1f} "
+                 f"env-steps/s, {env_steps * SUBSTEPS:.1f} env-substeps/s" if control_steps else "the warm-up only")
+        print(f"main path: {N_ENVS} envs x {timed}; "
               f"launches {launches} ({1 + control_steps} control steps); active contacts/env at the control steps' ends "
               f"{active / N_ENVS / (1 + control_steps):.2f}; peak memory {peak} B ({self.card})")
         return start, ctrls, after_warmup, data, launches
@@ -509,6 +656,140 @@ class Phases:
             ctrl=ctrl0[:N_CPU].cpu(),
         )
         return cpu_plan, cpu_model, tf.n_step(cpu_plan, cpu_model, cpu, SUBSTEPS)
+
+    def versus_cpu(self, what, snap, plan, model, start, ctrls, after_warmup, step_rel, substep_rel,
+                   f64: bool = False, qpos_by_f64: bool = False):
+        """The warm-up control step of the first N_CPU envs repeated on the
+        CPU from the same start and controls (`snap` put on the CPU), its
+        qpos held on the worst env and its qvel on the median one to
+        `step_rel`; then one substep from the card's state after it, card
+        and CPU each, held on the worst env to `substep_rel` (its keys name
+        the outputs). With `f64` (F64_PATHS) also: the control step and the
+        substep, card and CPU, against float64 CPU runs on the worst and the
+        median env (`versus_f64`), and the card's solve of its own rows
+        against the CPU's solve of them within `substep_rel`, its worst env
+        taken apart (`solve_split`). With `qpos_by_f64` the control step's
+        worst-env qpos is held by that float64 rule instead of
+        step_rel["qpos_max"]."""
+        cpu_plan, cpu_model, cpu = self.cpu_warmup(snap, start, ctrls[0])
+        errs = {}
+        for name in ("qpos", "qvel"):
+            per_env = _per_env(getattr(after_warmup, name)[:N_CPU].cpu(), getattr(cpu, name))
+            errs[name] = (float(per_env.median()), float(per_env.max()))
+            print(f"{what}card vs CPU, one control step, {N_CPU} envs, {name}: per-env rel err "
+                  f"median {errs[name][0]:.3e} max {errs[name][1]:.3e} (env {int(per_env.argmax())})")
+        if f64:
+            cpu64, sub64 = self.cpu_float64(cpu_plan, cpu_model, start, ctrls[0], after_warmup)
+            for name in ("qpos", "qvel"):
+                self.versus_f64(f"{what}one control step", name, getattr(after_warmup, name)[:N_CPU],
+                                getattr(cpu, name), getattr(cpu64, name), ("max", "median"))
+        if not qpos_by_f64:
+            assert errs["qpos"][1] < step_rel["qpos_max"], f"{what}card and CPU qpos differ: {errs['qpos']}"
+        assert errs["qvel"][0] < step_rel["qvel_median"], f"{what}card and CPU qvel differ: {errs['qvel']}"
+
+        slim, card_sub, cpu_sub = self.one_substep(plan, model, cpu_plan, cpu_model, after_warmup)
+        worst = {}
+        for name, bar in substep_rel.items():
+            worst[name] = float(_per_env(getattr(card_sub, name).cpu(), getattr(cpu_sub, name)).max())
+            print(f"{what}card vs CPU, one substep, {N_CPU} envs, {name}: per-env rel err "
+                  f"max {worst[name]:.3e} (bar {bar:.0e})")
+        for name, bar in substep_rel.items():
+            assert worst[name] < bar, f"{what}card and CPU {name} differ after one substep: {worst[name]:.3e}"
+        if f64:
+            for name in substep_rel:
+                self.versus_f64(f"{what}one substep", name, getattr(card_sub, name), getattr(cpu_sub, name),
+                                getattr(sub64, name), ("max", "median"))
+            self.solve_split(what, plan, model, cpu_plan, cpu_model, slim, substep_rel)
+
+    def model64(self, cpu_model):
+        tm = self.tm
+        return tm.Model(**{f: getattr(cpu_model, f).double() for f in tm.Model.__dataclass_fields__})
+
+    def cpu_float64(self, cpu_plan, cpu_model, start, ctrl0, after_warmup):
+        """The warm-up control step of the first N_CPU envs and one substep
+        from the card's state after it, on the CPU in float64."""
+        tf, tm = self.tf, self.tm
+        model64 = self.model64(cpu_model)
+        cpu64 = tf.n_step(cpu_plan, model64, tm.make_data(cpu_plan, model64, N_CPU).replace(
+            **{k: getattr(start, k)[:N_CPU].cpu().double()
+               for k in ("time", "qpos", "qvel", "act", "qacc_warmstart")},
+            ctrl=ctrl0[:N_CPU].cpu().double(),
+        ), SUBSTEPS)
+        slim64 = tf.SlimData(**{f: getattr(after_warmup, f)[:N_CPU].cpu().double() for f in tf._CARRY_FIELDS})
+        return cpu64, tf.step(cpu_plan, model64, tf.expand_slim(cpu_plan, model64, slim64))
+
+    @staticmethod
+    def versus_f64(what, name, card_t, cpu_t, ref, stats):
+        """The card's per-env distance to the float64 CPU run `ref`, on each
+        of `stats` ("median", "max": the median and the worst env), within
+        FLY_VS_F64 times the float32 CPU run's, plus FLY_F64_FLOOR."""
+        card_e = _per_env(card_t.cpu().double(), ref)
+        cpu_e = _per_env(cpu_t.double(), ref)
+        held = _f64_stats(card_e, cpu_e, stats, FLY_VS_F64, FLY_F64_FLOOR)
+        w = int(card_e.argmax())
+        print(f"{what}, {N_CPU} envs, {name} against float64 CPU: per-env rel err, card "
+              f"median {float(card_e.median()):.3e} max {float(card_e.max()):.3e} (env {w}; the CPU's there "
+              f"{float(cpu_e[w]):.3e}); CPU float32 median {float(cpu_e.median()):.3e} max {float(cpu_e.max()):.3e} "
+              f"(env {int(cpu_e.argmax())}); bar on the card's "
+              + ", ".join(f"{stat} {bar:.3e}" for stat, (_, _, bar) in held.items()))
+        for stat, (card_v, _, bar) in held.items():
+            assert card_v <= bar, f"card {name} further from float64 than the CPU on the {stat} env ({what})"
+
+    def solve_split(self, what, plan, model, cpu_plan, cpu_model, slim, substep_rel):
+        """From the card's state `slim` (N_CPU envs), forward's stages up to
+        the solve on the card and on the CPU, then the card's rows solved on
+        the card and on the CPU (the plain versions), and each row set
+        solved in float64 on the CPU. The card's solve is held to the CPU's
+        solve of the same rows within `substep_rel` on the worst env. The
+        worst env of the card's solve against the CPU's (by qacc) is taken
+        apart: its rows' split, its contacts and active rows that differ,
+        each float32 solve's distance to the float64 solve of its own rows,
+        and the two float64 solves' split (what the exact solve makes of the
+        rows' roundoff)."""
+        tf, ts = self.tf, self.ts
+        card_d, card_efc = self.pre_solve(plan, model, tf.expand_slim(plan, model, slim))
+        cpu_slim = tf.SlimData(**{f: getattr(slim, f).cpu() for f in tf._CARRY_FIELDS})
+        cpu_d, cpu_efc = self.pre_solve(cpu_plan, cpu_model, tf.expand_slim(cpu_plan, cpu_model, cpu_slim))
+        model64 = self.model64(cpu_model)
+        card = ts.solve(plan, model, card_d, card_efc)
+        moved = ts.solve(cpu_plan, cpu_model, _on_cpu(card_d), _on_cpu(card_efc))
+        cpu = ts.solve(cpu_plan, cpu_model, cpu_d, cpu_efc)
+        exact_card = ts.solve(cpu_plan, model64, _on_cpu(card_d, torch.float64), _on_cpu(card_efc, torch.float64))
+        exact_cpu = ts.solve(cpu_plan, model64, _on_cpu(cpu_d, torch.float64), _on_cpu(cpu_efc, torch.float64))
+        outs = [k for k in ("qacc", "efc_force", "qacc_eff") if k in substep_rel]
+
+        def split(a, b, name):
+            return _per_env(getattr(a, name).cpu().double(), getattr(b, name).double())
+
+        worst = {}
+        for name in outs:
+            e = split(card, moved, name)
+            worst[name] = float(e.max())
+            print(f"{what}one substep, {N_CPU} envs: the card's solve against the CPU's solve of the card's rows, "
+                  f"{name}: per-env rel err median {float(e.median()):.3e} max {worst[name]:.3e} "
+                  f"(bar {substep_rel[name]:.0e})")
+        w = int(split(card, cpu, "qacc").argmax())
+        rows = {name: float(_per_env(getattr(card_efc, name)[w : w + 1].cpu().double().flatten(1),
+                                     getattr(cpu_efc, name)[w : w + 1].double().flatten(1)))
+                for name in ("J", "aref", "D") if getattr(card_efc, name) is not None}
+        dist = card_d.contact_dist[w].cpu(), cpu_d.contact_dist[w]
+        flips = int(((dist[0] < 0) != (dist[1] < 0)).sum())
+        active = int(((card.efc_force[w].cpu() != 0) != (cpu.efc_force[w] != 0)).sum())
+        print(f"{what}one substep, the worst env of the card's solve against the CPU's ({w}): rows' per-env rel "
+              f"split " + ", ".join(f"{k} {v:.3e}" for k, v in rows.items())
+              + f"; contacts active on one side only {flips}, rows with force on one side only {active} of "
+              f"{plan.nefc}")
+        for name in outs:
+            one = {k: float(split(a, b, name)[w]) for k, (a, b) in dict(
+                whole=(card, cpu), same_rows=(card, moved), card64=(card, exact_card), cpu64=(cpu, exact_cpu),
+                exact=(exact_card, exact_cpu)).items()}
+            print(f"{what}one substep, env {w}, {name}: card against CPU {one['whole']:.3e}; the card's solve "
+                  f"against the CPU's of the same rows {one['same_rows']:.3e}; against the float64 solve of its "
+                  f"own rows: card {one['card64']:.3e}, CPU {one['cpu64']:.3e}; float64 solves of the card's rows "
+                  f"against the CPU's {one['exact']:.3e}")
+        for name in outs:
+            assert worst[name] < substep_rel[name], (
+                f"{what}the card's solve and the CPU's solve of the same rows differ in {name}: {worst[name]:.3e}")
 
     def one_substep(self, plan, model, cpu_plan, cpu_model, after_warmup):
         tf = self.tf
@@ -590,31 +871,16 @@ class Phases:
                               N_ENVS * solve_flops(plan.nv, nl, nc, 4, its, ls))
         print(f"cg_solve at B={N_ENVS}: kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, "
               f"bound {b_ms:.4f} ms ({b_by}) ({self.card})")
-        del inputs, kernel, plain
+        self.phase2 = inputs, kernel  # the no-Euler mode is held on the same states (phase 11)
+        del plain
 
         # main path
         start, ctrls, after_warmup, _, launches = self.main_path(
             plan, model, {tk.cg_solve: 1}, RODENT_CONTROL_STEPS, RODENT_CTRL_SCALE
         )
         self.physics_env_steps = self.last_env_steps
-        cpu_plan, cpu_model, cpu = self.cpu_warmup(tm.load_snapshot("rodent-full-clips"), start, ctrls[0])
-        errs = {}
-        for name in ("qpos", "qvel"):
-            per_env = _per_env(getattr(after_warmup, name)[:N_CPU].cpu(), getattr(cpu, name))
-            errs[name] = (float(per_env.median()), float(per_env.max()))
-            print(f"card vs CPU, one control step, {N_CPU} envs, {name}: per-env rel err "
-                  f"median {errs[name][0]:.3e} max {errs[name][1]:.3e}")
-        assert errs["qpos"][1] < STEP_REL["qpos_max"], f"card and CPU qpos differ: {errs['qpos']}"
-        assert errs["qvel"][0] < STEP_REL["qvel_median"], f"card and CPU qvel differ: {errs['qvel']}"
-
-        _, card_sub, cpu_sub = self.one_substep(plan, model, cpu_plan, cpu_model, after_warmup)
-        worst = {}
-        for name, bar in SUBSTEP_REL.items():
-            worst[name] = float(_per_env(getattr(card_sub, name).cpu(), getattr(cpu_sub, name)).max())
-            print(f"card vs CPU, one substep, {N_CPU} envs, {name}: per-env rel err "
-                  f"max {worst[name]:.3e} (bar {bar:.0e})")
-        for name, bar in SUBSTEP_REL.items():
-            assert worst[name] < bar, f"card and CPU {name} differ after one substep: {worst[name]:.3e}"
+        self.versus_cpu("", tm.load_snapshot("rodent-full-clips"), plan, model, start, ctrls, after_warmup,
+                        STEP_REL, SUBSTEP_REL)
 
         return [{
             "name": "cg_solve",
@@ -1167,35 +1433,16 @@ class Phases:
             plan, model, {tk.ell_cg_solve: 1}, FLY_CONTROL_STEPS, FLY_CTRL_SCALE
         )
         cpu_plan, cpu_model, cpu = self.cpu_warmup(tm.load_snapshot("fly-mc-intention"), start, ctrls[0])
-        model64 = tm.Model(**{f: getattr(cpu_model, f).double() for f in tm.Model.__dataclass_fields__})
-        cpu64 = tf.n_step(cpu_plan, model64, tm.make_data(cpu_plan, model64, N_CPU).replace(
-            **{k: getattr(start, k)[:N_CPU].cpu().double()
-               for k in ("time", "qpos", "qvel", "act", "qacc_warmstart")},
-            ctrl=ctrls[0][:N_CPU].cpu().double(),
-        ), SUBSTEPS)
-
-        def versus_f64(what, name, card_t, cpu_t, ref, stat):
-            card_e = _per_env(card_t.cpu().double(), ref)
-            cpu_e = _per_env(cpu_t.double(), ref)
-            pick = (lambda e: float(e.median())) if stat == "median" else (lambda e: float(e.max()))
-            bar = FLY_VS_F64 * pick(cpu_e) + FLY_F64_FLOOR
-            print(f"fly, {what}, {N_CPU} envs, {name} against float64 CPU: per-env rel err, card "
-                  f"median {float(card_e.median()):.3e} max {float(card_e.max()):.3e}; CPU float32 "
-                  f"median {float(cpu_e.median()):.3e} max {float(cpu_e.max()):.3e}; "
-                  f"bar on the card's {stat} {bar:.3e}")
-            assert pick(card_e) <= bar, f"card {name} further from float64 than the CPU ({what})"
-
+        cpu64, sub64 = self.cpu_float64(cpu_plan, cpu_model, start, ctrls[0], after_warmup)
         for name in ("qpos", "qvel"):
-            versus_f64("one control step", name, getattr(after_warmup, name)[:N_CPU],
-                       getattr(cpu, name), getattr(cpu64, name), "median")
+            self.versus_f64("fly, one control step", name, getattr(after_warmup, name)[:N_CPU],
+                            getattr(cpu, name), getattr(cpu64, name), ("median",))
         _, card_sub, cpu_sub = self.one_substep(plan, model, cpu_plan, cpu_model, after_warmup)
-        slim64 = tf.SlimData(**{f: getattr(after_warmup, f)[:N_CPU].cpu().double() for f in tf._CARRY_FIELDS})
-        sub64 = tf.step(cpu_plan, model64, tf.expand_slim(cpu_plan, model64, slim64))
-        versus_f64("one substep", "qacc_smooth", card_sub.qacc_smooth, cpu_sub.qacc_smooth,
-                   sub64.qacc_smooth, "max")
+        self.versus_f64("fly, one substep", "qacc_smooth", card_sub.qacc_smooth, cpu_sub.qacc_smooth,
+                        sub64.qacc_smooth, ("max",))
         for name in ("qacc", "qacc_eff", "efc_force", "qvel"):
-            versus_f64("one substep", name, getattr(card_sub, name), getattr(cpu_sub, name),
-                       getattr(sub64, name), "median")
+            self.versus_f64("fly, one substep", name, getattr(card_sub, name), getattr(cpu_sub, name),
+                            getattr(sub64, name), ("median",))
 
         return [{
             "name": "ell_cg_solve",
@@ -1362,34 +1609,295 @@ class Phases:
         start, ctrls, after_warmup, _, launches = self.main_path(
             plan, model, per_substep, NEWTON_CONTROL_STEPS, RODENT_CTRL_SCALE
         )
-        cpu_plan, cpu_model, cpu = self.cpu_warmup(snap, start, ctrls[0])
-        errs = {}
-        for name in ("qpos", "qvel"):
-            per_env = _per_env(getattr(after_warmup, name)[:N_CPU].cpu(), getattr(cpu, name))
-            errs[name] = (float(per_env.median()), float(per_env.max()))
-            print(f"Newton: card vs CPU, one control step, {N_CPU} envs, {name}: per-env rel err "
-                  f"median {errs[name][0]:.3e} max {errs[name][1]:.3e}")
-        assert errs["qpos"][1] < NEWTON_STEP_REL["qpos_max"], f"card and CPU qpos differ: {errs['qpos']}"
-        assert errs["qvel"][0] < NEWTON_STEP_REL["qvel_median"], f"card and CPU qvel differ: {errs['qvel']}"
-
-        _, card_sub, cpu_sub = self.one_substep(plan, model, cpu_plan, cpu_model, after_warmup)
-        worst = {}
-        for name, bar in NEWTON_SUBSTEP_REL.items():
-            worst[name] = float(_per_env(getattr(card_sub, name).cpu(), getattr(cpu_sub, name)).max())
-            print(f"Newton: card vs CPU, one substep, {N_CPU} envs, {name}: per-env rel err "
-                  f"max {worst[name]:.3e} (bar {bar:.0e})")
-        for name, bar in NEWTON_SUBSTEP_REL.items():
-            assert worst[name] < bar, f"card and CPU {name} differ after one substep: {worst[name]:.3e}"
+        self.versus_cpu("Newton: ", snap, plan, model, start, ctrls, after_warmup, NEWTON_STEP_REL,
+                        NEWTON_SUBSTEP_REL)
 
         return plan, model, launches
 
     def newton_kernels(self, plan, model, launches) -> list:
-        """Phase 11, last: the kernels' timings start torch.profiler, which
+        """Phase 12, last: the kernels' timings start torch.profiler, which
         no host-clock rate may run after."""
         records = self.linalg_kernels(self.newton_matrices(plan, model))
         for r in records:
             r["launches"] = launches[r["name"]]
         return records
+
+    # -----------------------------------------------------------------------
+    # the rest of the physics (phase 11)
+    # -----------------------------------------------------------------------
+
+    def fused_kernel_vs_plain(self, op, plain, inputs, what, its, ls, with_euler, gate: bool):
+        """One launch of `op` against `plain` on `inputs`, in float32 and in
+        float64. Every output is held, with `gate`, within KERNEL_REL of the
+        float32 plain version's, and always by the float64 rule: over the
+        batch, and per env on the worst and the median env (KERNEL_VS_F64).
+        Returns the kernel's outputs and the largest absolute error against
+        the float32 plain version."""
+        before = op.launches
+        kernel = op(**inputs, with_euler=with_euler, iterations=its, ls_iterations=ls)
+        torch.cuda.synchronize()
+        assert op.launches == before + 1, f"{op.__name__}: the wrapper did not launch the kernel"
+        steps = dict(with_euler=with_euler, iterations=its, ls_iterations=ls)
+        want = plain(**inputs, **steps)
+        exact = plain(**{k: v.double() for k, v in inputs.items()}, **steps)
+        torch.cuda.synchronize()
+        max_abs = 0.0
+        for name, bar in KERNEL_REL.items():
+            a, b, c = getattr(kernel, name), getattr(want, name), getattr(exact, name)
+            if name == "qacc_eff" and not with_euler:
+                assert a is None and b is None, "qacc_eff without the Euler solve"
+                continue
+            assert torch.isfinite(a).all(), f"{op.__name__} {name} not finite"
+            err, abs_err = _rel(a, b), float((a - b).abs().max())
+            e_kernel, e_plain = _rel(a.double(), c), _rel(b.double(), c)
+            held = _f64_stats(_per_env(a.double(), c), _per_env(b.double(), c), ("max", "median"),
+                              KERNEL_VS_F64, KERNEL_F64_FLOOR)
+            max_abs = max(max_abs, abs_err)
+            print(f"{op.__name__} (with_euler={with_euler}) vs plain on {what} {name}: max rel err {err:.3e} "
+                  f"({'within' if err < bar else 'over'} KERNEL_REL {bar:.0e}{'' if gate else ', not gated here'}), "
+                  f"max abs err {abs_err:.3e}; against float64 plain: kernel {e_kernel:.3e}, float32 plain "
+                  f"{e_plain:.3e}; per env, kernel / float32 plain / bar: "
+                  + ", ".join(f"{stat} {k:.3e} / {p:.3e} / {bb:.3e}" for stat, (k, p, bb) in held.items()))
+            if gate:
+                assert err < bar, f"{op.__name__} {name} disagrees with plain: {err:.3e} >= {bar:.0e}"
+            assert e_kernel <= KERNEL_VS_F64 * e_plain + KERNEL_F64_FLOOR, (
+                f"{op.__name__} {name}: {e_kernel:.3e} from float64, over {KERNEL_VS_F64} x {e_plain:.3e}")
+            for stat, (k, p, bb) in held.items():
+                assert k <= bb, f"{op.__name__} {name}: {stat} env {k:.3e} from float64, over {bb:.3e}"
+        return kernel, max_abs
+
+    def time_fused(self, op, plain, inputs, its, ls, with_euler, nbytes, flops):
+        kernel_ms = _time_ms(lambda: op(**inputs, with_euler=with_euler, iterations=its, ls_iterations=ls), 20)
+        plain_ms = _time_ms(lambda: plain(**inputs, with_euler=with_euler, iterations=its, ls_iterations=ls), 3)
+        b_ms, b_by = bound_ms(nbytes, N_ENVS * flops)
+        print(f"{op.__name__} (with_euler={with_euler}) at B={N_ENVS}: kernel {kernel_ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / kernel_ms:.1f}% of the bound "
+              f"({self.card})")
+        return kernel_ms, plain_ms, b_ms, b_by
+
+    def no_euler_kernel(self) -> dict:
+        """The compact cg_solve without the Euler solve (RK4 and implicit
+        plans) against its plain version: on phase 2's states, within
+        KERNEL_REL, its outputs bitwise those of phase 2's launch with the
+        Euler solve; on a second draw of contact-rich rodent states by the
+        float64 rule."""
+        tk, tm = self.tk, self.tm
+        plan, model = tm.put_model(tm.load_snapshot("rodent-full-clips"), device=self.dev)
+        its, ls = plan.iterations, plan.ls_iterations
+        inputs, with_euler = self.phase2
+        del self.phase2
+        bare, max_abs = self.fused_kernel_vs_plain(tk.cg_solve, tk.cg_solve_plain, inputs, "phase 2's states",
+                                                   its, ls, False, gate=True)
+        for name in ("qacc_smooth", "qacc", "efc_force", "qfrc_constraint"):
+            assert torch.equal(getattr(bare, name), getattr(with_euler, name)), (
+                f"cg_solve without the Euler solve: {name} is not phase 2's")
+        print("cg_solve (with_euler=False) on phase 2's states: qacc_smooth, qacc, efc_force and qfrc_constraint "
+              "bitwise those of phase 2's launch with the Euler solve")
+        del bare, with_euler
+        inputs = self.rodent_states(plan, model)
+        max_abs = max(max_abs, self.fused_kernel_vs_plain(tk.cg_solve, tk.cg_solve_plain, inputs,
+                                                          "a second draw of rodent states", its, ls, False,
+                                                          gate=False)[1])
+        nc, nl = inputs["fq"].shape[1], inputs["lim1h"].shape[0]
+        out = tk.cg_solve(**inputs, with_euler=False, iterations=its, ls_iterations=ls)
+        nbytes = tensor_bytes([v for k, v in inputs.items() if k != "hd"] + [t for t in out if t is not None])
+        ms, plain_ms, b_ms, b_by = self.time_fused(
+            tk.cg_solve, tk.cg_solve_plain, inputs, its, ls, False, nbytes,
+            solve_flops(plan.nv, nl, nc, 4, its, ls, with_euler=False))
+        return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": max_abs}
+
+    def dense_kernel(self, plan, model) -> dict:
+        """cg_solve_dense against its plain version on contact-rich states of
+        the rodent with mixed condims, with and without the Euler solve;
+        timed, with its bound (the dense J counted as B x nefc x nv x 4 bytes
+        of input)."""
+        tk, ts = self.tk, self.ts
+        its, ls = plan.iterations, plan.ls_iterations
+        qpos, qvel, ctrl, warm = self.rodent_drop(plan, model)
+        d, efc = self.solver_inputs(plan, model, qpos, qvel, ctrl, warm, lambda p, m, d, e: (d, e))
+        inputs = ts.dense_solve_inputs(plan, model, d, efc)
+        e = inputs["J"].shape[1]
+        rich = float(efc.active_row.any(dim=1).float().mean())
+        slots = {c: int((plan.contact_condim == c).sum()) for c in (1, 4, 6)}
+        active = {c: int((d.contact_dist[:, torch.as_tensor(plan.contact_condim == c, device=self.dev)] < 0).sum())
+                  for c in (1, 4, 6)}
+        print(f"{N_ENVS} mixed-condim states: nefc {e}, contact slots by condim {slots}, active contacts by "
+              f"condim {active}, share with active rows {rich:.3f}")
+        assert rich > 0.9 and min(active.values()) > 0, "states are not contact-rich in every condim"
+        max_abs = max(self.fused_kernel_vs_plain(tk.cg_solve_dense, tk.cg_solve_dense_plain, inputs,
+                                                 "mixed-condim states", its, ls, we, gate=True)[1]
+                      for we in (True, False))
+        info = (ctypes.c_int * 4)()
+        from track_mjx_tpu_torch.ops import kernel_lib
+
+        err = kernel_lib.load_library().cg_solve_dense_kernel_info(plan.nv, e, info)
+        assert err == 0, f"cg_solve_dense_kernel_info failed with cudaError {err}"
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        print(f"cg_solve_dense kernel at n={plan.nv}, e={e}: {info[3]} threads per CTA (one env), {info[0]} "
+              f"registers per thread, {info[1]} B of shared memory per CTA, {info[2]} resident CTAs per SM, "
+              f"{-(-N_ENVS // (info[2] * sms))} waves of {N_ENVS} envs on {sms} SMs ({self.card})")
+        times = {}
+        for we in (True, False):
+            out = tk.cg_solve_dense(**inputs, with_euler=we, iterations=its, ls_iterations=ls)
+            used = [v for k, v in inputs.items() if we or k != "hd"]
+            times[we] = self.time_fused(tk.cg_solve_dense, tk.cg_solve_dense_plain, inputs, its, ls, we,
+                                        tensor_bytes(used + [t for t in out if t is not None]),
+                                        solve_flops(plan.nv, 0, 0, 4, its, ls, dense_rows=e, with_euler=we))
+        ms, plain_ms, b_ms, b_by = times[True]
+        return {
+            "name": "cg_solve_dense",
+            "route": "cuda",
+            "source": "track_mjx_tpu_torch/csrc/cg_solve.cu",
+            "replaces": "track_mjx_tpu/ops/cg_solver_kernel.py:176",
+            "launches": None,
+            "max_abs_err": max_abs,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,  # no single PyTorch call computes the fused solve
+            "no_euler": dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"), times[False])),
+        }
+
+    def no_plain_calls(self):
+        """Replaces each kernel's plain version by a counting call of itself;
+        returns the counts and a function that restores them."""
+        mods = [(self.tk, n) for n in ("cg_solve_plain", "cg_solve_dense_plain", "ell_cg_solve_plain")]
+        mods += [(self.bl, n) for n in ("cholesky_plain", "cho_solve_plain", "solve_spd_plain")]
+        calls = {n: 0 for _, n in mods}
+        saved = [(m, n, getattr(m, n)) for m, n in mods]
+
+        def counting(n, fn):
+            def call(*args, **kwargs):
+                calls[n] += 1
+                return fn(*args, **kwargs)
+            return call
+
+        for m, n, fn in saved:
+            setattr(m, n, counting(n, fn))
+
+        def restore():
+            for m, n, fn in saved:
+                setattr(m, n, fn)
+        return calls, restore
+
+    def variant(self, what, snap, per_substep, substep_rel, check=None, data_of=None, contacts=True,
+                f64=False, control_steps=REST_CONTROL_STEPS):
+        """One path of phase 11 at N_ENVS envs: 1 warm-up and `control_steps`
+        timed control steps with exact launches and no plain version, from
+        main_path's start or `data_of(plan, model)`; `check` on the plan and
+        final state, then N_CPU envs against the CPU. Returns (env-steps/s,
+        None without timed steps; launches by wrapper)."""
+        tm = self.tm
+        t0 = time.perf_counter()
+        plan, model = tm.put_model(snap, device=self.dev)
+        print(f"{what}: nv={plan.nv} nefc={plan.nefc} ne={plan.ne} nf={plan.nf} nlimit={plan.nlimit} "
+              f"ncon={plan.ncon} integrator={plan.integrator} solver={plan.solver} "
+              f"{plan.iterations}/{plan.ls_iterations}")
+        calls, restore = self.no_plain_calls()
+        try:
+            start, ctrls, after_warmup, data, launches = self.main_path(
+                plan, model, per_substep, control_steps, RODENT_CTRL_SCALE,
+                data=None if data_of is None else data_of(plan, model), contacts=contacts)
+        finally:
+            restore()
+        assert not any(calls.values()), f"{what}: a plain version ran on the card: {calls}"
+        if check is not None:
+            check(plan, data)
+        rate = self.last_env_steps
+        t1 = time.perf_counter()
+        self.versus_cpu(f"{what}: ", snap, plan, model, start, ctrls, after_warmup, STEP_REL, substep_rel, f64,
+                        qpos_by_f64=what in QPOS_BY_F64)
+        print(f"{what}: {t1 - t0:.1f} s on the card, {time.perf_counter() - t1:.1f} s against the CPU")
+        return rate, launches
+
+    def dropped_start(self, plan, model):
+        """main_path's start with the root RK4_DROP lower."""
+        data = self.tm.make_data(plan, model, N_ENVS)
+        qpos = data.qpos.clone()
+        qpos[:, 7:] += self.uniform((N_ENVS, plan.nq - 7), -0.001, 0.001)
+        qpos[:, 2] -= RK4_DROP
+        return data.replace(qpos=qpos)
+
+    def probe_start(self, plan, model):
+        """Probe states as tests/test_equality.py draws them: qpos0 +
+        U(-0.05, 0.05), quaternions normalized, qvel U(-0.3, 0.3)."""
+        tm = self.tm
+        data = tm.make_data(plan, model, N_ENVS)
+        qpos = data.qpos + self.uniform((N_ENVS, plan.nq), -0.05, 0.05)
+        for j in np.nonzero((plan.jnt_type == tm.JNT_BALL) | (plan.jnt_type == tm.JNT_FREE))[0]:
+            a = int(plan.jnt_qposadr[j]) + (3 if plan.jnt_type[j] == tm.JNT_FREE else 0)
+            qpos[:, a : a + 4] = qpos[:, a : a + 4] / qpos[:, a : a + 4].norm(dim=1, keepdim=True)
+        return data.replace(qpos=qpos, qvel=self.uniform((N_ENVS, plan.nv), -0.3, 0.3))
+
+    def rest_of_physics(self) -> tuple[dict, dict, dict]:
+        """Phase 11; returns the dense kernel's record, the no-Euler mode's
+        numbers and the launches of every path by wrapper name."""
+        tk, tm, bl = self.tk, self.tm, self.bl
+        no_euler = self.no_euler_kernel()
+        mplan, mmodel = tm.put_model(mixed_condim(tm.load_snapshot("rodent-full-clips")), device=self.dev)
+        dense = self.dense_kernel(mplan, mmodel)
+        del mplan, mmodel
+
+        wrappers = (tk.cg_solve, tk.cg_solve_dense, tk.ell_cg_solve, bl.cholesky, bl.cho_solve, bl.solve_spd)
+
+        def per(**counts):
+            return {op: counts.get(op.__name__, 0) for op in wrappers}
+
+        def rodent(integrator=None):
+            snap = tm.load_snapshot("rodent-full-clips")
+            if integrator is not None:
+                snap.opt.integrator = integrator
+            if integrator == tm.INT_RK4:
+                snap.opt.timestep = RK4_TIMESTEP
+            return snap
+
+        def check_mixed(plan, data):
+            active = {c: int((data.contact_dist[:, torch.as_tensor(plan.contact_condim == c, device=self.dev)] < 0)
+                             .sum()) for c in (1, 4, 6)}
+            print(f"mixed condims: contact slots by condim "
+                  f"{ {c: int((plan.contact_condim == c).sum()) for c in (1, 4, 6)} }, nefc {plan.nefc}, active "
+                  f"contacts by condim at the last control step {active}")
+            assert min(active.values()) > 0, "a condim has no active contact"
+
+        def check_frictionloss(plan, data):
+            floss = torch.as_tensor(FRICTIONLOSS, device=self.dev)
+            force = data.efc_force[:, plan.ne : plan.ne + plan.nf].abs()
+            clamped = float((force >= floss * (1 - 1e-6)).float().mean())
+            print(f"frictionloss {FRICTIONLOSS} on {plan.nf} hinge dofs: at the last control step {clamped:.4f} of "
+                  f"the rows clamped at +-frictionloss, {1 - clamped:.4f} in the quadratic zone")
+            assert 0 < clamped < 1, "the frictionloss rows must sit in both zones"
+
+        its = 5
+        paths = {
+            "rodent RK4": (rodent(tm.INT_RK4), per(cg_solve=4), REST_SUBSTEP_REL, None),
+            "rodent implicitfast": (rodent(tm.INT_IMPLICITFAST), per(cg_solve=1, solve_spd=1), REST_SUBSTEP_REL,
+                                    None),
+            "rodent implicit": (rodent(tm.INT_IMPLICIT), per(cg_solve=1), REST_SUBSTEP_REL, None),
+            "rodent mixed condims": (mixed_condim(rodent()), per(cg_solve_dense=1), SUBSTEP_REL, check_mixed),
+            "rodent frictionloss": (with_frictionloss(rodent(), FRICTIONLOSS),
+                                    per(cholesky=1, cho_solve=2 + its, solve_spd=1), REST_SUBSTEP_REL,
+                                    check_frictionloss),
+        }
+        rates, launches = {}, {}
+        for what, (snap, per_substep, substep_rel, check) in paths.items():
+            assert snap.opt.iterations == its
+            rates[what], launches[what] = self.variant(
+                what, snap, per_substep, substep_rel, check,
+                data_of=self.dropped_start if what == "rodent RK4" else None,
+                f64=what in F64_PATHS)
+        for name in PROBES:
+            snap = tm.load_snapshot("probe-" + name)
+            what = f"probe {name}"
+            rates[what], launches[what] = self.variant(
+                what, snap, per(cholesky=1, cho_solve=2 + snap.opt.iterations, solve_spd=1), REST_SUBSTEP_REL,
+                data_of=self.probe_start, contacts=False, control_steps=0)
+        for what, rate in rates.items():
+            if rate is None:
+                continue
+            print(f"{what}: {rate:.1f} env-steps/s against the Euler rodent's {self.physics_env_steps:.1f} "
+                  f"(phase 3), {rate / self.physics_env_steps:.3f}x ({self.card})")
+        return dense, no_euler, launches
 
 
 def main() -> None:
@@ -1428,9 +1936,13 @@ def main() -> None:
                                   phase=9)
     lstm_training_launches = timed("10 rodent LSTM training", phases.training, extra=LSTM_OVERRIDES,
                                    what="rodent LSTM training", phase=10)
-    kernels += timed("11 standalone linalg", phases.newton_kernels, *newton)
+    dense, no_euler, rest_launches = timed("11 rest of physics", phases.rest_of_physics)
+    dense["launches"] = rest_launches["rodent mixed condims"]["cg_solve_dense"]
+    kernels.append(dense)
+    kernels += timed("12 standalone linalg", phases.newton_kernels, *newton)
     for k in kernels:  # each kernel's launches on every path that runs it, as counted there
         if k["name"] == "cg_solve":
+            k["no_euler"] = no_euler
             k["launches_by_path"] = {"rodent control steps (phase 3)": k["launches"],
                                      "rodent rollout, reset + one unroll (phase 4)": rollout_launches,
                                      "rodent training, train.main (phase 8)": training_launches,
@@ -1438,8 +1950,13 @@ def main() -> None:
         elif k["name"] == "ell_cg_solve":
             k["launches_by_path"] = {"fly control steps (phase 6)": k["launches"],
                                      "fly training, train.main (phase 9)": fly_training_launches}
+        elif k["name"] == "cg_solve_dense":
+            k["launches_by_path"] = {}
         else:
             k["launches_by_path"] = {"rodent Newton control steps (phase 7)": k["launches"]}
+        for path, counts in rest_launches.items():
+            if counts.get(k["name"]):
+                k["launches_by_path"][f"{path} control steps (phase 11)"] = counts[k["name"]]
     print("seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
           + f"; total since start {time.perf_counter() - T_START:.1f} s")
     print(card)

@@ -445,7 +445,7 @@ def test_wrapper_raises_above_the_tiled_range():
     args = [torch.zeros(s) for s in ((1, n, 6), (1, n, 6), (1, 0, 3, 6), (1, n, 6), (1, 0), (1, 0, 2),
                                      (1, 0), (1, 0), (1, n), (1, n), (1, n), (1,), (n, n), (n,), (0, n), (0, n))]
     with pytest.raises(ValueError, match=f"n <= {bl.MAX_N}"):
-        tk._launch("cg_solve", args, 1, n, 0, 0, 4, 5, 5)
+        tk._launch("cg_solve", args, 1, (n, 0, 0), 0, 5, 5)
 
 
 # ---------------------------------------------------------------------------

@@ -356,7 +356,7 @@ def test_wrappers_raise_above_the_tiled_range(op):
         args = [torch.zeros(s) for s in ((1, n, 6), (1, n, 6), (1, 0, 3, 6), (1, n, 6), (1, 0), (1, 0),
                                          (1, 0), (1, 0), (1, n), (1, n), (1, n), (1,), (n, n), (n,), (0, n), (0, n))]
         with pytest.raises(ValueError, match=f"n <= {bl.MAX_N}"):
-            tk._launch(op, args, 1, n, 0, 0, 3, 4, 4)
+            tk._launch(op, args, 1, (n, 0, 0), 0, 4, 4)
 
 
 # ---------------------------------------------------------------------------

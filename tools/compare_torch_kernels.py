@@ -141,10 +141,13 @@ def call_cg(lib, op: str, a: dict, its: int, ls: int) -> tk.CGOut:
     nl, nc = a["lim1h"].shape[0], a["fq"].shape[1]
     e = a["aref"].shape[1]
     out = tk.CGOut(*(torch.empty(bsz, m, device="cuda") for m in (n, n, e, n, n)))
-    err = getattr(lib, f"{op}_f32")(
+    fn = getattr(lib, f"{op}_f32")
+    # a build whose cg_solve_f32 takes with_euler (after ls_iterations) runs with it
+    with_euler = (1,) if len(fn.argtypes) == 29 else ()
+    err = fn(
         *[t.data_ptr() for t in args], out.qacc_smooth.data_ptr(), out.qacc.data_ptr(),
         out.qfrc_constraint.data_ptr(), out.qacc_eff.data_ptr(), out.efc_force.data_ptr(),
-        bsz, n, nl, nc, its, ls, torch.cuda.current_stream().cuda_stream,
+        bsz, n, nl, nc, its, ls, *with_euler, torch.cuda.current_stream().cuda_stream,
     )
     assert err == 0, f"{op}_f32 failed with cudaError {err}"
     return out

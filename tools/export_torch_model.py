@@ -1,6 +1,14 @@
 """Exports a workload's compiled model as the snapshot the torch port loads.
 
 Usage: python tools/export_torch_model.py [--config NAME] [--out FILE.npz]
+       python tools/export_torch_model.py --xml FILE_OR_STRING --out FILE.npz
+       python tools/export_torch_model.py --probes
+
+--xml compiles a MuJoCo XML file (or an XML string) as it is and writes its
+snapshot, put_model's fields only. --probes writes the equality and
+frictionloss probes of tests/test_equality.py (connect, weld, joint, tendon,
+friction) that way to track_mjx_tpu_torch/assets/probes/<name>.npz, a few
+KB each, so that a machine without MuJoCo can step them (chip_smoke.py).
 
 NAME is rodent-full-clips (the default) or fly-mc-intention. The walker is
 built exactly as envs/task/tracking.py builds it for that workload (the
@@ -31,7 +39,15 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = ("rodent-full-clips", "fly-mc-intention")
-
+PROBE_DIR = os.path.join(REPO, "track_mjx_tpu_torch", "assets", "probes")
+# snapshot name -> the XML's name in tests/test_equality.py
+PROBES = {
+    "connect": "CONNECT_XML",
+    "weld": "WELD_XML",
+    "joint": "JOINT_XML",
+    "tendon": "TENDON_XML",
+    "friction": "FRICTION_XML",
+}
 
 
 def default_out(config: str) -> str:
@@ -128,11 +144,52 @@ def snapshot_arrays(m) -> dict:
     return out
 
 
+def xml_model(xml: str):
+    """The MjModel of an XML file, or of an XML string."""
+    import mujoco
+
+    if os.path.exists(xml):
+        return mujoco.MjModel.from_xml_path(xml)
+    return mujoco.MjModel.from_xml_string(xml)
+
+
+def probe_xmls() -> dict:
+    """{probe name: XML string} of tests/test_equality.py's probes."""
+    import importlib.util
+
+    sys.path.insert(0, REPO)
+    path = os.path.join(REPO, "tests", "test_equality.py")
+    spec = importlib.util.spec_from_file_location("test_equality", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return {name: getattr(mod, attr) for name, attr in PROBES.items()}
+
+
+def write_snapshot(m, out: str) -> None:
+    arrays = snapshot_arrays(m)
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    np.savez_compressed(out, **arrays)
+    print(f"wrote {len(arrays)} fields, {os.path.getsize(out)} bytes to {out}")
+
+
 def main(argv):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", choices=CONFIGS, default="rodent-full-clips")
+    ap.add_argument("--xml", default=None, help="an XML file or string to snapshot as it is (needs --out)")
+    ap.add_argument("--probes", action="store_true", help="snapshot tests/test_equality.py's probes")
     ap.add_argument("--out", default=None, help="default: the port's assets/<config>.npz")
     args = ap.parse_args(argv[1:])
+    if args.probes:
+        sys.path.insert(0, REPO)
+        for name, xml in probe_xmls().items():
+            write_snapshot(xml_model(xml), os.path.join(PROBE_DIR, name + ".npz"))
+        return
+    if args.xml is not None:
+        if args.out is None:
+            ap.error("--xml needs --out")
+        sys.path.insert(0, REPO)
+        write_snapshot(xml_model(args.xml), args.out)
+        return
     out = args.out or default_out(args.config)
     arrays = export_arrays(args.config)
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)

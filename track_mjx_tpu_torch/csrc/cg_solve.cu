@@ -53,12 +53,27 @@
 // shared memory (for instance jfr, 26 KB, recomputed in the products
 // instead of stored).
 //
-// C interface (bound with ctypes): cg_solve_f32 launches on the given stream
-// and returns cudaGetLastError() (cudaErrorInvalidValue for n > 128);
-// cg_solve_smem_bytes gives the dynamic shared memory one CTA needs;
-// cg_solve_kernel_info its registers, shared memory, resident CTAs per SM
-// and threads; cg_solve_stamps the phase stamps of a build with
-// CG_SOLVE_STAMPS.
+// Two modes of the TPU kernel's that the compact layout cannot take:
+// - the dense mode (cg_solve_dense_f32, kDense) replaces _cg_kernel with
+//   jb_dims None: J is a dense [e][n] array per env, the rows of pyramidal
+//   plans with condim-1, -4 or -6 contacts beside the limits (the rodent
+//   with mixed condims: about 237 rows, 69 KB). J is copied whole into
+//   shared memory, each row js = n | 1 floats apart, so that a warp's rows
+//   (J x) or columns (J^T f) fall in distinct banks; J x sums each row in
+//   increasing d, J^T f each column in row order. Everything else is the
+//   compact mode's code. About 105 KB of shared memory per env at 237 rows
+//   (2 CTAs per SM), 143 KB at 367 rows (every rodent contact at condim 6,
+//   1 CTA per SM); a model over 227 KB is refused by the wrapper.
+// - with_euler = 0 (plans on RK4 or an implicit integrator, as the TPU
+//   kernel's hd=None): no factor of M + diag(hd), no qacc_eff.
+//
+// C interface (bound with ctypes): cg_solve_f32 and cg_solve_dense_f32
+// launch on the given stream and return cudaGetLastError()
+// (cudaErrorInvalidValue for n > 128); cg_solve_smem_bytes and
+// cg_solve_dense_smem_bytes give the dynamic shared memory one CTA needs;
+// cg_solve_kernel_info and cg_solve_dense_kernel_info its registers, shared
+// memory, resident CTAs per SM and threads; cg_solve_stamps the phase
+// stamps of a build with CG_SOLVE_STAMPS.
 
 #include <cuda_runtime.h>
 
@@ -101,16 +116,19 @@ __device__ unsigned long long g_stamps[kStamps];
 // Shared memory, in floats, each section a multiple of 16 B: M's tiles; L's
 // tiles (before the factor, the staged per-env operands: buf, cdof, sw, fq);
 // the panel inverses; jfr (before it, a copy of lim1h); 5 row vectors; the
-// limit-row tables; mu; 10 dof vectors; the reductions' two buffers.
+// limit-row tables; mu; 10 dof vectors; the reductions' two buffers. The
+// dense mode (e_dense >= 0 rows of a dense J, nl = nc = 0) keeps J where
+// jfr lies, each row js floats apart, and stages only buf and cdof.
 struct Layout {
   int tiles, lreg, dinv, jfr, js, rows, lim, dofs, total;
-  __host__ __device__ Layout(int n, int nl, int nc) {
-    const int e = nl + 4 * nc;
+  __host__ __device__ Layout(int n, int nl, int nc, int e_dense = -1) {
+    const bool dense = e_dense >= 0;
+    const int e = dense ? e_dense : nl + 4 * nc;
     tiles = (int)tiles_floats(n);
-    lreg = max(tiles, up4(18 * n + 18 * nc));
+    lreg = max(tiles, up4(dense ? 12 * n : 18 * n + 18 * nc));
     dinv = up4(((n + kPanel - 1) / kPanel) * kPanel * kPanel);
-    js = n | 1;  // odd: neighbouring contacts' rows in distinct banks
-    jfr = up4(max(3 * nc * js, nl * n));  // lim1h's copy before jfr
+    js = n | 1;  // odd: neighbouring rows in distinct banks
+    jfr = dense ? up4(e * js) : up4(max(3 * nc * js, nl * n));  // lim1h's copy before jfr
     rows = up4(e);
     lim = up4(nl);
     dofs = up4(n);
@@ -172,7 +190,32 @@ __device__ __forceinline__ void ordered_sums(int count, Term term, float* red, i
   parity ^= 1;
 }
 
-// One env's operands in shared memory.
+// (M (v - sub))[i] (sub may be null): M(max(i, j), min(i, j)) in
+// increasing j, row i's tiles left of the diagonal as 128-bit reads.
+__device__ __forceinline__ float m_row_of(const Tiles& M, int n, const float* v, const float* sub, int i) {
+  const int ti = i >> 2, rp = M.row_part(i);
+  float s = 0.f;
+  for (int tc = 0; tc < ti; ++tc) {
+    const float4 m = *reinterpret_cast<const float4*>(M.s + rp + 4 * tri(M.nt - 1 - tc));
+    float4 x = *reinterpret_cast<const float4*>(v + 4 * tc);
+    if (sub) {
+      const float4 y = *reinterpret_cast<const float4*>(sub + 4 * tc);
+      x = make_float4(x.x - y.x, x.y - y.y, x.z - y.z, x.w - y.w);
+    }
+    s += m.x * x.x;
+    s += m.y * x.y;
+    s += m.z * x.z;
+    s += m.w * x.w;
+  }
+  const int jd = min(4 * ti + 4, n);
+  for (int j = 4 * ti; j < jd; ++j)  // the diagonal tile holds both triangles
+    s += M.s[rp + M.col_part(j)] * (sub ? v[j] - sub[j] : v[j]);
+  const int cp = M.col_part(i);
+  for (int j = jd; j < n; ++j) s += M.s[M.row_part(j) + cp] * (sub ? v[j] - sub[j] : v[j]);
+  return s;
+}
+
+// One env's operands in shared memory, J compact.
 struct Env {
   Tiles M;
   const float* jfr;  // [nc][3][js]: jfr0, jfr1, jfr2 of each contact
@@ -183,29 +226,8 @@ struct Env {
   const int* lfirst; // dof -> its first limit row, or -1
   int n, nl, nc, js;
 
-  // (M (v - sub))[i] (sub may be null): M(max(i, j), min(i, j)) in
-  // increasing j, row i's tiles left of the diagonal as 128-bit reads.
   __device__ float m_row(const float* v, const float* sub, int i) const {
-    const int ti = i >> 2, rp = M.row_part(i);
-    float s = 0.f;
-    for (int tc = 0; tc < ti; ++tc) {
-      const float4 m = *reinterpret_cast<const float4*>(M.s + rp + 4 * tri(M.nt - 1 - tc));
-      float4 x = *reinterpret_cast<const float4*>(v + 4 * tc);
-      if (sub) {
-        const float4 y = *reinterpret_cast<const float4*>(sub + 4 * tc);
-        x = make_float4(x.x - y.x, x.y - y.y, x.z - y.z, x.w - y.w);
-      }
-      s += m.x * x.x;
-      s += m.y * x.y;
-      s += m.z * x.z;
-      s += m.w * x.w;
-    }
-    const int jd = min(4 * ti + 4, n);
-    for (int j = 4 * ti; j < jd; ++j)  // the diagonal tile holds both triangles
-      s += M.s[rp + M.col_part(j)] * (sub ? v[j] - sub[j] : v[j]);
-    const int cp = M.col_part(i);
-    for (int j = jd; j < n; ++j) s += M.s[M.row_part(j) + cp] * (sub ? v[j] - sub[j] : v[j]);
-    return s;
+    return m_row_of(M, n, v, sub, i);
   }
 
   // (J x)[r] - sub[r] (sub may be null), rows in efc order.
@@ -242,10 +264,41 @@ struct Env {
   }
 };
 
+// One env's operands in shared memory, J dense: e rows of n, js apart.
+struct DenseEnv {
+  Tiles M;
+  const float* j;
+  int n, e, js;
+
+  __device__ float m_row(const float* v, const float* sub, int i) const {
+    return m_row_of(M, n, v, sub, i);
+  }
+
+  // (J x)[r] - sub[r] (sub may be null), d in increasing order.
+  __device__ float j_row(const float* x, const float* sub, int r) const {
+    const float* row = j + r * js;
+    float s = 0.f;
+    for (int d = 0; d < n; ++d) s += row[d] * x[d];
+    return sub ? s - sub[r] : s;
+  }
+
+  // base[d] - (J^T f)[d] (base may be null: (J^T f)[d]), rows in order.
+  __device__ float jt_col(const float* f, const float* base, int d) const {
+    float s = 0.f;
+    for (int r = 0; r < e; ++r) s += j[r * js + d] * f[r];
+    return base ? base[d] - s : s;
+  }
+};
+
+// kDense: J is g_j [B][e_dense][n] (the compact operands fq, sw, ll, mu,
+// dm and lim1h are not read, nl = nc = 0); else J is built from them.
+// with_euler = 0 skips the factor of M + diag(hd) and o_eff.
+template <bool kDense>
 __global__ void __launch_bounds__(kThreads)
 cg_solve_kernel(const float* __restrict__ g_buf, const float* __restrict__ g_cdof,
                 const float* __restrict__ g_fq, const float* __restrict__ g_sw,
                 const float* __restrict__ g_ll, const float* __restrict__ g_mu,
+                const float* __restrict__ g_j,
                 const float* __restrict__ g_aref, const float* __restrict__ g_D,
                 const float* __restrict__ g_qfs, const float* __restrict__ g_warm,
                 const float* __restrict__ g_hd, const float* __restrict__ g_tolscale,
@@ -253,12 +306,12 @@ cg_solve_kernel(const float* __restrict__ g_buf, const float* __restrict__ g_cdo
                 const float* __restrict__ dm, const float* __restrict__ lim1h,
                 float* __restrict__ o_smooth, float* __restrict__ o_qacc,
                 float* __restrict__ o_qfrc, float* __restrict__ o_eff,
-                float* __restrict__ o_force, int n, int nl, int nc, int iterations,
-                int ls_iterations) {
+                float* __restrict__ o_force, int n, int nl, int nc, int e_dense, int iterations,
+                int ls_iterations, int with_euler) {
   constexpr int NT = kThreads;
   extern __shared__ __align__(16) float smem[];
-  const Layout lay(n, nl, nc);
-  const int e = nl + 4 * nc;
+  const Layout lay = kDense ? Layout(n, 0, 0, e_dense) : Layout(n, nl, nc);
+  const int e = kDense ? e_dense : nl + 4 * nc;
   const long b = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   // The warp that runs the serial phases (panels, solves, linesearch): one
@@ -301,7 +354,13 @@ cg_solve_kernel(const float* __restrict__ g_buf, const float* __restrict__ g_cdo
   float* s_sw = s_cdof + 6 * n;
   float* s_fq = s_sw + 6 * n;
 
-  const Env env{Tiles(M_s, n), jfr, mu, ldof, lval, lnext, lfirst, n, nl, nc, lay.js};
+  const auto env = [&]() {
+    if constexpr (kDense) {
+      return DenseEnv{Tiles(M_s, n), jfr, n, e, lay.js};
+    } else {
+      return Env{Tiles(M_s, n), jfr, mu, ldof, lval, lnext, lfirst, n, nl, nc, lay.js};
+    }
+  }();
   const Tiles& M = env.M;
   const Tiles L(L_s, n);
 
@@ -309,27 +368,33 @@ cg_solve_kernel(const float* __restrict__ g_buf, const float* __restrict__ g_cdo
   const float* hd = g_hd + b * n;
   const float tolscale = g_tolscale[b];
 
-  // 1. every per-env operand and lim1h into shared memory, all copies in
-  // flight at once (ll into lval)
+  // 1. every per-env operand and lim1h (dense: J, row by row) into shared
+  // memory, all copies in flight at once (ll into lval)
   {
     auto copy = [&](float* dst, const float* src, int count) {
       for (int t = tid; t < count; t += NT) cp_async4(dst + t, src + t);
     };
     copy(aref, g_aref + b * e, e);
     copy(Dr, g_D + b * e, e);
-    copy(mu, g_mu + b * 2 * nc, 2 * nc);
     copy(x, g_warm + b * n, n);
-    copy(lval, g_ll + b * nl, nl);
     copy(s_buf, g_buf + b * 6 * n, 6 * n);
     copy(s_cdof, g_cdof + b * 6 * n, 6 * n);
-    copy(s_sw, g_sw + b * 6 * n, 6 * n);
-    copy(s_fq, g_fq + b * 18 * nc, 18 * nc);
-    copy(jfr, lim1h, nl * n);
+    if constexpr (kDense) {
+      const float* gj = g_j + b * e * n;
+      for (int t = tid; t < e * n; t += NT) cp_async4(jfr + (t / n) * lay.js + t % n, gj + t);
+    } else {
+      copy(mu, g_mu + b * 2 * nc, 2 * nc);
+      copy(lval, g_ll + b * nl, nl);
+      copy(s_sw, g_sw + b * 6 * n, 6 * n);
+      copy(s_fq, g_fq + b * 18 * nc, 18 * nc);
+      copy(jfr, lim1h, nl * n);
+    }
     asm volatile("cp.async.wait_all;\n" ::: "memory");
   }
   __syncthreads();
   STAMP(0);
-  // limit rows: each one-hot row's dof and J value, a warp per row
+  // limit rows: each one-hot row's dof and J value, a warp per row (nl = 0
+  // in the dense mode)
   for (int r = warp; r < nl; r += NT / 32) {
     const float* row = jfr + r * n;
     unsigned nz[kLaneRows];
@@ -383,7 +448,8 @@ cg_solve_kernel(const float* __restrict__ g_buf, const float* __restrict__ g_cdo
   }
   __syncthreads();
   STAMP(1);
-  // jfr[c][k][d] = (fq[c, k, :] . sw[d, :]) dm[c, d]
+  // jfr[c][k][d] = (fq[c, k, :] . sw[d, :]) dm[c, d] (nc = 0 in the dense
+  // mode)
   for (int t = tid; t < nc * n; t += NT) {
     const int c = t / n, d = t % n;
     const float* fc = s_fq + c * 18;
@@ -561,8 +627,6 @@ cg_solve_kernel(const float* __restrict__ g_buf, const float* __restrict__ g_cdo
   // 5. force (f = force of jar since the last update), qfrc = J^T force;
   // Euler: factor M + diag(hd), solve qacc_eff from qfrc_smooth + qfrc
   for (int r = tid; r < e; r += NT) o_force[b * e + r] = f[r];
-  for (int t = tid; t < lay.tiles / 4; t += NT)
-    reinterpret_cast<float4*>(L_s)[t] = reinterpret_cast<const float4*>(M_s)[t];
   for (int d = tid; d < n; d += NT) {
     v0[d] = env.jt_col(f, nullptr, d);
     v1[d] = qfs[d] + v0[d];
@@ -570,6 +634,9 @@ cg_solve_kernel(const float* __restrict__ g_buf, const float* __restrict__ g_cdo
     o_qacc[b * n + d] = x[d];
     o_qfrc[b * n + d] = v0[d];
   }
+  if (!with_euler) return;  // the same for every thread of the CTA
+  for (int t = tid; t < lay.tiles / 4; t += NT)
+    reinterpret_cast<float4*>(L_s)[t] = reinterpret_cast<const float4*>(M_s)[t];
   __syncthreads();
   for (int i = tid; i < n; i += NT) L_s[L.row_part(i) + L.col_part(i)] += hd[i];
   __syncthreads();
@@ -591,26 +658,70 @@ extern "C" long cg_solve_smem_bytes(int n, int nl, int nc) {
   return (long)Layout(n, nl, nc).total * (long)sizeof(float);
 }
 
+extern "C" long cg_solve_dense_smem_bytes(int n, int e) {
+  return (long)Layout(n, 0, 0, e).total * (long)sizeof(float);
+}
+
+namespace {
+
 // info[0..3] = registers per thread, dynamic shared memory per CTA (bytes),
-// resident CTAs per SM and threads per CTA (one env) of cg_solve at (n, nl,
-// nc), as built.
-extern "C" int cg_solve_kernel_info(int n, int nl, int nc, int* info) {
-  if (n <= 0 || n > kMaxN || nl < 0 || nc < 0) return (int)cudaErrorInvalidValue;
-  const long smem = cg_solve_smem_bytes(n, nl, nc);
-  cudaError_t err = cudaFuncSetAttribute(cg_solve_kernel,
+// resident CTAs per SM and threads per CTA (one env) of cg_solve_kernel<kDense>
+// with smem bytes of dynamic shared memory, as built.
+template <bool kDense>
+int kernel_info(long smem, int* info) {
+  cudaError_t err = cudaFuncSetAttribute(cg_solve_kernel<kDense>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, cg_solve_kernel);
+  err = cudaFuncGetAttributes(&attr, cg_solve_kernel<kDense>);
   if (err != cudaSuccess) return (int)err;
   int ctas = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, cg_solve_kernel, kThreads, (size_t)smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, cg_solve_kernel<kDense>, kThreads,
+                                                      (size_t)smem);
   if (err != cudaSuccess) return (int)err;
   info[0] = attr.numRegs;
   info[1] = (int)smem;
   info[2] = ctas;
   info[3] = kThreads;
   return 0;
+}
+
+template <bool kDense>
+int launch(const float* buf, const float* cdof, const float* fq, const float* sw, const float* ll,
+           const float* mu, const float* j, const float* aref, const float* D,
+           const float* qfrc_smooth, const float* warm, const float* hd, const float* tolscale,
+           const float* anc, const float* arm, const float* dm, const float* lim1h,
+           float* qacc_smooth, float* qacc, float* qfrc_constraint, float* qacc_eff,
+           float* efc_force, int batch, int n, int nl, int nc, int e_dense, int iterations,
+           int ls_iterations, int with_euler, void* stream) {
+  if (batch <= 0 || n <= 0 || n > kMaxN || nl < 0 || nc < 0 || iterations < 0 ||
+      ls_iterations < 0 || (kDense && e_dense <= 0) || (with_euler && !qacc_eff))
+    return (int)cudaErrorInvalidValue;
+  const long smem = kDense ? cg_solve_dense_smem_bytes(n, e_dense) : cg_solve_smem_bytes(n, nl, nc);
+  cudaError_t err = cudaFuncSetAttribute(
+      cg_solve_kernel<kDense>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cg_solve_kernel<kDense><<<batch, kThreads, smem, (cudaStream_t)stream>>>(
+      buf, cdof, fq, sw, ll, mu, j, aref, D, qfrc_smooth, warm, hd, tolscale, anc, arm, dm,
+      lim1h, qacc_smooth, qacc, qfrc_constraint, qacc_eff, efc_force, n, nl, nc, e_dense,
+      iterations, ls_iterations, with_euler);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// info[0..3] = registers per thread, dynamic shared memory per CTA (bytes),
+// resident CTAs per SM and threads per CTA (one env) of cg_solve at (n, nl,
+// nc), as built.
+extern "C" int cg_solve_kernel_info(int n, int nl, int nc, int* info) {
+  if (n <= 0 || n > kMaxN || nl < 0 || nc < 0) return (int)cudaErrorInvalidValue;
+  return kernel_info<false>(cg_solve_smem_bytes(n, nl, nc), info);
+}
+
+// The same for cg_solve_dense at n and e rows.
+extern "C" int cg_solve_dense_kernel_info(int n, int e, int* info) {
+  if (n <= 0 || n > kMaxN || e <= 0) return (int)cudaErrorInvalidValue;
+  return kernel_info<true>(cg_solve_dense_smem_bytes(n, e), info);
 }
 
 // out[0..kStamps) = the phase stamps' cycles summed over every CTA since the
@@ -636,17 +747,23 @@ extern "C" int cg_solve_f32(const float* buf, const float* cdof, const float* fq
                             const float* lim1h, float* qacc_smooth, float* qacc,
                             float* qfrc_constraint, float* qacc_eff, float* efc_force,
                             int batch, int n, int nl, int nc, int iterations,
-                            int ls_iterations, void* stream) {
-  if (batch <= 0 || n <= 0 || n > kMaxN || nl < 0 || nc < 0 || iterations < 0 ||
-      ls_iterations < 0)
-    return (int)cudaErrorInvalidValue;
-  const long smem = cg_solve_smem_bytes(n, nl, nc);
-  cudaError_t err = cudaFuncSetAttribute(
-      cg_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  cg_solve_kernel<<<batch, kThreads, smem, (cudaStream_t)stream>>>(
-      buf, cdof, fq, sw, ll, mu, aref, D, qfrc_smooth, warm, hd, tolscale, anc, arm, dm,
-      lim1h, qacc_smooth, qacc, qfrc_constraint, qacc_eff, efc_force, n, nl, nc,
-      iterations, ls_iterations);
-  return (int)cudaGetLastError();
+                            int ls_iterations, int with_euler, void* stream) {
+  return launch<false>(buf, cdof, fq, sw, ll, mu, nullptr, aref, D, qfrc_smooth, warm, hd,
+                       tolscale, anc, arm, dm, lim1h, qacc_smooth, qacc, qfrc_constraint,
+                       qacc_eff, efc_force, batch, n, nl, nc, -1, iterations, ls_iterations,
+                       with_euler, stream);
+}
+
+// The dense mode: J [batch][e][n], no compact operands.
+extern "C" int cg_solve_dense_f32(const float* buf, const float* cdof, const float* j,
+                                  const float* aref, const float* D, const float* qfrc_smooth,
+                                  const float* warm, const float* hd, const float* tolscale,
+                                  const float* anc, const float* arm, float* qacc_smooth,
+                                  float* qacc, float* qfrc_constraint, float* qacc_eff,
+                                  float* efc_force, int batch, int n, int e, int iterations,
+                                  int ls_iterations, int with_euler, void* stream) {
+  return launch<true>(buf, cdof, nullptr, nullptr, nullptr, nullptr, j, aref, D, qfrc_smooth,
+                      warm, hd, tolscale, anc, arm, nullptr, nullptr, qacc_smooth, qacc,
+                      qfrc_constraint, qacc_eff, efc_force, batch, n, 0, 0, e, iterations,
+                      ls_iterations, with_euler, stream);
 }

@@ -1,4 +1,4 @@
-"""Fused smooth + CG + Euler constraint solves: CUDA kernels, wrappers, plain versions.
+"""Fused smooth + CG (+ Euler) constraint solves: CUDA kernels, wrappers, plain versions.
 
 Two kernels, one per friction-cone type, built with the other csrc/ kernels
 into one library (ops/kernel_lib.py):
@@ -44,12 +44,21 @@ its outputs are its first design's bit for bit (the elliptic linesearch is
 a knife edge under reassociation). Both take n <= MAX_N
 (batched_linalg.MAX_N).
 
-`cg_solve` and `ell_cg_solve` are the wrappers: they check their arguments,
-run the plain version for CPU tensors and launch the kernel for CUDA
-tensors, raising if the build or the launch fails. `<wrapper>.launches`
-counts kernel launches. `cg_solve_plain` and `ell_cg_solve_plain` are the
-same computations in batched torch; the tests and chip_smoke.py compare the
-kernels with them.
+`cg_solve_dense` (csrc/cg_solve.cu built with kDense) replaces the same TPU
+kernel in its dense-J mode (`_cg_kernel` with jb_dims None): K2's solve over
+a dense J [B, nefc, nv], the rows of pyramidal plans with condim-1, -4 or -6
+contacts. Without `with_euler` (RK4 and implicit plans, the TPU kernel's
+hd=None) both K2 modes skip the Euler solve.
+
+`cg_solve`, `cg_solve_dense` and `ell_cg_solve` are the wrappers: they check
+their arguments, run the plain version for CPU tensors and launch the kernel
+for CUDA tensors, raising if the build or the launch fails.
+`<wrapper>.launches` counts kernel launches. `cg_solve_plain`,
+`cg_solve_dense_plain` and `ell_cg_solve_plain` are the same computations
+in batched torch; the tests and chip_smoke.py compare the kernels with them.
+`scalar_cg` is the reference's unfused per-env CG batched, with the force
+bounds of equality and frictionloss rows: the bounded CG of
+physics/solver.py runs it.
 """
 
 from __future__ import annotations
@@ -68,6 +77,10 @@ from track_mjx_tpu_torch.ops.batched_linalg import (
 from track_mjx_tpu_torch.ops.kernel_lib import MAX_SMEM_BYTES, load_library
 
 _EPS = 1e-12
+# Finite stand-in for an unbounded force limit (the reference's BIG_FORCE):
+# equality rows are bilateral (never clamped). Well under the float32
+# maximum, so no product overflows.
+BIG_FORCE = 1e30
 
 
 class CGOut(NamedTuple):
@@ -75,7 +88,7 @@ class CGOut(NamedTuple):
     qacc: torch.Tensor  # [B, n]
     efc_force: torch.Tensor  # [B, e], efc row order
     qfrc_constraint: torch.Tensor  # [B, n]
-    qacc_eff: torch.Tensor  # [B, n]
+    qacc_eff: torch.Tensor | None  # [B, n]; None without the Euler solve
 
 
 # ---------------------------------------------------------------------------
@@ -113,11 +126,34 @@ def build_j(fq, sw, ll, mu, dm, lim1h) -> torch.Tensor:
 
 def cg_solve_plain(
     buf, cdof, fq, sw, ll, mu, aref, D, qfrc_smooth, warm, hd, tolscale,
-    anc, arm, dm, lim1h, *, iterations: int, ls_iterations: int,
+    anc, arm, dm, lim1h, *, iterations: int, ls_iterations: int, with_euler: bool = True,
 ) -> CGOut:
     """The kernel's computation in batched torch (any device)."""
-    qm = assemble_qm(buf, cdof, anc, arm)
     j = build_j(fq, sw, ll, mu, dm, lim1h)
+    return _pyramidal_plain(assemble_qm(buf, cdof, anc, arm), j, aref, D, qfrc_smooth, warm, hd, tolscale,
+                            iterations, ls_iterations, with_euler)
+
+
+def cg_solve_dense_plain(
+    buf, cdof, J, aref, D, qfrc_smooth, warm, hd, tolscale, anc, arm, *,
+    iterations: int, ls_iterations: int, with_euler: bool,
+) -> CGOut:
+    """The dense-J kernel's computation in batched torch (any device): K2's
+    schedule, `cg_solve_plain`'s, over a given J, as the reference's dense-J
+    TPU kernel (_cg_kernel with jb_dims None) computes it. The reference's
+    unfused per-env solve, `_smooth_scalar_cg_single`, is `scalar_cg`
+    between a factor and a substitution of qM (tests/test_torch_condim.py
+    holds the two together)."""
+    return _pyramidal_plain(assemble_qm(buf, cdof, anc, arm), J, aref, D, qfrc_smooth, warm, hd, tolscale,
+                            iterations, ls_iterations, with_euler)
+
+
+def _pyramidal_plain(qm, j, aref, D, qfrc_smooth, warm, hd, tolscale, iterations, ls_iterations,
+                     with_euler) -> CGOut:
+    """K2's solve over qm [B, n, n] and the unilateral rows of j [B, e, n]:
+    factor, smooth solve, the cheaper start, PR-CG with jar and M dx
+    advanced by increments, force and qfrc, and with_euler the (M +
+    diag(hd)) solve; every (L L^T)^-1 apply through the panel inverses."""
     l = factor(qm)
     dinv = invert_diag_blocks(l)
 
@@ -191,10 +227,109 @@ def cg_solve_plain(
 
     force = force_of(jar)
     qfrc = matv_jt(force)
+    if not with_euler:
+        return CGOut(smooth, x, force, qfrc, None)
     l2 = factor(qm + torch.diag_embed(hd))
     dinv2 = invert_diag_blocks(l2)
     eff = blocked_substitution_pinv(l2, dinv2, qfrc_smooth + qfrc)
     return CGOut(smooth, x, force, qfrc, eff)
+
+
+def scalar_zone(jar, d, fmin=None, fmax=None):
+    """Force of scalar rows, clip(-D jar, fmin, fmax), and their
+    quadratic-zone mask fmin < -D jar < fmax (strict). Bounds None are those
+    of unilateral rows, (0, BIG_FORCE): the force is where(jar < 0, -D jar,
+    0). Equality rows (fmin -BIG_FORCE) never clamp; frictionloss rows
+    saturate at +-frictionloss."""
+    lo = 0.0 if fmin is None else fmin
+    hi = BIG_FORCE if fmax is None else fmax
+    f_un = -d * jar
+    return f_un.clamp(min=lo).clamp(max=hi), (f_un > lo) & (f_un < hi)
+
+
+def scalar_cost(jar, d, fmin=None, fmax=None):
+    """Per-row cost of scalar rows (bounds as in `scalar_zone`): quadratic
+    inside the force box, linear outside (|f| |jar| - f^2 / (2 D),
+    continuous at its edge; 0 for an inactive unilateral row)."""
+    f, quad = scalar_zone(jar, d, fmin, fmax)
+    lin = -f * jar - 0.5 * f * f / torch.clamp(d, min=_EPS)
+    return torch.where(quad, 0.5 * d * jar * jar, lin)
+
+
+def scalar_linesearch(jar0, jp, pmp, dmx, d, fmin, fmax, ls_iterations: int):
+    """Newton linesearch on phi(alpha) along p over scalar rows (bounds as
+    in `scalar_zone`), with exact derivatives: phi' is piecewise linear in
+    alpha and plain Newton (no bracket) is the reference's scalar-row
+    search. jar0 = J x - aref and jp = J p [B, e], pmp = p.M p and dmx =
+    p.M (x - smooth) [B]. A row adds D jar jp to phi' in its quadratic zone
+    and -f jp outside it. Returns alpha [B]."""
+
+    def phi_derivs(alpha):
+        jar = jar0 + alpha[:, None] * jp
+        f, quad = scalar_zone(jar, d, fmin, fmax)
+        d1 = alpha * pmp + dmx + torch.where(quad, d * jar * jp, -f * jp).sum(-1)
+        d2 = pmp + torch.where(quad, d * jp * jp, torch.zeros_like(jp)).sum(-1)
+        return d1, torch.clamp(d2, min=_EPS)
+
+    d1, d2 = phi_derivs(torch.zeros_like(pmp))
+    alpha = -d1 / d2
+    for _ in range(ls_iterations):
+        d1, d2 = phi_derivs(alpha)
+        alpha = alpha - d1 / d2
+    return alpha
+
+
+def scalar_cg(qm, chosolve, j, aref, D, smooth, warm, tolscale, *, iterations: int,
+              ls_iterations: int, fmin=None, fmax=None):
+    """M-preconditioned Polak-Ribiere CG over scalar rows, every product
+    fresh from x: the batched form of the reference's per-env
+    `_scalar_cg_single` (track_mjx_tpu/physics/solver.py). qm [B, n, n],
+    chosolve(b) = qm^-1 b, j [B, e, n], aref and D [B, e], smooth and warm
+    [B, n], tolscale [B] (tolerance times trace qm). fmin and fmax [e] bound
+    the rows' forces (equality and frictionloss rows); None leaves them
+    unilateral. The cheaper of warm and smooth starts; an env whose gradient
+    at the start of an iteration is under tolscale keeps its state from then
+    on. Returns (qacc, force, qfrc_constraint)."""
+
+    def matv(a, v):
+        return (a @ v[..., None])[..., 0]
+
+    def cost(x):
+        dx = x - smooth
+        rows = scalar_cost(matv(j, x) - aref, D, fmin, fmax).sum(-1)
+        return 0.5 * (dx * matv(qm, dx)).sum(-1) + rows
+
+    def cost_grad(x):
+        jar = matv(j, x) - aref
+        grad = matv(qm, x - smooth) - matv(j.transpose(-1, -2), scalar_zone(jar, D, fmin, fmax)[0])
+        return jar, grad
+
+    def linesearch(x, p):
+        pmp = (p * matv(qm, p)).sum(-1)
+        dmx = (p * matv(qm, x - smooth)).sum(-1)
+        return scalar_linesearch(matv(j, x) - aref, matv(j, p), pmp, dmx, D, fmin, fmax, ls_iterations)
+
+    x = torch.where((cost(warm) < cost(smooth))[:, None], warm, smooth)
+    jar, grad = cost_grad(x)
+    mgrad = chosolve(grad)
+    p = -mgrad
+    improved = torch.ones_like(tolscale, dtype=torch.bool)
+    for _ in range(iterations):
+        alpha = linesearch(x, p)
+        xn = x + alpha[:, None] * p
+        jarn, gradn = cost_grad(xn)
+        mgradn = chosolve(gradn)
+        num = (gradn * (mgradn - mgrad)).sum(-1)
+        den = torch.clamp((grad * mgrad).sum(-1), min=_EPS)
+        beta = torch.clamp(num / den, min=0.0)
+        pn = -mgradn + beta[:, None] * p
+        keep = improved[:, None]
+        x, jar = torch.where(keep, xn, x), torch.where(keep, jarn, jar)
+        grad, mgrad = torch.where(keep, gradn, grad), torch.where(keep, mgradn, mgrad)
+        p = torch.where(keep, pn, p)
+        improved = torch.where(improved, torch.sqrt((gradn * gradn).sum(-1)) > tolscale, improved)
+    force = scalar_zone(jar, D, fmin, fmax)[0]
+    return x, force, matv(j.transpose(-1, -2), force)
 
 
 def build_j_ell(fq, sw, ll, dm, lim1h) -> torch.Tensor:
@@ -380,28 +515,47 @@ def ell_cg_solve_plain(
 
 _ARG_NAMES = ("buf", "cdof", "fq", "sw", "ll", "mu", "aref", "D", "qfrc_smooth", "warm",
               "hd", "tolscale", "anc", "arm", "dm", "lim1h")
+_DENSE_ARG_NAMES = ("buf", "cdof", "J", "aref", "D", "qfrc_smooth", "warm", "hd", "tolscale", "anc", "arm")
 
 
-def _check(op: str, args, rows_per_con: int):
-    """Validates devices, dtypes, shapes and contiguity of a solve's
-    arguments (in _ARG_NAMES order); returns (B, n, nl, nc)."""
-    named = dict(zip(_ARG_NAMES, args))
-    qfrc_smooth, fq, lim1h = named["qfrc_smooth"], named["fq"], named["lim1h"]
+def _compact_shapes(named: dict, rows_per_con: int):
+    """The shapes of a compact solve's arguments, and its dims (n, nl, nc)
+    and row count."""
+    bsz, n = named["qfrc_smooth"].shape[0], named["qfrc_smooth"].shape[-1]
+    nc, nl = named["fq"].shape[1], named["lim1h"].shape[0]
+    e = nl + rows_per_con * nc
+    per_env = dict(buf=(n, 6), cdof=(n, 6), fq=(nc, 3, 6), sw=(n, 6), ll=(nl,),
+                   mu=(nc, 2) if rows_per_con == 4 else (nc,))
+    static = dict(anc=(n, n), arm=(n,), dm=(nc, n), lim1h=(nl, n))
+    return per_env, static, (n, nl, nc), e
+
+
+def _dense_shapes(named: dict):
+    """The shapes of cg_solve_dense's arguments, its dims (n, e) and row
+    count e."""
+    n, j = named["qfrc_smooth"].shape[-1], named["J"]
+    e = j.shape[1] if j.dim() == 3 else -1
+    if e == 0:
+        raise ValueError("cg_solve_dense: empty row set")
+    return dict(buf=(n, 6), cdof=(n, 6), J=(e, n)), dict(anc=(n, n), arm=(n,)), (n, e), e
+
+
+def _check(op: str, names, args, shapes):
+    """Validates a solve's arguments (in `names` order): contiguous tensors
+    on one device, float32 (float64 too on the CPU, a reference solve),
+    of the shapes `shapes(named)` gives (per env and static, besides aref
+    and D [B, e], qfrc_smooth, warm and hd [B, n], tolscale [B]). Returns
+    (B, dims, e)."""
+    named = dict(zip(names, args))
     for name, t in named.items():
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{op}: {name} must be a tensor")
-    bsz, n = qfrc_smooth.shape[0], qfrc_smooth.shape[-1]
-    nc, nl = fq.shape[1], lim1h.shape[0]
-    e = nl + rows_per_con * nc
-    mu_shape = (bsz, nc, 2) if rows_per_con == 4 else (bsz, nc)
-    want = dict(
-        buf=(bsz, n, 6), cdof=(bsz, n, 6), fq=(bsz, nc, 3, 6), sw=(bsz, n, 6),
-        ll=(bsz, nl), mu=mu_shape, aref=(bsz, e), D=(bsz, e),
-        qfrc_smooth=(bsz, n), warm=(bsz, n), hd=(bsz, n), tolscale=(bsz,),
-        anc=(n, n), arm=(n,), dm=(nc, n), lim1h=(nl, n),
-    )
+    bsz = named["qfrc_smooth"].shape[0]
+    per_env, static, dims, e = shapes(named)
+    n = dims[0]
+    want = dict(static, aref=(bsz, e), D=(bsz, e), qfrc_smooth=(bsz, n), warm=(bsz, n), hd=(bsz, n),
+                tolscale=(bsz,), **{k: (bsz, *v) for k, v in per_env.items()})
     device = named["buf"].device
-    # float32; a CPU call may run in float64 instead (a reference solve)
     dtype = torch.float64 if device.type == "cpu" and named["buf"].dtype == torch.float64 else torch.float32
     for name, t in named.items():
         if t.device != device:
@@ -416,36 +570,42 @@ def _check(op: str, args, rows_per_con: int):
         raise ValueError(f"{op}: empty batch or model")
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"{op}: unsupported device {device}")
-    return bsz, n, nl, nc
+    return bsz, dims, e
 
 
-def _launch(op: str, args, bsz, n, nl, nc, rows_per_con, iterations, ls_iterations) -> CGOut:
-    """Launches `{op}_f32` on the current stream of the tensors' card; raises
-    for a model the kernel does not take (n > MAX_N, or more shared memory
-    per env than a CTA has) or if the launch fails."""
+def _launch(op: str, args, bsz, dims, e, iterations, ls_iterations, with_euler: bool = True) -> CGOut:
+    """Launches `{op}_f32` on the current stream of the tensors' card, with
+    dims (n, nl, nc) or, for cg_solve_dense, (n, e); raises for a model the
+    kernel does not take (n > MAX_N, or more shared memory per env than a
+    CTA has, `{op}_smem_bytes(*dims)`) or if the launch fails. `cg_solve`
+    and `cg_solve_dense` take `with_euler`; `ell_cg_solve` always solves
+    for qacc_eff."""
+    n = dims[0]
     if n > MAX_N:
         raise ValueError(f"{op}: n = {n}, the CUDA kernel takes n <= {MAX_N}")
     lib = load_library()
-    smem = getattr(lib, f"{op}_smem_bytes")(n, nl, nc)
+    smem = getattr(lib, f"{op}_smem_bytes")(*dims)
     if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"{op}: model needs {smem} B of shared memory per env (max {MAX_SMEM_BYTES})")
+        raise ValueError(f"{op}: the model (n = {n}, {e} rows) needs {smem} B of shared memory per env "
+                         f"(max {MAX_SMEM_BYTES})")
     like = args[0]
 
     def empty(cols):
         return torch.empty((bsz, cols), dtype=like.dtype, device=like.device)
 
     out = CGOut(
-        qacc_smooth=empty(n), qacc=empty(n), efc_force=empty(nl + rows_per_con * nc),
-        qfrc_constraint=empty(n), qacc_eff=empty(n),
+        qacc_smooth=empty(n), qacc=empty(n), efc_force=empty(e),
+        qfrc_constraint=empty(n), qacc_eff=empty(n) if with_euler else None,
     )
+    flag = () if op == "ell_cg_solve" else (int(with_euler),)
     with torch.cuda.device(like.device):
         stream = torch.cuda.current_stream(like.device).cuda_stream
         err = getattr(lib, f"{op}_f32")(
             *[t.data_ptr() for t in args],
             out.qacc_smooth.data_ptr(), out.qacc.data_ptr(),
-            out.qfrc_constraint.data_ptr(), out.qacc_eff.data_ptr(),
+            out.qfrc_constraint.data_ptr(), out.qacc_eff.data_ptr() if with_euler else None,
             out.efc_force.data_ptr(),
-            bsz, n, nl, nc, iterations, ls_iterations, stream,
+            bsz, *dims, iterations, ls_iterations, *flag, stream,
         )
     if err != 0:
         raise RuntimeError(f"{op}: CUDA kernel launch failed with cudaError {err}")
@@ -454,28 +614,59 @@ def _launch(op: str, args, bsz, n, nl, nc, rows_per_con, iterations, ls_iteratio
 
 def cg_solve(
     buf, cdof, fq, sw, ll, mu, aref, D, qfrc_smooth, warm, hd, tolscale,
-    anc, arm, dm, lim1h, *, iterations: int, ls_iterations: int,
+    anc, arm, dm, lim1h, *, iterations: int, ls_iterations: int, with_euler: bool = True,
 ) -> CGOut:
-    """Fused smooth + CG + Euler solve of a batch of envs, pyramidal rows.
+    """Fused smooth + CG (+ Euler) solve of a batch of envs, pyramidal rows.
 
     Per env: buf, cdof, sw [B, n, 6]; fq [B, nc, 3, 6]; ll [B, nl];
     mu [B, nc, 2]; aref, D [B, nl + 4 nc]; qfrc_smooth, warm, hd [B, n];
     tolscale [B]. Static: anc (n, n) 0/1, arm (n,), dm (nc, n),
     lim1h (nl, n) one-hot rows (each limit row's dof). All float32 and
-    contiguous on one device. CPU tensors run `cg_solve_plain` (in float64
-    too, as a reference); CUDA tensors launch the kernel (n <= MAX_N; a
-    lim1h row with two nonzeros makes that env's J NaN) or raise."""
+    contiguous on one device. Without `with_euler` (plans on RK4 or an
+    implicit integrator) M + diag(hd) is not factored and qacc_eff is None.
+    CPU tensors run `cg_solve_plain` (in float64 too, as a reference); CUDA
+    tensors launch the kernel (n <= MAX_N; a lim1h row with two nonzeros
+    makes that env's J NaN) or raise."""
     args = (buf, cdof, fq, sw, ll, mu, aref, D, qfrc_smooth, warm, hd, tolscale,
             anc, arm, dm, lim1h)
-    bsz, n, nl, nc = _check("cg_solve", args, 4)
+    bsz, dims, e = _check("cg_solve", _ARG_NAMES, args, lambda named: _compact_shapes(named, 4))
     if buf.device.type == "cpu":
-        return cg_solve_plain(*args, iterations=iterations, ls_iterations=ls_iterations)
-    out = _launch("cg_solve", args, bsz, n, nl, nc, 4, iterations, ls_iterations)
+        return cg_solve_plain(*args, iterations=iterations, ls_iterations=ls_iterations,
+                              with_euler=with_euler)
+    out = _launch("cg_solve", args, bsz, dims, e, iterations, ls_iterations, with_euler)
     cg_solve.launches += 1
     return out
 
 
 cg_solve.launches = 0
+
+
+def cg_solve_dense(
+    buf, cdof, J, aref, D, qfrc_smooth, warm, hd, tolscale, anc, arm, *,
+    with_euler: bool, iterations: int, ls_iterations: int,
+) -> CGOut:
+    """Fused smooth + CG (+ Euler) solve of a batch of envs over a dense J:
+    the unilateral scalar rows of pyramidal plans off the compact layout
+    (condim-1, -4 or -6 contacts beside the limits), in efc order.
+
+    Per env: buf, cdof [B, n, 6]; J [B, e, n]; aref, D [B, e]; qfrc_smooth,
+    warm, hd [B, n]; tolscale [B]. Static: anc (n, n) 0/1, arm (n,). All
+    float32 and contiguous on one device. Without `with_euler` M + diag(hd)
+    is not factored and qacc_eff is None. CPU tensors run
+    `cg_solve_dense_plain` (in float64 too, as a reference); CUDA tensors
+    launch the kernel (n <= MAX_N, J in shared memory: e n <= about 50,000)
+    or raise."""
+    args = (buf, cdof, J, aref, D, qfrc_smooth, warm, hd, tolscale, anc, arm)
+    bsz, dims, e = _check("cg_solve_dense", _DENSE_ARG_NAMES, args, _dense_shapes)
+    if buf.device.type == "cpu":
+        return cg_solve_dense_plain(*args, iterations=iterations, ls_iterations=ls_iterations,
+                                    with_euler=with_euler)
+    out = _launch("cg_solve_dense", args, bsz, dims, e, iterations, ls_iterations, with_euler)
+    cg_solve_dense.launches += 1
+    return out
+
+
+cg_solve_dense.launches = 0
 
 
 def ell_cg_solve(
@@ -494,10 +685,10 @@ def ell_cg_solve(
     MAX_N; a lim1h row with two nonzeros makes that env's J NaN) or raise."""
     args = (buf, cdof, fq, sw, ll, mu, aref, D, qfrc_smooth, warm, hd, tolscale,
             anc, arm, dm, lim1h)
-    bsz, n, nl, nc = _check("ell_cg_solve", args, 3)
+    bsz, dims, e = _check("ell_cg_solve", _ARG_NAMES, args, lambda named: _compact_shapes(named, 3))
     if buf.device.type == "cpu":
         return ell_cg_solve_plain(*args, iterations=iterations, ls_iterations=ls_iterations)
-    out = _launch("ell_cg_solve", args, bsz, n, nl, nc, 3, iterations, ls_iterations)
+    out = _launch("ell_cg_solve", args, bsz, dims, e, iterations, ls_iterations)
     ell_cg_solve.launches += 1
     return out
 

@@ -1,62 +1,97 @@
-"""Constraint rows: joint limits and condim-3 contacts, pyramidal or elliptic.
+"""Constraint rows: equality, frictionloss, joint limits and contacts.
 
-Port of track_mjx_tpu/physics/constraint.py for the two row structures the
-fused CG solves take: [joint-limit rows | contact-major pyramid rows (+t1,
--t1, +t2, -t2)] (opt.cone pyramidal, the rodent) and [joint-limit rows |
-per-contact (normal, t1, t2) cone blocks] (opt.cone elliptic, the fly). Rows
-are emitted as the compact J operands `jb_*` plus per-row aref, D, pos and
-activity; the dense J is never built on the step path, because the solve
-assembles it itself (ops/cg_solver_kernel.build_j and build_j_ell rebuild it
-from the same operands). Impedance/reference math follows MuJoCo's
-soft-constraint model (mj_makeImpedance / mj_referenceConstraint); elliptic
-friction rows reuse the normal row's impedance, aref_fric = -b jv, and
-D_fric_i = D_normal impratio (mu_i / mu_1)^2 (mj_instantiateContact).
+Port of track_mjx_tpu/physics/constraint.py, rows in C's order (equality,
+frictionloss, limits, contacts). Two row structures have a compact layout,
+which the fused CG solves build J from themselves: [joint-limit rows |
+contact-major condim-3 pyramid rows (+t1, -t1, +t2, -t2)] (opt.cone
+pyramidal, the rodent) and [joint-limit rows | per-contact (normal, t1, t2)
+cone blocks] (opt.cone elliptic, the fly). Their rows are emitted as the
+compact J operands `jb_*` plus per-row aref, D, pos and activity, and no
+dense J (ops/cg_solver_kernel.build_j and build_j_ell rebuild it from the
+same operands). A model without contacts takes the first layout with no
+contact rows: its limit rows alone, or no rows at all (nefc 0).
 
-A model without contacts takes the first layout with no contact rows: its
-limit rows alone, or no rows at all (nefc 0), as the reference solves them.
-Equality, frictionloss and condim-1/4/6 rows raise NotImplementedError.
+Every other pyramidal plan carries a dense J [B, nefc, nv] and per-row force
+bounds fmin/fmax: equality rows (connect, weld, joint, tendon; bilateral,
+-BIG_FORCE to BIG_FORCE), dof and tendon frictionloss rows (+-frictionloss),
+limits, then contacts: the condim-1 rows first, then the pyramid groups by
+ascending condim, 2 (condim - 1) rows per contact, the rotational
+(torsional, rolling) directions of condim 4 and 6 included. Elliptic plans
+off their compact layout (condim-1 contacts, or equality or frictionloss
+rows beside the cone blocks) raise NotImplementedError: ROADMAP's slice 11.
+
+Impedance/reference math follows MuJoCo's soft-constraint model
+(mj_makeImpedance / mj_referenceConstraint); elliptic friction rows reuse
+the normal row's impedance, aref_fric = -b jv, and D_fric_i = D_normal
+impratio (mu_i / mu_1)^2 (mj_instantiateContact). Connect and weld rows
+carry C's second-order -Jdot qvel term in aref, a forward-mode derivative
+(torch.func.jvp) through kinematics and com_pos.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from track_mjx_tpu_torch.ops import quaternion as quat
+from track_mjx_tpu_torch.ops.cg_solver_kernel import BIG_FORCE
 from track_mjx_tpu_torch.ops.quaternion import cross
 from track_mjx_tpu_torch.physics.collision import Contact, contact_bodies
-from track_mjx_tpu_torch.physics.model import Data, Model, PhysicsPlan, static_tensor
+from track_mjx_tpu_torch.physics.model import (
+    JNT_BALL,
+    JNT_FREE,
+    Data,
+    Model,
+    PhysicsPlan,
+    static_tensor,
+)
+
+ELLIPTIC_SLICE_11 = (
+    "elliptic-cone plans with condim-1 contacts or with equality or frictionloss rows "
+    "(the reference's dense elliptic CG: K3's dense-J mode, and the general elliptic CG "
+    "over solve_m) are not ported yet: ROADMAP.md, Queue 1, slice 11"
+)
 
 
 @dataclasses.dataclass(frozen=True)
 class EfcData:
-    """Constraint rows, batch-first. nefc = nlimit + 4 * ncon (pyramidal) or
-    nlimit + 3 * ncon (elliptic).
+    """Constraint rows, batch-first, in efc order.
 
-    J[limit l] = jb_ll[l] * onehot(dofadr_l); the frame-projected contact row
-    jfr[c, k, d] = (frame[c,k] . s[d] + (pos x frame)[c,k] . w[d]) *
-    diff_mask[c, d] with jb_sw = [s | w], s = cdof_lin - cdof_ang x root_com,
-    w = cdof_ang, and jb_fq = [frame | pos x frame] zeroed for inactive
-    contacts. Pyramid rows are jfr0 +/- mu_i jfr_{i+1}; an elliptic cone
-    block's rows are jfr0, jfr1, jfr2 themselves."""
+    On the compact layouts (nefc = nlimit + 4 ncon pyramidal, nlimit + 3
+    ncon elliptic; `J` None): J[limit l] = jb_ll[l] * onehot(dofadr_l); the
+    frame-projected contact row jfr[c, k, d] = (frame[c,k] . s[d] + (pos x
+    frame)[c,k] . w[d]) * diff_mask[c, d] with jb_sw = [s | w], s = cdof_lin
+    - cdof_ang x root_com, w = cdof_ang, and jb_fq = [frame | pos x frame]
+    zeroed for inactive contacts. Pyramid rows are jfr0 +/- mu_i jfr_{i+1};
+    an elliptic cone block's rows are jfr0, jfr1, jfr2 themselves.
+
+    Off them (pyramidal plans with equality, frictionloss or condim-1/4/6
+    rows): the dense `J` and the per-row force bounds, force = clip(-D jar,
+    fmin, fmax); the `jb_*` operands are None."""
 
     aref: torch.Tensor  # [B, nefc]
     D: torch.Tensor  # [B, nefc]
     pos: torch.Tensor  # [B, nefc] constraint violation
     active_row: torch.Tensor  # [B, nefc] bool
-    jb_sw: torch.Tensor  # [B, nv, 6]
-    jb_fq: torch.Tensor  # [B, ncon, 3, 6] (ncon may be 0)
-    jb_ll: torch.Tensor  # [B, nlimit] side * active
-    jb_mu: torch.Tensor | None  # [ncon, 2] tangential friction (pyramidal, and models without contacts)
+    jb_sw: torch.Tensor | None = None  # [B, nv, 6]
+    jb_fq: torch.Tensor | None = None  # [B, ncon, 3, 6] (ncon may be 0)
+    jb_ll: torch.Tensor | None = None  # [B, nlimit] side * active
+    jb_mu: torch.Tensor | None = None  # [ncon, 2] tangential friction (pyramidal, and models without contacts)
     ell_mu: torch.Tensor | None = None  # [ncon] mu_1 of each cone block (elliptic)
+    J: torch.Tensor | None = None  # [B, nefc, nv] off the compact layouts
+    fmin: torch.Tensor | None = None  # [nefc] off the compact layouts
+    fmax: torch.Tensor | None = None  # [nefc]
 
 
 def _jb_supported(plan: PhysicsPlan) -> bool:
     """True when the plan's rows are exactly [joint limits | contact-major
     condim-3 pyramid rows], the layout the fused solve builds J for. A plan
-    with no contacts (limit rows only, or no rows at all) is one, as in the
-    reference, which solves such rows as scalar rows."""
+    with no contacts (limit rows only, or no rows at all) is one here, where
+    the reference sends limit rows alone through its dense J: the outputs
+    agree."""
     return bool(
         plan.ne == 0
         and plan.nf == 0
@@ -129,50 +164,283 @@ def contact_diff_mask(plan: PhysicsPlan) -> np.ndarray:
     return bm[body2] - bm[body1]
 
 
-def make_constraint(
-    plan: PhysicsPlan, model: Model, data: Data, contact: Contact
-) -> EfcData:
-    """Assembles the limit and contact rows (C row order: limits, contacts)."""
-    elliptic = _jb_supported_ell(plan)
-    if not (elliptic or _jb_supported(plan)):
-        raise NotImplementedError(
-            "only [joint limits | condim-3 contacts] rows are ported, pyramidal "
-            "or elliptic; equality, frictionloss and condim 1/4/6 rows are not"
-        )
+def check_rows(plan: PhysicsPlan) -> None:
+    """Raises NotImplementedError for the elliptic plans that are still to be
+    ported: cone blocks beside condim-1 contacts, or beside equality or
+    frictionloss rows."""
+    if plan.ncon_ell and not _jb_supported_ell(plan):
+        raise NotImplementedError(ELLIPTIC_SLICE_11)
+
+
+# ---------------------------------------------------------------------------
+# equality and frictionloss rows
+# ---------------------------------------------------------------------------
+
+
+def _body_point_jac(plan: PhysicsPlan, data: Data, body: int, point: torch.Tensor):
+    """World point jacobian (jacp, jacr) [B, nv, 3] of `body` at `point`
+    [B, 3]: cdof_v + cdof_w x (point - root com), masked to the body's
+    ancestor dofs (mj_jac)."""
     like = data.qpos
-    bsz = like.shape[0]
+    mask = static_tensor(plan, ("con", "body_mask", body), like, lambda: dof_body_mask(plan)[body])
+    rootcom = static_tensor(plan, ("con", "rootcom"), like, lambda: plan.body_rootid[plan.dof_bodyid])
+    com = data.subtree_com[:, rootcom]  # [B, nv, 3]
+    w, v = data.cdof[..., :3], data.cdof[..., 3:]
+    jacp = (v + cross(w, point[:, None, :] - com)) * mask[:, None]
+    return jacp, w * mask[:, None]
+
+
+def _poly(coef: torch.Tensor, x: torch.Tensor):
+    """MuJoCo's quartic coupling polynomial and its derivative."""
+    val = coef[0] + x * (coef[1] + x * (coef[2] + x * (coef[3] + x * coef[4])))
+    deriv = coef[1] + x * (2 * coef[2] + x * (3 * coef[3] + x * 4 * coef[4]))
+    return val, deriv
+
+
+def _qpos_tangent(plan: PhysicsPlan, qpos: torch.Tensor, qvel: torch.Tensor) -> torch.Tensor:
+    """d(qpos)/dt induced by qvel [B, nq]: identity on scalar joints, the
+    quaternion derivative 0.5 q (0, w_local) on ball and free rotations."""
+    out = torch.zeros_like(qpos)
+    scalar = np.nonzero((plan.jnt_type != JNT_BALL) & (plan.jnt_type != JNT_FREE))[0]
+    if len(scalar):
+        out[:, plan.jnt_qposadr[scalar]] = qvel[:, plan.jnt_dofadr[scalar]]
+    zero = qpos.new_zeros((qpos.shape[0], 1))
+    for j in np.nonzero(plan.jnt_type == JNT_FREE)[0]:
+        qadr, dadr = int(plan.jnt_qposadr[j]), int(plan.jnt_dofadr[j])
+        out[:, qadr : qadr + 3] = qvel[:, dadr : dadr + 3]
+        w = torch.cat([zero, qvel[:, dadr + 3 : dadr + 6]], dim=1)
+        out[:, qadr + 3 : qadr + 7] = 0.5 * quat.mul(qpos[:, qadr + 3 : qadr + 7], w)
+    for j in np.nonzero(plan.jnt_type == JNT_BALL)[0]:
+        qadr, dadr = int(plan.jnt_qposadr[j]), int(plan.jnt_dofadr[j])
+        w = torch.cat([zero, qvel[:, dadr : dadr + 3]], dim=1)
+        out[:, qadr : qadr + 4] = 0.5 * quat.mul(qpos[:, qadr : qadr + 4], w)
+    return out
+
+
+def _connect_weld_blocks(plan: PhysicsPlan, model: Model, data: Data):
+    """(eq_id, J [B, r, nv], pos [B, r], invweight [r]) of each connect (3
+    rows) and weld (6 rows) constraint, from kinematics-complete `data`."""
+    blocks = []
+
+    def anchor(o, is_site, eq_anchor):
+        """(body, world point [B, 3]) of one end: in body mode eq_data's
+        anchor in the body frame, in site mode the site's world position
+        (eq_data ignored, as C does)."""
+        if is_site:
+            return int(plan.site_bodyid[o]), data.site_xpos[:, o]
+        return o, data.xpos[:, o] + data.xmat[:, o] @ eq_anchor
+
+    for e, o1, o2, is_site in plan.eq_connect:
+        b1, p1 = anchor(o1, is_site, model.eq_data[e, 0:3])
+        b2, p2 = anchor(o2, is_site, model.eq_data[e, 3:6])
+        jacp1, _ = _body_point_jac(plan, data, b1, p1)
+        jacp2, _ = _body_point_jac(plan, data, b2, p2)
+        iw_t = model.body_invweight0[b1, 0] + model.body_invweight0[b2, 0]
+        blocks.append((e, (jacp1 - jacp2).transpose(-1, -2), p1 - p2, torch.stack([iw_t] * 3)))
+
+    for e, o1, o2, is_site in plan.eq_weld:
+        ts = model.eq_data[e, 10]
+        b1, p1 = anchor(o1, is_site, model.eq_data[e, 3:6])
+        b2, p2 = anchor(o2, is_site, model.eq_data[e, 0:3])
+        jacp1, jacr1 = _body_point_jac(plan, data, b1, p1)
+        jacp2, jacr2 = _body_point_jac(plan, data, b2, p2)
+        # rotation residual ts vec(conj(q2) q1 relq); its jacobian 0.5 ts A
+        # (jacr1 - jacr2) with A e_i = vec(conj(q2) e_i q1r). Site mode: the
+        # site frames, relpose identity (C derives the rest pose from them).
+        if is_site:
+            q1 = quat.mul(data.xquat[:, b1], model.site_quat[o1])
+            q2 = quat.mul(data.xquat[:, b2], model.site_quat[o2])
+            q1r = q1
+        else:
+            q1r = quat.mul(data.xquat[:, o1], model.eq_data[e, 6:10])
+            q2 = data.xquat[:, o2]
+        q2inv = quat.inv(q2)
+        pos_r = ts * quat.mul(q2inv, q1r)[..., 1:]
+        basis = torch.eye(4, dtype=q2.dtype, device=q2.device)[1:]
+        a = torch.stack([quat.mul(q2inv, quat.mul(bq, q1r))[..., 1:] for bq in basis], dim=-1)
+        jr = 0.5 * ts * (a @ (jacr1 - jacr2).transpose(-1, -2))
+        iw_t = model.body_invweight0[b1, 0] + model.body_invweight0[b2, 0]
+        iw_r = model.body_invweight0[b1, 1] + model.body_invweight0[b2, 1]
+        blocks.append((
+            e,
+            torch.cat([(jacp1 - jacp2).transpose(-1, -2), jr], dim=1),
+            torch.cat([p1 - p2, pos_r], dim=1),
+            torch.stack([iw_t] * 3 + [iw_r] * 3),
+        ))
+    return blocks
+
+
+def _connect_weld_jdot_qvel(plan: PhysicsPlan, model: Model, data: Data) -> torch.Tensor:
+    """Jdot qvel [B, rows] of the stacked connect/weld rows, d/dt [J(qpos(t))
+    qvel] at fixed qvel, by forward-mode differentiation (torch.func.jvp)
+    through kinematics and com_pos along qpos's tangent. C adds it to the
+    connect/weld aref (mj_referenceConstraint's efc_vel for these rows)."""
+    from track_mjx_tpu_torch.physics import com as _com
+    from track_mjx_tpu_torch.physics import kinematics as _kinematics
+
+    qvel = data.qvel
+
+    def vel_rows(qpos):
+        d = _kinematics.kinematics(plan, model, data.replace(qpos=qpos))
+        d = _com.com_pos(plan, model, d)
+        blocks = _connect_weld_blocks(plan, model, d)
+        return torch.cat([(j @ qvel[:, :, None])[..., 0] for _, j, _, _ in blocks], dim=1)
+
+    tangent = _qpos_tangent(plan, data.qpos, qvel)
+    return torch.func.jvp(vel_rows, (data.qpos,), (tangent,))[1]
+
+
+def _equality_rows(plan: PhysicsPlan, model: Model, data: Data):
+    """Equality constraint rows (mj_instantiateEquality) in eq-id order:
+    [(J [B, r, nv], aref, D, pos [B, r]), ...].
+
+    Impedance is evaluated on the norm of the constraint's residual (all its
+    rows), as C does. Weld rotation rows carry torquescale in J and pos.
+    Connect/weld aref carries -Jdot qvel; joint and tendon rows do not, as
+    in C."""
+    like = data.qpos
+    bsz, nv = like.shape[0], plan.nv
+    out = []
+
+    def kbi_norm(e, res):
+        norm = torch.sqrt(torch.clamp((res * res).sum(-1), min=1e-30))
+        return _kbi(model, model.eq_solref[e], model.eq_solimp[e], norm)
+
+    cw_blocks = _connect_weld_blocks(plan, model, data)
+    if cw_blocks:
+        jdot_qvel = _connect_weld_jdot_qvel(plan, model, data)
+        row0 = 0
+        for e, j, pos, iw in cw_blocks:
+            nrow = j.shape[1]
+            k, b, imp = kbi_norm(e, pos)
+            vel = (j * data.qvel[:, None, :]).sum(-1)
+            jdot = jdot_qvel[:, row0 : row0 + nrow]
+            row0 += nrow
+            aref = -b * vel - (k * imp)[:, None] * pos - jdot
+            imp = imp[:, None]
+            out.append((e, j, aref, imp / torch.clamp((1.0 - imp) * iw, min=1e-12), pos))
+
+    for e, j1, j2 in plan.eq_joint:
+        d1, q1adr = int(plan.jnt_dofadr[j1]), int(plan.jnt_qposadr[j1])
+        pos1 = data.qpos[:, q1adr] - model.qpos0[q1adr]
+        j = like.new_zeros((bsz, nv))
+        j[:, d1] = 1.0
+        if j2 >= 0:
+            d2, q2adr = int(plan.jnt_dofadr[j2]), int(plan.jnt_qposadr[j2])
+            val, deriv = _poly(model.eq_data[e], data.qpos[:, q2adr] - model.qpos0[q2adr])
+            pos = pos1 - val
+            j[:, d2] = -deriv
+            invweight = model.dof_invweight0[d1] + model.dof_invweight0[d2]
+        else:
+            pos = pos1 - model.eq_data[e, 0]
+            invweight = model.dof_invweight0[d1]
+        k, b, imp = kbi_norm(e, pos[:, None])
+        aref = -b * (j * data.qvel).sum(-1) - k * imp * pos
+        d = imp / torch.clamp((1.0 - imp) * invweight, min=1e-12)
+        out.append((e, j[:, None], aref[:, None], d[:, None], pos[:, None]))
+
+    if plan.eq_tendon:
+        lengths = (model.tendon_length_mat * data.qpos[:, None, :]).sum(-1) + model.tendon_length0_const
+        for e, t1, t2 in plan.eq_tendon:
+            pos1 = lengths[:, t1] - model.tendon_length0[t1]
+            j = model.tendon_moment[t1].expand(bsz, nv)
+            if t2 >= 0:
+                val, deriv = _poly(model.eq_data[e], lengths[:, t2] - model.tendon_length0[t2])
+                pos = pos1 - val
+                j = j - deriv[:, None] * model.tendon_moment[t2]
+                invweight = model.tendon_invweight0[t1] + model.tendon_invweight0[t2]
+            else:
+                pos = pos1 - model.eq_data[e, 0]
+                invweight = model.tendon_invweight0[t1]
+            k, b, imp = kbi_norm(e, pos[:, None])
+            aref = -b * (j * data.qvel).sum(-1) - k * imp * pos
+            d = imp / torch.clamp((1.0 - imp) * invweight, min=1e-12)
+            out.append((e, j[:, None], aref[:, None], d[:, None], pos[:, None]))
+
+    out.sort(key=lambda block: block[0])
+    return [block[1:] for block in out]
+
+
+def _friction_rows(plan: PhysicsPlan, model: Model, data: Data):
+    """Dof, then tendon frictionloss rows: [(J [r, nv], aref [B, r], D [r],
+    frictionloss [r]), ...]. pos is 0 and K is 0 (aref = -B vel); the solver
+    clamps their force to +-frictionloss."""
+    like = data.qpos
+    out = []
+    ids = plan.friction_dof_ids
+    if len(ids):
+        ids_t = static_tensor(plan, ("con", "fri_dof"), like, lambda: ids)
+        j = static_tensor(plan, ("con", "fri_dof_J"), like, lambda: np.eye(plan.nv)[ids])
+        _, b, imp = _kbi(model, model.dof_solref_fri[ids_t], model.dof_solimp_fri[ids_t],
+                         like.new_zeros(len(ids)))
+        d = imp / torch.clamp((1.0 - imp) * model.dof_invweight0[ids_t], min=1e-12)
+        out.append((j, -b * data.qvel[:, ids_t], d, model.dof_frictionloss[ids_t]))
+    tids = plan.friction_tendon_ids
+    if len(tids):
+        tids_t = static_tensor(plan, ("con", "fri_ten"), like, lambda: tids)
+        j = model.tendon_moment[tids_t]
+        _, b, imp = _kbi(model, model.tendon_solref_fri[tids_t], model.tendon_solimp_fri[tids_t],
+                         like.new_zeros(len(tids)))
+        d = imp / torch.clamp((1.0 - imp) * model.tendon_invweight0[tids_t], min=1e-12)
+        out.append((j, -b * (j * data.qvel[:, None, :]).sum(-1), d, model.tendon_frictionloss[tids_t]))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# limits and contacts
+# ---------------------------------------------------------------------------
+
+
+def _limit_rows(plan: PhysicsPlan, model: Model, data: Data):
+    """Joint-limit rows [B, nlimit]: (aref, D, pos, active, side * active)."""
+    like = data.qpos
 
     def st(key, build):
         return static_tensor(plan, ("con", key), like, build)
 
-    arefs, ds, poss, acts = [], [], [], []
-
     jids = plan.limited_jnt_ids
-    if len(jids):
-        jids_t = st("jids", lambda: jids)
-        qadr = st("qadr", lambda: plan.jnt_qposadr[jids])
-        dadr = st("dadr", lambda: plan.jnt_dofadr[jids])
-        qpos = data.qpos[:, qadr]
-        r0, r1 = model.jnt_range[jids_t, 0], model.jnt_range[jids_t, 1]
-        dist_min = qpos - r0
-        dist_max = r1 - qpos
-        dist = torch.minimum(dist_min, dist_max)
-        side = torch.where(dist_min < dist_max, 1.0, -1.0).to(like.dtype)
-        margin = model.jnt_margin[jids_t]
-        active = dist < margin
-        pos = dist - margin
-        k, b, imp = _kbi(model, model.jnt_solref[jids_t], model.jnt_solimp[jids_t], pos)
-        jv = side * data.qvel[:, dadr]
-        aref = -b * jv - k * imp * pos
-        jb_ll = torch.where(active, side, 0.0)
-        invweight = model.dof_invweight0[dadr]
-        D = imp / torch.clamp((1.0 - imp) * invweight, min=1e-12)
-        arefs.append(torch.where(active, aref, 0.0))
-        ds.append(D)
-        poss.append(pos)
-        acts.append(active)
-    else:
-        jb_ll = like.new_zeros((bsz, 0))
+    jids_t = st("jids", lambda: jids)
+    qadr = st("qadr", lambda: plan.jnt_qposadr[jids])
+    dadr = st("dadr", lambda: plan.jnt_dofadr[jids])
+    qpos = data.qpos[:, qadr]
+    r0, r1 = model.jnt_range[jids_t, 0], model.jnt_range[jids_t, 1]
+    dist_min = qpos - r0
+    dist_max = r1 - qpos
+    dist = torch.minimum(dist_min, dist_max)
+    side = torch.where(dist_min < dist_max, 1.0, -1.0).to(like.dtype)
+    margin = model.jnt_margin[jids_t]
+    active = dist < margin
+    pos = dist - margin
+    k, b, imp = _kbi(model, model.jnt_solref[jids_t], model.jnt_solimp[jids_t], pos)
+    jv = side * data.qvel[:, dadr]
+    aref = -b * jv - k * imp * pos
+    invweight = model.dof_invweight0[dadr]
+    D = imp / torch.clamp((1.0 - imp) * invweight, min=1e-12)
+    return torch.where(active, aref, 0.0), D, pos, active, torch.where(active, side, 0.0)
+
+
+class _ContactTerms(NamedTuple):
+    """Per-contact quantities both row layouts build from."""
+
+    s: torch.Tensor  # [B, nv, 3] cdof_lin - cdof_ang x root com
+    w: torch.Tensor  # [B, nv, 3] cdof_ang
+    q: torch.Tensor  # [B, ncon, 3, 3] pos x frame
+    jv3: torch.Tensor  # [B, ncon, 3] jv of the frame rows
+    wv: torch.Tensor  # [B, ncon, 3] diff-masked w qvel
+    pos: torch.Tensor  # [B, ncon]
+    active: torch.Tensor  # [B, ncon]
+    k: torch.Tensor  # [ncon]
+    b: torch.Tensor  # [ncon]
+    imp: torch.Tensor  # [B, ncon]
+    invweight_n: torch.Tensor  # [ncon]
+    diff_mask: torch.Tensor  # [ncon, nv]
+
+
+def _contact_terms(plan: PhysicsPlan, model: Model, data: Data, contact: Contact) -> _ContactTerms:
+    like = data.qpos
+
+    def st(key, build):
+        return static_tensor(plan, ("con", key), like, build)
 
     diff_mask = st("diff_mask", lambda: contact_diff_mask(plan))  # (ncon, nv)
     _, _, body1_np, body2_np = contact_bodies(plan)
@@ -194,13 +462,45 @@ def make_constraint(
     jv3 = (contact.frame * sv[:, :, None, :]).sum(-1) + (q * wv[:, :, None, :]).sum(-1)
 
     pos = contact.dist - contact.includemargin
-    active = contact.dist < contact.includemargin
-    jb_sw = torch.cat([s, w], dim=-1)
-    jb_fq = torch.cat([contact.frame, q], dim=-1) * active[..., None, None].to(like.dtype)
-    mu = contact.friction[:, :2]
-
     k, b, imp = _kbi(model, contact.solref, contact.solimp, pos)
     invweight_n = model.body_invweight0[body1, 0] + model.body_invweight0[body2, 0]
+    return _ContactTerms(s, w, q, jv3, wv, pos, contact.dist < contact.includemargin, k, b, imp,
+                         invweight_n, diff_mask)
+
+
+def make_constraint(
+    plan: PhysicsPlan, model: Model, data: Data, contact: Contact
+) -> EfcData:
+    """Assembles the constraint rows in C's order (equality, frictionloss,
+    limits, contacts): on a compact layout as its operands, else with a
+    dense J and force bounds. Raises for the elliptic plans still to port."""
+    check_rows(plan)
+    elliptic = _jb_supported_ell(plan)
+    if elliptic or _jb_supported(plan):
+        return _compact_rows(plan, model, data, contact, elliptic)
+    return _dense_rows(plan, model, data, contact)
+
+
+def _compact_rows(plan, model, data, contact, elliptic: bool) -> EfcData:
+    like = data.qpos
+    bsz = like.shape[0]
+    arefs, ds, poss, acts = [], [], [], []
+
+    if len(plan.limited_jnt_ids):
+        aref, D, pos, active, jb_ll = _limit_rows(plan, model, data)
+        arefs.append(aref)
+        ds.append(D)
+        poss.append(pos)
+        acts.append(active)
+    else:
+        jb_ll = like.new_zeros((bsz, 0))
+
+    t = _contact_terms(plan, model, data, contact)
+    pos, active, k, b, imp, jv3 = t.pos, t.active, t.k, t.b, t.imp, t.jv3
+    jb_sw = torch.cat([t.s, t.w], dim=-1)
+    jb_fq = torch.cat([contact.frame, t.q], dim=-1) * active[..., None, None].to(like.dtype)
+    mu = contact.friction[:, :2]
+    invweight_n = t.invweight_n
 
     if elliptic:
         # one (normal, t1, t2) block per contact; friction rows have no
@@ -254,3 +554,89 @@ def make_constraint(
         jb_mu=None if elliptic else mu,
         ell_mu=mu1 if elliptic else None,
     )
+
+
+def _dense_rows(plan, model, data, contact) -> EfcData:
+    """Pyramidal rows off the compact layout, with a dense J and force
+    bounds: equality, frictionloss, limits, condim-1 contacts, then the
+    pyramid groups by ascending condim."""
+    like = data.qpos
+    bsz, nv = like.shape[0], plan.nv
+    rows = []  # (J [B, r, nv], aref, D, pos [B, r], active [B, r], fmin, fmax [r])
+
+    def push(j, aref, D, pos, active, fmin, fmax):
+        r = aref.shape[1]
+        rows.append((j, aref, D, pos, active, torch.broadcast_to(fmin, (r,)), torch.broadcast_to(fmax, (r,))))
+
+    big = like.new_tensor(BIG_FORCE)
+    zero = like.new_tensor(0.0)
+    for j, aref, D, pos in _equality_rows(plan, model, data):
+        push(j, aref, D, pos, torch.ones_like(aref, dtype=torch.bool), -big, big)
+    for j, aref, D, floss in _friction_rows(plan, model, data):
+        push(j.expand(bsz, -1, -1), aref, D.expand(bsz, -1), torch.zeros_like(aref),
+             torch.ones_like(aref, dtype=torch.bool), -floss, floss)
+
+    if len(plan.limited_jnt_ids):
+        aref, D, pos, active, side = _limit_rows(plan, model, data)
+        jids = plan.limited_jnt_ids
+        lim1h = static_tensor(plan, ("con", "lim1h"), like,
+                              lambda: np.eye(plan.nv)[plan.jnt_dofadr[jids]])
+        push(side[..., None] * lim1h, aref, D, pos, active, zero, big)
+
+    if plan.ncon:
+        t = _contact_terms(plan, model, data, contact)
+        pos, active, k, b, imp, jv3 = t.pos, t.active, t.k, t.b, t.imp, t.jv3
+        frame = contact.frame
+        jfr = (frame @ t.s.transpose(-1, -2)[:, None] + t.q @ t.w.transpose(-1, -2)[:, None]) * t.diff_mask[
+            None, :, None, :
+        ]  # [B, ncon, 3, nv]
+        jn = jfr[:, :, 0]
+        jdirs = jfr[:, :, 1:]
+        if plan.condim > 3:
+            # rotational directions (torsional, rolling): the angular jacobian
+            # difference on the contact frame, jrot[c,k] . qvel = frame[c,k] . wv
+            jrot = (frame @ t.w.transpose(-1, -2)[:, None]) * t.diff_mask[None, :, None, :]
+            jdirs = torch.cat([jdirs, jrot], dim=2)  # [B, ncon, 5, nv]
+            jv_rot = (frame * t.wv[:, :, None, :]).sum(-1)  # [B, ncon, 3]
+
+        cd1 = np.nonzero(plan.contact_condim == 1)[0]
+        if len(cd1):
+            c = static_tensor(plan, ("con", "cd1"), like, lambda: cd1)
+            act = active[:, c]
+            aref = torch.where(act, -b[c] * jv3[:, c, 0] - k[c] * imp[:, c] * pos[:, c], 0.0)
+            D = imp[:, c] / torch.clamp((1.0 - imp[:, c]) * t.invweight_n[c], min=1e-12)
+            push(torch.where(act[..., None], jn[:, c], 0.0), aref, D, pos[:, c], act, zero, big)
+
+        cd3 = np.nonzero(plan.contact_condim >= 3)[0]
+        for cdim in sorted(set(int(x) for x in plan.contact_condim[cd3])):
+            grp = cd3[plan.contact_condim[cd3] == cdim]
+            g = static_tensor(plan, ("con", "grp", cdim), like, lambda: grp)
+            nfr = cdim - 1  # friction directions: 2 tangential, then rotational
+            mu = contact.friction[g, :nfr]  # [ng, nfr]
+            jng, jdg, act = jn[:, g], jdirs[:, g], active[:, g]
+            pyr = []
+            for i in range(nfr):
+                pyr += [jng + mu[:, i, None] * jdg[:, :, i], jng - mu[:, i, None] * jdg[:, :, i]]
+            j = torch.where(act[..., None, None], torch.stack(pyr, dim=2), 0.0)  # [B, ng, 2 nfr, nv]
+            # pyramid jv from the directions' jv (J is linear in them)
+            jv_dirs = torch.cat([jv3[:, g, 1:], jv_rot[:, g, : nfr - 2]], dim=2) if nfr > 2 else jv3[:, g, 1:]
+            jvn = jv3[:, g, 0]
+            jv = []
+            for i in range(nfr):
+                jv += [jvn + mu[:, i] * jv_dirs[..., i], jvn - mu[:, i] * jv_dirs[..., i]]
+            jv = torch.where(act[..., None], torch.stack(jv, dim=2), 0.0)  # [B, ng, 2 nfr]
+            aref = -b[g, None] * jv - (k[g] * imp[:, g] * pos[:, g])[..., None]
+            aref = torch.where(act[..., None], aref, 0.0)
+            # C regularizes every pyramid row with the first friction
+            # coefficient; per-direction mu appears only in J
+            mu0 = mu[:, 0:1]
+            invweight_pyr = t.invweight_n[g, None] * (1.0 + mu0**2) * 2.0 * mu0**2 / model.opt_impratio
+            impg = imp[:, g, None]
+            D = (impg / torch.clamp((1.0 - impg) * invweight_pyr, min=1e-12)).expand(-1, -1, 2 * nfr)
+            nr = len(grp) * 2 * nfr
+            push(j.reshape(bsz, nr, nv), aref.reshape(bsz, nr), D.reshape(bsz, nr),
+                 pos[:, g].repeat_interleave(2 * nfr, dim=1), act.repeat_interleave(2 * nfr, dim=1), zero, big)
+
+    j, aref, D, pos, active, fmin, fmax = (torch.cat(parts, dim=1 if i < 5 else 0) for i, parts in
+                                           enumerate(zip(*rows)))
+    return EfcData(aref=aref, D=D, pos=pos, active_row=active, J=j, fmin=fmin, fmax=fmax)

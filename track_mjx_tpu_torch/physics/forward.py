@@ -1,9 +1,10 @@
-"""Forward dynamics pipeline and Euler step (mj_forward / mj_step parity).
+"""Forward dynamics pipeline and the integrators (mj_forward / mj_step
+parity): semi-implicit Euler, RK4, implicit and implicitfast.
 
 Port of track_mjx_tpu/physics/forward.py. Every function takes a batch of
-envs, [B, ...]; `n_step` is a Python loop over substeps that carries only
-the dynamic state (`_CARRY_FIELDS`) from one substep to the next, as the JAX
-scan does.
+envs, [B, ...]; `step` dispatches on the plan's integrator, and `n_step` is
+a Python loop of `step` over substeps that carries only the dynamic state
+(`_CARRY_FIELDS`) from one substep to the next, as the JAX scan does.
 
 Physics runs in full f32. cond(M) is about 6e5 for the rodent, so TF32
 matmuls (about 1e-3 relative error) would corrupt the mass-matrix and
@@ -33,6 +34,9 @@ from track_mjx_tpu_torch.physics import solver as _solver
 from track_mjx_tpu_torch.physics.model import (
     DYN_FILTEREXACT,
     INT_EULER,
+    INT_IMPLICIT,
+    INT_IMPLICITFAST,
+    INT_RK4,
     JNT_BALL,
     JNT_FREE,
     JNT_HINGE,
@@ -140,11 +144,12 @@ def _advance_act(plan: PhysicsPlan, model: Model, data: Data, dt) -> torch.Tenso
     tau = torch.clamp(model.actuator_dynprm[:, 0], min=1e-10)
     ctrl = data.ctrl
     act_exact = ctrl + (data.act - ctrl) * torch.exp(-dt / tau)
-    act = torch.where(exact, act_exact, act)
+    return _clip_act(model, torch.where(exact, act_exact, act))
+
+
+def _clip_act(model: Model, act: torch.Tensor) -> torch.Tensor:
     lo, hi = model.actuator_actrange[:, 0], model.actuator_actrange[:, 1]
-    return torch.where(
-        model.actuator_actlimited > 0, torch.minimum(torch.maximum(act, lo), hi), act
-    )
+    return torch.where(model.actuator_actlimited > 0, torch.minimum(torch.maximum(act, lo), hi), act)
 
 
 def euler(plan: PhysicsPlan, model: Model, data: Data) -> Data:
@@ -154,7 +159,10 @@ def euler(plan: PhysicsPlan, model: Model, data: Data) -> Data:
     solve (data.qacc_eff); the others solve it here with the solve_spd
     kernel, which data does not keep, as in the reference."""
     if plan.integrator != INT_EULER:
-        raise NotImplementedError(f"integrator {plan.integrator}: only Euler is ported")
+        raise NotImplementedError(
+            f"integrator {plan.integrator} not supported by euler(): use "
+            "step(), which dispatches Euler/RK4/implicit/implicitfast"
+        )
     dt = model.opt_timestep
     if _solver.fused_euler(plan):
         qacc_eff = data.qacc_eff
@@ -169,9 +177,130 @@ def euler(plan: PhysicsPlan, model: Model, data: Data) -> Data:
     )
 
 
+# classic RK4 Butcher tableau (mj_RungeKutta with N = 4)
+_RK4_A = ((0.5, 0.0, 0.0), (0.0, 0.5, 0.0), (0.0, 0.0, 1.0))
+_RK4_B = (1.0 / 6.0, 1.0 / 3.0, 1.0 / 3.0, 1.0 / 6.0)
+_RK4_C = (0.5, 0.5, 1.0)
+
+
+def rk4(plan: PhysicsPlan, model: Model, data: Data) -> Data:
+    """4th-order Runge-Kutta (mj_RungeKutta(m, d, 4) parity) from a
+    post-`forward` `data`, whose derivatives are stage 0's; three more
+    forwards give the others. Positions integrate on the quaternion manifold
+    (`_integrate_pos`). The stage solves warm-start from the step-initial
+    qacc, as mj_step copies it to qacc_warmstart before them; the returned
+    data keeps the first forward's derived stages."""
+    dt = model.opt_timestep
+    time0, qpos0, qvel0, act0 = data.time, data.qpos, data.qvel, data.act
+    has_act = plan.na > 0
+    d = data.replace(qacc_warmstart=data.qacc)
+    derivs = [(d.qvel, d.qacc, d.act_dot)]
+    for i in range(1, 4):
+        a = _RK4_A[i - 1]
+        dqvel = sum(a[j] * derivs[j][0] for j in range(i) if a[j])
+        dqacc = sum(a[j] * derivs[j][1] for j in range(i) if a[j])
+        d = d.replace(
+            time=time0 + _RK4_C[i - 1] * dt,
+            qpos=_integrate_pos(plan, qpos0, dqvel, dt),
+            qvel=qvel0 + dt * dqacc,
+        )
+        if has_act:
+            dact = sum(a[j] * derivs[j][2] for j in range(i) if a[j])
+            d = d.replace(act=act0 + dt * dact)
+        d = forward(plan, model, d)
+        derivs.append((d.qvel, d.qacc, d.act_dot))
+    dqvel = sum(b * f[0] for b, f in zip(_RK4_B, derivs))
+    dqacc = sum(b * f[1] for b, f in zip(_RK4_B, derivs))
+    act = act0
+    if has_act:
+        act = _clip_act(model, act0 + dt * sum(b * f[2] for b, f in zip(_RK4_B, derivs)))
+    return data.replace(
+        time=time0 + dt,
+        qpos=_integrate_pos(plan, qpos0, dqvel, dt),
+        qvel=qvel0 + dt * dqacc,
+        act=act,
+        qacc_warmstart=data.qacc,
+    )
+
+
+def ancestor_pair_mask(plan: PhysicsPlan) -> np.ndarray:
+    """(nv, nv) 0/1 mask of dof pairs on one kinematic chain: the mass
+    matrix's sparsity pattern."""
+    mask = np.eye(plan.nv)
+    for j in range(plan.nv):
+        i = int(plan.dof_parentid[j])
+        while i >= 0:
+            mask[i, j] = mask[j, i] = 1.0
+            i = int(plan.dof_parentid[i])
+    return mask
+
+
+def qderiv(plan: PhysicsPlan, model: Model, data: Data, include_rne: bool) -> torch.Tensor:
+    """d(qfrc_passive + qfrc_actuator [- qfrc_bias]) / d qvel [B, nv, nv] at
+    fixed pose: C's mjd_smooth_vel, here exact forward-mode derivatives
+    (torch.func.jvp) through the velocity stages the forward pass runs
+    (com_vel, passive with fluid drag, actuation, rne), one column per basis
+    tangent, all nv columns at once under torch.func.vmap. Envs are
+    independent, so a tangent e_k given to every env yields every env's
+    column k. C keeps qDeriv in the mass matrix's ancestor-pair sparsity and
+    so drops entries that couple dofs on different branches (possible only
+    through tendon damping or multi-joint transmissions); the result is
+    masked to the same pattern (`ancestor_pair_mask`)."""
+
+    def smooth_force(qvel):
+        d = data.replace(qvel=qvel)
+        d = _com.com_vel(plan, model, d)
+        d = _passive.passive(plan, model, d)
+        d = _actuation.actuation(plan, model, d)
+        out = d.qfrc_passive + d.qfrc_actuator
+        if include_rne:
+            out = out - _rne.rne(plan, model, d).qfrc_bias
+        return out
+
+    def column(tangent):
+        return torch.func.jvp(smooth_force, (data.qvel,), (tangent,))[1]
+
+    qvel = data.qvel
+    basis = torch.eye(plan.nv, dtype=qvel.dtype, device=qvel.device)[:, None, :].expand(-1, qvel.shape[0], -1)
+    cols = torch.func.vmap(column)(basis)  # [nv (column k), B, nv (row i)]
+    mask = static_tensor(plan, ("int", "anc_pairs"), qvel, lambda: ancestor_pair_mask(plan))
+    return cols.permute(1, 2, 0) * mask
+
+
+def implicit(plan: PhysicsPlan, model: Model, data: Data) -> Data:
+    """Implicit-in-velocity integration (mj_implicit parity) from a
+    post-`forward` `data`. implicitfast: qDeriv without the RNE term,
+    symmetrized, and M - h qDeriv solved by the solve_spd kernel;
+    implicit: the full qDeriv and torch.linalg.solve, as the reference
+    leaves that general solve to its library. Both then advance as Euler
+    does (act, qvel from the raw qfrc_smooth + qfrc_constraint, manifold
+    positions); joint damping enters through qDeriv."""
+    dt = model.opt_timestep
+    fast = plan.integrator == INT_IMPLICITFAST
+    qd = qderiv(plan, model, data, include_rne=not fast)
+    rhs = data.qfrc_smooth + data.qfrc_constraint
+    if fast:
+        qd = 0.5 * (qd + qd.transpose(-1, -2))
+        qacc_eff = batched_linalg.solve_spd((data.qM - dt * qd).contiguous(), rhs.contiguous())
+    else:
+        qacc_eff = torch.linalg.solve(data.qM - dt * qd, rhs)
+    act = _advance_act(plan, model, data, dt)
+    qvel = data.qvel + dt * qacc_eff
+    qpos = _integrate_pos(plan, data.qpos, qvel, dt)
+    return data.replace(
+        qpos=qpos, qvel=qvel, act=act, time=data.time + dt, qacc_warmstart=data.qacc
+    )
+
+
 def step(plan: PhysicsPlan, model: Model, data: Data) -> Data:
-    """One physics step: forward dynamics + Euler integration."""
-    return euler(plan, model, forward(plan, model, data))
+    """One physics step: forward dynamics and the plan's integrator (Euler,
+    RK4, implicit or implicitfast)."""
+    data = forward(plan, model, data)
+    if plan.integrator == INT_RK4:
+        return rk4(plan, model, data)
+    if plan.integrator in (INT_IMPLICIT, INT_IMPLICITFAST):
+        return implicit(plan, model, data)
+    return euler(plan, model, data)
 
 
 # the dynamic state that survives between physics substeps; everything else

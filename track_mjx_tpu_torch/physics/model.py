@@ -47,6 +47,12 @@ SNAPSHOTS = {
     name: os.path.join(_ASSETS, name.replace("-", "_") + ".npz")
     for name in ("rodent-full-clips", "fly-mc-intention")
 }
+# probe models (tests/test_equality.py's equality and frictionloss probes),
+# exported by tools/export_torch_model.py --probes: "probe-<name>" -> snapshot
+PROBE_SNAPSHOTS = {
+    "probe-" + name: os.path.join(_ASSETS, "probes", name + ".npz")
+    for name in ("connect", "weld", "joint", "tendon", "friction")
+}
 
 
 def _device(device) -> torch.device:
@@ -281,15 +287,17 @@ class Data:
 
 def load_snapshot(name: str = "rodent-full-clips") -> Any:
     """Loads the compiled-model snapshot of workload config `name` (a key of
-    SNAPSHOTS; .npz written by tools/export_torch_model.py) as an object with
+    SNAPSHOTS, or of PROBE_SNAPSHOTS; .npz written by
+    tools/export_torch_model.py) as an object with
     MjModel's attribute names: `m.nv`, `m.body_parentid`, `m.opt.timestep`,
     ... Sizes and scalar options come back as Python numbers, array fields as
     numpy arrays. The walker's index tables are under `m.walker`
     (`joint_idxs`, `body_idxs`, `endeff_idxs`, `torso_idx`)."""
-    if name not in SNAPSHOTS:
-        raise ValueError(f"no snapshot for {name!r}; have {sorted(SNAPSHOTS)}")
+    paths = {**SNAPSHOTS, **PROBE_SNAPSHOTS}
+    if name not in paths:
+        raise ValueError(f"no snapshot for {name!r}; have {sorted(paths)}")
     snap = types.SimpleNamespace(opt=types.SimpleNamespace(), walker=types.SimpleNamespace())
-    with np.load(SNAPSHOTS[name], allow_pickle=False) as z:
+    with np.load(paths[name], allow_pickle=False) as z:
         for key in z.files:
             val = z[key]
             val = val.item() if val.ndim == 0 else val

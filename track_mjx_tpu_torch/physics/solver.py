@@ -1,23 +1,29 @@
-"""Constraint solve: the fused CG branches and the Newton solver.
+"""Constraint solve: the fused CG solves, the bounded CG and Newton.
 
-Port of track_mjx_tpu/physics/solver.py for unilateral limit rows plus
-condim-3 contacts (no equality or frictionloss rows):
+Port of track_mjx_tpu/physics/solver.py:
 
-- CG plans solve through a fused smooth + CG op: `fused_scalar_cg`
-  (pyramidal contacts, the rodent), `fused_elliptic_cg` (elliptic cone
-  blocks, the fly), `fused_cg`, `fused_euler`, `_jb_static`. The whole
-  solve, including the qM factorization, the qacc_smooth solve and the Euler
-  implicit-damping solve, is one call of ops/cg_solver_kernel.cg_solve or
-  ell_cg_solve.
-- Newton plans with pyramidal contacts run `_newton`, batch-first: forward
-  has factored qM and solved qacc_smooth (inertia.factor_m/solve_m), each
-  iteration's Hessian solve is the solve_spd kernel, and the linesearch is
-  the plain Newton search of the scalar rows (`_linesearch`).
+- Fused CG plans (CG solver, unilateral rows only: limits and pyramidal
+  contacts, or limits and elliptic cone blocks) solve through one call of a
+  fused smooth + CG op, which factors qM, solves qacc_smooth and, on Euler
+  plans (`fused_euler`), the integrator's implicit-damping solve too:
+  ops/cg_solver_kernel.cg_solve on the compact pyramidal layout (the
+  rodent), cg_solve_dense on a dense J (condim-1, -4 or -6 contacts), and
+  ell_cg_solve on the elliptic layout (the fly). `fused_scalar_cg`,
+  `fused_elliptic_cg`, `fused_cg`, `fused_euler`, `_jb_static`.
+- CG plans with equality or frictionloss rows run the bounded scalar CG
+  (`cg_solver_kernel.scalar_cg` with the rows' force bounds) in plain
+  torch over the dense J, every (L L^T)^-1 apply the cho_solve kernel on
+  forward's factor of qM (data.qLD).
+- Newton plans run `_newton`, batch-first: forward has factored qM and
+  solved qacc_smooth (inertia.factor_m/solve_m), each iteration's Hessian
+  solve is the solve_spd kernel, and the linesearch is the plain Newton
+  search of the scalar rows (`_linesearch`), bounded where the plan has
+  equality or frictionloss rows.
 
 `solve` dispatches as the reference does: PGS and Newton with elliptic
-cones raise NotImplementedError with the reference's messages, a plan with
-no constraint rows takes qacc = qacc_smooth, and plans with equality or
-frictionloss rows (the reference's bounded scalar CG) raise too.
+cones raise NotImplementedError with the reference's messages, as do the
+elliptic plans still to port (constraint.ELLIPTIC_SLICE_11), and a plan
+with no constraint rows takes qacc = qacc_smooth.
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ import torch
 
 from track_mjx_tpu_torch.ops import batched_linalg, cg_solver_kernel
 from track_mjx_tpu_torch.physics import inertia
-from track_mjx_tpu_torch.physics.constraint import EfcData, contact_diff_mask
+from track_mjx_tpu_torch.physics.constraint import EfcData, check_rows, contact_diff_mask
 from track_mjx_tpu_torch.physics.model import (
     INT_EULER,
     SOLVER_CG,
@@ -44,7 +50,8 @@ _EPS = 1e-12
 
 def fused_scalar_cg(plan: PhysicsPlan) -> bool:
     """True when the model solves through the fused smooth + CG op: CG
-    solver, unilateral scalar rows only (limits / pyramidal contacts)."""
+    solver, unilateral scalar rows only (limits, pyramidal contacts of any
+    condim; cg_solve on the compact layout, cg_solve_dense off it)."""
     return bool(
         plan.nefc > 0
         and plan.solver == SOLVER_CG
@@ -91,19 +98,17 @@ def _jb_static(plan: PhysicsPlan):
     return plan_cache(plan, "jb_static", build)
 
 
-def _common_inputs(plan: PhysicsPlan, model: Model, data: Data, efc: EfcData) -> dict:
-    """The operands both fused solves take, except the friction `mu`."""
+def _common_inputs(plan: PhysicsPlan, model: Model, data: Data, efc: EfcData, compact: bool = True) -> dict:
+    """The operands every fused solve takes, and the compact layout's J
+    operands except the friction `mu` where `compact`."""
     like = data.qpos
     bsz, nv = like.shape[0], plan.nv
     arm = model.dof_armature.contiguous()
     # convergence threshold tol * trace(M), trace from the CRB factors
     scale = torch.clamp((data.crb_buf * data.cdof).sum((-2, -1)) + arm.sum(), min=_EPS)
-    return dict(
+    out = dict(
         buf=data.crb_buf.contiguous(),
         cdof=data.cdof.contiguous(),
-        fq=efc.jb_fq.contiguous(),
-        sw=efc.jb_sw.contiguous(),
-        ll=efc.jb_ll.contiguous(),
         aref=efc.aref.contiguous(),
         D=efc.D.contiguous(),
         qfrc_smooth=data.qfrc_smooth.contiguous(),
@@ -112,17 +117,24 @@ def _common_inputs(plan: PhysicsPlan, model: Model, data: Data, efc: EfcData) ->
         tolscale=(model.opt_tolerance * scale).contiguous(),
         anc=static_tensor(plan, ("solver", "anc"), like, lambda: plan.ancestry_mask),
         arm=arm,
-        dm=static_tensor(plan, ("solver", "dm"), like, lambda: _jb_static(plan)[0]),
-        lim1h=static_tensor(plan, ("solver", "lim1h"), like, lambda: _jb_static(plan)[1]),
     )
+    if compact:
+        out.update(
+            fq=efc.jb_fq.contiguous(),
+            sw=efc.jb_sw.contiguous(),
+            ll=efc.jb_ll.contiguous(),
+            dm=static_tensor(plan, ("solver", "dm"), like, lambda: _jb_static(plan)[0]),
+            lim1h=static_tensor(plan, ("solver", "lim1h"), like, lambda: _jb_static(plan)[1]),
+        )
+    return out
 
 
 def solve_inputs(plan: PhysicsPlan, model: Model, data: Data, efc: EfcData) -> dict:
     """Keyword arguments of ops/cg_solver_kernel.cg_solve for this batch."""
-    if not fused_scalar_cg(plan):
+    if not fused_scalar_cg(plan) or efc.jb_fq is None:
         raise NotImplementedError(
-            "the fused scalar-CG solve takes CG plans with limit and pyramidal "
-            "contact rows only"
+            "the fused scalar-CG solve takes CG plans with limit and condim-3 "
+            "pyramidal contact rows only"
         )
     bsz = data.qpos.shape[0]
     return dict(_common_inputs(plan, model, data, efc), mu=efc.jb_mu.expand(bsz, -1, -1).contiguous())
@@ -155,14 +167,14 @@ def _matv(j: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return (j @ x[..., None])[..., 0]
 
 
-def _force(d: torch.Tensor, jar: torch.Tensor) -> torch.Tensor:
-    """Constraint force of unilateral scalar rows, -ds/djar [B, nefc]."""
-    return torch.where(jar < 0, -d * jar, torch.zeros_like(jar))
+def _force(efc: EfcData, jar: torch.Tensor) -> torch.Tensor:
+    """Constraint force -ds/djar [B, nefc] of the scalar rows."""
+    return cg_solver_kernel.scalar_zone(jar, efc.D, efc.fmin, efc.fmax)[0]
 
 
-def _cost_rows(d: torch.Tensor, jar: torch.Tensor) -> torch.Tensor:
-    """Summed cost s(jar) of unilateral scalar rows [B]."""
-    return 0.5 * torch.where(jar < 0, d * jar * jar, torch.zeros_like(jar)).sum(-1)
+def _cost_rows(efc: EfcData, jar: torch.Tensor) -> torch.Tensor:
+    """Summed cost s(jar) of the scalar rows [B]."""
+    return cg_solver_kernel.scalar_cost(jar, efc.D, efc.fmin, efc.fmax).sum(-1)
 
 
 def _cost_grad(data: Data, efc: EfcData, j: torch.Tensor, x: torch.Tensor):
@@ -170,44 +182,28 @@ def _cost_grad(data: Data, efc: EfcData, j: torch.Tensor, x: torch.Tensor):
     gradient mdx - J^T force at x."""
     jar = _matv(j, x) - efc.aref
     mdx = inertia.mul_m(data, x - data.qacc_smooth)
-    grad = mdx - _matv(j.transpose(-1, -2), _force(efc.D, jar))
+    grad = mdx - _matv(j.transpose(-1, -2), _force(efc, jar))
     return jar, mdx, grad
 
 
 def _linesearch(data: Data, efc: EfcData, j: torch.Tensor, jar0, mdx, p, ls_iterations: int):
-    """Newton linesearch on phi(alpha) with exact derivatives, scalar rows
-    only: phi' is piecewise linear in alpha and plain Newton (no bracket)
-    is the reference's scalar-row search. jar0 and mdx are `_cost_grad`'s
-    at the search's start. Returns alpha [B]."""
-    mp = inertia.mul_m(data, p)
-    pmp = (p * mp).sum(-1)
-    dmx = (p * mdx).sum(-1)
-    jp = _matv(j, p)
-    d = efc.D
-
-    def phi_derivs(alpha):
-        jar = jar0 + alpha[:, None] * jp
-        active = jar < 0
-        zero = torch.zeros_like(jar)
-        d1 = alpha * pmp + dmx + torch.where(active, d * jar * jp, zero).sum(-1)
-        d2 = pmp + torch.where(active, d * jp * jp, zero).sum(-1)
-        return d1, torch.clamp(d2, min=_EPS)
-
-    d1, d2 = phi_derivs(torch.zeros_like(pmp))
-    alpha = -d1 / d2
-    for _ in range(ls_iterations):
-        d1, d2 = phi_derivs(alpha)
-        alpha = alpha - d1 / d2
-    return alpha
+    """cg_solver_kernel.scalar_linesearch along p from `_cost_grad`'s jar0
+    and mdx. Returns alpha [B]."""
+    pmp = (p * inertia.mul_m(data, p)).sum(-1)
+    return cg_solver_kernel.scalar_linesearch(jar0, _matv(j, p), pmp, (p * mdx).sum(-1), efc.D, efc.fmin,
+                                              efc.fmax, ls_iterations)
 
 
-def newton_hessian(qm: torch.Tensor, j: torch.Tensor, d: torch.Tensor, jar: torch.Tensor) -> torch.Tensor:
-    """H = qM + J^T diag(D active) J with active = jar < 0 [B, nv, nv],
-    symmetrized as (H + H^T) / 2: the matrix that the reference's
-    `jnp.linalg.cholesky` factors (it symmetrizes its input), since the
-    product is not exactly symmetric in f32 and `solve_spd` reads only the
-    lower triangle."""
-    dj = j * (d * (jar < 0).to(d.dtype))[..., None]
+def newton_hessian(qm: torch.Tensor, j: torch.Tensor, d: torch.Tensor, jar: torch.Tensor,
+                   fmin=None, fmax=None) -> torch.Tensor:
+    """H = qM + J^T diag(D active) J [B, nv, nv], active the rows'
+    quadratic zone (`scalar_zone`: jar < 0 for unilateral rows, always for
+    equality rows, unclamped frictionloss rows), symmetrized as (H + H^T) /
+    2: the matrix that the reference's `jnp.linalg.cholesky` factors (it
+    symmetrizes its input), since the product is not exactly symmetric in
+    f32 and `solve_spd` reads only the lower triangle."""
+    active = cg_solver_kernel.scalar_zone(jar, d, fmin, fmax)[1]
+    dj = j * (d * active.to(d.dtype))[..., None]
     h = qm + j.transpose(-1, -2) @ dj
     return (h + h.transpose(-1, -2)) / 2
 
@@ -218,13 +214,14 @@ def newton_start(data: Data, efc: EfcData, j: torch.Tensor) -> torch.Tensor:
 
     def cost(x):
         dx = x - smooth
-        return 0.5 * (dx * inertia.mul_m(data, dx)).sum(-1) + _cost_rows(efc.D, _matv(j, x) - efc.aref)
+        return 0.5 * (dx * inertia.mul_m(data, dx)).sum(-1) + _cost_rows(efc, _matv(j, x) - efc.aref)
 
     return torch.where((cost(warm) < cost(smooth))[:, None], warm, smooth)
 
 
 def _newton(plan: PhysicsPlan, model: Model, data: Data, efc: EfcData) -> Data:
-    """mjSOL_NEWTON over unilateral scalar rows (limits, pyramidal contacts).
+    """mjSOL_NEWTON over scalar rows (limits, pyramidal contacts, equality
+    and frictionloss rows).
 
     Exact-Hessian Newton on the soft-constraint objective: each iteration
     rebuilds the active set, assembles H = M + J^T diag(D active) J, solves
@@ -233,20 +230,21 @@ def _newton(plan: PhysicsPlan, model: Model, data: Data, efc: EfcData) -> Data:
     whose gradient (at the start of an iteration) fell under the tolerance
     freezes from the next iteration on, by masking, not by leaving the
     loop."""
-    j = dense_j(plan, data, efc)
+    j = dense_j(plan, data, efc) if efc.J is None else efc.J
     x = newton_start(data, efc, j)
     meaninertia = torch.diagonal(data.qM, dim1=-2, dim2=-1).mean(-1)
     scale = torch.clamp(meaninertia * plan.nv, min=_EPS)
     improved = torch.ones_like(scale, dtype=torch.bool)
     for _ in range(plan.iterations):
         jar, mdx, grad = _cost_grad(data, efc, j, x)
-        p = -batched_linalg.solve_spd(newton_hessian(data.qM, j, efc.D, jar), grad)
+        h = newton_hessian(data.qM, j, efc.D, jar, efc.fmin, efc.fmax)
+        p = -batched_linalg.solve_spd(h, grad)
         alpha = _linesearch(data, efc, j, jar, mdx, p, plan.ls_iterations)
         # the update and the new flag are kept only where the env was still
         # improving when the iteration began
         x = torch.where(improved[:, None], x + alpha[:, None] * p, x)
         improved = improved & (torch.sqrt((grad * grad).sum(-1)) / scale > model.opt_tolerance)
-    force = _force(efc.D, _matv(j, x) - efc.aref)
+    force = _force(efc, _matv(j, x) - efc.aref)
     return data.replace(
         qacc=x,
         qfrc_constraint=_matv(j.transpose(-1, -2), force),
@@ -254,14 +252,41 @@ def _newton(plan: PhysicsPlan, model: Model, data: Data, efc: EfcData) -> Data:
     )
 
 
+def _bounded_cg(plan: PhysicsPlan, model: Model, data: Data, efc: EfcData) -> Data:
+    """CG over box-clamped scalar rows (equality, frictionloss beside limits
+    and contacts): the reference's plain `_scalar_cg_single` with bounds,
+    over forward's qM and its factor qLD (each apply a cho_solve launch)."""
+    meaninertia = torch.diagonal(data.qM, dim1=-2, dim2=-1).mean(-1)
+    tolscale = model.opt_tolerance * torch.clamp(meaninertia * plan.nv, min=_EPS)
+    x, force, qfrc = cg_solver_kernel.scalar_cg(
+        data.qM, lambda b: inertia.solve_m(data, b), efc.J, efc.aref, efc.D, data.qacc_smooth,
+        data.qacc_warmstart, tolscale, iterations=plan.iterations, ls_iterations=plan.ls_iterations,
+        fmin=efc.fmin, fmax=efc.fmax,
+    )
+    return data.replace(qacc=x, qfrc_constraint=qfrc, efc_force=force)
+
+
+def dense_solve_inputs(plan: PhysicsPlan, model: Model, data: Data, efc: EfcData) -> dict:
+    """Keyword arguments of ops/cg_solver_kernel.cg_solve_dense for this
+    batch (pyramidal plans with a dense J and unilateral rows only)."""
+    if not fused_scalar_cg(plan) or efc.J is None:
+        raise NotImplementedError(
+            "the fused dense-J CG solve takes CG plans with unilateral rows off the compact layout"
+        )
+    a = _common_inputs(plan, model, data, efc, compact=False)
+    return dict(a, J=efc.J.contiguous())
+
+
 def solve(plan: PhysicsPlan, model: Model, data: Data, efc: EfcData) -> Data:
     """Runs the configured solver and writes qacc, qfrc_constraint and
-    efc_force (CG plans also qacc_smooth, and qacc_eff on Euler plans).
+    efc_force (fused CG plans also qacc_smooth, and qacc_eff on Euler
+    plans).
 
-    CG (mjSOL_CG) runs the fused solves; Newton (mjSOL_NEWTON) is ported for
-    scalar-row models (limits, pyramidal contacts). PGS, Newton with an
-    elliptic cone, and equality or frictionloss rows raise. A plan with no
-    constraint rows takes qacc = qacc_smooth."""
+    CG (mjSOL_CG) runs the fused solves, or the bounded CG where the plan
+    has equality or frictionloss rows; Newton (mjSOL_NEWTON) is ported for
+    scalar-row models. PGS, Newton with an elliptic cone and the elliptic
+    plans still to port raise. A plan with no constraint rows takes qacc =
+    qacc_smooth."""
     if plan.nefc and plan.solver not in (SOLVER_CG, SOLVER_NEWTON):
         raise NotImplementedError(
             f"solver {plan.solver} not supported: CG (mjSOL_CG=1) and "
@@ -276,23 +301,28 @@ def solve(plan: PhysicsPlan, model: Model, data: Data, efc: EfcData) -> Data:
         )
     if plan.nefc == 0:
         return data.replace(qacc=data.qacc_smooth, qfrc_constraint=torch.zeros_like(data.qacc_smooth))
-    if plan.ne or plan.nf:
-        raise NotImplementedError(
-            "equality and frictionloss rows (the bounded scalar CG) are not ported"
-        )
+    check_rows(plan)
     if plan.solver == SOLVER_NEWTON:
         return _newton(plan, model, data, efc)
+    if plan.ne or plan.nf:
+        return _bounded_cg(plan, model, data, efc)
+    with_euler = fused_euler(plan)
+    steps = dict(iterations=plan.iterations, ls_iterations=plan.ls_iterations)
     if fused_elliptic_cg(plan):
-        op, inputs = cg_solver_kernel.ell_cg_solve, ell_solve_inputs(plan, model, data, efc)
+        # the elliptic kernel always solves for qacc_eff; a plan on another
+        # integrator leaves it unread
+        out = cg_solver_kernel.ell_cg_solve(**ell_solve_inputs(plan, model, data, efc), **steps)
+    elif efc.J is None:
+        out = cg_solver_kernel.cg_solve(**solve_inputs(plan, model, data, efc), with_euler=with_euler, **steps)
     else:
-        op, inputs = cg_solver_kernel.cg_solve, solve_inputs(plan, model, data, efc)
-    out = op(**inputs, iterations=plan.iterations, ls_iterations=plan.ls_iterations)
+        out = cg_solver_kernel.cg_solve_dense(**dense_solve_inputs(plan, model, data, efc),
+                                              with_euler=with_euler, **steps)
     data = data.replace(
         qacc_smooth=out.qacc_smooth,
         qacc=out.qacc,
         qfrc_constraint=out.qfrc_constraint,
         efc_force=out.efc_force,
     )
-    if fused_euler(plan):
+    if with_euler:
         data = data.replace(qacc_eff=out.qacc_eff)
     return data
