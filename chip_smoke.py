@@ -1,7 +1,8 @@
 """Smoke run of the torch port on one NVIDIA GPU: the physics control
 steps, the rodent rollout, the trainer on the rodent (MLP and LSTM
 pipelines) and on the fly, and the rest of the physics (RK4 and implicit
-integrators, condim-1/4/6 contacts, frictionloss and equality rows).
+integrators, condim-1/4/6 contacts, frictionloss and equality rows, on
+pyramidal and on elliptic cones).
 
 Usage (from the repository root, on a machine with a CUDA device and nvcc):
 
@@ -125,6 +126,23 @@ It imports nothing of JAX. Phases, each of which raises on failure:
    qpos after the control step is held by that float64 rule in place of
    phase 3's bar (QPOS_BY_F64). The env-steps/s of each is printed beside
    phase 3's.
+11b. The fly's remainder (elliptic plans off the compact layout): the
+   compact ell_cg_solve without the Euler solve on phase 5's states (at one
+   iteration with one Newton step within FLY_KERNEL_REL and by the float64
+   rule, its four outputs at 1/0 and 4/4 bitwise phase 5's launches with
+   the Euler solve); ell_cg_solve_dense (K3's dense-J mode) on 4096
+   contact-rich states of the fly with a condim-1 leg (fly_condim1: the
+   floor and geom 79 at condim 1), with and without the Euler solve, at 1/0
+   within FLY_KERNEL_REL and by the float64 rule, at 4/4 by the optimality
+   gap; each timed beside its plain version and bound, with the dense
+   mode's registers, shared memory and CTAs per SM. Then three fly paths at
+   4096 envs, 1 warm-up and 1 timed control step each with exact launches
+   per substep and no plain version run: condim 1 (ell_cg_solve_dense 1;
+   condim-1 contacts active), RK4 (ell_cg_solve without Euler, 4) and
+   frictionloss 0.01 on every hinge dof (the general elliptic CG: cholesky
+   1, cho_solve 6, solve_spd 1; rows in both zones), each held against the
+   CPU on 64 envs as phase 6 holds the fly, its env-steps/s printed beside
+   phase 6's.
 12. Standalone linalg kernels against plain: from 4096 contact-rich states
    of the same model, made on the card with the port's stages, qM goes
    through cholesky, its factor and qfrc_smooth through cho_solve, the
@@ -416,6 +434,18 @@ def mixed_condim(snap):
     return snap
 
 
+def fly_condim1(snap):
+    """The fly snapshot `snap` with the floor and geom 79 (a leg capsule, body
+    28) at condim 1: that leg's floor contacts are condim-1 rows beside the
+    other contacts' cone blocks (a contact takes the larger condim of its two
+    geoms), and its rows leave the compact layout for the dense J. Edits and
+    returns `snap`."""
+    condim = np.array(snap.geom_condim).copy()
+    condim[[0, 79]] = 1
+    snap.geom_condim = condim
+    return snap
+
+
 def with_frictionloss(snap, value: float):
     """`snap` with dof_frictionloss = `value` on every hinge dof (one
     frictionloss row each). Edits and returns `snap`."""
@@ -505,14 +535,15 @@ def solve_flops(n: int, nl: int, nc: int, rows_per_con: int, its: int, ls: int, 
     the J, J^T and M products, and the linesearch's row passes (about 6
     operations per limit or pyramid row and 60 per cone block). A dense J
     of `dense_rows` rows (cg_solve_dense) is read, not built, and takes the
-    pyramidal solve's products; without the Euler solve, one factor and one
-    apply less."""
+    solve's products (the pyramidal solve's incremental ones for K2's,
+    `rows_per_con` 4; K3's fresh ones over nl scalar rows and nc cone blocks,
+    3); without the Euler solve, one factor and one apply less."""
     e = nl + rows_per_con * nc if dense_rows is None else dense_rows
     qm = 6 * n * (n + 1)
     jb = 0 if dense_rows is not None else nc * n * (36 + (8 if rows_per_con == 4 else 0)) + nl * n
     factor = (2 if with_euler else 1) * n**3 // 3
     applies = (its + (3 if with_euler else 2)) * 2 * n * n
-    if rows_per_con == 4 or dense_rows is not None:  # incremental jar / M dx: 2 J, 1 M, 1 J^T per iteration
+    if rows_per_con == 4:  # incremental jar / M dx: 2 J, 1 M, 1 J^T per iteration
         mv_j, mv_jt, mv_m = 2 + its, 1 + its + 1, 1 + its
         row_pass = (ls + 1) * 6 * e
     else:  # fresh jar / M (x - smooth): 2 J, 2 M, 1 J^T per iteration
@@ -719,10 +750,11 @@ class Phases:
         return cpu64, tf.step(cpu_plan, model64, tf.expand_slim(cpu_plan, model64, slim64))
 
     @staticmethod
-    def versus_f64(what, name, card_t, cpu_t, ref, stats):
+    def versus_f64(what, name, card_t, cpu_t, ref, stats, gate: bool = True):
         """The card's per-env distance to the float64 CPU run `ref`, on each
         of `stats` ("median", "max": the median and the worst env), within
-        FLY_VS_F64 times the float32 CPU run's, plus FLY_F64_FLOOR."""
+        FLY_VS_F64 times the float32 CPU run's, plus FLY_F64_FLOOR (printed
+        only, without `gate`)."""
         card_e = _per_env(card_t.cpu().double(), ref)
         cpu_e = _per_env(cpu_t.double(), ref)
         held = _f64_stats(card_e, cpu_e, stats, FLY_VS_F64, FLY_F64_FLOOR)
@@ -731,9 +763,11 @@ class Phases:
               f"median {float(card_e.median()):.3e} max {float(card_e.max()):.3e} (env {w}; the CPU's there "
               f"{float(cpu_e[w]):.3e}); CPU float32 median {float(cpu_e.median()):.3e} max {float(cpu_e.max()):.3e} "
               f"(env {int(cpu_e.argmax())}); bar on the card's "
-              + ", ".join(f"{stat} {bar:.3e}" for stat, (_, _, bar) in held.items()))
+              + ", ".join(f"{stat} {bar:.3e}" for stat, (_, _, bar) in held.items())
+              + ("" if gate else " (printed, not gated)"))
         for stat, (card_v, _, bar) in held.items():
-            assert card_v <= bar, f"card {name} further from float64 than the CPU on the {stat} env ({what})"
+            assert card_v <= bar or not gate, (
+                f"card {name} further from float64 than the CPU on the {stat} env ({what})")
 
     def solve_split(self, what, plan, model, cpu_plan, cpu_model, slim, substep_rel):
         """From the card's state `slim` (N_CPU envs), forward's stages up to
@@ -1307,13 +1341,14 @@ class Phases:
     # -----------------------------------------------------------------------
 
     def ell_objective(self, inputs, x, nl):
-        """Per-env objective of the elliptic solve in float64: 0.5 dx M dx
-        with dx = x - qacc_smooth, plus the limit rows' and cone blocks'
-        costs at jar = J x - aref."""
+        """Per-env objective of the elliptic solve in float64 of a fused
+        solve's `inputs` (ell_cg_solve's or ell_cg_solve_dense's): 0.5 dx M
+        dx with dx = x - qacc_smooth, plus the scalar rows' and cone blocks'
+        costs at jar = J x - aref, the first nl rows scalar."""
         tk = self.tk
-        f64 = {k: v.double() for k, v in inputs.items()}
+        f64 = {k: v.double() for k, v in inputs.items() if isinstance(v, torch.Tensor)}
         qm = tk.assemble_qm(f64["buf"], f64["cdof"], f64["anc"], f64["arm"])
-        j = tk.build_j_ell(f64["fq"], f64["sw"], f64["ll"], f64["dm"], f64["lim1h"])
+        j = f64["J"] if "J" in f64 else tk.build_j_ell(f64["fq"], f64["sw"], f64["ll"], f64["dm"], f64["lim1h"])
         smooth = torch.linalg.solve(qm, f64["qfrc_smooth"][..., None])[..., 0]
         x = x.double()
         dx = x - smooth
@@ -1337,7 +1372,7 @@ class Phases:
         all but GAP_SHARE of the envs, and the summed gap within GAP_SUM of
         the reference's. The mirrored count (the reference over the bound
         set by `qacc`) is printed beside it."""
-        star = self.tk.ell_cg_solve_plain(**inputs, iterations=60, ls_iterations=15)
+        star = self.ell_plain(inputs, 60, 15)
         cost_star = self.ell_objective(inputs, star.qacc, nl)
         gap = self.ell_objective(inputs, qacc, nl) - cost_star
         gap_ref = self.ell_objective(inputs, qacc_ref, nl) - cost_star
@@ -1351,12 +1386,13 @@ class Phases:
         assert over <= allowed, f"{what}: {over} envs over the optimality-gap bound"
         assert ratio <= GAP_SUM, f"{what}: summed optimality gap {ratio:.4f} x the reference's"
 
-    def fly_states(self, plan, model):
+    def fly_states(self, plan, model, dense: bool = False):
         """Contact-rich fly solver inputs in the manner of
         tests/test_cg_kernel_parity.py: legs dropped into the floor, joints
         perturbed, random qvel, ctrl and warmstart; the last quarter are
         static drops warm-started at a converged plain solve, which puts cone
-        blocks in the static-friction zone."""
+        blocks in the static-friction zone. With `dense`, ell_cg_solve_dense's
+        inputs (a plan with condim-1 contacts)."""
         ts = self.ts
         n_static = N_ENVS // 4
         qpos = model.qpos0.expand(N_ENVS, plan.nq).clone()
@@ -1372,11 +1408,20 @@ class Phases:
         qvel[s] = 0.0
         ctrl[s] = 0.0
         warm[s] = 0.0
-        inputs = self.solver_inputs(plan, model, qpos, qvel, ctrl, warm, ts.ell_solve_inputs)
-        static = {k: (v[s] if v.dim() and v.shape[0] == N_ENVS else v) for k, v in inputs.items()}
-        warm[s] = self.tk.ell_cg_solve_plain(**static, iterations=60, ls_iterations=15).qacc
+        inputs = self.solver_inputs(plan, model, qpos, qvel, ctrl, warm,
+                                    ts.ell_dense_solve_inputs if dense else ts.ell_solve_inputs)
+        static = {k: (v[s] if isinstance(v, torch.Tensor) and v.dim() and v.shape[0] == N_ENVS else v)
+                  for k, v in inputs.items()}
+        warm[s] = self.ell_plain(static, 60, 15).qacc
         inputs["warm"] = warm.contiguous()
         return inputs
+
+    def ell_plain(self, inputs, its, ls, with_euler=True):
+        """The plain version of the elliptic solve that takes `inputs`
+        (ell_cg_solve's, or ell_cg_solve_dense's, which carry ns)."""
+        tk = self.tk
+        plain = tk.ell_cg_solve_dense_plain if "J" in inputs else tk.ell_cg_solve_plain
+        return plain(**inputs, iterations=its, ls_iterations=ls, with_euler=with_euler)
 
     def fly(self) -> list:
         tk, tf, tm = self.tk, self.tf, self.tm
@@ -1426,23 +1471,15 @@ class Phases:
                               N_ENVS * solve_flops(plan.nv, nl, nc, 3, its, ls))
         print(f"ell_cg_solve at B={N_ENVS}: kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, "
               f"bound {b_ms:.4f} ms ({b_by}) ({self.card})")
-        del inputs, kernel, plain, kernel1, plain1
+        self.phase5 = inputs, kernel1, kernel  # the no-Euler mode is held on the same states (phase 11b)
+        del plain, plain1
 
         # main path
         start, ctrls, after_warmup, _, launches = self.main_path(
             plan, model, {tk.ell_cg_solve: 1}, FLY_CONTROL_STEPS, FLY_CTRL_SCALE
         )
-        cpu_plan, cpu_model, cpu = self.cpu_warmup(tm.load_snapshot("fly-mc-intention"), start, ctrls[0])
-        cpu64, sub64 = self.cpu_float64(cpu_plan, cpu_model, start, ctrls[0], after_warmup)
-        for name in ("qpos", "qvel"):
-            self.versus_f64("fly, one control step", name, getattr(after_warmup, name)[:N_CPU],
-                            getattr(cpu, name), getattr(cpu64, name), ("median",))
-        _, card_sub, cpu_sub = self.one_substep(plan, model, cpu_plan, cpu_model, after_warmup)
-        self.versus_f64("fly, one substep", "qacc_smooth", card_sub.qacc_smooth, cpu_sub.qacc_smooth,
-                        sub64.qacc_smooth, ("max",))
-        for name in ("qacc", "qacc_eff", "efc_force", "qvel"):
-            self.versus_f64("fly, one substep", name, getattr(card_sub, name), getattr(cpu_sub, name),
-                            getattr(sub64, name), ("median",))
+        self.fly_env_steps = self.last_env_steps
+        self.fly_versus_cpu("fly", tm.load_snapshot("fly-mc-intention"), plan, model, start, ctrls, after_warmup)
 
         return [{
             "name": "ell_cg_solve",
@@ -1457,6 +1494,33 @@ class Phases:
             "bound_by": b_by,
             "library_ms": None,  # no single PyTorch call computes the fused solve
         }]
+
+    def fly_versus_cpu(self, what, snap, plan, model, start, ctrls, after_warmup, gate_solve: bool = True):
+        """The warm-up control step of the first N_CPU envs and one substep
+        after it, on the CPU in float32 and in float64 (`snap` put on the
+        CPU): the card's per-env distance to float64 within FLY_VS_F64 times
+        the float32 CPU's, on the median env (and the worst for
+        qacc_smooth, which precedes the solve). Without `gate_solve` (phase
+        11b) the distances of the substep's solve outputs are printed, not
+        gated: after one substep they are bimodal (envs at rest near 1e-6,
+        the knife edge's near 1e-2), and a median of 64 envs falls between
+        the modes (on an NVIDIA H100 the card's median qacc at 0.3x to 19x
+        the CPU's over seeds of phase 6's own path; PERF.md, Findings).
+        Those paths' solves are held on 4096 contact-rich states instead
+        (phase 11b's kernels against plain)."""
+        cpu_plan, cpu_model, cpu = self.cpu_warmup(snap, start, ctrls[0])
+        cpu64, sub64 = self.cpu_float64(cpu_plan, cpu_model, start, ctrls[0], after_warmup)
+        for name in ("qpos", "qvel"):
+            self.versus_f64(f"{what}, one control step", name, getattr(after_warmup, name)[:N_CPU],
+                            getattr(cpu, name), getattr(cpu64, name), ("median",))
+        _, card_sub, cpu_sub = self.one_substep(plan, model, cpu_plan, cpu_model, after_warmup)
+        self.versus_f64(f"{what}, one substep", "qacc_smooth", card_sub.qacc_smooth, cpu_sub.qacc_smooth,
+                        sub64.qacc_smooth, ("max",))
+        names = ("qacc", "qacc_eff", "efc_force", "qvel") if self.ts.fused_euler(plan) else ("qacc", "efc_force",
+                                                                                             "qvel")
+        for name in names:
+            self.versus_f64(f"{what}, one substep", name, getattr(card_sub, name), getattr(cpu_sub, name),
+                            getattr(sub64, name), ("median",), gate=gate_solve)
 
     # -----------------------------------------------------------------------
     # rodent under the Newton solver
@@ -1626,9 +1690,9 @@ class Phases:
     # the rest of the physics (phase 11)
     # -----------------------------------------------------------------------
 
-    def fused_kernel_vs_plain(self, op, plain, inputs, what, its, ls, with_euler, gate: bool):
+    def fused_kernel_vs_plain(self, op, plain, inputs, what, its, ls, with_euler, gate: bool, bars=KERNEL_REL):
         """One launch of `op` against `plain` on `inputs`, in float32 and in
-        float64. Every output is held, with `gate`, within KERNEL_REL of the
+        float64. Every output is held, with `gate`, within `bars` of the
         float32 plain version's, and always by the float64 rule: over the
         batch, and per env on the worst and the median env (KERNEL_VS_F64).
         Returns the kernel's outputs and the largest absolute error against
@@ -1639,10 +1703,10 @@ class Phases:
         assert op.launches == before + 1, f"{op.__name__}: the wrapper did not launch the kernel"
         steps = dict(with_euler=with_euler, iterations=its, ls_iterations=ls)
         want = plain(**inputs, **steps)
-        exact = plain(**{k: v.double() for k, v in inputs.items()}, **steps)
+        exact = plain(**{k: (v.double() if isinstance(v, torch.Tensor) else v) for k, v in inputs.items()}, **steps)
         torch.cuda.synchronize()
         max_abs = 0.0
-        for name, bar in KERNEL_REL.items():
+        for name, bar in bars.items():
             a, b, c = getattr(kernel, name), getattr(want, name), getattr(exact, name)
             if name == "qacc_eff" and not with_euler:
                 assert a is None and b is None, "qacc_eff without the Euler solve"
@@ -1654,7 +1718,7 @@ class Phases:
                               KERNEL_VS_F64, KERNEL_F64_FLOOR)
             max_abs = max(max_abs, abs_err)
             print(f"{op.__name__} (with_euler={with_euler}) vs plain on {what} {name}: max rel err {err:.3e} "
-                  f"({'within' if err < bar else 'over'} KERNEL_REL {bar:.0e}{'' if gate else ', not gated here'}), "
+                  f"({'within' if err < bar else 'over'} its bar {bar:.0e}{'' if gate else ', not gated here'}), "
                   f"max abs err {abs_err:.3e}; against float64 plain: kernel {e_kernel:.3e}, float32 plain "
                   f"{e_plain:.3e}; per env, kernel / float32 plain / bar: "
                   + ", ".join(f"{stat} {k:.3e} / {p:.3e} / {bb:.3e}" for stat, (k, p, bb) in held.items()))
@@ -1762,7 +1826,8 @@ class Phases:
     def no_plain_calls(self):
         """Replaces each kernel's plain version by a counting call of itself;
         returns the counts and a function that restores them."""
-        mods = [(self.tk, n) for n in ("cg_solve_plain", "cg_solve_dense_plain", "ell_cg_solve_plain")]
+        mods = [(self.tk, n) for n in ("cg_solve_plain", "cg_solve_dense_plain", "ell_cg_solve_plain",
+                                       "ell_cg_solve_dense_plain")]
         mods += [(self.bl, n) for n in ("cholesky_plain", "cho_solve_plain", "solve_spd_plain")]
         calls = {n: 0 for _, n in mods}
         saved = [(m, n, getattr(m, n)) for m, n in mods]
@@ -1782,12 +1847,14 @@ class Phases:
         return calls, restore
 
     def variant(self, what, snap, per_substep, substep_rel, check=None, data_of=None, contacts=True,
-                f64=False, control_steps=REST_CONTROL_STEPS):
+                f64=False, control_steps=REST_CONTROL_STEPS, ctrl_scale=RODENT_CTRL_SCALE):
         """One path of phase 11 at N_ENVS envs: 1 warm-up and `control_steps`
         timed control steps with exact launches and no plain version, from
         main_path's start or `data_of(plan, model)`; `check` on the plan and
-        final state, then N_CPU envs against the CPU. Returns (env-steps/s,
-        None without timed steps; launches by wrapper)."""
+        final state, then N_CPU envs against the CPU (phase 3's bars
+        `substep_rel`; None: phase 6's against float64, the substep's solve
+        outputs printed only). Returns
+        (env-steps/s, None without timed steps; launches by wrapper)."""
         tm = self.tm
         t0 = time.perf_counter()
         plan, model = tm.put_model(snap, device=self.dev)
@@ -1797,7 +1864,7 @@ class Phases:
         calls, restore = self.no_plain_calls()
         try:
             start, ctrls, after_warmup, data, launches = self.main_path(
-                plan, model, per_substep, control_steps, RODENT_CTRL_SCALE,
+                plan, model, per_substep, control_steps, ctrl_scale,
                 data=None if data_of is None else data_of(plan, model), contacts=contacts)
         finally:
             restore()
@@ -1806,8 +1873,11 @@ class Phases:
             check(plan, data)
         rate = self.last_env_steps
         t1 = time.perf_counter()
-        self.versus_cpu(f"{what}: ", snap, plan, model, start, ctrls, after_warmup, STEP_REL, substep_rel, f64,
-                        qpos_by_f64=what in QPOS_BY_F64)
+        if substep_rel is None:
+            self.fly_versus_cpu(what, snap, plan, model, start, ctrls, after_warmup, gate_solve=False)
+        else:
+            self.versus_cpu(f"{what}: ", snap, plan, model, start, ctrls, after_warmup, STEP_REL, substep_rel, f64,
+                            qpos_by_f64=what in QPOS_BY_F64)
         print(f"{what}: {t1 - t0:.1f} s on the card, {time.perf_counter() - t1:.1f} s against the CPU")
         return rate, launches
 
@@ -1830,6 +1900,22 @@ class Phases:
             qpos[:, a : a + 4] = qpos[:, a : a + 4] / qpos[:, a : a + 4].norm(dim=1, keepdim=True)
         return data.replace(qpos=qpos, qvel=self.uniform((N_ENVS, plan.nv), -0.3, 0.3))
 
+    def per_substep(self, **counts):
+        """Launches per substep of every kernel wrapper: `counts` by name, 0
+        for the others."""
+        tk, bl = self.tk, self.bl
+        wrappers = (tk.cg_solve, tk.cg_solve_dense, tk.ell_cg_solve, tk.ell_cg_solve_dense, bl.cholesky,
+                    bl.cho_solve, bl.solve_spd)
+        return {op: counts.get(op.__name__, 0) for op in wrappers}
+
+    def check_frictionloss(self, plan, data):
+        floss = torch.as_tensor(FRICTIONLOSS, device=self.dev)
+        force = data.efc_force[:, plan.ne : plan.ne + plan.nf].abs()
+        clamped = float((force >= floss * (1 - 1e-6)).float().mean())
+        print(f"frictionloss {FRICTIONLOSS} on {plan.nf} hinge dofs: at the last control step {clamped:.4f} of "
+              f"the rows clamped at +-frictionloss, {1 - clamped:.4f} in the quadratic zone")
+        assert 0 < clamped < 1, "the frictionloss rows must sit in both zones"
+
     def rest_of_physics(self) -> tuple[dict, dict, dict]:
         """Phase 11; returns the dense kernel's record, the no-Euler mode's
         numbers and the launches of every path by wrapper name."""
@@ -1839,11 +1925,7 @@ class Phases:
         dense = self.dense_kernel(mplan, mmodel)
         del mplan, mmodel
 
-        wrappers = (tk.cg_solve, tk.cg_solve_dense, tk.ell_cg_solve, bl.cholesky, bl.cho_solve, bl.solve_spd)
-
-        def per(**counts):
-            return {op: counts.get(op.__name__, 0) for op in wrappers}
-
+        per = self.per_substep
         def rodent(integrator=None):
             snap = tm.load_snapshot("rodent-full-clips")
             if integrator is not None:
@@ -1860,14 +1942,6 @@ class Phases:
                   f"contacts by condim at the last control step {active}")
             assert min(active.values()) > 0, "a condim has no active contact"
 
-        def check_frictionloss(plan, data):
-            floss = torch.as_tensor(FRICTIONLOSS, device=self.dev)
-            force = data.efc_force[:, plan.ne : plan.ne + plan.nf].abs()
-            clamped = float((force >= floss * (1 - 1e-6)).float().mean())
-            print(f"frictionloss {FRICTIONLOSS} on {plan.nf} hinge dofs: at the last control step {clamped:.4f} of "
-                  f"the rows clamped at +-frictionloss, {1 - clamped:.4f} in the quadratic zone")
-            assert 0 < clamped < 1, "the frictionloss rows must sit in both zones"
-
         its = 5
         paths = {
             "rodent RK4": (rodent(tm.INT_RK4), per(cg_solve=4), REST_SUBSTEP_REL, None),
@@ -1877,7 +1951,7 @@ class Phases:
             "rodent mixed condims": (mixed_condim(rodent()), per(cg_solve_dense=1), SUBSTEP_REL, check_mixed),
             "rodent frictionloss": (with_frictionloss(rodent(), FRICTIONLOSS),
                                     per(cholesky=1, cho_solve=2 + its, solve_spd=1), REST_SUBSTEP_REL,
-                                    check_frictionloss),
+                                    self.check_frictionloss),
         }
         rates, launches = {}, {}
         for what, (snap, per_substep, substep_rel, check) in paths.items():
@@ -1897,6 +1971,146 @@ class Phases:
                 continue
             print(f"{what}: {rate:.1f} env-steps/s against the Euler rodent's {self.physics_env_steps:.1f} "
                   f"(phase 3), {rate / self.physics_env_steps:.3f}x ({self.card})")
+        return dense, no_euler, launches
+
+
+    # -----------------------------------------------------------------------
+    # the fly's remainder (phase 11b): elliptic plans off the compact layout
+    # -----------------------------------------------------------------------
+
+    def ell_no_euler_kernel(self) -> dict:
+        """The compact ell_cg_solve without the Euler solve (the fly on RK4 and
+        the implicit integrators) on phase 5's states: at 1/0 within
+        FLY_KERNEL_REL and by the float64 rule, its four outputs at 1/0 and
+        at 4/4 bitwise phase 5's launches with the Euler solve; timed."""
+        tk, tm = self.tk, self.tm
+        plan, _ = tm.put_model(tm.load_snapshot("fly-mc-intention"), device=self.dev)
+        its, ls = plan.iterations, plan.ls_iterations
+        inputs, euler1, euler = self.phase5
+        del self.phase5
+        bare1, max_abs = self.fused_kernel_vs_plain(tk.ell_cg_solve, tk.ell_cg_solve_plain, inputs,
+                                                    "phase 5's fly states at 1/0", 1, 0, False, gate=True,
+                                                    bars=FLY_KERNEL_REL)
+        bare = tk.ell_cg_solve(**inputs, with_euler=False, iterations=its, ls_iterations=ls)
+        for name in ("qacc_smooth", "qacc", "efc_force", "qfrc_constraint"):
+            for got, want, cfg in ((bare1, euler1, "1/0"), (bare, euler, f"{its}/{ls}")):
+                assert torch.equal(getattr(got, name), getattr(want, name)), (
+                    f"ell_cg_solve without the Euler solve at {cfg}: {name} is not phase 5's")
+        print(f"ell_cg_solve (with_euler=False) on phase 5's states at 1/0 and {its}/{ls}: qacc_smooth, qacc, "
+              "efc_force and qfrc_constraint bitwise those of phase 5's launches with the Euler solve")
+        nl, nc = inputs["lim1h"].shape[0], inputs["fq"].shape[1]
+        nbytes = tensor_bytes([v for k, v in inputs.items() if k != "hd"] + [t for t in bare if t is not None])
+        ms, plain_ms, b_ms, b_by = self.time_fused(
+            tk.ell_cg_solve, tk.ell_cg_solve_plain, inputs, its, ls, False, nbytes,
+            solve_flops(plan.nv, nl, nc, 3, its, ls, with_euler=False))
+        return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": max_abs}
+
+    def ell_dense_kernel(self, plan, model) -> dict:
+        """ell_cg_solve_dense against its plain version on 4096 contact-rich
+        states of the fly with a condim-1 leg (fly_states), with and without
+        the Euler solve: at 1/0 within FLY_KERNEL_REL and by the float64
+        rule, at 4/4 by the optimality gap; registers, shared memory and
+        CTAs per SM; timed, with its bound (the dense J counted as B x nefc x
+        nv x 4 bytes of input)."""
+        tk, tm = self.tk, self.tm
+        from track_mjx_tpu_torch.ops import kernel_lib
+
+        its, ls = plan.iterations, plan.ls_iterations
+        inputs = self.fly_states(plan, model, dense=True)
+        ns, e = inputs["ns"], inputs["J"].shape[1]
+        nc = (e - ns) // 3
+        cd1 = inputs["J"][:, plan.nlimit : ns].abs().sum(-1) > 0  # a condim-1 row is zero unless active
+        print(f"{N_ENVS} fly condim-1 states: nefc {e} (ns {ns}, {nc} cone blocks), condim-1 rows {ns - plan.nlimit},"
+              f" active on {int(cd1.any(dim=1).sum())} envs")
+        assert bool(cd1.any()), "no condim-1 row is active"
+        max_abs = 0.0
+        for we in (True, False):
+            max_abs = max(max_abs, self.fused_kernel_vs_plain(
+                tk.ell_cg_solve_dense, tk.ell_cg_solve_dense_plain, inputs, "fly condim-1 states at 1/0", 1, 0, we,
+                gate=True, bars=FLY_KERNEL_REL)[1])
+        kernel = tk.ell_cg_solve_dense(**inputs, with_euler=True, iterations=its, ls_iterations=ls)
+        plain = self.ell_plain(inputs, its, ls)
+        for name in FLY_KERNEL_REL:
+            assert torch.isfinite(getattr(kernel, name)).all(), f"ell_cg_solve_dense {name} not finite"
+        err = _rel(kernel.qacc_smooth, plain.qacc_smooth)
+        assert err < FLY_KERNEL_REL["qacc_smooth"], f"ell_cg_solve_dense qacc_smooth disagrees with plain: {err:.3e}"
+        self.gap_check(inputs, kernel.qacc, plain.qacc, ns, f"ell_cg_solve_dense vs plain, {its}/{ls}")
+        del plain
+        info = (ctypes.c_int * 4)()
+        err = kernel_lib.load_library().ell_cg_solve_dense_kernel_info(plan.nv, ns, nc, info)
+        assert err == 0, f"ell_cg_solve_dense_kernel_info failed with cudaError {err}"
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        print(f"ell_cg_solve_dense kernel at n={plan.nv}, ns={ns}, nc={nc}: {info[3]} threads per CTA (one env), "
+              f"{info[0]} registers per thread, {info[1]} B of shared memory per CTA, {info[2]} resident CTAs per "
+              f"SM, {-(-N_ENVS // (info[2] * sms))} waves of {N_ENVS} envs on {sms} SMs ({self.card})")
+        times = {}
+        for we in (True, False):
+            out = tk.ell_cg_solve_dense(**inputs, with_euler=we, iterations=its, ls_iterations=ls)
+            used = [v for k, v in inputs.items() if isinstance(v, torch.Tensor) and (we or k != "hd")]
+            times[we] = self.time_fused(tk.ell_cg_solve_dense, tk.ell_cg_solve_dense_plain, inputs, its, ls, we,
+                                        tensor_bytes(used + [t for t in out if t is not None]),
+                                        solve_flops(plan.nv, ns, nc, 3, its, ls, dense_rows=e, with_euler=we))
+        ms, plain_ms, b_ms, b_by = times[True]
+        return {
+            "name": "ell_cg_solve_dense",
+            "route": "cuda",
+            "source": "track_mjx_tpu_torch/csrc/ell_cg_solve.cu",
+            "replaces": "track_mjx_tpu/ops/cg_solver_kernel.py:758",
+            "launches": None,
+            "max_abs_err": max_abs,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,  # no single PyTorch call computes the fused solve
+            "no_euler": dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"), times[False])),
+        }
+
+    def fly_remainder(self) -> tuple[dict, dict, dict]:
+        """Phase 11b; returns ell_cg_solve_dense's record, the no-Euler
+        ell_cg_solve's numbers and the launches of every path by wrapper
+        name."""
+        tm = self.tm
+        no_euler = self.ell_no_euler_kernel()
+        plan, model = tm.put_model(fly_condim1(tm.load_snapshot("fly-mc-intention")), device=self.dev)
+        dense = self.ell_dense_kernel(plan, model)
+        del plan, model
+        per = self.per_substep
+
+        def fly(edit=None):
+            snap = tm.load_snapshot("fly-mc-intention")
+            return snap if edit is None else edit(snap)
+
+        def rk4(snap):
+            snap.opt.integrator = tm.INT_RK4
+            return snap
+
+        def check_condim1(plan, data):
+            cd1 = torch.as_tensor(plan.contact_condim == 1, device=self.dev)
+            active = int((data.contact_dist[:, cd1] < 0).sum())
+            print(f"fly condim 1: nefc {plan.nefc} (ns {plan.nefc - 3 * plan.ncon_ell}, {plan.ncon_ell} cone blocks),"
+                  f" active condim-1 contacts at the last control step {active} of {N_ENVS} x {int(cd1.sum())} slots")
+            assert active > 0, "no condim-1 contact is active"
+
+        def check_frictionloss(plan, data):
+            assert plan.nf == plan.nv - 6 and plan.ncon_ell == plan.ncon
+            self.check_frictionloss(plan, data)
+
+        its = 4
+        paths = {
+            "fly condim 1": (fly(fly_condim1), per(ell_cg_solve_dense=1), check_condim1),
+            "fly RK4": (fly(rk4), per(ell_cg_solve=4), None),
+            "fly frictionloss": (fly(lambda s: with_frictionloss(s, FRICTIONLOSS)),
+                                 per(cholesky=1, cho_solve=2 + its, solve_spd=1), check_frictionloss),
+        }
+        rates, launches = {}, {}
+        for what, (snap, per_substep, check) in paths.items():
+            assert snap.opt.iterations == its
+            rates[what], launches[what] = self.variant(what, snap, per_substep, None, check,
+                                                       ctrl_scale=FLY_CTRL_SCALE)
+        for what, rate in rates.items():
+            print(f"{what}: {rate:.1f} env-steps/s against the fly's {self.fly_env_steps:.1f} (phase 6), "
+                  f"{rate / self.fly_env_steps:.3f}x ({self.card})")
         return dense, no_euler, launches
 
 
@@ -1939,6 +2153,11 @@ def main() -> None:
     dense, no_euler, rest_launches = timed("11 rest of physics", phases.rest_of_physics)
     dense["launches"] = rest_launches["rodent mixed condims"]["cg_solve_dense"]
     kernels.append(dense)
+    ell_dense, ell_no_euler, fly_launches = timed("11b fly remainder", phases.fly_remainder)
+    ell_dense["launches"] = fly_launches["fly condim 1"]["ell_cg_solve_dense"]
+    kernels.append(ell_dense)
+    rest_launches = {f"{k} control steps (phase 11)": v for k, v in rest_launches.items()}
+    rest_launches.update({f"{k} control steps (phase 11b)": v for k, v in fly_launches.items()})
     kernels += timed("12 standalone linalg", phases.newton_kernels, *newton)
     for k in kernels:  # each kernel's launches on every path that runs it, as counted there
         if k["name"] == "cg_solve":
@@ -1948,15 +2167,16 @@ def main() -> None:
                                      "rodent training, train.main (phase 8)": training_launches,
                                      "rodent LSTM training, train.main (phase 10)": lstm_training_launches}
         elif k["name"] == "ell_cg_solve":
+            k["no_euler"] = ell_no_euler
             k["launches_by_path"] = {"fly control steps (phase 6)": k["launches"],
                                      "fly training, train.main (phase 9)": fly_training_launches}
-        elif k["name"] == "cg_solve_dense":
+        elif k["name"] in ("cg_solve_dense", "ell_cg_solve_dense"):
             k["launches_by_path"] = {}
         else:
             k["launches_by_path"] = {"rodent Newton control steps (phase 7)": k["launches"]}
         for path, counts in rest_launches.items():
             if counts.get(k["name"]):
-                k["launches_by_path"][f"{path} control steps (phase 11)"] = counts[k["name"]]
+                k["launches_by_path"][path] = counts[k["name"]]
     print("seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
           + f"; total since start {time.perf_counter() - T_START:.1f} s")
     print(card)

@@ -1,10 +1,10 @@
 """Condim-1, -4 and -6 contacts through the port: the rows and trajectory of
 tests/test_physics_parity.py's CONDIM_XML (a condim-6 and a condim-4
 sphere spinning and rolling on a plane, pyramidal) against the JAX package
-and MuJoCo C; the dense-J fused solve's plain version against the JAX
+and MuJoCo C; and the dense-J fused solve's plain version against the JAX
 package's dense-J TPU kernel in the Pallas interpreter, on the rodent with
-mixed condims; and the errors of what stays out (elliptic plans off their
-compact layout).
+mixed condims. Elliptic plans off their compact layout are
+tests/test_torch_elliptic.py's.
 
 The kernel comparison feeds one mixed-condim rodent forward of the port
 (4 contact-rich envs) to both, as numpy arrays: no JAX rodent jit."""
@@ -27,7 +27,6 @@ from track_mjx_tpu.physics import model as jm
 from track_mjx_tpu.physics import sensors as jsens
 from track_mjx_tpu.physics import solver as jsolver
 from track_mjx_tpu_torch.ops import cg_solver_kernel as tk
-from track_mjx_tpu_torch.physics import constraint as tc
 from track_mjx_tpu_torch.physics import forward as tf
 from track_mjx_tpu_torch.physics import model as tm
 from track_mjx_tpu_torch.physics import solver as tsolver
@@ -249,45 +248,3 @@ def test_dense_plain_matches_the_reference_unfused_cg(mixed):
     eff = bl.solve_spd_plain(qm + torch.diag_embed(a["hd"]), a["qfrc_smooth"] + qfrc)
     for name, want in zip(OUTS, (smooth, x, force, qfrc, eff)):
         assert_close(name, getattr(got, name), want, SOLVE_REL[name])
-
-
-# ---------------------------------------------------------------------------
-# what stays out
-# ---------------------------------------------------------------------------
-
-
-def _fly(edit):
-    tf.set_full_f32()
-    snap = tm.load_snapshot("fly-mc-intention")
-    edit(snap)
-    plan, model = tm.put_model(snap, device="cpu")
-    return plan, model
-
-
-def _condim1_fly(snap):
-    """The floor and one leg geom at condim 1: that pair's contacts are
-    condim-1 rows beside the other contacts' cone blocks."""
-    condim = np.array(snap.geom_condim).copy()
-    condim[[0, 79]] = 1
-    snap.geom_condim = condim
-
-
-def _frictionloss_fly(snap):
-    with_floss = np.array(snap.dof_frictionloss).copy()
-    with_floss[6:] = 0.01
-    snap.dof_frictionloss = with_floss
-
-
-@pytest.mark.parametrize("edit", (_condim1_fly, _frictionloss_fly), ids=("condim1", "frictionloss"))
-def test_elliptic_off_the_compact_layout_raises(edit):
-    """Elliptic plans with condim-1 contacts or with frictionloss (or
-    equality) rows raise, from forward and from solve, naming ROADMAP's
-    slice 11."""
-    plan, model = _fly(edit)
-    assert plan.ncon_ell > 0 and not tc._jb_supported_ell(plan)
-    d = tm.make_data(plan, model, 1)
-    with pytest.raises(NotImplementedError, match="slice 11") as err:
-        tf.forward(plan, model, d)
-    assert str(err.value) == tc.ELLIPTIC_SLICE_11
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        tsolver.solve(plan, model, d, None)

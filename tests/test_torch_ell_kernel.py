@@ -343,6 +343,25 @@ def test_limit_lists_hold_each_limit_row_once(fly):
     assert all(rows == sorted(rows) for rows in j.rows_of)
 
 
+def test_dense_wrapper_checks_its_rows():
+    """ell_cg_solve_dense takes J [B, ns + 3 nc, n] with nc from mu; a J of
+    another row count, or no rows at all, is refused on any device; on the
+    CPU it runs the plain version, with and without the Euler solve."""
+    a = {k: torch.zeros(s) for k, s in dict(
+        buf=(1, 4, 6), cdof=(1, 4, 6), J=(1, 2 + 3, 4), aref=(1, 5), D=(1, 5), mu=(1, 1), qfrc_smooth=(1, 4),
+        warm=(1, 4), hd=(1, 4), tolscale=(1,), anc=(4, 4), arm=(4,)).items()}
+    a["anc"] = torch.eye(4)
+    a["arm"] = torch.ones(4)
+    for we in (True, False):
+        out = tk.ell_cg_solve_dense(**a, ns=2, with_euler=we, iterations=1, ls_iterations=0)
+        assert (out.qacc_eff is None) != we and torch.isfinite(out.qacc).all()
+    with pytest.raises(ValueError, match="J shape"):
+        tk.ell_cg_solve_dense(**a, ns=3, with_euler=True, iterations=1, ls_iterations=0)
+    with pytest.raises(ValueError, match="row counts"):
+        tk.ell_cg_solve_dense(**dict(a, mu=torch.zeros(1, 0), J=torch.zeros(1, 0, 4), aref=torch.zeros(1, 0),
+                                     D=torch.zeros(1, 0)), ns=0, with_euler=True, iterations=1, ls_iterations=0)
+
+
 @pytest.mark.parametrize("op", ("ell_cg_solve", "cho_solve"))
 def test_wrappers_raise_above_the_tiled_range(op):
     """Both kernels keep their factor in the tiles, n <= MAX_N; the check
@@ -429,6 +448,135 @@ def test_cuda_ell_kernel_info():
     assert info[0] > 0 and info[1] == lib.ell_cg_solve_smem_bytes(42, 36, 27) and info[2] >= 1
     assert info[3] in (64, 128)
     assert lib.ell_cg_solve_kernel_info(bl.MAX_N + 1, 0, 0, info) != 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ("fly", "nl0"))
+def test_cuda_ell_kernel_without_euler_keeps_its_bits(card_fly, name):
+    """Without the Euler solve (RK4 and implicit plans) the compact kernel
+    writes no qacc_eff, and its other four outputs are the with-Euler
+    launch's bit for bit, at 1/0 and at the fly's 4/4."""
+    a = _cut(card_fly, **CUTS[name])
+    for its, ls in ((1, 0), card_fly["its"]):
+        bare = tk.ell_cg_solve(**a, iterations=its, ls_iterations=ls, with_euler=False)
+        full = tk.ell_cg_solve(**a, iterations=its, ls_iterations=ls)
+        torch.cuda.synchronize()
+        assert bare.qacc_eff is None
+        for out in OUTS[:4]:
+            assert torch.equal(getattr(bare, out), getattr(full, out)), (out, its, ls)
+
+
+@pytest.fixture(scope="module")
+def card_fly_dense():
+    """ell_cg_solve_dense's inputs on 4096 contact-rich states of the fly with
+    a condim-1 leg (chip_smoke.py's generator and edit, seed 0)."""
+    _needs_cuda()
+    import chip_smoke
+    from track_mjx_tpu_torch.physics import forward as tf
+    from track_mjx_tpu_torch.physics import model as tm
+
+    tf.set_full_f32()
+    plan, model = tm.put_model(chip_smoke.fly_condim1(tm.load_snapshot("fly-mc-intention")), device="cuda")
+    a = chip_smoke.Phases("", device="cuda").fly_states(plan, model, dense=True)
+    return dict(a, its=(plan.iterations, plan.ls_iterations))
+
+
+def _cut_dense(a: dict, n: int | None = None, ns: int | None = None, nc: int | None = None) -> dict:
+    """ell_cg_solve_dense's inputs with the first n dofs, the first ns scalar
+    rows and the first nc cone blocks."""
+    ns0 = a["ns"]
+    nc0 = a["mu"].shape[1]
+    n = a["qfrc_smooth"].shape[1] if n is None else n
+    ns = ns0 if ns is None else ns
+    nc = nc0 if nc is None else nc
+    rows = torch.cat([torch.arange(ns), ns0 + torch.arange(3 * nc)]).to(a["J"].device)
+    out = dict(
+        buf=a["buf"][:, :n], cdof=a["cdof"][:, :n], J=a["J"][:, rows][:, :, :n], aref=a["aref"][:, rows],
+        D=a["D"][:, rows], mu=a["mu"][:, :nc], qfrc_smooth=a["qfrc_smooth"][:, :n], warm=a["warm"][:, :n],
+        hd=a["hd"][:, :n], tolscale=a["tolscale"], anc=a["anc"][:n, :n], arm=a["arm"][:n],
+    )
+    return dict({k: v.contiguous() for k, v in out.items()}, ns=ns)
+
+
+DENSE_CUTS = {"fly": {}, "ns0": dict(ns=0), "nc0": dict(nc=0), "n13": dict(n=13)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_euler", (True, False), ids=("euler", "no_euler"))
+@pytest.mark.parametrize("bsz", (4096, 4095))
+@pytest.mark.parametrize("name", list(DENSE_CUTS))
+def test_cuda_ell_dense_kernel_matches_plain(card_fly_dense, name, bsz, with_euler):
+    """The dense-J kernel against its plain version on the card at 1/0
+    (chip_smoke.py's FLY_KERNEL_REL), with and without the Euler solve, on
+    the fly condim-1 plan's dims and the edge dims (no scalar rows, no cone
+    blocks, n = 13), a full and a ragged batch; at the fly's 4/4 every
+    output finite and qacc_smooth at its bar; without Euler the four outputs
+    are the with-Euler launch's bit for bit."""
+    import chip_smoke
+
+    a = _cut_dense(card_fly_dense, **DENSE_CUTS[name])
+    a = {k: (v[:bsz].contiguous() if isinstance(v, torch.Tensor) and v.dim() and v.shape[0] == 4096 else v)
+         for k, v in a.items()}
+    before = tk.ell_cg_solve_dense.launches
+    got = tk.ell_cg_solve_dense(**a, with_euler=with_euler, iterations=1, ls_iterations=0)
+    torch.cuda.synchronize()
+    assert tk.ell_cg_solve_dense.launches == before + 1
+    want = tk.ell_cg_solve_dense_plain(**a, with_euler=with_euler, iterations=1, ls_iterations=0)
+    for out, bar in chip_smoke.FLY_KERNEL_REL.items():
+        if out == "qacc_eff" and not with_euler:
+            assert got.qacc_eff is None and want.qacc_eff is None
+            continue
+        err = rel_err(getattr(got, out).cpu(), getattr(want, out).cpu())
+        print(f"ell_cg_solve_dense vs plain, {name}, {bsz} envs, 1/0, with_euler={with_euler}, {out}: {err:.3e}")
+        assert err < bar, f"{out}: rel err {err:.3e} >= {bar:.0e}"
+    its, ls = card_fly_dense["its"]
+    got = tk.ell_cg_solve_dense(**a, with_euler=with_euler, iterations=its, ls_iterations=ls)
+    want = tk.ell_cg_solve_dense_plain(**a, with_euler=with_euler, iterations=its, ls_iterations=ls)
+    for out in OUTS[: 5 if with_euler else 4]:
+        assert torch.isfinite(getattr(got, out)).all(), out
+    assert rel_err(got.qacc_smooth.cpu(), want.qacc_smooth.cpu()) < chip_smoke.FLY_KERNEL_REL["qacc_smooth"]
+    if not with_euler:
+        full = tk.ell_cg_solve_dense(**a, with_euler=True, iterations=its, ls_iterations=ls)
+        for out in OUTS[:4]:
+            assert torch.equal(getattr(got, out), getattr(full, out)), out
+
+
+@pytest.mark.cuda
+def test_cuda_ell_dense_kernel_on_the_compact_rows(card_fly):
+    """The dense-J kernel given the compact plan's own J (build_j_ell, ns =
+    the limit rows) solves as the compact kernel does, at 1/0 within
+    FLY_KERNEL_REL."""
+    import chip_smoke
+
+    a = _cut(card_fly)
+    j = tk.build_j_ell(a["fq"], a["sw"], a["ll"], a["dm"], a["lim1h"]).contiguous()
+    dense = {k: a[k] for k in ("buf", "cdof", "aref", "D", "mu", "qfrc_smooth", "warm", "hd", "tolscale", "anc",
+                               "arm")}
+    got = tk.ell_cg_solve_dense(**dense, J=j, ns=a["lim1h"].shape[0], with_euler=True, iterations=1,
+                                ls_iterations=0)
+    want = tk.ell_cg_solve(**a, iterations=1, ls_iterations=0)
+    torch.cuda.synchronize()
+    for out, bar in chip_smoke.FLY_KERNEL_REL.items():
+        err = rel_err(getattr(got, out).cpu(), getattr(want, out).cpu())
+        assert err < bar, f"{out}: rel err {err:.3e} >= {bar:.0e}"
+
+
+@pytest.mark.cuda
+def test_cuda_ell_dense_kernel_info():
+    """Registers, shared memory, CTAs per SM and threads of the dense-J
+    kernel as built, at the fly condim-1 plan's sizes (n 42, 38 scalar rows,
+    25 cone blocks); n > MAX_N refused."""
+    _needs_cuda()
+    import ctypes
+
+    from track_mjx_tpu_torch.ops import kernel_lib
+
+    lib = kernel_lib.load_library()
+    info = (ctypes.c_int * 4)()
+    assert lib.ell_cg_solve_dense_kernel_info(42, 38, 25, info) == 0
+    assert info[0] > 0 and info[1] == lib.ell_cg_solve_dense_smem_bytes(42, 38, 25) and info[2] >= 1
+    assert info[3] in (64, 128)
+    assert lib.ell_cg_solve_dense_kernel_info(bl.MAX_N + 1, 0, 1, info) != 0
 
 
 @pytest.mark.cuda

@@ -93,11 +93,13 @@ def contact_rich_fly_states(m, n_envs: int, seed: int):
     return tuple(np.asarray(a, np.float32) for a in (qpos, qvel, ctrl, warm))
 
 
-def ell_objective_f64(qm, j, aref, d, mu, smooth, x, nl: int):
+def ell_objective_f64(qm, j, aref, d, mu, smooth, x, nl: int, fmin=None, fmax=None):
     """Per-env objective of the elliptic solve in float64: 0.5 dx M dx plus
-    the limit rows' and the cone blocks' costs, with dx = x - smooth.
+    the scalar rows' and the cone blocks' costs, with dx = x - smooth.
     qm [B, n, n], j [B, e, n], aref and d [B, e], mu [B, nc] (mu_1 /
-    sqrt(impratio)), smooth and x [B, n]."""
+    sqrt(impratio)), smooth and x [B, n]; the first nl rows are scalar rows,
+    unilateral, or bounded by fmin and fmax [e] where given (quadratic
+    inside the force box, linear outside)."""
     qm, j, aref, d, mu, smooth, x = (
         np.asarray(t, np.float64) for t in (qm, j, aref, d, mu, smooth, x)
     )
@@ -106,7 +108,14 @@ def ell_objective_f64(qm, j, aref, d, mu, smooth, x, nl: int):
     jar = np.einsum("ben,bn->be", j, x) - aref
     jar_s, u = jar[:, :nl], jar[:, nl:].reshape(bsz, -1, 3)
     d_s, d_b = d[:, :nl], d[:, nl:].reshape(bsz, -1, 3)
-    cs = 0.5 * np.where(jar_s < 0, d_s * jar_s**2, 0.0).sum(1)
+    if fmin is None:
+        cs = 0.5 * np.where(jar_s < 0, d_s * jar_s**2, 0.0).sum(1)
+    else:
+        lo, hi = (np.asarray(t, np.float64)[:nl] for t in (fmin, fmax))
+        f_un = -d_s * jar_s
+        f = np.clip(f_un, lo, hi)
+        quad = (f_un > lo) & (f_un < hi)
+        cs = np.where(quad, 0.5 * d_s * jar_s**2, -f * jar_s - 0.5 * f * f / np.maximum(d_s, 1e-12)).sum(1)
     p = -np.sqrt(d_b) * u
     t = np.sqrt(np.maximum(p[..., 1] ** 2 + p[..., 2] ** 2, 1e-24))
     bottom = mu * p[..., 0] >= t

@@ -108,12 +108,13 @@ def _load_kernel_lib(root: str, name: str):
 
 def _ptxas(log: str, kernel: str) -> dict:
     """Registers, stack frame and spill bytes of the entry function whose
-    name holds `kernel` (and not a longer name ending in it), from nvcc's
-    -Xptxas -v output."""
+    name holds `kernel` (and not a longer name ending in it; of a template
+    kernel, its instance with the template argument false, the compact
+    mode), from nvcc's -Xptxas -v output."""
     lines = log.splitlines()
     for k, line in enumerate(lines):
         m = re.search(r"Compiling entry function '([^']+)'", line)
-        if m and re.search(rf"\d{kernel}E", m.group(1)):
+        if m and re.search(rf"\d{kernel}(?:E|ILb0EE)", m.group(1)):
             out = {}
             for later in lines[k + 1 : k + 5]:
                 r = re.search(r"Used (\d+) registers", later)

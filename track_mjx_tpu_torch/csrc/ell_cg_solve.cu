@@ -76,11 +76,31 @@
 //   at 64 threads ran 18% slower than 8 on an NVIDIA H100 (PERF.md, Findings).
 // What is left is in PERF.md (Findings).
 //
-// C interface (bound with ctypes): ell_cg_solve_f32 launches on the given
-// stream and returns cudaGetLastError() (cudaErrorInvalidValue for n > 128);
-// ell_cg_solve_smem_bytes gives the dynamic shared memory one CTA needs;
-// ell_cg_solve_kernel_info its registers, shared memory, resident CTAs per
-// SM and threads; ell_cg_solve_stamps the phase stamps of a build with
+// Two modes of the TPU kernel's that the compact layout cannot take:
+// - the dense mode (ell_cg_solve_dense_f32, kDense) replaces _ell_cg_kernel
+//   with jb=None: J is a dense [e][n] array per env, e = ns + 3 nc, its
+//   first ns rows unilateral scalar rows of any content (limits and
+//   condim-1 contacts), then the cone blocks (elliptic plans with condim-1
+//   contacts beside the cone blocks: the fly with a condim-1 leg, 113 rows).
+//   J is copied whole into shared memory where jfr lies, each row js = n | 1
+//   floats apart, so that a warp's rows (J x) or columns (J^T f) fall in
+//   distinct banks; buf and cdof are staged in L's region instead. A thread
+//   still takes a scalar row or a whole cone block in the row passes; J x
+//   sums each row in increasing d, J^T f each column in row order. The
+//   per-dof limit lists do not apply. Everything else is the compact
+//   mode's code. About 33.5 KB of shared memory per env at the fly's 113
+//   rows (6 CTAs per SM against the compact mode's 8).
+// - with_euler = 0 (plans on RK4 or an implicit integrator, as the TPU
+//   kernel's hd=None), in both modes: no factor of M + diag(hd), no
+//   qacc_eff; the other four outputs are the with-Euler launch's bits.
+//
+// C interface (bound with ctypes): ell_cg_solve_f32 and
+// ell_cg_solve_dense_f32 launch on the given stream and return
+// cudaGetLastError() (cudaErrorInvalidValue for n > 128);
+// ell_cg_solve_smem_bytes and ell_cg_solve_dense_smem_bytes give the dynamic
+// shared memory one CTA needs; ell_cg_solve_kernel_info and
+// ell_cg_solve_dense_kernel_info its registers, shared memory, resident CTAs
+// per SM and threads; ell_cg_solve_stamps the phase stamps of a build with
 // CG_SOLVE_STAMPS.
 
 #include <cfloat>
@@ -129,14 +149,16 @@ __device__ unsigned long long g_stamps[kStamps];
 // Shared memory, in floats, each section a multiple of 16 B: M's tiles; L's
 // tiles (before the factor, the staged sw and fq); jfr (before it, the
 // staged buf, cdof and lim1h); 6 row vectors; the limit-row tables; mu and
-// 1 + mu^2; 10 dof vectors; the reductions' two buffers and one flag.
+// 1 + mu^2; 10 dof vectors; the reductions' two buffers and one flag. The
+// dense mode (nl = ns scalar rows) keeps J where jfr lies, each row js
+// floats apart, and stages buf and cdof in L's region.
 struct Layout {
   int tiles, lreg, jfr, js, rows, lim, dofs, cons, total;
-  __host__ __device__ Layout(int n, int nl, int nc) {
+  __host__ __device__ Layout(int n, int nl, int nc, bool dense = false) {
     tiles = (int)tiles_floats(n);
-    lreg = max(tiles, up4(6 * n + 18 * nc));
-    js = n | 1;  // odd: neighbouring contacts' rows in distinct banks
-    jfr = up4(max(3 * nc * js, 12 * n + nl * n));
+    lreg = max(tiles, up4(dense ? 12 * n : 6 * n + 18 * nc));
+    js = n | 1;  // odd: neighbouring contacts' (dense: rows') rows in distinct banks
+    jfr = dense ? up4((nl + 3 * nc) * js) : up4(max(3 * nc * js, 12 * n + nl * n));
     rows = up4(nl + 3 * nc);
     lim = up4(nl);
     dofs = up4(n);
@@ -193,11 +215,14 @@ __device__ __forceinline__ float cone_cost(const Zone& z, float mu, float mu2p1)
   return quad - 0.5f * g * g / mu2p1;
 }
 
-// One env's operands in shared memory. An item k < nl + nc is limit row k
+// One env's operands in shared memory. An item k < nl + nc is scalar row k
 // (k < nl) or the cone block of contact k - nl, rows nl + 3 (k - nl) + 0..2.
+// Compact: the scalar rows are limit rows, J the limit tables and jfr;
+// kDense: J is dense, jfr its rows js apart, the limit tables unused.
+template <bool kDense>
 struct Env {
   Tiles M;
-  const float* jfr;    // [nc][3][js]: jfr0, jfr1, jfr2 of each contact
+  const float* jfr;    // [nc][3][js]: jfr0, jfr1, jfr2 of each contact (kDense: [nl + 3 nc][js])
   const float *D, *sq, *mu, *mu2p1;
   const int* ldof;     // limit row -> its dof
   const float* lval;   // limit row -> its J value
@@ -237,11 +262,16 @@ struct Env {
   __device__ __forceinline__ void j_item(const float* x, const float* sub, int k, float* out) const {
     if (k < nl) {
       float s = 0.f;
-      s += lval[k] * x[ldof[k]];
+      if constexpr (kDense) {
+        const float* row = jfr + k * js;
+        for (int d = 0; d < n; ++d) s += row[d] * x[d];
+      } else {
+        s += lval[k] * x[ldof[k]];
+      }
       out[k] = sub ? s - sub[k] : s;
     } else {
       const int c = k - nl, r = nl + 3 * c;
-      const float* j0 = jfr + 3 * c * js;
+      const float* j0 = jfr + (kDense ? r : 3 * c) * js;
       float s0 = 0.f, s1 = 0.f, s2 = 0.f;
       for (int d = 0; d < n; ++d) {
         s0 += j0[d] * x[d];
@@ -255,21 +285,26 @@ struct Env {
   }
 
   // base[d] - (J^T f)[d] (base may be null: (J^T f)[d]): d's limit rows in
-  // row order, then every contact's three rows in order.
+  // row order, then every contact's three rows in order (kDense: every row
+  // in order).
   __device__ __forceinline__ float jt_col(const float* f, const float* base, int d) const {
     float s = 0.f;
-    for (int r = lfirst[d]; r >= 0; r = lnext[r]) s += lval[r] * f[r];
-    for (int c = 0; c < nc; ++c) {
-      const float* j0 = jfr + 3 * c * js + d;
-      const float* fr = f + nl + 3 * c;
-      s += j0[0] * fr[0];
-      s += j0[js] * fr[1];
-      s += j0[2 * js] * fr[2];
+    if constexpr (kDense) {
+      for (int r = 0; r < nl + 3 * nc; ++r) s += jfr[r * js + d] * f[r];
+    } else {
+      for (int r = lfirst[d]; r >= 0; r = lnext[r]) s += lval[r] * f[r];
+      for (int c = 0; c < nc; ++c) {
+        const float* j0 = jfr + 3 * c * js + d;
+        const float* fr = f + nl + 3 * c;
+        s += j0[0] * fr[0];
+        s += j0[js] * fr[1];
+        s += j0[2 * js] * fr[2];
+      }
     }
     return base ? base[d] - s : s;
   }
 
-  // f of item k's rows from jar: -D jar on an active limit row, the cone
+  // f of item k's rows from jar: -D jar on an active scalar row, the cone
   // projection on a block.
   __device__ __forceinline__ void force_item(const float* jar, int k, float* f) const {
     if (k < nl) {
@@ -398,10 +433,15 @@ __device__ __forceinline__ void warp_ordered_sums(int count, Term term, float (&
   }
 }
 
+// kDense: J is g_j [B][nl + 3 nc][n], its first nl rows the scalar rows (the
+// compact operands fq, sw, ll, dm and lim1h are not read); else J is built
+// from them. with_euler = 0 skips the factor of M + diag(hd) and o_eff.
+template <bool kDense>
 __global__ void __launch_bounds__(kThreads, kMinCtas)
 ell_cg_solve_kernel(const float* __restrict__ g_buf, const float* __restrict__ g_cdof,
                     const float* __restrict__ g_fq, const float* __restrict__ g_sw,
                     const float* __restrict__ g_ll, const float* __restrict__ g_mu,
+                    const float* __restrict__ g_j,
                     const float* __restrict__ g_aref, const float* __restrict__ g_D,
                     const float* __restrict__ g_qfs, const float* __restrict__ g_warm,
                     const float* __restrict__ g_hd, const float* __restrict__ g_tolscale,
@@ -410,10 +450,10 @@ ell_cg_solve_kernel(const float* __restrict__ g_buf, const float* __restrict__ g
                     float* __restrict__ o_smooth, float* __restrict__ o_qacc,
                     float* __restrict__ o_qfrc, float* __restrict__ o_eff,
                     float* __restrict__ o_force, int n, int nl, int nc, int iterations,
-                    int ls_iterations) {
+                    int ls_iterations, int with_euler) {
   constexpr int NT = kThreads;
   extern __shared__ __align__(16) float smem[];
-  const Layout lay(n, nl, nc);
+  const Layout lay(n, nl, nc, kDense);
   const int e = nl + 3 * nc, items = nl + nc;
   const long b = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -454,23 +494,24 @@ ell_cg_solve_kernel(const float* __restrict__ g_buf, const float* __restrict__ g
   float* flag = red + 2 * kOrderWarps * kMaxSums;  // the solo warp's |grad|^2
   int parity = 0;
   // staged operands: buf, cdof and lim1h in jfr's region until jfr is
-  // built from sw and fq, which are in L's region until L = M
-  float* s_buf = jfr;
+  // built from sw and fq, which are in L's region until L = M (kDense: J in
+  // jfr's region, buf and cdof in L's)
+  float* s_buf = kDense ? L_s : jfr;
   float* s_cdof = s_buf + 6 * n;
   float* s_lim1h = s_cdof + 6 * n;
   float* s_sw = L_s;
   float* s_fq = s_sw + 6 * n;
 
-  const Env env{Tiles(M_s, n), jfr, Dr, sq, mu, mu2p1, ldof, lval, lnext, lfirst,
-                n, nl, nc, lay.js};
+  const Env<kDense> env{Tiles(M_s, n), jfr, Dr, sq, mu, mu2p1, ldof, lval, lnext, lfirst,
+                        n, nl, nc, lay.js};
   const Tiles& M = env.M;
   const Tiles L(L_s, n);
   const float* qfs = g_qfs + b * n;
   const float* hd = g_hd + b * n;
   const float tolscale = g_tolscale[b];
 
-  // 1. the per-env operands and lim1h into shared memory, all copies in
-  // flight at once (warm into x, ll into lval)
+  // 1. the per-env operands and lim1h (kDense: J, row by row) into shared
+  // memory, all copies in flight at once (warm into x, ll into lval)
   {
     auto copy = [&](float* dst, const float* src, int count) {
       for (int t = tid; t < count; t += NT) cp_async4(dst + t, src + t);
@@ -478,13 +519,18 @@ ell_cg_solve_kernel(const float* __restrict__ g_buf, const float* __restrict__ g
     copy(aref, g_aref + b * e, e);
     copy(Dr, g_D + b * e, e);
     copy(mu, g_mu + b * nc, nc);
-    copy(lval, g_ll + b * nl, nl);
+    if constexpr (!kDense) copy(lval, g_ll + b * nl, nl);
     copy(x, g_warm + b * n, n);
     copy(s_buf, g_buf + b * 6 * n, 6 * n);
     copy(s_cdof, g_cdof + b * 6 * n, 6 * n);
-    copy(s_sw, g_sw + b * 6 * n, 6 * n);
-    copy(s_fq, g_fq + b * 18 * nc, 18 * nc);
-    copy(s_lim1h, lim1h, nl * n);
+    if constexpr (kDense) {
+      const float* gj = g_j + b * e * n;
+      for (int t = tid; t < e * n; t += NT) cp_async4(jfr + (t / n) * lay.js + t % n, gj + t);
+    } else {
+      copy(s_sw, g_sw + b * 6 * n, 6 * n);
+      copy(s_fq, g_fq + b * 18 * nc, 18 * nc);
+      copy(s_lim1h, lim1h, nl * n);
+    }
     asm volatile("cp.async.wait_all;\n" ::: "memory");
   }
   __syncthreads();
@@ -520,8 +566,9 @@ ell_cg_solve_kernel(const float* __restrict__ g_buf, const float* __restrict__ g
     }
     M.row(t >> 2, t & 3) = make_float4(v[0], v[1], v[2], v[3]);
   }
-  // limit rows: each one-hot row's dof and J value, a warp per row
-  for (int r = warp; r < nl; r += NT / 32) {
+  // limit rows: each one-hot row's dof and J value, a warp per row (not in
+  // the dense mode)
+  for (int r = warp; r < (kDense ? 0 : nl); r += NT / 32) {
     const float* row = s_lim1h + r * n;
     unsigned nz[kLaneRows];
 #pragma unroll
@@ -546,8 +593,8 @@ ell_cg_solve_kernel(const float* __restrict__ g_buf, const float* __restrict__ g
   __syncthreads();
   STAMP(1);
   // jfr[c][k][d] = (fq[c, k, :] . sw[d, :]) dm[c, d] (over buf, cdof and
-  // lim1h)
-  for (int t = tid; t < nc * n; t += NT) {
+  // lim1h; not in the dense mode)
+  for (int t = tid; t < (kDense ? 0 : nc * n); t += NT) {
     const int c = t / n, d = t % n;
     const float* fc = s_fq + c * 18;
     const float* s = s_sw + d * 6;
@@ -567,16 +614,16 @@ ell_cg_solve_kernel(const float* __restrict__ g_buf, const float* __restrict__ g
   __syncthreads();
   STAMP(2);
   // L = M (over the staged operands); each dof's limit rows as a list in
-  // row order
+  // row order (not in the dense mode)
   for (int t = tid; t < lay.tiles / 4; t += NT)
     reinterpret_cast<float4*>(L_s)[t] = reinterpret_cast<const float4*>(M_s)[t];
-  for (int d = tid; d < n; d += NT) {
+  for (int d = tid; d < (kDense ? 0 : n); d += NT) {
     int r1 = -1;
     for (int r = nl - 1; r >= 0; --r)
       if (ldof[r] == d) r1 = r;
     lfirst[d] = r1;
   }
-  for (int r = tid; r < nl; r += NT) {
+  for (int r = tid; r < (kDense ? 0 : nl); r += NT) {
     int r1 = -1;
     for (int q = nl - 1; q > r; --q)
       if (ldof[q] == ldof[r]) r1 = q;
@@ -765,6 +812,7 @@ ell_cg_solve_kernel(const float* __restrict__ g_buf, const float* __restrict__ g
     o_qacc[b * n + d] = x[d];
     o_qfrc[b * n + d] = v0[d];
   }
+  if (!with_euler) return;  // the same for every thread of the CTA
   __syncthreads();
   for (int i = tid; i < n; i += NT) L_s[L.row_part(i) + L.col_part(i)] += hd[i];
   __syncthreads();
@@ -784,27 +832,70 @@ extern "C" long ell_cg_solve_smem_bytes(int n, int nl, int nc) {
   return (long)Layout(n, nl, nc).total * (long)sizeof(float);
 }
 
+extern "C" long ell_cg_solve_dense_smem_bytes(int n, int ns, int nc) {
+  return (long)Layout(n, ns, nc, true).total * (long)sizeof(float);
+}
+
+namespace {
+
 // info[0..3] = registers per thread, dynamic shared memory per CTA (bytes),
-// resident CTAs per SM and threads per CTA (one env) of ell_cg_solve at (n,
-// nl, nc), as built.
-extern "C" int ell_cg_solve_kernel_info(int n, int nl, int nc, int* info) {
-  if (n <= 0 || n > kMaxN || nl < 0 || nc < 0) return (int)cudaErrorInvalidValue;
-  const long smem = ell_cg_solve_smem_bytes(n, nl, nc);
-  cudaError_t err = cudaFuncSetAttribute(ell_cg_solve_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// resident CTAs per SM and threads per CTA (one env) of
+// ell_cg_solve_kernel<kDense> with smem bytes of dynamic shared memory, as
+// built.
+template <bool kDense>
+int kernel_info(long smem, int* info) {
+  const auto kernel = ell_cg_solve_kernel<kDense>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, ell_cg_solve_kernel);
+  err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return (int)err;
   int ctas = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, ell_cg_solve_kernel, kThreads,
-                                                      (size_t)smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel, kThreads, (size_t)smem);
   if (err != cudaSuccess) return (int)err;
   info[0] = attr.numRegs;
   info[1] = (int)smem;
   info[2] = ctas;
   info[3] = kThreads;
   return 0;
+}
+
+template <bool kDense>
+int launch(const float* buf, const float* cdof, const float* fq, const float* sw, const float* ll,
+           const float* mu, const float* j, const float* aref, const float* D,
+           const float* qfrc_smooth, const float* warm, const float* hd, const float* tolscale,
+           const float* anc, const float* arm, const float* dm, const float* lim1h,
+           float* qacc_smooth, float* qacc, float* qfrc_constraint, float* qacc_eff,
+           float* efc_force, int batch, int n, int nl, int nc, int iterations, int ls_iterations,
+           int with_euler, void* stream) {
+  if (batch <= 0 || n <= 0 || n > kMaxN || nl < 0 || nc < 0 || iterations < 0 ||
+      ls_iterations < 0 || (kDense && nl + 3 * nc <= 0) || (with_euler && !qacc_eff))
+    return (int)cudaErrorInvalidValue;
+  const long smem = kDense ? ell_cg_solve_dense_smem_bytes(n, nl, nc) : ell_cg_solve_smem_bytes(n, nl, nc);
+  const auto kernel = ell_cg_solve_kernel<kDense>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<batch, kThreads, smem, (cudaStream_t)stream>>>(
+      buf, cdof, fq, sw, ll, mu, j, aref, D, qfrc_smooth, warm, hd, tolscale, anc, arm, dm, lim1h,
+      qacc_smooth, qacc, qfrc_constraint, qacc_eff, efc_force, n, nl, nc, iterations, ls_iterations,
+      with_euler);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// info[0..3] = registers per thread, dynamic shared memory per CTA (bytes),
+// resident CTAs per SM and threads per CTA (one env) of ell_cg_solve at (n,
+// nl, nc), as built.
+extern "C" int ell_cg_solve_kernel_info(int n, int nl, int nc, int* info) {
+  if (n <= 0 || n > kMaxN || nl < 0 || nc < 0) return (int)cudaErrorInvalidValue;
+  return kernel_info<false>(ell_cg_solve_smem_bytes(n, nl, nc), info);
+}
+
+// The same for ell_cg_solve_dense at n, ns scalar rows and nc cone blocks.
+extern "C" int ell_cg_solve_dense_kernel_info(int n, int ns, int nc, int* info) {
+  if (n <= 0 || n > kMaxN || ns < 0 || nc < 0 || ns + 3 * nc <= 0) return (int)cudaErrorInvalidValue;
+  return kernel_info<true>(ell_cg_solve_dense_smem_bytes(n, ns, nc), info);
 }
 
 // out[0..kStamps) = the phase stamps' cycles summed over every CTA since the
@@ -830,17 +921,25 @@ extern "C" int ell_cg_solve_f32(const float* buf, const float* cdof, const float
                                 const float* lim1h, float* qacc_smooth, float* qacc,
                                 float* qfrc_constraint, float* qacc_eff, float* efc_force,
                                 int batch, int n, int nl, int nc, int iterations,
-                                int ls_iterations, void* stream) {
-  if (batch <= 0 || n <= 0 || n > kMaxN || nl < 0 || nc < 0 || iterations < 0 ||
-      ls_iterations < 0)
-    return (int)cudaErrorInvalidValue;
-  const long smem = ell_cg_solve_smem_bytes(n, nl, nc);
-  cudaError_t err = cudaFuncSetAttribute(
-      ell_cg_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  ell_cg_solve_kernel<<<batch, kThreads, smem, (cudaStream_t)stream>>>(
-      buf, cdof, fq, sw, ll, mu, aref, D, qfrc_smooth, warm, hd, tolscale, anc, arm, dm,
-      lim1h, qacc_smooth, qacc, qfrc_constraint, qacc_eff, efc_force, n, nl, nc,
-      iterations, ls_iterations);
-  return (int)cudaGetLastError();
+                                int ls_iterations, int with_euler, void* stream) {
+  return launch<false>(buf, cdof, fq, sw, ll, mu, nullptr, aref, D, qfrc_smooth, warm, hd,
+                       tolscale, anc, arm, dm, lim1h, qacc_smooth, qacc, qfrc_constraint,
+                       qacc_eff, efc_force, batch, n, nl, nc, iterations, ls_iterations,
+                       with_euler, stream);
+}
+
+// The dense mode: J [batch][ns + 3 nc][n], its first ns rows the scalar rows;
+// no compact operands.
+extern "C" int ell_cg_solve_dense_f32(const float* buf, const float* cdof, const float* j,
+                                      const float* aref, const float* D, const float* mu,
+                                      const float* qfrc_smooth, const float* warm, const float* hd,
+                                      const float* tolscale, const float* anc, const float* arm,
+                                      float* qacc_smooth, float* qacc, float* qfrc_constraint,
+                                      float* qacc_eff, float* efc_force, int batch, int n, int ns,
+                                      int nc, int iterations, int ls_iterations, int with_euler,
+                                      void* stream) {
+  return launch<true>(buf, cdof, nullptr, nullptr, nullptr, mu, j, aref, D, qfrc_smooth, warm, hd,
+                      tolscale, anc, arm, nullptr, nullptr, qacc_smooth, qacc, qfrc_constraint,
+                      qacc_eff, efc_force, batch, n, ns, nc, iterations, ls_iterations, with_euler,
+                      stream);
 }

@@ -47,18 +47,25 @@ a knife edge under reassociation). Both take n <= MAX_N
 `cg_solve_dense` (csrc/cg_solve.cu built with kDense) replaces the same TPU
 kernel in its dense-J mode (`_cg_kernel` with jb_dims None): K2's solve over
 a dense J [B, nefc, nv], the rows of pyramidal plans with condim-1, -4 or -6
-contacts. Without `with_euler` (RK4 and implicit plans, the TPU kernel's
-hd=None) both K2 modes skip the Euler solve.
+contacts. `ell_cg_solve_dense` (csrc/ell_cg_solve.cu built with kDense)
+replaces `_ell_cg_kernel` with jb None: K3's solve over a dense J whose
+first `ns` rows are unilateral scalar rows of any content (limits, condim-1
+contacts) and the rest cone blocks, the rows of elliptic plans with
+condim-1 contacts. Without `with_euler` (RK4 and implicit plans, the TPU
+kernels' hd=None) all four skip the Euler solve.
 
-`cg_solve`, `cg_solve_dense` and `ell_cg_solve` are the wrappers: they check
-their arguments, run the plain version for CPU tensors and launch the kernel
-for CUDA tensors, raising if the build or the launch fails.
-`<wrapper>.launches` counts kernel launches. `cg_solve_plain`,
-`cg_solve_dense_plain` and `ell_cg_solve_plain` are the same computations
-in batched torch; the tests and chip_smoke.py compare the kernels with them.
-`scalar_cg` is the reference's unfused per-env CG batched, with the force
-bounds of equality and frictionloss rows: the bounded CG of
-physics/solver.py runs it.
+`cg_solve`, `cg_solve_dense`, `ell_cg_solve` and `ell_cg_solve_dense` are
+the wrappers: they check their arguments, run the plain version for CPU
+tensors and launch the kernel for CUDA tensors, raising if the build or the
+launch fails. `<wrapper>.launches` counts kernel launches. `cg_solve_plain`,
+`cg_solve_dense_plain`, `ell_cg_solve_plain` and `ell_cg_solve_dense_plain`
+are the same computations in batched torch; the tests and chip_smoke.py
+compare the kernels with them. `scalar_cg` is the reference's unfused
+per-env CG batched, with the force bounds of equality and frictionloss rows:
+the bounded CG of physics/solver.py runs it. `elliptic_cg` is the
+reference's general elliptic CG batched (bounded scalar rows beside cone
+blocks, the safeguarded linesearch over both): physics/solver.py runs it on
+elliptic plans with equality or frictionloss rows.
 """
 
 from __future__ import annotations
@@ -383,17 +390,98 @@ class _Cones(NamedTuple):
 
 def ell_cg_solve_plain(
     buf, cdof, fq, sw, ll, mu, aref, D, qfrc_smooth, warm, hd, tolscale,
-    anc, arm, dm, lim1h, *, iterations: int, ls_iterations: int,
+    anc, arm, dm, lim1h, *, iterations: int, ls_iterations: int, with_euler: bool = True,
 ) -> CGOut:
     """The elliptic kernel's computation in batched torch (any device)."""
-    bsz, nl, nc = fq.shape[0], lim1h.shape[0], fq.shape[1]
     qm = assemble_qm(buf, cdof, anc, arm)
     j = build_j_ell(fq, sw, ll, dm, lim1h)
+    return _elliptic_plain(qm, j, aref, D, mu, qfrc_smooth, warm, hd, tolscale, lim1h.shape[0], iterations,
+                           ls_iterations, with_euler)
+
+
+def ell_cg_solve_dense_plain(
+    buf, cdof, J, aref, D, mu, qfrc_smooth, warm, hd, tolscale, anc, arm, *,
+    ns: int, with_euler: bool, iterations: int, ls_iterations: int,
+) -> CGOut:
+    """The dense-J elliptic kernel's computation in batched torch (any
+    device): K3's schedule, `ell_cg_solve_plain`'s, over a given J whose
+    first `ns` rows are unilateral scalar rows (limits, condim-1 contacts)
+    and the rest cone blocks, as the reference's dense-J TPU kernel
+    (_ell_cg_kernel with jb None) computes it."""
+    return _elliptic_plain(assemble_qm(buf, cdof, anc, arm), J, aref, D, mu, qfrc_smooth, warm, hd, tolscale,
+                           ns, iterations, ls_iterations, with_euler)
+
+
+def _ell_linesearch(cones: _Cones, split, jarx, jp, pmp, dmx, scalar_terms, cost_rows, ls_iterations: int):
+    """Safeguarded Newton on phi(alpha) along p: keeps a bracket [lo, hi]
+    with phi'(lo) < 0 <= phi'(hi); a Newton step outside it falls back to
+    bisection, or to doubling while no upper end is known; a step that does
+    not lower phi is refused. jarx = J x - aref and jp = J p [B, e], pmp =
+    p.M p and dmx, M p . (x - smooth) [B]; split(v) gives a row vector's
+    scalar rows and cone blocks [B, nc, 3]; scalar_terms(jar_s, jp_s) the
+    scalar rows' terms of phi' and phi'' [B]; cost_rows(jar) the rows'
+    summed cost [B]. Returns alpha [B]."""
+    jp_s, jp_b = split(jp)
+    q = -cones.sq * jp_b
+    q_n, q_t1, q_t2 = q.unbind(-1)
+    qq = q_n * q_n + q_t1 * q_t1 + q_t2 * q_t2
+    qq_t = q_t1 * q_t1 + q_t2 * q_t2
+    h_bot = (cones.d * jp_b * jp_b).sum(-1)
+
+    def phi_derivs(alpha):
+        jar = jarx + alpha[:, None] * jp
+        jar_s, u = split(jar)
+        s1, s2 = scalar_terms(jar_s, jp_s)
+        d1 = alpha * pmp + dmx + s1
+        d2 = pmp + s2
+        d1 = d1 - (jp_b * cones.force(u)).sum((-2, -1))
+        pb, t, bottom, top, _ = cones.zones(u)
+        t_p = (pb[..., 1] * q_t1 + pb[..., 2] * q_t2) / t
+        t_pp = torch.clamp(qq_t - t_p * t_p, min=0.0) / t
+        h_mid = qq - ((t_p - cones.mu * q_n) ** 2 + (t - cones.mu * pb[..., 0]) * t_pp) / cones.mu2p1
+        h = torch.where(bottom, h_bot, torch.where(top, torch.zeros_like(h_mid), h_mid))
+        return d1, torch.clamp(d2 + h.sum(-1), min=_EPS)
+
+    big = torch.finfo(jarx.dtype).max
+    d1, d2 = phi_derivs(torch.zeros_like(pmp))
+    alpha = torch.clamp(-d1 / d2, min=0.0)
+    lo, hi = torch.zeros_like(pmp), torch.full_like(pmp, big)
+    for _ in range(ls_iterations):
+        d1, d2 = phi_derivs(alpha)
+        neg = d1 < 0
+        lo = torch.where(neg, torch.maximum(lo, alpha), lo)
+        hi = torch.where(neg, hi, torch.minimum(hi, alpha))
+        newton = alpha - d1 / d2
+        fallback = torch.where(hi < big, 0.5 * (lo + hi), 2.0 * alpha + 1e-9)
+        alpha = torch.where((newton > lo) & (newton < hi), newton, fallback)
+    dphi = 0.5 * alpha * alpha * pmp + alpha * dmx + cost_rows(jarx + alpha[:, None] * jp) - cost_rows(jarx)
+    return torch.where(dphi < 0, alpha, torch.zeros_like(alpha))
+
+
+def _ell_split(ns: int, nc: int):
+    """split(v): a row vector [B, ns + 3 nc]'s scalar rows [B, ns] and cone
+    blocks [B, nc, 3]."""
+    return lambda v: (v[:, :ns], v[:, ns:].reshape(v.shape[0], nc, 3))
+
+
+def _cones(D, mu, ns: int) -> _Cones:
+    d_b = D[:, ns:].reshape(D.shape[0], -1, 3)
+    mu = mu.expand(D.shape[0], d_b.shape[1])
+    return _Cones(d=d_b, sq=torch.sqrt(d_b), mu=mu, mu2p1=1.0 + mu * mu)
+
+
+def _elliptic_plain(qm, j, aref, D, mu, qfrc_smooth, warm, hd, tolscale, ns, iterations, ls_iterations,
+                    with_euler) -> CGOut:
+    """K3's solve over qm [B, n, n] and j [B, ns + 3 nc, n] (ns unilateral
+    scalar rows, then the cone blocks): factor, smooth solve, the cheaper
+    start, PR-CG with jar and M (x - smooth) afresh from x each iteration,
+    force and qfrc, and with_euler the (M + diag(hd)) solve; every (L L^T)^-1
+    apply the exact substitution."""
+    nc = (j.shape[1] - ns) // 3
     l = factor(qm)
-    d_s = D[:, :nl]
-    d_b = D[:, nl:].reshape(bsz, nc, 3)
-    cones = _Cones(d=d_b, sq=torch.sqrt(d_b), mu=mu, mu2p1=1.0 + mu * mu)
-    big = torch.finfo(D.dtype).max
+    d_s = D[:, :ns]
+    cones = _cones(D, mu, ns)
+    split = _ell_split(ns, nc)
 
     def chosolve(b):
         return blocked_substitution(l, b)
@@ -407,68 +495,26 @@ def ell_cg_solve_plain(
     def matv_m(v):
         return (qm @ v[..., None])[..., 0]
 
-    def split(v):
-        return v[:, :nl], v[:, nl:].reshape(bsz, nc, 3)
-
     def force_of(jar):
         jar_s, u = split(jar)
         f_s = torch.where(jar_s < 0, -d_s * jar_s, torch.zeros_like(jar_s))
-        return torch.cat([f_s, cones.force(u).reshape(bsz, -1)], dim=1)
+        return torch.cat([f_s, cones.force(u).reshape(jar.shape[0], -1)], dim=1)
 
     def cost_rows(jar):
         jar_s, u = split(jar)
         cs = 0.5 * torch.where(jar_s < 0, d_s * jar_s * jar_s, torch.zeros_like(jar_s)).sum(-1)
         return cs + cones.cost(u)
 
+    def scalar_terms(jar_s, jp_s):
+        active = jar_s < 0
+        zero = torch.zeros_like(jar_s)
+        return (torch.where(active, d_s * jar_s * jp_s, zero).sum(-1),
+                torch.where(active, d_s * jp_s * jp_s, zero).sum(-1))
+
     def linesearch(x, p, jarx):
-        """Safeguarded Newton on phi(alpha): keeps a bracket [lo, hi] with
-        phi'(lo) < 0 <= phi'(hi); a Newton step outside it falls back to
-        bisection, or to doubling while no upper end is known; a step that
-        does not lower phi is refused."""
         mp = matv_m(p)
-        pmp = (p * mp).sum(-1)
-        dmx = (mp * (x - smooth)).sum(-1)
-        jp = matv_j(p)
-        jp_s, jp_b = split(jp)
-        q = -cones.sq * jp_b
-        q_n, q_t1, q_t2 = q.unbind(-1)
-        qq = q_n * q_n + q_t1 * q_t1 + q_t2 * q_t2
-        qq_t = q_t1 * q_t1 + q_t2 * q_t2
-        h_bot = (cones.d * jp_b * jp_b).sum(-1)
-
-        def phi_derivs(alpha):
-            jar = jarx + alpha[:, None] * jp
-            jar_s, u = split(jar)
-            active = jar_s < 0
-            zero = torch.zeros_like(jar_s)
-            d1 = alpha * pmp + dmx + torch.where(active, d_s * jar_s * jp_s, zero).sum(-1)
-            d2 = pmp + torch.where(active, d_s * jp_s * jp_s, zero).sum(-1)
-            d1 = d1 - (jp_b * cones.force(u)).sum((-2, -1))
-            pb, t, bottom, top, _ = cones.zones(u)
-            t_p = (pb[..., 1] * q_t1 + pb[..., 2] * q_t2) / t
-            t_pp = torch.clamp(qq_t - t_p * t_p, min=0.0) / t
-            h_mid = qq - ((t_p - cones.mu * q_n) ** 2 + (t - cones.mu * pb[..., 0]) * t_pp) / cones.mu2p1
-            h = torch.where(bottom, h_bot, torch.where(top, torch.zeros_like(h_mid), h_mid))
-            return d1, torch.clamp(d2 + h.sum(-1), min=_EPS)
-
-        d1, d2 = phi_derivs(torch.zeros_like(pmp))
-        alpha = torch.clamp(-d1 / d2, min=0.0)
-        lo, hi = torch.zeros_like(pmp), torch.full_like(pmp, big)
-        for _ in range(ls_iterations):
-            d1, d2 = phi_derivs(alpha)
-            neg = d1 < 0
-            lo = torch.where(neg, torch.maximum(lo, alpha), lo)
-            hi = torch.where(neg, hi, torch.minimum(hi, alpha))
-            newton = alpha - d1 / d2
-            fallback = torch.where(hi < big, 0.5 * (lo + hi), 2.0 * alpha + 1e-9)
-            alpha = torch.where((newton > lo) & (newton < hi), newton, fallback)
-        dphi = (
-            0.5 * alpha * alpha * pmp
-            + alpha * dmx
-            + cost_rows(jarx + alpha[:, None] * jp)
-            - cost_rows(jarx)
-        )
-        return torch.where(dphi < 0, alpha, torch.zeros_like(alpha))
+        return _ell_linesearch(cones, split, jarx, matv_j(p), (p * mp).sum(-1), (mp * (x - smooth)).sum(-1),
+                               scalar_terms, cost_rows, ls_iterations)
 
     smooth = chosolve(qfrc_smooth)
     # warm vs smooth start, the cheaper per env; cost(smooth) has no
@@ -504,8 +550,79 @@ def ell_cg_solve_plain(
 
     force = force_of(jar)
     qfrc = matv_jt(force)
+    if not with_euler:
+        return CGOut(smooth, x, force, qfrc, None)
     eff = blocked_substitution(factor(qm + torch.diag_embed(hd)), qfrc_smooth + qfrc)
     return CGOut(smooth, x, force, qfrc, eff)
+
+
+def elliptic_cg(qm, chosolve, J, aref, D, fmin, fmax, mu_t, smooth, warm, tolscale, *, ns: int,
+                iterations: int, ls_iterations: int):
+    """M-preconditioned Polak-Ribiere CG over bounded scalar rows and
+    elliptic cone blocks, every product fresh from x: the batched form of
+    the reference's general elliptic path (track_mjx_tpu/physics/solver.py,
+    `solve` for elliptic plans with equality or frictionloss rows). qm
+    [B, n, n], chosolve(b) = qm^-1 b, J [B, ns + 3 nc, n] (ns scalar rows:
+    equality, frictionloss, limits, condim-1 contacts; then the cone
+    blocks), aref and D [B, e], fmin and fmax [e] (the scalar rows' force
+    bounds, `scalar_zone`), mu_t [B, nc] or [nc] (mu_1 / sqrt(impratio)),
+    smooth and warm [B, n], tolscale [B] (tolerance times trace qm). The
+    cheaper of warm and smooth by the full cost;
+    the safeguarded linesearch over both row kinds; an env whose gradient at
+    the start of an iteration is under tolscale keeps its state from then
+    on. Returns (qacc, force, qfrc_constraint)."""
+    nc = (J.shape[1] - ns) // 3
+    d_s, fmin_s, fmax_s = D[:, :ns], fmin[:ns], fmax[:ns]
+    cones = _cones(D, mu_t, ns)
+    split = _ell_split(ns, nc)
+
+    def matv(a, v):
+        return (a @ v[..., None])[..., 0]
+
+    def force_of(jar):
+        jar_s, u = split(jar)
+        f_s = scalar_zone(jar_s, d_s, fmin_s, fmax_s)[0]
+        return torch.cat([f_s, cones.force(u).reshape(jar.shape[0], -1)], dim=1)
+
+    def cost_rows(jar):
+        jar_s, u = split(jar)
+        return scalar_cost(jar_s, d_s, fmin_s, fmax_s).sum(-1) + cones.cost(u)
+
+    def scalar_terms(jar_s, jp_s):
+        f, quad = scalar_zone(jar_s, d_s, fmin_s, fmax_s)
+        return (torch.where(quad, d_s * jar_s * jp_s, -f * jp_s).sum(-1),
+                torch.where(quad, d_s * jp_s * jp_s, torch.zeros_like(jp_s)).sum(-1))
+
+    def cost(x):
+        dx = x - smooth
+        return 0.5 * (dx * matv(qm, dx)).sum(-1) + cost_rows(matv(J, x) - aref)
+
+    def cost_grad(x):
+        jar = matv(J, x) - aref
+        return jar, matv(qm, x - smooth) - matv(J.transpose(-1, -2), force_of(jar))
+
+    x = torch.where((cost(warm) < cost(smooth))[:, None], warm, smooth)
+    jar, grad = cost_grad(x)
+    mgrad = chosolve(grad)
+    p = -mgrad
+    improved = torch.ones_like(tolscale, dtype=torch.bool)
+    for _ in range(iterations):
+        alpha = _ell_linesearch(cones, split, matv(J, x) - aref, matv(J, p), (p * matv(qm, p)).sum(-1),
+                                (p * matv(qm, x - smooth)).sum(-1), scalar_terms, cost_rows, ls_iterations)
+        xn = x + alpha[:, None] * p
+        jarn, gradn = cost_grad(xn)
+        mgradn = chosolve(gradn)
+        num = (gradn * (mgradn - mgrad)).sum(-1)
+        den = torch.clamp((grad * mgrad).sum(-1), min=_EPS)
+        beta = torch.clamp(num / den, min=0.0)
+        pn = -mgradn + beta[:, None] * p
+        keep = improved[:, None]
+        x, jar = torch.where(keep, xn, x), torch.where(keep, jarn, jar)
+        grad, mgrad = torch.where(keep, gradn, grad), torch.where(keep, mgradn, mgrad)
+        p = torch.where(keep, pn, p)
+        improved = torch.where(improved, torch.sqrt((gradn * gradn).sum(-1)) > tolscale, improved)
+    force = force_of(jar)
+    return x, force, matv(J.transpose(-1, -2), force)
 
 
 # ---------------------------------------------------------------------------
@@ -516,6 +633,8 @@ def ell_cg_solve_plain(
 _ARG_NAMES = ("buf", "cdof", "fq", "sw", "ll", "mu", "aref", "D", "qfrc_smooth", "warm",
               "hd", "tolscale", "anc", "arm", "dm", "lim1h")
 _DENSE_ARG_NAMES = ("buf", "cdof", "J", "aref", "D", "qfrc_smooth", "warm", "hd", "tolscale", "anc", "arm")
+_ELL_DENSE_ARG_NAMES = ("buf", "cdof", "J", "aref", "D", "mu", "qfrc_smooth", "warm", "hd", "tolscale", "anc",
+                        "arm")
 
 
 def _compact_shapes(named: dict, rows_per_con: int):
@@ -538,6 +657,17 @@ def _dense_shapes(named: dict):
     if e == 0:
         raise ValueError("cg_solve_dense: empty row set")
     return dict(buf=(n, 6), cdof=(n, 6), J=(e, n)), dict(anc=(n, n), arm=(n,)), (n, e), e
+
+
+def _ell_dense_shapes(named: dict, ns: int):
+    """The shapes of ell_cg_solve_dense's arguments, its dims (n, ns, nc)
+    and row count ns + 3 nc, nc the cone blocks of `mu`."""
+    n, mu = named["qfrc_smooth"].shape[-1], named["mu"]
+    nc = mu.shape[1] if mu.dim() == 2 else -1
+    e = ns + 3 * nc
+    if ns < 0 or nc < 0 or e == 0:
+        raise ValueError(f"ell_cg_solve_dense: bad row counts ns = {ns}, mu {tuple(mu.shape)}")
+    return dict(buf=(n, 6), cdof=(n, 6), J=(e, n), mu=(nc,)), dict(anc=(n, n), arm=(n,)), (n, ns, nc), e
 
 
 def _check(op: str, names, args, shapes):
@@ -575,11 +705,10 @@ def _check(op: str, names, args, shapes):
 
 def _launch(op: str, args, bsz, dims, e, iterations, ls_iterations, with_euler: bool = True) -> CGOut:
     """Launches `{op}_f32` on the current stream of the tensors' card, with
-    dims (n, nl, nc) or, for cg_solve_dense, (n, e); raises for a model the
-    kernel does not take (n > MAX_N, or more shared memory per env than a
-    CTA has, `{op}_smem_bytes(*dims)`) or if the launch fails. `cg_solve`
-    and `cg_solve_dense` take `with_euler`; `ell_cg_solve` always solves
-    for qacc_eff."""
+    dims (n, nl, nc), for cg_solve_dense (n, e), for ell_cg_solve_dense (n,
+    ns, nc); raises for a model the kernel does not take (n > MAX_N, or more
+    shared memory per env than a CTA has, `{op}_smem_bytes(*dims)`) or if
+    the launch fails. Without `with_euler` qacc_eff is None."""
     n = dims[0]
     if n > MAX_N:
         raise ValueError(f"{op}: n = {n}, the CUDA kernel takes n <= {MAX_N}")
@@ -597,7 +726,6 @@ def _launch(op: str, args, bsz, dims, e, iterations, ls_iterations, with_euler: 
         qacc_smooth=empty(n), qacc=empty(n), efc_force=empty(e),
         qfrc_constraint=empty(n), qacc_eff=empty(n) if with_euler else None,
     )
-    flag = () if op == "ell_cg_solve" else (int(with_euler),)
     with torch.cuda.device(like.device):
         stream = torch.cuda.current_stream(like.device).cuda_stream
         err = getattr(lib, f"{op}_f32")(
@@ -605,7 +733,7 @@ def _launch(op: str, args, bsz, dims, e, iterations, ls_iterations, with_euler: 
             out.qacc_smooth.data_ptr(), out.qacc.data_ptr(),
             out.qfrc_constraint.data_ptr(), out.qacc_eff.data_ptr() if with_euler else None,
             out.efc_force.data_ptr(),
-            bsz, *dims, iterations, ls_iterations, *flag, stream,
+            bsz, *dims, iterations, ls_iterations, int(with_euler), stream,
         )
     if err != 0:
         raise RuntimeError(f"{op}: CUDA kernel launch failed with cudaError {err}")
@@ -671,26 +799,59 @@ cg_solve_dense.launches = 0
 
 def ell_cg_solve(
     buf, cdof, fq, sw, ll, mu, aref, D, qfrc_smooth, warm, hd, tolscale,
-    anc, arm, dm, lim1h, *, iterations: int, ls_iterations: int,
+    anc, arm, dm, lim1h, *, iterations: int, ls_iterations: int, with_euler: bool = True,
 ) -> CGOut:
-    """Fused smooth + elliptic CG + Euler solve of a batch of envs: limit
+    """Fused smooth + elliptic CG (+ Euler) solve of a batch of envs: limit
     rows, then one (normal, t1, t2) cone block per contact, in efc order.
 
     Per env: buf, cdof, sw [B, n, 6]; fq [B, nc, 3, 6]; ll [B, nl];
     mu [B, nc] (mu_1 / sqrt(impratio) of each block); aref, D
     [B, nl + 3 nc]; qfrc_smooth, warm, hd [B, n]; tolscale [B]. Static: anc
     (n, n) 0/1, arm (n,), dm (nc, n), lim1h (nl, n). All float32 and
-    contiguous on one device. CPU tensors run `ell_cg_solve_plain` (in
-    float64 too, as a reference); CUDA tensors launch the kernel (n <=
-    MAX_N; a lim1h row with two nonzeros makes that env's J NaN) or raise."""
+    contiguous on one device. Without `with_euler` (plans on RK4 or an
+    implicit integrator) M + diag(hd) is not factored and qacc_eff is None.
+    CPU tensors run `ell_cg_solve_plain` (in float64 too, as a reference);
+    CUDA tensors launch the kernel (n <= MAX_N; a lim1h row with two
+    nonzeros makes that env's J NaN) or raise."""
     args = (buf, cdof, fq, sw, ll, mu, aref, D, qfrc_smooth, warm, hd, tolscale,
             anc, arm, dm, lim1h)
     bsz, dims, e = _check("ell_cg_solve", _ARG_NAMES, args, lambda named: _compact_shapes(named, 3))
     if buf.device.type == "cpu":
-        return ell_cg_solve_plain(*args, iterations=iterations, ls_iterations=ls_iterations)
-    out = _launch("ell_cg_solve", args, bsz, dims, e, iterations, ls_iterations)
+        return ell_cg_solve_plain(*args, iterations=iterations, ls_iterations=ls_iterations,
+                                  with_euler=with_euler)
+    out = _launch("ell_cg_solve", args, bsz, dims, e, iterations, ls_iterations, with_euler)
     ell_cg_solve.launches += 1
     return out
 
 
 ell_cg_solve.launches = 0
+
+
+def ell_cg_solve_dense(
+    buf, cdof, J, aref, D, mu, qfrc_smooth, warm, hd, tolscale, anc, arm, *,
+    ns: int, with_euler: bool, iterations: int, ls_iterations: int,
+) -> CGOut:
+    """Fused smooth + elliptic CG (+ Euler) solve of a batch of envs over a
+    dense J: `ns` unilateral scalar rows (limits and condim-1 contacts),
+    then one (normal, t1, t2) cone block per condim-3 contact, in efc order
+    (elliptic plans with condim-1 contacts).
+
+    Per env: buf, cdof [B, n, 6]; J [B, ns + 3 nc, n]; aref, D [B, ns + 3
+    nc]; mu [B, nc] (mu_1 / sqrt(impratio) of each block); qfrc_smooth,
+    warm, hd [B, n]; tolscale [B]. Static: anc (n, n) 0/1, arm (n,). All
+    float32 and contiguous on one device. Without `with_euler` M + diag(hd)
+    is not factored and qacc_eff is None. CPU tensors run
+    `ell_cg_solve_dense_plain` (in float64 too, as a reference); CUDA tensors
+    launch the kernel (n <= MAX_N, J in shared memory) or raise."""
+    args = (buf, cdof, J, aref, D, mu, qfrc_smooth, warm, hd, tolscale, anc, arm)
+    bsz, dims, e = _check("ell_cg_solve_dense", _ELL_DENSE_ARG_NAMES, args,
+                          lambda named: _ell_dense_shapes(named, ns))
+    if buf.device.type == "cpu":
+        return ell_cg_solve_dense_plain(*args, ns=ns, with_euler=with_euler, iterations=iterations,
+                                        ls_iterations=ls_iterations)
+    out = _launch("ell_cg_solve_dense", args, bsz, dims, e, iterations, ls_iterations, with_euler)
+    ell_cg_solve_dense.launches += 1
+    return out
+
+
+ell_cg_solve_dense.launches = 0

@@ -112,15 +112,16 @@ def open_library(path: str) -> ctypes.CDLL:
     point's C signature set."""
     lib = ctypes.CDLL(path)
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
-    # cg_solve_f32 takes with_euler after ls_iterations; ell_cg_solve_f32
-    # always solves for qacc_eff
-    _bind(lib.cg_solve_f32, [ptr] * 21 + [i32] * 7 + [ptr], i32)
-    _bind(lib.ell_cg_solve_f32, [ptr] * 21 + [i32] * 6 + [ptr], i32)
+    # the fused solves take with_euler after ls_iterations
     for op in ("cg_solve", "ell_cg_solve"):
+        _bind(getattr(lib, f"{op}_f32"), [ptr] * 21 + [i32] * 7 + [ptr], i32)
         _bind(getattr(lib, f"{op}_smem_bytes"), [i32] * 3, i64)
     _bind(lib.cg_solve_dense_f32, [ptr] * 16 + [i32] * 6 + [ptr], i32)
     _bind(lib.cg_solve_dense_smem_bytes, [i32] * 2, i64)
     _bind(lib.cg_solve_dense_kernel_info, [i32, i32, ptr], i32)
+    _bind(lib.ell_cg_solve_dense_f32, [ptr] * 17 + [i32] * 7 + [ptr], i32)
+    _bind(lib.ell_cg_solve_dense_smem_bytes, [i32] * 3, i64)
+    _bind(lib.ell_cg_solve_dense_kernel_info, [i32] * 3 + [ptr], i32)
     _bind(lib.cholesky_f32, [ptr, ptr, i32, i32, ptr], i32)
     _bind(lib.cho_solve_f32, [ptr, ptr, ptr, i32, i32, ptr], i32)
     _bind(lib.solve_spd_f32, [ptr, ptr, ptr, i32, i32, ptr], i32)

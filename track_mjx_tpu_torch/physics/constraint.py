@@ -11,14 +11,13 @@ dense J (ops/cg_solver_kernel.build_j and build_j_ell rebuild it from the
 same operands). A model without contacts takes the first layout with no
 contact rows: its limit rows alone, or no rows at all (nefc 0).
 
-Every other pyramidal plan carries a dense J [B, nefc, nv] and per-row force
-bounds fmin/fmax: equality rows (connect, weld, joint, tendon; bilateral,
+Every other plan carries a dense J [B, nefc, nv] and per-row force bounds
+fmin/fmax: equality rows (connect, weld, joint, tendon; bilateral,
 -BIG_FORCE to BIG_FORCE), dof and tendon frictionloss rows (+-frictionloss),
-limits, then contacts: the condim-1 rows first, then the pyramid groups by
-ascending condim, 2 (condim - 1) rows per contact, the rotational
-(torsional, rolling) directions of condim 4 and 6 included. Elliptic plans
-off their compact layout (condim-1 contacts, or equality or frictionloss
-rows beside the cone blocks) raise NotImplementedError: ROADMAP's slice 11.
+limits, then contacts: the condim-1 rows first, then, pyramidal, the
+pyramid groups by ascending condim, 2 (condim - 1) rows per contact, the
+rotational (torsional, rolling) directions of condim 4 and 6 included, or,
+elliptic, one (normal, t1, t2) cone block per condim-3 contact.
 
 Impedance/reference math follows MuJoCo's soft-constraint model
 (mj_makeImpedance / mj_referenceConstraint); elliptic friction rows reuse
@@ -41,6 +40,7 @@ from track_mjx_tpu_torch.ops.cg_solver_kernel import BIG_FORCE
 from track_mjx_tpu_torch.ops.quaternion import cross
 from track_mjx_tpu_torch.physics.collision import Contact, contact_bodies
 from track_mjx_tpu_torch.physics.model import (
+    CONE_ELLIPTIC,
     JNT_BALL,
     JNT_FREE,
     Data,
@@ -48,13 +48,6 @@ from track_mjx_tpu_torch.physics.model import (
     PhysicsPlan,
     static_tensor,
 )
-
-ELLIPTIC_SLICE_11 = (
-    "elliptic-cone plans with condim-1 contacts or with equality or frictionloss rows "
-    "(the reference's dense elliptic CG: K3's dense-J mode, and the general elliptic CG "
-    "over solve_m) are not ported yet: ROADMAP.md, Queue 1, slice 11"
-)
-
 
 @dataclasses.dataclass(frozen=True)
 class EfcData:
@@ -68,9 +61,10 @@ class EfcData:
     zeroed for inactive contacts. Pyramid rows are jfr0 +/- mu_i jfr_{i+1};
     an elliptic cone block's rows are jfr0, jfr1, jfr2 themselves.
 
-    Off them (pyramidal plans with equality, frictionloss or condim-1/4/6
-    rows): the dense `J` and the per-row force bounds, force = clip(-D jar,
-    fmin, fmax); the `jb_*` operands are None."""
+    Off them (plans with equality, frictionloss or condim-1/4/6 rows): the
+    dense `J` and the per-row force bounds, force = clip(-D jar, fmin, fmax)
+    on the scalar rows; the `jb_*` operands are None, and `ell_mu` is set
+    where the plan has cone blocks (its last 3 ncon_ell rows)."""
 
     aref: torch.Tensor  # [B, nefc]
     D: torch.Tensor  # [B, nefc]
@@ -162,14 +156,6 @@ def contact_diff_mask(plan: PhysicsPlan) -> np.ndarray:
     _, _, body1, body2 = contact_bodies(plan)
     bm = dof_body_mask(plan)
     return bm[body2] - bm[body1]
-
-
-def check_rows(plan: PhysicsPlan) -> None:
-    """Raises NotImplementedError for the elliptic plans that are still to be
-    ported: cone blocks beside condim-1 contacts, or beside equality or
-    frictionloss rows."""
-    if plan.ncon_ell and not _jb_supported_ell(plan):
-        raise NotImplementedError(ELLIPTIC_SLICE_11)
 
 
 # ---------------------------------------------------------------------------
@@ -468,13 +454,29 @@ def _contact_terms(plan: PhysicsPlan, model: Model, data: Data, contact: Contact
                          invweight_n, diff_mask)
 
 
+def _cone_blocks(model: Model, active, jv3, pos, k, b, imp, invweight_n, mu):
+    """aref and D [B, n3, 3] of elliptic cone blocks (normal, t1, t2) and
+    each block's mu_1 [n3] (mj_instantiateContact): the friction rows have
+    no position term and reuse the normal row's impedance, D_f = D_n
+    impratio (mu_i / mu_1)^2. The contacts' per-contact terms come in
+    indexed alike: active, pos, imp [B, n3], jv3 [B, n3, 3], k, b,
+    invweight_n [n3], tangential friction mu [n3, 2]."""
+    jv = torch.where(active[..., None], jv3, 0.0)
+    aref = -b[..., None] * jv
+    aref = torch.cat([aref[..., :1] - (k * imp * pos)[..., None], aref[..., 1:]], dim=-1)
+    aref = torch.where(active[..., None], aref, 0.0)
+    d_n = imp / torch.clamp((1.0 - imp) * invweight_n, min=1e-12)
+    mu1 = torch.clamp(mu[:, 0], min=1e-12)
+    d_f = d_n[..., None] * model.opt_impratio * (mu / mu1[:, None]) ** 2
+    return aref, torch.cat([d_n[..., None], d_f], dim=-1), mu1
+
+
 def make_constraint(
     plan: PhysicsPlan, model: Model, data: Data, contact: Contact
 ) -> EfcData:
     """Assembles the constraint rows in C's order (equality, frictionloss,
     limits, contacts): on a compact layout as its operands, else with a
-    dense J and force bounds. Raises for the elliptic plans still to port."""
-    check_rows(plan)
+    dense J and force bounds."""
     elliptic = _jb_supported_ell(plan)
     if elliptic or _jb_supported(plan):
         return _compact_rows(plan, model, data, contact, elliptic)
@@ -503,16 +505,7 @@ def _compact_rows(plan, model, data, contact, elliptic: bool) -> EfcData:
     invweight_n = t.invweight_n
 
     if elliptic:
-        # one (normal, t1, t2) block per contact; friction rows have no
-        # position term and reuse the normal row's impedance
-        jv = torch.where(active[..., None], jv3, 0.0)
-        aref = -b[..., None] * jv
-        aref = torch.cat([aref[..., :1] - (k * imp * pos)[..., None], aref[..., 1:]], dim=-1)
-        aref = torch.where(active[..., None], aref, 0.0)
-        d_n = imp / torch.clamp((1.0 - imp) * invweight_n, min=1e-12)
-        mu1 = torch.clamp(mu[:, 0], min=1e-12)
-        d_f = d_n[..., None] * model.opt_impratio * (mu / mu1[:, None]) ** 2
-        D = torch.cat([d_n[..., None], d_f], dim=-1)
+        aref, D, mu1 = _cone_blocks(model, active, jv3, pos, k, b, imp, invweight_n, mu)
         zero = torch.zeros_like(pos)
         rows_pos = torch.stack([pos, zero, zero], dim=-1).reshape(bsz, -1)
         per = 3
@@ -557,9 +550,10 @@ def _compact_rows(plan, model, data, contact, elliptic: bool) -> EfcData:
 
 
 def _dense_rows(plan, model, data, contact) -> EfcData:
-    """Pyramidal rows off the compact layout, with a dense J and force
-    bounds: equality, frictionloss, limits, condim-1 contacts, then the
-    pyramid groups by ascending condim."""
+    """Rows off the compact layouts, with a dense J and force bounds:
+    equality, frictionloss, limits, condim-1 contacts, then the pyramid
+    groups by ascending condim (pyramidal) or one (normal, t1, t2) cone
+    block per condim-3 contact (elliptic, `ell_mu` set)."""
     like = data.qpos
     bsz, nv = like.shape[0], plan.nv
     rows = []  # (J [B, r, nv], aref, D, pos [B, r], active [B, r], fmin, fmax [r])
@@ -570,6 +564,7 @@ def _dense_rows(plan, model, data, contact) -> EfcData:
 
     big = like.new_tensor(BIG_FORCE)
     zero = like.new_tensor(0.0)
+    ell_mu = None
     for j, aref, D, pos in _equality_rows(plan, model, data):
         push(j, aref, D, pos, torch.ones_like(aref, dtype=torch.bool), -big, big)
     for j, aref, D, floss in _friction_rows(plan, model, data):
@@ -608,35 +603,48 @@ def _dense_rows(plan, model, data, contact) -> EfcData:
             push(torch.where(act[..., None], jn[:, c], 0.0), aref, D, pos[:, c], act, zero, big)
 
         cd3 = np.nonzero(plan.contact_condim >= 3)[0]
-        for cdim in sorted(set(int(x) for x in plan.contact_condim[cd3])):
-            grp = cd3[plan.contact_condim[cd3] == cdim]
-            g = static_tensor(plan, ("con", "grp", cdim), like, lambda: grp)
-            nfr = cdim - 1  # friction directions: 2 tangential, then rotational
-            mu = contact.friction[g, :nfr]  # [ng, nfr]
-            jng, jdg, act = jn[:, g], jdirs[:, g], active[:, g]
-            pyr = []
-            for i in range(nfr):
-                pyr += [jng + mu[:, i, None] * jdg[:, :, i], jng - mu[:, i, None] * jdg[:, :, i]]
-            j = torch.where(act[..., None, None], torch.stack(pyr, dim=2), 0.0)  # [B, ng, 2 nfr, nv]
-            # pyramid jv from the directions' jv (J is linear in them)
-            jv_dirs = torch.cat([jv3[:, g, 1:], jv_rot[:, g, : nfr - 2]], dim=2) if nfr > 2 else jv3[:, g, 1:]
-            jvn = jv3[:, g, 0]
-            jv = []
-            for i in range(nfr):
-                jv += [jvn + mu[:, i] * jv_dirs[..., i], jvn - mu[:, i] * jv_dirs[..., i]]
-            jv = torch.where(act[..., None], torch.stack(jv, dim=2), 0.0)  # [B, ng, 2 nfr]
-            aref = -b[g, None] * jv - (k[g] * imp[:, g] * pos[:, g])[..., None]
-            aref = torch.where(act[..., None], aref, 0.0)
-            # C regularizes every pyramid row with the first friction
-            # coefficient; per-direction mu appears only in J
-            mu0 = mu[:, 0:1]
-            invweight_pyr = t.invweight_n[g, None] * (1.0 + mu0**2) * 2.0 * mu0**2 / model.opt_impratio
-            impg = imp[:, g, None]
-            D = (impg / torch.clamp((1.0 - impg) * invweight_pyr, min=1e-12)).expand(-1, -1, 2 * nfr)
-            nr = len(grp) * 2 * nfr
+        if len(cd3) and plan.cone == CONE_ELLIPTIC:
+            # condim-3 only: elliptic condim 4 and 6 are refused by put_model
+            c = static_tensor(plan, ("con", "cd3"), like, lambda: cd3)
+            act = active[:, c]
+            aref, D, ell_mu = _cone_blocks(model, act, jv3[:, c], pos[:, c], k[c], b[c], imp[:, c],
+                                           t.invweight_n[c], contact.friction[c, :2])
+            j = torch.where(act[..., None, None], jfr[:, c], 0.0)
+            zc = torch.zeros_like(pos[:, c])
+            nr = 3 * len(cd3)
             push(j.reshape(bsz, nr, nv), aref.reshape(bsz, nr), D.reshape(bsz, nr),
-                 pos[:, g].repeat_interleave(2 * nfr, dim=1), act.repeat_interleave(2 * nfr, dim=1), zero, big)
+                 torch.stack([pos[:, c], zc, zc], dim=-1).reshape(bsz, nr), act.repeat_interleave(3, dim=1),
+                 zero, big)
+        else:
+            for cdim in sorted(set(int(x) for x in plan.contact_condim[cd3])):
+                grp = cd3[plan.contact_condim[cd3] == cdim]
+                g = static_tensor(plan, ("con", "grp", cdim), like, lambda: grp)
+                nfr = cdim - 1  # friction directions: 2 tangential, then rotational
+                mu = contact.friction[g, :nfr]  # [ng, nfr]
+                jng, jdg, act = jn[:, g], jdirs[:, g], active[:, g]
+                pyr = []
+                for i in range(nfr):
+                    pyr += [jng + mu[:, i, None] * jdg[:, :, i], jng - mu[:, i, None] * jdg[:, :, i]]
+                j = torch.where(act[..., None, None], torch.stack(pyr, dim=2), 0.0)  # [B, ng, 2 nfr, nv]
+                # pyramid jv from the directions' jv (J is linear in them)
+                jv_dirs = torch.cat([jv3[:, g, 1:], jv_rot[:, g, : nfr - 2]], dim=2) if nfr > 2 else jv3[:, g, 1:]
+                jvn = jv3[:, g, 0]
+                jv = []
+                for i in range(nfr):
+                    jv += [jvn + mu[:, i] * jv_dirs[..., i], jvn - mu[:, i] * jv_dirs[..., i]]
+                jv = torch.where(act[..., None], torch.stack(jv, dim=2), 0.0)  # [B, ng, 2 nfr]
+                aref = -b[g, None] * jv - (k[g] * imp[:, g] * pos[:, g])[..., None]
+                aref = torch.where(act[..., None], aref, 0.0)
+                # C regularizes every pyramid row with the first friction
+                # coefficient; per-direction mu appears only in J
+                mu0 = mu[:, 0:1]
+                invweight_pyr = t.invweight_n[g, None] * (1.0 + mu0**2) * 2.0 * mu0**2 / model.opt_impratio
+                impg = imp[:, g, None]
+                D = (impg / torch.clamp((1.0 - impg) * invweight_pyr, min=1e-12)).expand(-1, -1, 2 * nfr)
+                nr = len(grp) * 2 * nfr
+                push(j.reshape(bsz, nr, nv), aref.reshape(bsz, nr), D.reshape(bsz, nr),
+                     pos[:, g].repeat_interleave(2 * nfr, dim=1), act.repeat_interleave(2 * nfr, dim=1), zero, big)
 
     j, aref, D, pos, active, fmin, fmax = (torch.cat(parts, dim=1 if i < 5 else 0) for i, parts in
                                            enumerate(zip(*rows)))
-    return EfcData(aref=aref, D=D, pos=pos, active_row=active, J=j, fmin=fmin, fmax=fmax)
+    return EfcData(aref=aref, D=D, pos=pos, active_row=active, J=j, fmin=fmin, fmax=fmax, ell_mu=ell_mu)

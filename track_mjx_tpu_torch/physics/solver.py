@@ -7,13 +7,16 @@ Port of track_mjx_tpu/physics/solver.py:
   fused smooth + CG op, which factors qM, solves qacc_smooth and, on Euler
   plans (`fused_euler`), the integrator's implicit-damping solve too:
   ops/cg_solver_kernel.cg_solve on the compact pyramidal layout (the
-  rodent), cg_solve_dense on a dense J (condim-1, -4 or -6 contacts), and
-  ell_cg_solve on the elliptic layout (the fly). `fused_scalar_cg`,
-  `fused_elliptic_cg`, `fused_cg`, `fused_euler`, `_jb_static`.
-- CG plans with equality or frictionloss rows run the bounded scalar CG
-  (`cg_solver_kernel.scalar_cg` with the rows' force bounds) in plain
-  torch over the dense J, every (L L^T)^-1 apply the cho_solve kernel on
-  forward's factor of qM (data.qLD).
+  rodent), cg_solve_dense on a dense J (condim-1, -4 or -6 contacts),
+  ell_cg_solve on the elliptic layout (the fly) and ell_cg_solve_dense on a
+  dense elliptic J (condim-1 contacts beside the cone blocks).
+  `fused_scalar_cg`, `fused_elliptic_cg`, `fused_cg`, `fused_euler`,
+  `_jb_static`.
+- CG plans with equality or frictionloss rows run in plain torch over the
+  dense J, every (L L^T)^-1 apply the cho_solve kernel on forward's factor
+  of qM (data.qLD): the bounded scalar CG (`cg_solver_kernel.scalar_cg`
+  with the rows' force bounds), or, beside elliptic cone blocks, the general
+  elliptic CG (`cg_solver_kernel.elliptic_cg`).
 - Newton plans run `_newton`, batch-first: forward has factored qM and
   solved qacc_smooth (inertia.factor_m/solve_m), each iteration's Hessian
   solve is the solve_spd kernel, and the linesearch is the plain Newton
@@ -21,8 +24,7 @@ Port of track_mjx_tpu/physics/solver.py:
   equality or frictionloss rows.
 
 `solve` dispatches as the reference does: PGS and Newton with elliptic
-cones raise NotImplementedError with the reference's messages, as do the
-elliptic plans still to port (constraint.ELLIPTIC_SLICE_11), and a plan
+cones raise NotImplementedError with the reference's messages, and a plan
 with no constraint rows takes qacc = qacc_smooth.
 """
 
@@ -33,7 +35,7 @@ import torch
 
 from track_mjx_tpu_torch.ops import batched_linalg, cg_solver_kernel
 from track_mjx_tpu_torch.physics import inertia
-from track_mjx_tpu_torch.physics.constraint import EfcData, check_rows, contact_diff_mask
+from track_mjx_tpu_torch.physics.constraint import EfcData, contact_diff_mask
 from track_mjx_tpu_torch.physics.model import (
     INT_EULER,
     SOLVER_CG,
@@ -140,18 +142,37 @@ def solve_inputs(plan: PhysicsPlan, model: Model, data: Data, efc: EfcData) -> d
     return dict(_common_inputs(plan, model, data, efc), mu=efc.jb_mu.expand(bsz, -1, -1).contiguous())
 
 
+def _mu_t(model: Model, efc: EfcData) -> torch.Tensor:
+    """Each cone block's effective friction mu_1 / sqrt(impratio) [nc]."""
+    return efc.ell_mu * torch.rsqrt(torch.clamp(model.opt_impratio, min=_EPS))
+
+
 def ell_solve_inputs(plan: PhysicsPlan, model: Model, data: Data, efc: EfcData) -> dict:
     """Keyword arguments of ops/cg_solver_kernel.ell_cg_solve for this batch:
     as `solve_inputs`, with each cone block's effective friction
     mu_t = mu_1 / sqrt(impratio) as `mu`."""
-    if not fused_elliptic_cg(plan):
+    if not fused_elliptic_cg(plan) or efc.jb_fq is None:
         raise NotImplementedError(
             "the fused elliptic-CG solve takes CG plans with limit rows and "
             "elliptic cone blocks only"
         )
     bsz = data.qpos.shape[0]
-    mu_t = efc.ell_mu * torch.rsqrt(torch.clamp(model.opt_impratio, min=_EPS))
-    return dict(_common_inputs(plan, model, data, efc), mu=mu_t.expand(bsz, -1).contiguous())
+    return dict(_common_inputs(plan, model, data, efc), mu=_mu_t(model, efc).expand(bsz, -1).contiguous())
+
+
+def ell_dense_solve_inputs(plan: PhysicsPlan, model: Model, data: Data, efc: EfcData) -> dict:
+    """Keyword arguments of ops/cg_solver_kernel.ell_cg_solve_dense for this
+    batch (elliptic plans with condim-1 contacts, no equality or frictionloss
+    rows): the dense J, mu as in `ell_solve_inputs` and the scalar row count
+    ns = nefc - 3 ncon_ell."""
+    if not fused_elliptic_cg(plan) or efc.J is None:
+        raise NotImplementedError(
+            "the fused dense-J elliptic-CG solve takes CG plans with unilateral scalar rows and "
+            "elliptic cone blocks off the compact layout"
+        )
+    bsz = data.qpos.shape[0]
+    return dict(_common_inputs(plan, model, data, efc, compact=False), J=efc.J.contiguous(),
+                mu=_mu_t(model, efc).expand(bsz, -1).contiguous(), ns=plan.nefc - 3 * plan.ncon_ell)
 
 
 def dense_j(plan: PhysicsPlan, data: Data, efc: EfcData) -> torch.Tensor:
@@ -266,6 +287,20 @@ def _bounded_cg(plan: PhysicsPlan, model: Model, data: Data, efc: EfcData) -> Da
     return data.replace(qacc=x, qfrc_constraint=qfrc, efc_force=force)
 
 
+def _elliptic_cg(plan: PhysicsPlan, model: Model, data: Data, efc: EfcData) -> Data:
+    """The general elliptic CG (elliptic plans with equality or frictionloss
+    rows beside the cone blocks): the reference's plain path, over forward's
+    qM and its factor qLD (each apply a cho_solve launch)."""
+    meaninertia = torch.diagonal(data.qM, dim1=-2, dim2=-1).mean(-1)
+    tolscale = model.opt_tolerance * torch.clamp(meaninertia * plan.nv, min=_EPS)
+    x, force, qfrc = cg_solver_kernel.elliptic_cg(
+        data.qM, lambda b: inertia.solve_m(data, b), efc.J, efc.aref, efc.D, efc.fmin, efc.fmax,
+        _mu_t(model, efc), data.qacc_smooth, data.qacc_warmstart, tolscale, ns=plan.nefc - 3 * plan.ncon_ell,
+        iterations=plan.iterations, ls_iterations=plan.ls_iterations,
+    )
+    return data.replace(qacc=x, qfrc_constraint=qfrc, efc_force=force)
+
+
 def dense_solve_inputs(plan: PhysicsPlan, model: Model, data: Data, efc: EfcData) -> dict:
     """Keyword arguments of ops/cg_solver_kernel.cg_solve_dense for this
     batch (pyramidal plans with a dense J and unilateral rows only)."""
@@ -282,11 +317,11 @@ def solve(plan: PhysicsPlan, model: Model, data: Data, efc: EfcData) -> Data:
     efc_force (fused CG plans also qacc_smooth, and qacc_eff on Euler
     plans).
 
-    CG (mjSOL_CG) runs the fused solves, or the bounded CG where the plan
-    has equality or frictionloss rows; Newton (mjSOL_NEWTON) is ported for
-    scalar-row models. PGS, Newton with an elliptic cone and the elliptic
-    plans still to port raise. A plan with no constraint rows takes qacc =
-    qacc_smooth."""
+    CG (mjSOL_CG) runs the fused solves, or, where the plan has equality or
+    frictionloss rows, the bounded CG (scalar rows only) or the general
+    elliptic CG; Newton (mjSOL_NEWTON) is ported for scalar-row models. PGS
+    and Newton with an elliptic cone raise. A plan with no constraint rows
+    takes qacc = qacc_smooth."""
     if plan.nefc and plan.solver not in (SOLVER_CG, SOLVER_NEWTON):
         raise NotImplementedError(
             f"solver {plan.solver} not supported: CG (mjSOL_CG=1) and "
@@ -301,22 +336,20 @@ def solve(plan: PhysicsPlan, model: Model, data: Data, efc: EfcData) -> Data:
         )
     if plan.nefc == 0:
         return data.replace(qacc=data.qacc_smooth, qfrc_constraint=torch.zeros_like(data.qacc_smooth))
-    check_rows(plan)
     if plan.solver == SOLVER_NEWTON:
         return _newton(plan, model, data, efc)
     if plan.ne or plan.nf:
-        return _bounded_cg(plan, model, data, efc)
+        return (_elliptic_cg if plan.ncon_ell else _bounded_cg)(plan, model, data, efc)
     with_euler = fused_euler(plan)
-    steps = dict(iterations=plan.iterations, ls_iterations=plan.ls_iterations)
-    if fused_elliptic_cg(plan):
-        # the elliptic kernel always solves for qacc_eff; a plan on another
-        # integrator leaves it unread
+    steps = dict(with_euler=with_euler, iterations=plan.iterations, ls_iterations=plan.ls_iterations)
+    if fused_elliptic_cg(plan) and efc.J is None:
         out = cg_solver_kernel.ell_cg_solve(**ell_solve_inputs(plan, model, data, efc), **steps)
+    elif fused_elliptic_cg(plan):
+        out = cg_solver_kernel.ell_cg_solve_dense(**ell_dense_solve_inputs(plan, model, data, efc), **steps)
     elif efc.J is None:
-        out = cg_solver_kernel.cg_solve(**solve_inputs(plan, model, data, efc), with_euler=with_euler, **steps)
+        out = cg_solver_kernel.cg_solve(**solve_inputs(plan, model, data, efc), **steps)
     else:
-        out = cg_solver_kernel.cg_solve_dense(**dense_solve_inputs(plan, model, data, efc),
-                                              with_euler=with_euler, **steps)
+        out = cg_solver_kernel.cg_solve_dense(**dense_solve_inputs(plan, model, data, efc), **steps)
     data = data.replace(
         qacc_smooth=out.qacc_smooth,
         qacc=out.qacc,
