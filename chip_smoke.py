@@ -1,8 +1,9 @@
 """Smoke run of the torch port on one NVIDIA GPU: the physics control
 steps, the rodent rollout, the trainer on the rodent (MLP and LSTM
-pipelines) and on the fly, and the rest of the physics (RK4 and implicit
+pipelines) and on the fly, the rest of the physics (RK4 and implicit
 integrators, condim-1/4/6 contacts, frictionloss and equality rows, on
-pyramidal and on elliptic cones).
+pyramidal and on elliptic cones), and the third workload config with the
+trainer's options.
 
 Usage (from the repository root, on a machine with a CUDA device and nvcc):
 
@@ -143,6 +144,30 @@ It imports nothing of JAX. Phases, each of which raises on failure:
    1, cho_solve 6, solve_spd 1; rows in both zones), each held against the
    CPU on 64 envs as phase 6 holds the fly, its env-steps/s printed beside
    phase 6's.
+11c. rodent-sps-per-actor, the repo's third workload config (the rodent
+   with position actuators at scale 0.8, CG 4/4, 5 substeps a control step,
+   8192 envs, networks [512 x 3]): 8192 envs, 1 warm-up and 2 timed control
+   steps with one cg_solve launch per substep and no plain version, 64 envs
+   against the CPU as in 3 and env-steps/s beside phase 3's; cg_solve at
+   B = 8192, 4/4 on the path's last states against its plain version
+   within KERNEL_REL and by the float64 rule (on as many dropped states,
+   phase 2's recipe, printed only), timed beside the plain version and the
+   bound, with its registers, shared memory, CTAs per SM and waves; phase
+   8's training through train.main at 8192 envs and full width (clips of
+   80 frames, one epoch of 2 training steps, one eval; the learning half
+   held against the CPU step by step); one epoch with freeze_decoder from
+   its checkpoint (a new run, the decoder bitwise the checkpoint's, the
+   encoder moved); one unroll of the rollout with the trained policy in
+   bf16 (exact launches, float32 master parameters, actions within
+   BF16_ACTION_MAX and BF16_ACTION_MEAN of the float32 policy's); one
+   control step from the path's last state with geom_friction and
+   dof_damping randomized per env (exact launches; one substep of 64 envs
+   against the CPU on the same leaves within phase 3's substep bars; two
+   envs that differ in friction only differ in qacc); the point-mass foreign
+   env trained for one epoch through wrap_external. Its profile_dir check
+   (a small train.main run whose trace must hold the rollout,
+   normalizer_update and sgd scopes and the cg_solve kernel) runs after
+   phase 12, when every rate has been taken.
 12. Standalone linalg kernels against plain: from 4096 contact-rich states
    of the same model, made on the card with the port's stages, qM goes
    through cholesky, its factor and qfrc_smooth through cho_solve, the
@@ -155,8 +180,9 @@ It imports nothing of JAX. Phases, each of which raises on failure:
    with CUDA events on the same inputs, beside the host's issue time per
    call and the kernel's device time from torch.profiler (the kernel's
    time where the host is the slower), its share of its bound and its
-   ratio to the library call. This phase comes last: it starts
-   torch.profiler, which no host-clock rate should run after.
+   ratio to the library call. This phase comes after every rate: it
+   starts torch.profiler, which no host-clock rate should run after (only
+   11c's profile_dir check follows it).
 13. Prints the seconds of each phase and the total, the kernels' JSON line
    (each kernel's launches on every path that runs it under
    "launches_by_path") and, last, {"ok": true, "device": {...}}.
@@ -302,12 +328,15 @@ TRAIN_OVERRIDES = [
     f"train_setup.train_config.num_envs={N_ENVS}",
     "train_setup.train_config.num_minibatches=4",
 ]
-TRAIN_CPU_TRAJ = 64  # trajectories of the first batch in the card-against-CPU learning half
+# trajectories per minibatch of the last batch in the card-against-CPU
+# learning half (64 at phases 8-10's 4 minibatches, 256 at phase 11c's 16)
+TRAIN_CPU_MINIBATCH = 16
 # each training path's config widths (encoder, decoder, critic, intention),
 # asserted: the cuts are depth only
 TRAIN_WIDTHS = {
     "rodent-full-clips": ([1024, 512, 512, 512, 512], [512, 512, 512, 256, 256], [512] * 5 + [256], 60),
     "fly-mc-intention": ([256, 256], [256, 256], [256, 256], 60),
+    "rodent-sps-per-actor": ([512, 512, 512], [512, 512, 512], [512, 512, 512], 60),
 }
 # the rodent's LSTM pipeline at the JAX LSTM trainer's own carry widths
 # (track_mjx_tpu/agent/lstm_ppo/ppo.py's defaults; no YAML sets them)
@@ -407,6 +436,41 @@ REST_SUBSTEP_REL = {k: v for k, v in SUBSTEP_REL.items() if k != "qacc_eff"}
 # worst env, plus KERNEL_F64_FLOOR, and so its median env.
 KERNEL_VS_F64 = 3.0
 KERNEL_F64_FLOOR = 1e-6
+
+# --- rodent-sps-per-actor (phase 11c): the repo's third workload config, the
+# rodent with position actuators at scale 0.8, CG 4/4, 5 substeps a control
+# step, 8192 envs, networks [512 x 3] (its published widths and env count)
+SPS_CONFIG = "rodent-sps-per-actor"
+SPS_CONTROL_STEPS = 2  # timed, after one warm-up control step
+# training cut in depth only, as phase 8: clips of 80 frames (episodes of
+# 25 frames, 50 control steps), num_timesteps = eval_every = 655,360: one epoch of 2
+# training steps of 16 x 1024 / 8192 = 2 unrolls each, then one eval (the
+# config's reset_every, 50M, leaves eval_every // reset_every = 0: no reset
+# between evals); the decoder-transfer run, one training step and an eval of
+# 10 control steps
+SPS_CUTS = [
+    f"reference_config.clip_length={TRAIN_CLIP_LENGTH}",
+    "train_setup.eval_every=655360",
+    "train_setup.train_config.num_timesteps=655360",
+]
+SPS_FREEZE_CUTS = [
+    f"reference_config.clip_length={TRAIN_CLIP_LENGTH}",
+    "reference_config.random_init_range=70",  # episodes of (80 - 70 - 5) x 2 = 10 control steps
+    "train_setup.eval_every=327680",
+    "train_setup.train_config.num_timesteps=327680",
+]
+# the bf16 rollout policy against the float32 one on the same observations
+# and noise, in actions (tanh-squashed, in [-1, 1]): bf16 keeps 8
+# significant bits; on the CPU at these widths, over 2048 envs x 38 actions,
+# the worst differed by 0.034 and the mean by 0.0025
+BF16_ACTION_MAX = 0.15
+BF16_ACTION_MEAN = 0.01
+# per-env randomization: every geom's friction and every dof's damping
+# times U(0.5, 1.5) (a contact takes its higher-priority geom's friction,
+# else the larger of the two: 16 of the rodent's geoms outrank the floor)
+SPS_RANDOM_SCALE = (0.5, 1.5)
+# the point-mass foreign env of phase 11c: one epoch of one training step
+SPS_FOREIGN_ENVS = 1024
 
 REPLACES = {  # the TPU kernel bodies, track_mjx_tpu/ops/batched_linalg.py
     "cholesky": "track_mjx_tpu/ops/batched_linalg.py:86",
@@ -627,8 +691,8 @@ class Phases:
         return inputs_of(plan, model, *self.pre_solve(plan, model, d))
 
     def main_path(self, plan, model, per_substep, control_steps, ctrl_scale, reset_noise=0.001,
-                  data=None, contacts=True):
-        """Warm-up + timed control steps of n_step(..., 10) on N_ENVS envs,
+                  data=None, contacts=True, n_envs=N_ENVS, substeps=SUBSTEPS):
+        """Warm-up + timed control steps of n_step(..., substeps) on n_envs envs,
         from qpos0 with `reset_noise` on the joints after the free root, or
         from `data`. `per_substep` maps each kernel wrapper of the path (and
         any that must not launch, to 0) to its launches per substep. Returns
@@ -637,11 +701,11 @@ class Phases:
         must be active."""
         tf, tm = self.tf, self.tm
         if data is None:
-            data = tm.make_data(plan, model, N_ENVS)
+            data = tm.make_data(plan, model, n_envs)
             qpos = data.qpos.clone()
-            qpos[:, 7:] += self.uniform((N_ENVS, plan.nq - 7), -reset_noise, reset_noise)
+            qpos[:, 7:] += self.uniform((n_envs, plan.nq - 7), -reset_noise, reset_noise)
             data = data.replace(qpos=qpos)
-        ctrls = [ctrl_scale * self.uniform((N_ENVS, plan.nu), -1.0, 1.0)
+        ctrls = [ctrl_scale * self.uniform((n_envs, plan.nu), -1.0, 1.0)
                  for _ in range(1 + control_steps)]
         start = tf.slim_data(data)
         torch.cuda.synchronize()
@@ -649,35 +713,35 @@ class Phases:
         for op in per_substep:
             op.launches = 0  # the kernels of this path; launches below are the path's
         active = 0
-        data = tf.n_step(plan, model, data.replace(ctrl=ctrls[0]), SUBSTEPS)
+        data = tf.n_step(plan, model, data.replace(ctrl=ctrls[0]), substeps)
         torch.cuda.synchronize()
         after_warmup = tf.slim_data(data)
         active += int((data.contact_dist < 0).sum())
         t0 = time.perf_counter()
         for c in range(1, 1 + control_steps):
-            data = tf.n_step(plan, model, data.replace(ctrl=ctrls[c]), SUBSTEPS)
+            data = tf.n_step(plan, model, data.replace(ctrl=ctrls[c]), substeps)
             active += int((data.contact_dist < 0).sum())
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = {op.__name__: op.launches for op in per_substep}
         peak = torch.cuda.max_memory_allocated()
         for op, per in per_substep.items():
-            expected = (1 + control_steps) * SUBSTEPS * per
+            expected = (1 + control_steps) * substeps * per
             assert op.launches == expected, f"{op.__name__} launched {op.launches} times, expected {expected}"
         for name in ("qpos", "qvel", "act", "qacc", "qacc_eff", "efc_force", "sensordata", "xpos"):
             t = getattr(data, name)
-            assert t.shape[0] == N_ENVS and torch.isfinite(t).all(), f"{name} is not finite"
+            assert t.shape[0] == n_envs and torch.isfinite(t).all(), f"{name} is not finite"
         assert active > 0 or not contacts, "no contact is active"
-        env_steps = control_steps * N_ENVS / seconds if control_steps else None
+        env_steps = control_steps * n_envs / seconds if control_steps else None
         self.last_env_steps = env_steps
-        timed = (f"{control_steps} control steps x {SUBSTEPS} substeps in {seconds:.3f} s: {env_steps:.1f} "
-                 f"env-steps/s, {env_steps * SUBSTEPS:.1f} env-substeps/s" if control_steps else "the warm-up only")
-        print(f"main path: {N_ENVS} envs x {timed}; "
+        timed = (f"{control_steps} control steps x {substeps} substeps in {seconds:.3f} s: {env_steps:.1f} "
+                 f"env-steps/s, {env_steps * substeps:.1f} env-substeps/s" if control_steps else "the warm-up only")
+        print(f"main path: {n_envs} envs x {timed}; "
               f"launches {launches} ({1 + control_steps} control steps); active contacts/env at the control steps' ends "
-              f"{active / N_ENVS / (1 + control_steps):.2f}; peak memory {peak} B ({self.card})")
+              f"{active / n_envs / (1 + control_steps):.2f}; peak memory {peak} B ({self.card})")
         return start, ctrls, after_warmup, data, launches
 
-    def cpu_warmup(self, snap, start, ctrl0):
+    def cpu_warmup(self, snap, start, ctrl0, substeps=SUBSTEPS):
         """The warm-up control step of the first N_CPU envs on the CPU, from
         the model snapshot `snap`."""
         tf, tm = self.tf, self.tm
@@ -686,10 +750,10 @@ class Phases:
             **{k: getattr(start, k)[:N_CPU].cpu() for k in ("time", "qpos", "qvel", "act", "qacc_warmstart")},
             ctrl=ctrl0[:N_CPU].cpu(),
         )
-        return cpu_plan, cpu_model, tf.n_step(cpu_plan, cpu_model, cpu, SUBSTEPS)
+        return cpu_plan, cpu_model, tf.n_step(cpu_plan, cpu_model, cpu, substeps)
 
     def versus_cpu(self, what, snap, plan, model, start, ctrls, after_warmup, step_rel, substep_rel,
-                   f64: bool = False, qpos_by_f64: bool = False):
+                   f64: bool = False, qpos_by_f64: bool = False, substeps=SUBSTEPS):
         """The warm-up control step of the first N_CPU envs repeated on the
         CPU from the same start and controls (`snap` put on the CPU), its
         qpos held on the worst env and its qvel on the median one to
@@ -701,8 +765,8 @@ class Phases:
         against the CPU's solve of them within `substep_rel`, its worst env
         taken apart (`solve_split`). With `qpos_by_f64` the control step's
         worst-env qpos is held by that float64 rule instead of
-        step_rel["qpos_max"]."""
-        cpu_plan, cpu_model, cpu = self.cpu_warmup(snap, start, ctrls[0])
+        step_rel["qpos_max"]. `substeps` per control step."""
+        cpu_plan, cpu_model, cpu = self.cpu_warmup(snap, start, ctrls[0], substeps)
         errs = {}
         for name in ("qpos", "qvel"):
             per_env = _per_env(getattr(after_warmup, name)[:N_CPU].cpu(), getattr(cpu, name))
@@ -837,22 +901,22 @@ class Phases:
     # rodent
     # -----------------------------------------------------------------------
 
-    def rodent_drop(self, plan, model):
+    def rodent_drop(self, plan, model, n_envs=N_ENVS):
         """Contact-rich rodent starts (qpos, qvel, ctrl, warmstart): feet
         dropped into the floor, joints perturbed, random qvel, ctrl and
         warmstart (tests/test_cg_kernel_parity.py)."""
-        qpos = model.qpos0.expand(N_ENVS, plan.nq).clone()
-        qpos[:, 2] -= self.uniform((N_ENVS,), 0.008, 0.016)
-        qpos[:, 7:] += self.uniform((N_ENVS, plan.nq - 7), -0.08, 0.08)
-        qvel = self.uniform((N_ENVS, plan.nv), -0.5, 0.5)
-        ctrl = self.uniform((N_ENVS, plan.nu), -0.5, 0.5)
-        return qpos, qvel, ctrl, self.uniform((N_ENVS, plan.nv), -1.0, 1.0)
+        qpos = model.qpos0.expand(n_envs, plan.nq).clone()
+        qpos[:, 2] -= self.uniform((n_envs,), 0.008, 0.016)
+        qpos[:, 7:] += self.uniform((n_envs, plan.nq - 7), -0.08, 0.08)
+        qvel = self.uniform((n_envs, plan.nv), -0.5, 0.5)
+        ctrl = self.uniform((n_envs, plan.nu), -0.5, 0.5)
+        return qpos, qvel, ctrl, self.uniform((n_envs, plan.nv), -1.0, 1.0)
 
-    def rodent_states(self, plan, model):
+    def rodent_states(self, plan, model, n_envs=N_ENVS):
         """Contact-rich rodent solver inputs of the fused solve."""
-        return self.solver_inputs(plan, model, *self.rodent_drop(plan, model), self.ts.solve_inputs)
+        return self.solver_inputs(plan, model, *self.rodent_drop(plan, model, n_envs), self.ts.solve_inputs)
 
-    def cg_kernel_info(self, op: str, n: int, nl: int, nc: int) -> None:
+    def cg_kernel_info(self, op: str, n: int, nl: int, nc: int, n_envs: int = N_ENVS) -> None:
         """Registers, shared memory, resident CTAs per SM and threads of the
         fused solve kernel `op` (cg_solve, ell_cg_solve) at the walker's
         sizes, as built, and the waves of N_ENVS envs (one per CTA) over the
@@ -863,10 +927,11 @@ class Phases:
         err = getattr(kernel_lib.load_library(), f"{op}_kernel_info")(n, nl, nc, info)
         assert err == 0, f"{op}_kernel_info failed with cudaError {err}"
         sms = torch.cuda.get_device_properties(0).multi_processor_count
-        waves = -(-N_ENVS // (info[2] * sms))
+        waves = -(-n_envs // (info[2] * sms))
         print(f"{op} kernel at n={n}, nl={nl}, nc={nc}: {info[3]} threads per CTA (one env), "
               f"{info[0]} registers per thread, {info[1]} B of shared memory per CTA, {info[2]} "
-              f"resident CTAs per SM, {waves} waves of {N_ENVS} envs on {sms} SMs ({self.card})")
+              f"resident CTAs per SM, {waves} waves of {n_envs} envs on {sms} SMs ({self.card})")
+        return info
 
     def rodent(self) -> list:
         tk, tm = self.tk, self.tm
@@ -1095,10 +1160,13 @@ class Phases:
     # -----------------------------------------------------------------------
 
     def training(self, config: str = "rodent-full-clips", extra=(), what: str = "rodent training",
-                 phase: int = 8) -> int:
-        """PPO training of workload `config` (with `extra` overrides) at full
-        width and N_ENVS envs through train.main (phases 8-10); returns the
-        launches of the path's fused solve in the phase."""
+                 phase="8", cuts=TRAIN_OVERRIDES, step_by_step: bool = False) -> int:
+        """PPO training of workload `config` (with the depth `cuts` and `extra`
+        overrides) at full width through train.main (phases 8-10 and 11c);
+        returns the launches of the path's fused solve in the phase. The
+        learning half is held against the CPU as a whole, or with
+        `step_by_step` step by step. The run's directory and config stay in
+        `self.train_run`."""
         from track_mjx_tpu_torch import train as ttrain
         from track_mjx_tpu_torch.agent import checkpointing
         from track_mjx_tpu_torch.envs.base import map_tensors
@@ -1121,11 +1189,12 @@ class Phases:
             f"device={self.dev.type}",
             f"data_path={os.path.join(root, 'clips.npz')}",
             f"logging_config.model_path={os.path.join(root, 'ckpts')}",
-            *TRAIN_OVERRIDES,
+            *cuts,
             *extra,
         ])
         tc, net = cfg.train_setup.train_config, cfg.network_config
-        lstm = bool(tc.use_lstm)
+        substeps = cfg.env_config.env_args.physics_steps_per_control_step
+        lstm = bool(tc.get("use_lstm", False))
         widths = (net.encoder_layer_sizes, net.decoder_layer_sizes, net.critic_layer_sizes, net.intention_size)
         assert widths == TRAIN_WIDTHS[config], widths
         if lstm:
@@ -1135,14 +1204,20 @@ class Phases:
         resets_per_eval = cfg.train_setup.eval_every // cfg.train_setup.reset_every
         steps = -(-tc.num_timesteps // (max(num_evals - 1, 1) * per_step * max(resets_per_eval, 1)))
         unrolls = tc.batch_size * tc.num_minibatches // tc.num_envs
-        episode = TRAIN_CLIP_LENGTH - cfg.reference_config.random_init_range - cfg.reference_config.traj_length
+        # control steps of an episode: its frames times the control steps per
+        # frame (2 at rodent-sps-per-actor's 5 substeps), as workload.episode_length
+        env_args = cfg.env_config.env_args
+        per_frame = (1.0 / (env_args.mocap_hz * env_args.mj_model_timestep)) / substeps
+        episode = int((TRAIN_CLIP_LENGTH - cfg.reference_config.random_init_range
+                       - cfg.reference_config.traj_length) * per_frame)
 
         captured, progress = {}, []
 
         def on_batch(state, data, make_learner):  # the last step's state and batch, before its learning half
             captured["make_learner"] = make_learner
             captured["state"] = checkpointing.cpu_copy(state.state_dict())
-            captured["data"] = map_tensors(lambda x: x[:TRAIN_CPU_TRAJ].detach().to("cpu", copy=True), data)
+            n = TRAIN_CPU_MINIBATCH * tc.num_minibatches
+            captured["data"] = map_tensors(lambda x: x[:n].detach().to("cpu", copy=True), data)
             captured["obs"] = data.observation[:, 0].clone()
             if lstm:
                 captured["carry"] = tuple(x.clone() for x in state.hidden_state)
@@ -1173,12 +1248,12 @@ class Phases:
         # and its episode, with the initial eval only when num_evals > 1
         evals = max(num_evals - 1, 1) + (1 if num_evals > 1 else 0)
         epochs = max(num_evals - 1, 1) * max(resets_per_eval, 1)
-        expected = (1 + epochs * steps * unrolls * tc.unroll_length * SUBSTEPS
-                    + (epochs if resets_per_eval > 0 else 0) + evals * (1 + episode * SUBSTEPS))
+        expected = (1 + epochs * steps * unrolls * tc.unroll_length * substeps
+                    + (epochs if resets_per_eval > 0 else 0) + evals * (1 + episode * substeps))
         print(f"{what}: {solve} launches {launches}, expected 1 (reset) + {epochs} epoch x {steps} training "
-              f"steps x {unrolls} unroll x {tc.unroll_length} steps x {SUBSTEPS} + "
+              f"steps x {unrolls} unroll x {tc.unroll_length} steps x {substeps} + "
               f"{epochs if resets_per_eval > 0 else 0} (reset after the epoch) + {evals} eval x (1 + {episode} "
-              f"x {SUBSTEPS}) = {expected}; {solve}_plain calls {plain_calls[0]}; "
+              f"x {substeps}) = {expected}; {solve}_plain calls {plain_calls[0]}; "
               f"{', '.join(f'{op.__name__} {op.launches}' for op in others)}")
         assert launches == expected, f"{solve} launched {launches} times, expected {expected}"
         assert plain_calls[0] == 0, f"the trainer called {solve}_plain {plain_calls[0]} times"
@@ -1207,7 +1282,7 @@ class Phases:
             finite = all(bool(torch.isfinite(x).all()) for x in carry)
             print(f"{what}: the stored rollout carry (h, c) has shapes {shapes}, finite {finite}, "
                   f"max |h| {float(carry[0].abs().max()):.4f}")
-            assert shapes == [(N_ENVS, *LSTM_CARRY)] * 2 and finite, "the rollout carry is off"
+            assert shapes == [(tc.num_envs, *LSTM_CARRY)] * 2 and finite, "the rollout carry is off"
         print(f"{what} sps {final['training/sps']:.1f}, eval sps {final['eval/sps']:.1f} (the trainer's metrics); "
               f"host ms per training step: rollout {final['training/rollout_ms']:.1f}, normalizer update "
               f"{final['training/normalizer_update_ms']:.3f}, sgd {final['training/sgd_ms']:.1f}; eval "
@@ -1231,7 +1306,9 @@ class Phases:
               f"trained policy's bit for bit: {same}")
         assert same, "the checkpoint's policy acts otherwise than the trained one"
 
-        self.learning_half_versus_cpu(bundle["cfg"], captured, what)
+        check = self.learning_steps_versus_cpu if step_by_step else self.learning_half_versus_cpu
+        check(bundle["cfg"], captured, what)
+        self.train_run = run_dir, cfg
         if config == "fly-mc-intention":
             self.fly_env_layer_versus_cpu(cfg, clips)
         peak = torch.cuda.max_memory_allocated()
@@ -1268,21 +1345,19 @@ class Phases:
         assert worst < ROLLOUT_LAYER_REL, f"the card's fly env layer disagrees with the CPU's: {worst:.3e}"
         assert flags_equal, "the card's fly flags disagree with the CPU's on the same physics"
 
-    def learning_half_versus_cpu(self, cfg, captured, what: str) -> None:
-        """One learning half (the normalizer update, then the passes over the
-        minibatches) on the card and on the CPU from the same training state,
-        on TRAIN_CPU_TRAJ trajectories of the phase's last batch (its state
-        has taken a training step: Adam's bias correction and the normalizer
-        are not at their start), with the same permutations and noises; the
-        first minibatch's gradients too. Both sides run the trainer's own
-        Learner (`make_learner`, handed over by ppo.train's batch_callback)
-        over networks built from the checkpoint's config."""
+    def learning_sides(self, cfg, captured):
+        """The card's and the CPU's learning halves from the same state: per
+        device the networks (from the checkpoint's config), the trainer's own
+        Learner (`make_learner`, handed over by ppo.train's batch_callback),
+        the training state, TRAIN_CPU_MINIBATCH trajectories per minibatch
+        of the phase's last batch and the same permutations and noises."""
         from track_mjx_tpu_torch.agent import checkpointing, running_statistics
         from track_mjx_tpu_torch.agent.mlp_ppo import ppo
         from track_mjx_tpu_torch.envs.base import map_tensors
 
         tc, net = cfg["train_setup"]["train_config"], cfg["network_config"]
-        n, mbs, passes = TRAIN_CPU_TRAJ, tc["num_minibatches"], tc["num_updates_per_batch"]
+        mbs, passes = tc["num_minibatches"], tc["num_updates_per_batch"]
+        n = TRAIN_CPU_MINIBATCH * mbs
         unroll, actions, latents = tc["unroll_length"], net["action_size"], net["intention_size"]
         gen = torch.Generator().manual_seed(SEED)
         draws = [ppo.UpdateDraws(torch.randperm(n, generator=gen), [
@@ -1296,9 +1371,33 @@ class Phases:
             state = ppo.TrainingState(
                 networks, learner.optimizer, running_statistics.init_state(net["observation_size"], dev), 0)
             state.load_state_dict(captured["state"])
-            data = map_tensors(lambda x: x.to(dev), captured["data"])
             move = lambda d: ppo.UpdateDraws(d.permutation.to(dev), [(a.to(dev), b.to(dev)) for a, b in d.noises])  # noqa: E731
-            dev_draws = [move(d) for d in draws]
+            sides[dev.type] = dict(networks=networks, learner=learner, state=state,
+                                   data=map_tensors(lambda x: x.to(dev), captured["data"]),
+                                   draws=[move(d) for d in draws])
+        return sides, n, mbs, passes
+
+    @staticmethod
+    def _params(networks) -> dict:
+        return {k: v.detach().cpu() for m in (networks.policy_network, networks.value_network)
+                for k, v in m.state_dict().items()}
+
+    def learning_half_versus_cpu(self, cfg, captured, what: str) -> None:
+        """One learning half (the normalizer update, then the passes over the
+        minibatches) on the card and on the CPU from the same training state
+        (`learning_sides`; the state has taken a training step: Adam's bias
+        correction and the normalizer are not at their start); the first
+        minibatch's gradients too."""
+        from track_mjx_tpu_torch.agent import checkpointing, running_statistics
+        from track_mjx_tpu_torch.envs.base import map_tensors
+
+        tc = cfg["train_setup"]["train_config"]
+        unroll = tc["unroll_length"]
+        sides, n, mbs, passes = self.learning_sides(cfg, captured)
+        out = {}
+        for dev, side in sides.items():
+            networks, learner, state, data, dev_draws = (side[k] for k in ("networks", "learner", "state", "data",
+                                                                            "draws"))
             # the first minibatch's gradients, from the normalizer its passes
             # run on (the LSTM trainer's passes run on the pre-update one)
             normalizer = state.normalizer_params
@@ -1311,14 +1410,13 @@ class Phases:
                      for k, p in m.named_parameters()}
             learner.optimizer.zero_grad()
             metrics = learner(state, data, 1, draws=dev_draws)
-            sides[dev.type] = {
+            out[dev] = {
                 "grads": grads,
                 "metrics": [{k: float(v) for k, v in m.items()} for m in metrics],
-                "params": {k: v.detach().cpu() for m in (networks.policy_network, networks.value_network)
-                           for k, v in m.state_dict().items()},
+                "params": self._params(networks),
                 "normalizer": checkpointing.normalizer_to_dict(state.normalizer_params),
             }
-        card, cpu = sides[self.dev.type], sides["cpu"]
+        card, cpu = out[self.dev.type], out["cpu"]
         loss_err = max(abs(a[k] - b[k]) / max(1.0, abs(b[k])) for a, b in zip(card["metrics"], cpu["metrics"]) for k in b)
         grad_err = max(float((card["grads"][k] - g).abs().max() / g.abs().max().clamp(min=1e-30))
                        for k, g in cpu["grads"].items())
@@ -1334,6 +1432,64 @@ class Phases:
         assert loss_err < TRAIN_LOSS_REL, f"the card's loss terms disagree with the CPU's: {loss_err:.3e}"
         assert grad_err < TRAIN_GRAD_REL, f"the card's gradients disagree with the CPU's: {grad_err:.3e}"
         assert param_err < TRAIN_PARAM_LR, f"the card's parameters disagree with the CPU's: {param_err:.3e} lr"
+        assert norm_err < TRAIN_NORM_REL, f"the card's normalizer disagrees with the CPU's: {norm_err:.3e}"
+
+    def learning_steps_versus_cpu(self, cfg, captured, what: str) -> None:
+        """The learning half step by step (phase 11c: over its 4 passes of 16
+        minibatches two float32 runs part by more than phase 8's bars, on an
+        NVIDIA H100 1.3e-4 to 2.9e-2 in the loss terms against 1.2e-6 over
+        phase 8's 16 steps): the normalizer update on each side, then before each
+        gradient step the CPU takes the card's parameters and Adam state, and
+        the step's loss terms, its clipped gradients and the parameters after
+        it are held to phase 8's bars, on the card's updated normalizer."""
+        from track_mjx_tpu_torch.agent import checkpointing, running_statistics
+        from track_mjx_tpu_torch.envs.base import map_tensors
+
+        tc = cfg["train_setup"]["train_config"]
+        lr = tc["learning_rate"]
+        sides, n, mbs, passes = self.learning_sides(cfg, captured)
+        card, cpu = sides[self.dev.type], sides["cpu"]
+        assert not card["learner"].normalizer_after_sgd
+        normalizers = {k: running_statistics.update(v["state"].normalizer_params, v["data"].observation)
+                       for k, v in sides.items()}
+        norm_err = max(_rel(getattr(normalizers[self.dev.type], k).cpu(), getattr(normalizers["cpu"], k))
+                       for k in ("count", "mean", "summed_variance", "std"))
+        normalizer_on_cpu = checkpointing.normalizer_from_dict(
+            checkpointing.normalizer_to_dict(normalizers[self.dev.type]), "cpu")
+        worst = {"loss": 0.0, "grad": 0.0, "param": 0.0}
+        for u in range(passes):
+            shuffled = {k: map_tensors(lambda x: x[v["draws"][u].permutation].reshape((mbs, -1) + x.shape[1:]),
+                                       v["data"]) for k, v in sides.items()}
+            for m in range(mbs):
+                for sd, src in ((cpu["networks"].policy_network, card["networks"].policy_network),
+                                (cpu["networks"].value_network, card["networks"].value_network)):
+                    sd.load_state_dict(checkpointing.cpu_copy(src.state_dict()))
+                cpu["learner"].optimizer.load_state_dict(checkpointing.cpu_copy(
+                    card["learner"].optimizer.state_dict()))
+                step = {}
+                for k, side in sides.items():
+                    normalizer = normalizers[k] if k != "cpu" else normalizer_on_cpu
+                    mb = map_tensors(lambda x: x[m], shuffled[k])
+                    _, aux = side["learner"].update_fn(normalizer, mb, *side["draws"][u].noises[m], 1)
+                    nets = side["networks"]
+                    step[k] = ({name: float(v.detach()) for name, v in aux.items()},
+                               {name: p.grad.detach().cpu() for mod in (nets.policy_network, nets.value_network)
+                                for name, p in mod.named_parameters() if p.grad is not None},
+                               self._params(nets))
+                (a_m, a_g, a_p), (b_m, b_g, b_p) = step[self.dev.type], step["cpu"]
+                worst["loss"] = max(worst["loss"], max(abs(a_m[k] - b_m[k]) / max(1.0, abs(b_m[k])) for k in b_m))
+                worst["grad"] = max(worst["grad"], max(
+                    float((a_g[k] - g).abs().max() / g.abs().max().clamp(min=1e-30)) for k, g in b_g.items()))
+                worst["param"] = max(worst["param"], max(float((a_p[k] - p).abs().max()) / lr for k, p in b_p.items()))
+        print(f"{what}, the learning half card vs CPU step by step ({n} trajectories x {tc['unroll_length']} steps "
+              f"of the last batch, {passes} passes x {mbs} minibatches, each step from the card's parameters and Adam "
+              f"state, full width): loss terms worst rel err {worst['loss']:.3e} (bar {TRAIN_LOSS_REL:.0e}); clipped "
+              f"gradients worst err relative to each tensor's largest element {worst['grad']:.3e} (bar "
+              f"{TRAIN_GRAD_REL:.0e}); parameters after a step worst {worst['param']:.3e} lr (bar {TRAIN_PARAM_LR:.0e} "
+              f"lr); normalizer update {norm_err:.3e} (bar {TRAIN_NORM_REL:.0e})")
+        assert worst["loss"] < TRAIN_LOSS_REL, f"the card's loss terms disagree with the CPU's: {worst['loss']:.3e}"
+        assert worst["grad"] < TRAIN_GRAD_REL, f"the card's gradients disagree with the CPU's: {worst['grad']:.3e}"
+        assert worst["param"] < TRAIN_PARAM_LR, f"the card's parameters disagree with the CPU's: {worst['param']:.3e} lr"
         assert norm_err < TRAIN_NORM_REL, f"the card's normalizer disagrees with the CPU's: {norm_err:.3e}"
 
     # -----------------------------------------------------------------------
@@ -1690,7 +1846,8 @@ class Phases:
     # the rest of the physics (phase 11)
     # -----------------------------------------------------------------------
 
-    def fused_kernel_vs_plain(self, op, plain, inputs, what, its, ls, with_euler, gate: bool, bars=KERNEL_REL):
+    def fused_kernel_vs_plain(self, op, plain, inputs, what, its, ls, with_euler, gate: bool, bars=KERNEL_REL,
+                              hold_f64: bool = True):
         """One launch of `op` against `plain` on `inputs`, in float32 and in
         float64. Every output is held, with `gate`, within `bars` of the
         float32 plain version's, and always by the float64 rule: over the
@@ -1724,6 +1881,8 @@ class Phases:
                   + ", ".join(f"{stat} {k:.3e} / {p:.3e} / {bb:.3e}" for stat, (k, p, bb) in held.items()))
             if gate:
                 assert err < bar, f"{op.__name__} {name} disagrees with plain: {err:.3e} >= {bar:.0e}"
+            if not hold_f64:  # printed only
+                continue
             assert e_kernel <= KERNEL_VS_F64 * e_plain + KERNEL_F64_FLOOR, (
                 f"{op.__name__} {name}: {e_kernel:.3e} from float64, over {KERNEL_VS_F64} x {e_plain:.3e}")
             for stat, (k, p, bb) in held.items():
@@ -2114,6 +2273,302 @@ class Phases:
         return dense, no_euler, launches
 
 
+    # -----------------------------------------------------------------------
+    # rodent-sps-per-actor (phase 11c): the third workload config
+    # -----------------------------------------------------------------------
+
+    def sps_kernel(self, plan, model, state) -> dict:
+        """cg_solve at the config's batch and CG iterations on the solver
+        inputs of the physics path's last state (`state`, in contact),
+        against its plain version within KERNEL_REL and by the float64 rule
+        (fused_kernel_vs_plain); then on as many dropped rodent states
+        (rodent_drop, phase 2's recipe), printed only: two float32 solves of
+        such a draw at 4/4 part by more than KERNEL_REL (qacc 6.6e-5 and
+        2.5e-4 on two draws of 8192, the second 3.1x the float32 plain
+        version's distance from float64, PERF.md); registers, shared memory,
+        CTAs per SM and waves; timed on the path's inputs beside the plain
+        version and the bound."""
+        tk, tm = self.tk, self.tm
+        n_envs = state.qpos.shape[0]
+        its, ls = plan.iterations, plan.ls_iterations
+        d = tm.make_data(plan, model, n_envs).replace(
+            **{k: getattr(state, k) for k in ("qpos", "qvel", "act", "ctrl", "qacc_warmstart")})
+        inputs = self.ts.solve_inputs(plan, model, *self.pre_solve(plan, model, d))
+        kernel, max_abs = self.fused_kernel_vs_plain(tk.cg_solve, tk.cg_solve_plain, inputs,
+                                                     f"the {n_envs} {SPS_CONFIG} path states", its, ls, True,
+                                                     gate=True)
+        rich = float((kernel.efc_force != 0).any(dim=1).float().mean())
+        print(f"{SPS_CONFIG}: {n_envs} path states, share with active constraint rows {rich:.3f}, active contacts/env "
+              f"{float((state.contact_dist < 0).sum()) / n_envs:.2f}")
+        assert rich > 0.9, "states are not contact-rich"
+        dropped = self.rodent_states(plan, model, n_envs)
+        self.fused_kernel_vs_plain(tk.cg_solve, tk.cg_solve_plain, dropped, f"{n_envs} dropped {SPS_CONFIG} states",
+                                   its, ls, True, gate=False, hold_f64=False)
+        del dropped
+        nc, nl = inputs["fq"].shape[1], inputs["lim1h"].shape[0]
+        self.cg_kernel_info("cg_solve", plan.nv, nl, nc, n_envs)
+        kernel_ms = _time_ms(lambda: tk.cg_solve(**inputs, iterations=its, ls_iterations=ls), 20)
+        plain_ms = _time_ms(lambda: tk.cg_solve_plain(**inputs, iterations=its, ls_iterations=ls), 3)
+        b_ms, b_by = bound_ms(tensor_bytes([*inputs.values(), *kernel]),
+                              n_envs * solve_flops(plan.nv, nl, nc, 4, its, ls))
+        print(f"{SPS_CONFIG}: cg_solve at B={n_envs}, {its}/{ls}: kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} "
+              f"ms, bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / kernel_ms:.1f}% of the bound ({self.card})")
+        return {"envs": n_envs, "iterations": its, "ls_iterations": ls, "ms": kernel_ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": max_abs}
+
+    def sps_randomized(self, snap, plan, model, settled, substeps) -> int:
+        """One control step with geom_friction and dof_damping randomized per
+        env (the stages broadcast them; K2 takes per-env mu and damping),
+        from the physics path's last state (`settled`, SlimData, in
+        contact): exact launches and no plain version; then one substep from
+        that state on N_CPU envs, card against CPU on the same leaves within
+        SUBSTEP_REL, as phase 3 holds a substep. Envs 0 and 1 share their
+        state, controls and damping and differ in friction only, and must
+        differ in qacc."""
+        tf, tm, tk = self.tf, self.tm, self.tk
+        n_envs = settled.qpos.shape[0]
+        frictions = model.geom_friction * self.uniform((n_envs, 1, 1), *SPS_RANDOM_SCALE)
+        dampings = model.dof_damping * self.uniform((n_envs, 1), *SPS_RANDOM_SCALE)
+        dampings[1] = dampings[0]
+        model_v = dataclasses.replace(model, geom_friction=frictions, dof_damping=dampings)
+        fields = {k: getattr(settled, k).clone() for k in ("time", "qpos", "qvel", "act", "qacc_warmstart")}
+        fields["ctrl"] = RODENT_CTRL_SCALE * self.uniform((n_envs, plan.nu), -1.0, 1.0)
+        for t in fields.values():
+            t[1] = t[0]
+        start = tm.make_data(plan, model_v, n_envs).replace(**fields)
+        calls, restore = self.no_plain_calls()
+        tk.cg_solve.launches = 0
+        try:
+            out = tf.n_step(plan, model_v, start, substeps)
+            torch.cuda.synchronize()
+            launches = tk.cg_solve.launches
+            card_sub = tf.step(plan, model_v, start)  # the substep held against the CPU, not counted
+        finally:
+            restore()
+        assert not any(calls.values()), f"a plain version ran on the card: {calls}"
+        assert launches == substeps, f"cg_solve launched {launches} times, expected {substeps}"
+        for name in ("qpos", "qvel", "qacc", "efc_force"):
+            assert torch.isfinite(getattr(out, name)).all(), f"{name} is not finite"
+        gap = float((out.qacc[0] - out.qacc[1]).abs().max())
+        print(f"{SPS_CONFIG}, randomized: {n_envs} envs, geom friction and dof damping x U{SPS_RANDOM_SCALE} per "
+              f"env, one control step from the path's last state, cg_solve launches {launches}; envs 0 and 1 "
+              f"(frictions x {float(frictions[0, 0, 0] / model.geom_friction[0, 0]):.3f} and "
+              f"{float(frictions[1, 0, 0] / model.geom_friction[0, 0]):.3f}, all else equal) part in qacc by "
+              f"{gap:.3e}; active contacts/env {float((out.contact_dist < 0).sum()) / n_envs:.2f}")
+        assert gap > 1e-3, "the friction did not reach the solve"
+        cpu_plan, cpu_model = tm.put_model(snap, device="cpu")
+        cpu_model = dataclasses.replace(cpu_model, geom_friction=frictions[:N_CPU].cpu(),
+                                        dof_damping=dampings[:N_CPU].cpu())
+        cpu_sub = tf.step(cpu_plan, cpu_model, tm.make_data(cpu_plan, cpu_model, N_CPU).replace(
+            **{k: v[:N_CPU].cpu() for k, v in fields.items()}))
+        for name, bar in SUBSTEP_REL.items():
+            worst = float(_per_env(getattr(card_sub, name)[:N_CPU].cpu(), getattr(cpu_sub, name)).max())
+            print(f"{SPS_CONFIG}, randomized: card vs CPU, one substep, {N_CPU} envs with their own leaves, {name}: "
+                  f"per-env rel err max {worst:.3e} (bar {bar:.0e})")
+            assert worst < bar, f"card and CPU {name} differ after one randomized substep: {worst:.3e}"
+        return launches
+
+    def sps_freeze(self, run_dir) -> int:
+        """One epoch with freeze_decoder from the training run's checkpoint
+        through train.main: a new run whose decoder is the checkpoint's bit
+        for bit and whose encoder moved; returns cg_solve's launches."""
+        from track_mjx_tpu_torch import train as ttrain
+        from track_mjx_tpu_torch.agent import checkpointing, network_masks
+        from track_mjx_tpu_torch.utils.config import load_config
+
+        tk = self.tk
+        root = os.path.dirname(os.path.dirname(run_dir))
+        cfg = load_config(SPS_CONFIG, [
+            f"device={self.dev.type}",
+            f"data_path={os.path.join(root, 'clips.npz')}",
+            f"logging_config.model_path={os.path.join(root, 'transfer')}",
+            *SPS_FREEZE_CUTS,
+            f"train_setup.checkpoint_to_restore={run_dir}",
+            "train_setup.freeze_decoder=true",
+        ])
+        tk.cg_solve.launches = 0
+        t0 = time.perf_counter()
+        _, (_, policy) = ttrain.main(cfg)
+        torch.cuda.synchronize()
+        launches = tk.cg_solve.launches
+        _, source = checkpointing.CheckpointStore(run_dir).policy(device=self.dev)  # the state dict on the CPU
+        policy = {k: v.cpu() for k, v in policy.items()}
+        decoder = [k for k in policy if network_masks.is_decoder(k)]
+        encoder = [k for k in policy if ".encoder." in f".{k}"]
+        same = all(torch.equal(policy[k], source[k]) for k in decoder)
+        moved = max(float((policy[k] - source[k]).abs().max()) for k in encoder)
+        runs = os.listdir(os.path.join(root, "transfer"))
+        print(f"{SPS_CONFIG}, freeze_decoder: one training step and one eval in {time.perf_counter() - t0:.1f} s, "
+              f"cg_solve launches {launches}, new run {runs}; the {len(decoder)} decoder tensors bitwise the "
+              f"checkpoint's: {same}; the encoder moved by up to {moved:.3e}")
+        assert same and len(runs) == 1, "the frozen decoder changed"
+        assert moved > 0, "the encoder did not train"
+        return launches
+
+    def sps_bf16(self, run_dir, n_envs, substeps) -> int:
+        """One unroll of the rollout with the trained policy in bf16
+        (rollout_bf16's policy): exact launches, finite transitions, float32
+        master parameters; its actions on the unroll's first observations
+        against the float32 policy's with the same noise."""
+        from track_mjx_tpu_torch import rollout as trollout
+        from track_mjx_tpu_torch.agent import acting, checkpointing, types
+        from track_mjx_tpu_torch.agent.mlp_ppo import ppo_networks
+
+        tk = self.tk
+        ro = trollout.make_rollout(SPS_CONFIG, seed=SEED, device=self.dev)
+        normalizer, params = checkpointing.CheckpointStore(run_dir).policy(device=self.dev)
+        ro.networks.policy_network.load_state_dict(params)
+        bf16 = ppo_networks.make_inference_fn(ro.networks)(normalizer, compute_dtype=torch.bfloat16)
+        f32 = ppo_networks.make_inference_fn(ro.networks)(normalizer)
+        calls, restore = self.no_plain_calls()
+        tk.cg_solve.launches = 0
+        try:
+            state = ro.env.reset(self.gen, n_envs)
+            t0 = time.perf_counter()
+            _, data = acting.generate_unroll(ro.env, state, bf16, self.gen, ro.unroll_length)
+            torch.cuda.synchronize()
+            unroll_s = time.perf_counter() - t0
+        finally:
+            restore()
+        launches = tk.cg_solve.launches
+        expected = 1 + ro.unroll_length * substeps
+        assert not any(calls.values()), f"a plain version ran on the card: {calls}"
+        assert launches == expected, f"cg_solve launched {launches} times, expected {expected}"
+        for name in ("observation", "action", "reward", "discount"):
+            assert torch.isfinite(getattr(data, name)).all(), f"transition {name} is not finite"
+        assert all(p.dtype == torch.float32 for p in ro.networks.policy_network.parameters())
+        obs = data.observation[0]
+        noise = types.PolicyNoise(torch.randn(n_envs, ro.networks.policy_network.module.encoder.fc2_mean.out_features,
+                                              generator=self.gen, device=self.dev),
+                                  torch.randn(n_envs, ro.tracking.action_size, generator=self.gen, device=self.dev))
+        gap = (bf16(obs, noise)[0] - f32(obs, noise)[0]).abs()
+        print(f"{SPS_CONFIG}, rollout_bf16: reset + one unroll of {ro.unroll_length} steps x {n_envs} envs in "
+              f"{unroll_s:.1f} s, cg_solve launches {launches} (1 + {ro.unroll_length} x {substeps}); every "
+              f"Transition field finite; master parameters float32; bf16 against float32 actions on the same "
+              f"observations and noise: max {float(gap.max()):.4f} (bar {BF16_ACTION_MAX}), mean "
+              f"{float(gap.mean()):.5f} (bar {BF16_ACTION_MEAN})")
+        assert float(gap.max()) < BF16_ACTION_MAX and float(gap.mean()) < BF16_ACTION_MEAN
+        assert float(gap.max()) > 0, "the bf16 policy computed in float32"
+        return launches
+
+    def sps_foreign(self) -> None:
+        """The point-mass foreign env (track_mjx_tpu_torch.testing) trains
+        one epoch on the card through wrap_external: finite losses and
+        parameters, and no physics kernel launched."""
+        from track_mjx_tpu_torch.agent.mlp_ppo import ppo, ppo_networks
+        from track_mjx_tpu_torch.testing import PointMassEnv
+        from track_mjx_tpu_torch.utils.config import load_config
+
+        tk = self.tk
+        tk.cg_solve.launches = 0
+        t0 = time.perf_counter()
+        _, (normalizer, policy), metrics = ppo.train(
+            environment=PointMassEnv(self.dev), num_timesteps=SPS_FOREIGN_ENVS * 20 * 4, episode_length=50,
+            num_envs=SPS_FOREIGN_ENVS, batch_size=SPS_FOREIGN_ENVS, num_minibatches=4, unroll_length=20,
+            num_updates_per_batch=4, num_evals=2, num_eval_envs=128, normalize_observations=True,
+            network_factory=ppo_networks.network_factory(load_config(SPS_CONFIG).network_config), device=self.dev)
+        losses = {k: v for k, v in metrics.items() if k.startswith("training/") and k.endswith("loss")}
+        print(f"point-mass foreign env through wrap_external: one epoch at {SPS_FOREIGN_ENVS} envs in "
+              f"{time.perf_counter() - t0:.1f} s, training sps {metrics['training/sps']:.1f}, eval episode reward "
+              f"{metrics['eval/episode_reward']:.3f}, losses {json.dumps(losses)}")
+        assert len(losses) == 5 and all(math.isfinite(v) for v in losses.values()), losses
+        assert all(torch.isfinite(v).all() for v in policy.values()) and torch.isfinite(normalizer.mean).all()
+        assert tk.cg_solve.launches == 0
+
+    def sps_per_actor(self) -> tuple[dict, dict]:
+        """Phase 11c; returns K2's record at this config's shape and the
+        launches of each of its paths."""
+        from track_mjx_tpu_torch.utils.config import load_config
+
+        tk, tm, tf = self.tk, self.tm, self.tf
+        t_start = time.perf_counter()
+        cfg = load_config(SPS_CONFIG)
+        n_envs = cfg.train_setup.train_config.num_envs
+        substeps = cfg.env_config.env_args.physics_steps_per_control_step
+        snap = tm.load_snapshot(SPS_CONFIG)
+        plan, model = tm.put_model(snap, device=self.dev)
+        print(f"{SPS_CONFIG}: nq={plan.nq} nv={plan.nv} nu={plan.nu} na={plan.na} ncon={plan.ncon} nefc={plan.nefc} "
+              f"cg {plan.iterations}/{plan.ls_iterations}, {substeps} substeps, {n_envs} envs; actuators gain "
+              f"{sorted(set(plan.actuator_gaintype.tolist()))} bias {sorted(set(plan.actuator_biastype.tolist()))} "
+              f"dyn {sorted(set(plan.actuator_dyntype.tolist()))}")
+        launches = {}
+        calls, restore = self.no_plain_calls()
+        try:
+            start, ctrls, after_warmup, final, counts = self.main_path(
+                plan, model, {tk.cg_solve: 1}, SPS_CONTROL_STEPS, RODENT_CTRL_SCALE, n_envs=n_envs, substeps=substeps)
+        finally:
+            restore()
+        assert not any(calls.values()), f"a plain version ran on the card: {calls}"
+        launches["rodent-sps-per-actor control steps (phase 11c)"] = counts["cg_solve"]
+        rate = self.last_env_steps
+        self.versus_cpu(f"{SPS_CONFIG}: ", snap, plan, model, start, ctrls, after_warmup, STEP_REL, SUBSTEP_REL,
+                        substeps=substeps)
+        print(f"{SPS_CONFIG}: {rate:.1f} env-steps/s at {n_envs} envs x {substeps} substeps against phase 3's "
+              f"{self.physics_env_steps:.1f} at {N_ENVS} x {SUBSTEPS}, {rate / self.physics_env_steps:.3f}x "
+              f"({self.card})")
+        del start, ctrls, after_warmup
+        record = self.sps_kernel(plan, model, final)
+        settled = tf.slim_data(final)
+        del final
+        torch.cuda.empty_cache()
+
+        launches["rodent-sps-per-actor training, train.main (phase 11c)"] = self.training(
+            SPS_CONFIG, what=f"{SPS_CONFIG} training", phase="11c", cuts=SPS_CUTS, step_by_step=True)
+        run_dir, _ = self.train_run
+        launches["rodent-sps-per-actor freeze_decoder, train.main (phase 11c)"] = self.sps_freeze(run_dir)
+        launches["rodent-sps-per-actor rollout_bf16 unroll (phase 11c)"] = self.sps_bf16(run_dir, n_envs, substeps)
+        launches["rodent-sps-per-actor randomized control step (phase 11c)"] = self.sps_randomized(
+            snap, plan, model, settled, substeps)
+        self.sps_foreign()
+        torch.cuda.empty_cache()
+        print(f"phase 11c: {time.perf_counter() - t_start:.1f} s ({self.card})")
+        return record, launches
+
+    def sps_profile_dir(self) -> None:
+        """Phase 11c's profile_dir check, after every rate of the script: a
+        small run of the config through train.main with profile_dir (two
+        epochs of one training step, the second traced) writes a trace that
+        holds the rollout, normalizer_update and sgd scopes and the cg_solve
+        kernel."""
+        from track_mjx_tpu_torch import train as ttrain
+        from track_mjx_tpu_torch.utils.config import load_config
+
+        run_dir, _ = self.train_run
+        root = os.path.dirname(os.path.dirname(run_dir))
+        trace_dir = os.path.join(root, "profile")
+        cfg = load_config(SPS_CONFIG, [
+            f"device={self.dev.type}",
+            f"data_path={os.path.join(root, 'clips.npz')}",
+            f"logging_config.model_path={os.path.join(root, 'profiled')}",
+            f"reference_config.clip_length={TRAIN_CLIP_LENGTH}",
+            "reference_config.random_init_range=70",  # an eval of 10 control steps
+            # 256 envs, one unroll of one step a training step: 64 x 1 x 4 =
+            # 256 env steps; two epochs of one step (eval_every // reset_every
+            # = 2) before one eval of 16 envs
+            "train_setup.eval_every=512",
+            "train_setup.reset_every=256",
+            "train_setup.train_config.num_timesteps=512",
+            "train_setup.train_config.num_envs=256",
+            "train_setup.train_config.batch_size=64",
+            "train_setup.train_config.num_minibatches=4",
+            "train_setup.train_config.unroll_length=1",
+            "train_setup.train_config.num_eval_envs=16",
+            f"train_setup.train_config.profile_dir={trace_dir}",
+        ])
+        t0 = time.perf_counter()
+        ttrain.main(cfg)
+        (name,) = os.listdir(trace_dir)
+        path = os.path.join(trace_dir, name)
+        with open(path) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+        scopes = {k: k in names for k in ("rollout", "normalizer_update", "sgd")}
+        kernels = sorted(n for n in names if "cg_solve" in n and "cg_solve_dense" not in n)
+        print(f"{SPS_CONFIG}, profile_dir: {time.perf_counter() - t0:.1f} s; trace {name} "
+              f"({os.path.getsize(path)} B, {len(names)} distinct event names): scopes {scopes}, cg_solve kernels "
+              f"{kernels[:3]}")
+        assert all(scopes.values()) and kernels, "the trace lacks a phase scope or the cg_solve kernel"
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device (torch.cuda.is_available() is False)")
@@ -2147,9 +2602,9 @@ def main() -> None:
     newton = timed("7 rodent Newton", phases.newton_main_path)
     training_launches = timed("8 rodent training", phases.training)
     fly_training_launches = timed("9 fly training", phases.training, "fly-mc-intention", what="fly training",
-                                  phase=9)
+                                  phase="9")
     lstm_training_launches = timed("10 rodent LSTM training", phases.training, extra=LSTM_OVERRIDES,
-                                   what="rodent LSTM training", phase=10)
+                                   what="rodent LSTM training", phase="10")
     dense, no_euler, rest_launches = timed("11 rest of physics", phases.rest_of_physics)
     dense["launches"] = rest_launches["rodent mixed condims"]["cg_solve_dense"]
     kernels.append(dense)
@@ -2158,14 +2613,18 @@ def main() -> None:
     kernels.append(ell_dense)
     rest_launches = {f"{k} control steps (phase 11)": v for k, v in rest_launches.items()}
     rest_launches.update({f"{k} control steps (phase 11b)": v for k, v in fly_launches.items()})
+    sps_record, sps_launches = timed("11c rodent-sps-per-actor", phases.sps_per_actor)
     kernels += timed("12 standalone linalg", phases.newton_kernels, *newton)
+    timed("11c profile_dir", phases.sps_profile_dir)
     for k in kernels:  # each kernel's launches on every path that runs it, as counted there
         if k["name"] == "cg_solve":
             k["no_euler"] = no_euler
+            k["rodent_sps_per_actor"] = sps_record
             k["launches_by_path"] = {"rodent control steps (phase 3)": k["launches"],
                                      "rodent rollout, reset + one unroll (phase 4)": rollout_launches,
                                      "rodent training, train.main (phase 8)": training_launches,
-                                     "rodent LSTM training, train.main (phase 10)": lstm_training_launches}
+                                     "rodent LSTM training, train.main (phase 10)": lstm_training_launches,
+                                     **sps_launches}
         elif k["name"] == "ell_cg_solve":
             k["no_euler"] = ell_no_euler
             k["launches_by_path"] = {"fly control steps (phase 6)": k["launches"],

@@ -135,6 +135,8 @@ def test_port_imports_with_jax_h5py_and_yaml_blocked(tmp_path):
         "import track_mjx_tpu_torch.agent.lstm_ppo.intention_network, track_mjx_tpu_torch.agent.checkpointing\n"
         "from track_mjx_tpu_torch.utils.config import load_config\n"
         "assert load_config('rodent-full-clips').train_setup.train_config.unroll_length == 20\n"
+        "import track_mjx_tpu_torch.agent.network_masks, track_mjx_tpu_torch.testing\n"
+        "assert load_config('rodent-sps-per-actor').train_setup.train_config.num_envs == 8192\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -446,8 +446,3 @@ def test_lstm_smoke():
     action, _, carry = make_policy(params[0], deterministic=True)(data1.observation[:8, 0], None,
                                                                   (h1, batches[1][0][1]))
     assert torch.isfinite(action).all() and carry[0].shape == (8, LAYERS, HID)
-
-
-def test_lstm_bf16_is_refused():
-    with pytest.raises(NotImplementedError, match="rollout_bf16"):
-        _toy_train(rollout_bf16=True)

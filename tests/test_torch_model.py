@@ -131,6 +131,7 @@ def test_port_imports_neither_jax_nor_mujoco():
         "import track_mjx_tpu_torch.envs.walker.rodent, track_mjx_tpu_torch.io.load\n"
         "import track_mjx_tpu_torch.io.synthetic, track_mjx_tpu_torch.agent.acting\n"
         "import track_mjx_tpu_torch.agent.ppo_factory, track_mjx_tpu_torch.agent.mlp_ppo.ppo_networks\n"
+        "import track_mjx_tpu_torch.agent.network_masks, track_mjx_tpu_torch.testing\n"
         "bad = [m for m in ('jax', 'flax', 'mujoco', 'yaml', 'h5py', 'track_mjx_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n"
         "print('ok')\n"

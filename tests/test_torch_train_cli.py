@@ -279,11 +279,10 @@ def test_cli_reads_the_config_name_and_overrides(monkeypatch, argv, name, overri
 @pytest.mark.parametrize(
     "overrides",
     [
-        # the LSTM pipeline is ported; decoder freezing is not, in either pipeline
+        # the LSTM pipeline is ported; decoder freezing is not, in the LSTM pipeline
         pytest.param(["train_setup.train_config.use_lstm=true", "train_setup.freeze_decoder=true"],
                      id="train_setup.train_config.use_lstm=true"),
         pytest.param(["train_setup.restore_from_run_state=run.json"], id="train_setup.restore_from_run_state=run.json"),
-        pytest.param(["train_setup.freeze_decoder=true"], id="train_setup.freeze_decoder=true"),
         pytest.param(["distributed=true"], id="distributed=true"),
     ],
 )
@@ -317,9 +316,11 @@ def test_multirun_is_refused():
         train.cli(["-m", "seed=1,2"])
 
 
-@pytest.mark.parametrize("name", ["rodent-full-clips", "fly-mc-intention"])
+@pytest.mark.parametrize("name", ["rodent-full-clips", "fly-mc-intention", "rodent-sps-per-actor"])
 def test_exported_config_equals_the_jax_yaml(name):
-    assert tconfig.load_config(name).to_dict() == jconfig.load_config(name).to_dict()
+    got = tconfig.load_config(name).to_dict()
+    assert got.pop(tconfig.CONFIG_NAME) == name  # the workload's name, which names its snapshot
+    assert got == jconfig.load_config(name).to_dict()
 
 
 def test_dotted_overrides_match_jax_where_json_and_yaml_agree():
@@ -335,7 +336,7 @@ def test_dotted_overrides_match_jax_where_json_and_yaml_agree():
     ]
     got = tconfig.load_config("rodent-full-clips", overrides)
     want = jconfig.load_config("rodent-full-clips", overrides)
-    assert got.to_dict() == want.to_dict()
+    assert {**want.to_dict(), tconfig.CONFIG_NAME: "rodent-full-clips"} == got.to_dict()
     assert got.train_setup.train_config.num_envs == 128 and got.new_section.sub.key == 3
     # where YAML and JSON differ, the port keeps the string (ROADMAP, standing divergences)
     assert [tconfig.parse_value(v) for v in ("~", "yes", "1e-4")] == ["~", "yes", 1e-4]

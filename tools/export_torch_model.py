@@ -10,9 +10,10 @@ frictionloss probes of tests/test_equality.py (connect, weld, joint, tendon,
 friction) that way to track_mjx_tpu_torch/assets/probes/<name>.npz, a few
 KB each, so that a machine without MuJoCo can step them (chip_smoke.py).
 
-NAME is rodent-full-clips (the default) or fly-mc-intention. The walker is
-built exactly as envs/task/tracking.py builds it for that workload (the
-Rodent or Fly walker with the config's walker_config, then opt.solver /
+NAME is rodent-full-clips (the default), fly-mc-intention or
+rodent-sps-per-actor (the rodent with position actuators at scale 0.8). The
+walker is built exactly as envs/task/tracking.py builds it for that workload
+(the Rodent or Fly walker with the config's walker_config, then opt.solver /
 iterations / ls_iterations / timestep from env_args and a dense jacobian),
 and the MjModel fields and `opt` scalars that `put_model` reads, and no
 others, are written to track_mjx_tpu_torch/assets/<name>.npz (dashes become
@@ -38,7 +39,7 @@ import sys
 import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CONFIGS = ("rodent-full-clips", "fly-mc-intention")
+CONFIGS = ("rodent-full-clips", "fly-mc-intention", "rodent-sps-per-actor")
 PROBE_DIR = os.path.join(REPO, "track_mjx_tpu_torch", "assets", "probes")
 # snapshot name -> the XML's name in tests/test_equality.py
 PROBES = {

@@ -10,6 +10,13 @@ is `torch.optim.Adam` with optax's b1 = 0.9, b2 = 0.999, eps = 1e-8 (eps_root
 0): the same update up to roundoff (torch divides sqrt(v) by sqrt(1 - b2^t)
 where optax takes the root of v / (1 - b2^t)), one optimizer over both
 networks' parameters, as `PPONetworkParams` is one optax tree.
+
+Decoder transfer (`freeze_decoder`) is the JAX trainer's
+`chain(chain(clip, adam), freeze(mask))`: the clip's global norm still
+counts the frozen parameters' gradients, and then no update reaches them.
+Here their gradients are dropped after the clip, so Adam skips them and
+keeps no state for them; the other parameters' updates are the same, as
+Adam works elementwise.
 """
 
 from __future__ import annotations
@@ -46,12 +53,14 @@ def gradient_update_fn(
     loss_fn: Callable,
     optimizer: torch.optim.Optimizer,
     max_grad_norm: Optional[float] = MAX_GRAD_NORM,
+    frozen: Iterable[torch.nn.Parameter] = (),
 ) -> Callable:
     """f(*args) -> (loss, aux): the gradient of `loss_fn(*args) -> (loss,
     aux)` in the optimizer's parameters, clipped by global norm (not with
     `max_grad_norm` None: the LSTM trainer's plain adam), then one optimizer
-    step, in place."""
+    step, in place, which leaves the `frozen` parameters as they are."""
     params = [p for group in optimizer.param_groups for p in group["params"]]
+    frozen = list(frozen)
 
     def f(*args, **kwargs):
         optimizer.zero_grad()
@@ -59,6 +68,8 @@ def gradient_update_fn(
         loss.backward()
         if max_grad_norm is not None:
             clip_by_global_norm_([p.grad for p in params if p.grad is not None], max_grad_norm)
+        for p in frozen:
+            p.grad = None
         optimizer.step()
         return loss, aux
 

@@ -24,6 +24,17 @@ parameters.
   input kernels start lecun_uniform, the hidden ones orthogonal (per gate),
   the bias zero.
 
+A `compute_dtype` (the trainers' `rollout_bf16`) runs the network body of
+the rollout's policy forward in that dtype, as the JAX package's apply does:
+the normalizer stays float32, the parameters are cast per apply (the
+modules' own stay float32 for the loss and the optimizer) and every output
+comes back float32. Where flax promotes, so does the port: the latent noise
+is drawn in float32, so a sampled latent, and the decoder after it, are
+float32 over the bf16-rounded weights; the mean latent and the recurrent
+decoder stay in the compute dtype. These are explicit bf16 matmuls, not
+TF32: `physics.forward.set_full_f32` turns TF32 off, which they do not
+touch, and the physics stays float32.
+
 Module names follow the flax parameter tree: `encoder.trunk.hidden_i`,
 `encoder.trunk.LayerNorm_i`, `encoder.fc2_mean`, `encoder.fc2_logvar`,
 `decoder.trunk.hidden_i`; `lstm_decoder.lstm_i` (a cell, whose flax gates
@@ -38,6 +49,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
 
 from track_mjx_tpu_torch.agent import types
 from track_mjx_tpu_torch.agent.distribution import Noise, standard_normal
@@ -235,18 +247,50 @@ class RecurrentIntentionPolicy(nn.Module):
         return logits, mean, logvar, carry
 
 
+def _cast_params(module: nn.Module, *dtypes: torch.dtype) -> dict:
+    """The module's parameters cast through `dtypes` in turn (copies)."""
+    out = {}
+    for name, p in module.named_parameters():
+        for dtype in dtypes:
+            p = p.to(dtype)
+        out[name] = p
+    return out
+
+
+def _apply_in(module: nn.Module, obs: torch.Tensor, arg, dtype: torch.dtype):
+    """`module(obs, arg)` with its body in `dtype`, flax's promotions kept
+    (module docstring); outputs float32."""
+    if isinstance(module, RecurrentIntentionPolicy):
+        carry = tuple(c.to(dtype) for c in arg)
+        out = functional_call(module, _cast_params(module, dtype), (obs.to(dtype), carry))
+        logits, mean, logvar, carry = out
+        return logits.float(), mean.float(), logvar.float(), tuple(c.float() for c in carry)
+    obs = obs.to(dtype)
+    mean, logvar = functional_call(module.encoder, _cast_params(module.encoder, dtype),
+                                   (obs[..., : module.reference_obs_size],))
+    # float32 noise: bf16 * float32 promotes, as under jax
+    z = mean if arg is None else mean + torch.exp(0.5 * logvar) * standard_normal(arg, logvar.float())
+    decoder_in = torch.cat([z, obs[..., module.reference_obs_size :]], dim=-1)
+    logits = functional_call(module.decoder, _cast_params(module.decoder, dtype, decoder_in.dtype), (decoder_in,))
+    return logits.float(), mean.float(), logvar.float()
+
+
 class NormalizedIntentionPolicy(nn.Module):
     """An intention policy behind the observation normalizer:
-    `forward(processor_params, obs, arg)`, `arg` the feed-forward policy's
-    noise or the recurrent policy's carry."""
+    `forward(processor_params, obs, arg, compute_dtype=None)`, `arg` the
+    feed-forward policy's noise or the recurrent policy's carry; with
+    `compute_dtype` the body runs in that dtype (module docstring)."""
 
     def __init__(self, module: nn.Module, preprocess_observations_fn: types.PreprocessObservationFn):
         super().__init__()
         self.module = module
         self.preprocess_observations_fn = preprocess_observations_fn
 
-    def forward(self, processor_params, obs: torch.Tensor, arg=None):
-        return self.module(self.preprocess_observations_fn(obs, processor_params), arg)
+    def forward(self, processor_params, obs: torch.Tensor, arg=None, compute_dtype: Optional[torch.dtype] = None):
+        obs = self.preprocess_observations_fn(obs, processor_params)
+        if compute_dtype is None:
+            return self.module(obs, arg)
+        return _apply_in(self.module, obs, arg, compute_dtype)
 
 
 def make_feedforward_intention_policy(

@@ -16,8 +16,18 @@ evals) and keeps the reference's differences from it:
 - no KL schedule: the loss's KL weight is fixed;
 - the passes run on the normalizer the training step started with; the
   normalizer update from the batch comes after them;
-- no freeze_decoder and no test-split evaluator (`eval_env_test_set` is
-  accepted and ignored, as in the reference).
+- no test-split evaluator (`eval_env_test_set` is accepted and ignored,
+  as in the reference);
+- `freeze_decoder` raises: the recurrent policy has no module named
+  `decoder` (its decoder is `lstm_decoder`), so the JAX package's mask
+  would freeze nothing, and the JAX LSTM trainer drops the option without a
+  word; a foreign env raises too, as the JAX LSTM trainer wraps only
+  tracking envs.
+
+`randomization_fn`, `rollout_bf16` and `profile_dir` work as in the MLP
+trainer. The JAX LSTM trainer hands `randomization_fn` to the wrappers
+unsplit, with no rng; the port binds one generator stream for the training
+envs and one for the eval envs, as the MLP trainers do.
 
 The widths of the carry come from `config_dict["network_config"]`
 (hidden_state_size, hidden_layer_num), as in the reference.
@@ -118,14 +128,16 @@ def train(
     del use_kl_schedule, kl_ramp_up_frac, eval_env_test_set, get_activation, use_lstm
     if batch_size * num_minibatches % num_envs:
         raise ValueError(f"batch_size * num_minibatches ({batch_size * num_minibatches}) is no multiple of num_envs")
+    if freeze_decoder:
+        raise NotImplementedError(
+            "freeze_decoder with the LSTM pipeline: its policy has no `decoder` module to freeze "
+            "(the JAX LSTM trainer ignores the option)"
+        )
+    if not isinstance(environment, Env):
+        raise NotImplementedError("a foreign (non-tracking) env with the LSTM pipeline: use the MLP trainer")
     unsupported = {
-        "freeze_decoder": freeze_decoder,
         "checkpoint_callback": checkpoint_callback is not None,
-        "randomization_fn": randomization_fn is not None,
-        "rollout_bf16": rollout_bf16,
         "more than one device": max_devices_per_host not in (None, 1),
-        "a foreign (non-tracking) env": not isinstance(environment, Env),
-        "profile_dir": profile_dir is not None,
     }
     for what, asked in unsupported.items():
         if asked:
@@ -140,13 +152,18 @@ def train(
     hidden_layer_num = config_dict["network_config"]["hidden_layer_num"]
 
     env_step_per_training_step = batch_size * unroll_length * num_minibatches * action_repeat
-    key_init, key_env, key_train, key_eval = mlp_ppo.seeded_generators(seed, device, 3)
-
-    wrap = functools.partial(
-        wrappers.wrap, episode_length=episode_length, action_repeat=action_repeat, use_lstm=True,
-        hidden_state_dim=hidden_state_size, hidden_layer_num=hidden_layer_num,
+    key_init, key_env, key_train, key_eval, key_randomize, key_randomize_eval = mlp_ppo.seeded_generators(
+        seed, device, 5
     )
-    env = wrap(environment)
+
+    def wrap(env_: Env, generator: torch.Generator, n: int):
+        return wrappers.wrap(
+            env_, episode_length=episode_length, action_repeat=action_repeat,
+            randomization_fn=mlp_ppo.bind_randomization(randomization_fn, generator, n),
+            use_lstm=True, hidden_state_dim=hidden_state_size, hidden_layer_num=hidden_layer_num,
+        )
+
+    env = wrap(environment, key_randomize, num_envs)
     env_state = env.reset(key_env, num_envs)
     obs_size = env_state.obs.shape[-1]
     reference_obs_size = int(env_state.info["reference_obs_size"])
@@ -207,11 +224,13 @@ def train(
         ),
         env_step_per_training_step,
         num_resets_per_eval,
+        profile_dir,
     )
+    rollout_dtype = torch.bfloat16 if rollout_bf16 else None  # the rollout's policy forward only
 
     def training_step() -> List[Dict[str, torch.Tensor]]:
         nonlocal env_state
-        policy = make_policy(training_state.normalizer_params)
+        policy = make_policy(training_state.normalizer_params, compute_dtype=rollout_dtype)
         carry = training_state.hidden_state
         t0 = time.perf_counter()
         with record_function("rollout"):
@@ -232,7 +251,7 @@ def train(
         return metrics
 
     evaluator = acting.Evaluator(
-        wrap(environment if eval_env is None else eval_env),
+        wrap(environment if eval_env is None else eval_env, key_randomize_eval, num_eval_envs),
         functools.partial(make_policy, deterministic=deterministic_eval),
         num_eval_envs=num_eval_envs,
         episode_length=episode_length,

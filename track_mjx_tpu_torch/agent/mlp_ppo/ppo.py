@@ -15,7 +15,25 @@ device, with the same structure:
   step, as the JAX package adds a float32 to an int32;
 - the KL schedule driven by the eval iteration `it`, not by env steps;
 - an eval (and a checkpoint) per epoch, the initial ones only when
-  num_evals > 1; `num_resets_per_eval` resets the envs after each epoch.
+  num_evals > 1; `num_resets_per_eval` resets the envs after each epoch
+  (with 0, as the rodent-sps-per-actor config gives, one epoch per eval
+  and no reset);
+- the options: `freeze_decoder` (with `checkpoint_to_restore`: the
+  decoder transfer below), `randomization_fn` (per-env model leaves,
+  `wrappers.DomainRandomizationVmapWrapper`: `randomization_fn(model,
+  generator, num_envs)`, one generator for the training envs and one for
+  the eval envs), `rollout_bf16` (the rollout's policy forward in bf16,
+  agent/intention.py), a foreign env (`wrappers.wrap_external`, the whole
+  observation feeding the encoder where the env gives no split), and
+  `profile_dir` (a torch.profiler trace of the second epoch, the first
+  after the warm-up, as `<profile_dir>/epoch_1.pt.trace.json`).
+
+Decoder transfer, as the JAX trainer: the decoder's parameters come from
+the checkpoint's policy and stay frozen (the clip's global norm still
+counts their gradients; Adam, with fresh state, updates nothing of them);
+everything else starts fresh, and the proprioceptive slice of the
+normalizer (its last proprioceptive_obs_size entries) is the checkpoint's,
+pinned again after every normalizer update.
 
 `Learner`, `EpochTimer`, `steps_per_epoch` and `seeded_generators` serve
 the LSTM trainer (agent/lstm_ppo/ppo.py) too.
@@ -34,11 +52,13 @@ a test can feed the JAX ones.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import functools
 import logging
 import math
+import os
 import time
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -46,7 +66,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from track_mjx_tpu_torch.agent import acting, checkpointing, gradients, running_statistics, types
+from track_mjx_tpu_torch.agent import acting, checkpointing, gradients, network_masks, running_statistics, types
 from track_mjx_tpu_torch.agent.mlp_ppo import losses, ppo_networks
 from track_mjx_tpu_torch.envs import wrappers
 from track_mjx_tpu_torch.envs.base import Env, map_tensors
@@ -125,10 +145,11 @@ class Learner:
     """The learning half of a training step: the normalizer update over the
     batch's observations, then num_updates_per_batch passes of
     num_minibatches Adam steps (clipped by global norm unless
-    `max_grad_norm` is None). With `normalizer_after_sgd` (the LSTM
-    trainer's order) the passes run on the normalizer the step started
-    with and the update comes after them. `phase_s` sums each phase's host
-    seconds."""
+    `max_grad_norm` is None) that leave the `frozen` parameters as they
+    are. With `normalizer_after_sgd` (the LSTM trainer's order) the passes
+    run on the normalizer the step started with and the update comes after
+    them. With `pinned` (a normalizer's tail slice) every update ends with
+    that slice pinned. `phase_s` sums each phase's host seconds."""
 
     def __init__(
         self,
@@ -138,10 +159,13 @@ class Learner:
         num_updates_per_batch: int,
         max_grad_norm: Optional[float] = gradients.MAX_GRAD_NORM,
         normalizer_after_sgd: bool = False,
+        frozen: Sequence[torch.nn.Parameter] = (),
+        pinned: Optional[running_statistics.RunningStatisticsState] = None,
     ):
         self.loss_fn = loss_fn
         self.optimizer = optimizer
-        self.update_fn = gradients.gradient_update_fn(loss_fn, optimizer, max_grad_norm)
+        self.update_fn = gradients.gradient_update_fn(loss_fn, optimizer, max_grad_norm, frozen)
+        self.pinned = pinned
         self.num_minibatches = num_minibatches
         self.num_updates_per_batch = num_updates_per_batch
         self.normalizer_after_sgd = normalizer_after_sgd
@@ -150,9 +174,10 @@ class Learner:
     def _update_normalizer(self, training_state: TrainingState, observation: torch.Tensor) -> None:
         t0 = time.perf_counter()
         with record_function("normalizer_update"):
-            training_state.normalizer_params = running_statistics.update(
-                training_state.normalizer_params, observation
-            )
+            normalizer = running_statistics.update(training_state.normalizer_params, observation)
+            if self.pinned is not None:
+                normalizer = running_statistics.pin_tail(normalizer, self.pinned)
+            training_state.normalizer_params = normalizer
         self.phase_s["normalizer_update"] += _clock(observation.device) - t0
 
     def __call__(
@@ -207,6 +232,20 @@ def _stack_unrolls(unrolls: Sequence[types.Transition]) -> types.Transition:
     return map_tensors(lambda x: x.transpose(1, 2).reshape((-1,) + x.shape[1:2] + x.shape[3:]), stacked)
 
 
+def bind_randomization(randomization_fn: Optional[Callable], generator: torch.Generator, num_envs: int):
+    """`randomization_fn(model, generator, num_envs)` bound to one generator
+    stream and env count, as the wrappers take it (None stays None)."""
+    if randomization_fn is None:
+        return None
+    return functools.partial(randomization_fn, generator=generator, num_envs=num_envs)
+
+
+def _wrapper_for(env) -> Callable:
+    """`wrappers.wrap` for a port env, `wrappers.wrap_external` for a
+    foreign one."""
+    return wrappers.wrap if isinstance(env, Env) else wrappers.wrap_external
+
+
 def steps_per_epoch(
     num_timesteps: int,
     num_evals: int,
@@ -241,23 +280,46 @@ class EpochTimer:
     JAX package's training/sps (the steps of one epoch times the resets per
     eval, an epoch being one of num_resets_per_eval between evals) and
     walltime, the loss metrics' means, and each phase's host ms per
-    training step."""
+    training step. With `profile_dir`, the second epoch (the first after
+    the warm-up) runs under torch.profiler, whose trace goes to
+    `<profile_dir>/epoch_1.pt.trace.json`: the phases appear there as
+    record_function scopes, and on the card the kernels."""
 
-    def __init__(self, learner: Learner, steps: int, env_step_per_training_step: int, num_resets_per_eval: int):
+    def __init__(
+        self,
+        learner: Learner,
+        steps: int,
+        env_step_per_training_step: int,
+        num_resets_per_eval: int,
+        profile_dir: Optional[str] = None,
+    ):
         self.learner = learner
         self.steps = steps
         self.env_steps_per_epoch = steps * env_step_per_training_step * max(num_resets_per_eval, 1)
         self.rollout_s = 0.0  # host seconds of the epoch's rollouts, added by the training step
         self.walltime = 0.0
+        self.profile_dir = profile_dir
+        self.epochs_run = 0
 
     def __call__(self, training_step: Callable[[], List[Dict[str, torch.Tensor]]]) -> Metrics:
         t = time.time()
         self.rollout_s = 0.0
         self.learner.phase_s = dict.fromkeys(self.learner.phase_s, 0.0)
-        step_metrics = []
-        for _ in range(self.steps):
-            step_metrics += training_step()
-        loss_metrics = _mean_metrics(step_metrics)  # waits for the last step
+        profile = self.profile_dir is not None and self.epochs_run == 1
+        self.epochs_run += 1
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        with torch.profiler.profile(activities=activities) if profile else contextlib.nullcontext() as prof:
+            step_metrics = []
+            for _ in range(self.steps):
+                step_metrics += training_step()
+            loss_metrics = _mean_metrics(step_metrics)  # waits for the last step
+        if profile:
+            os.makedirs(self.profile_dir, exist_ok=True)
+            path = os.path.join(self.profile_dir, "epoch_1.pt.trace.json")
+            prof.export_chrome_trace(path)
+            logging.info("profiler trace written to %s", path)
         epoch_training_time = time.time() - t
         self.walltime += epoch_training_time
         phase_ms = {"rollout": self.rollout_s, **self.learner.phase_s}
@@ -322,36 +384,36 @@ def train(
     make_learner)`, if given, sees each training step's state and batch
     before the learning half changes the state; `make_learner(networks)` is
     the trainer's own Learner (loss, optimizer, minibatches and passes) over
-    other networks of the same shapes, e.g. a copy on another device."""
+    other networks of the same shapes, e.g. a copy on another device.
+    `randomization_fn(model, generator, num_envs)` (module docstring)."""
     del get_activation  # the port's inference policy has no activation taps
     if batch_size * num_minibatches % num_envs:
         raise ValueError(f"batch_size * num_minibatches ({batch_size * num_minibatches}) is no multiple of num_envs")
     unsupported = {
-        "freeze_decoder": freeze_decoder,
         # the JAX package's only checkpoint callback writes the preemption
         # run state, which train.py refuses
         "checkpoint_callback": checkpoint_callback is not None,
-        "randomization_fn": randomization_fn is not None,
-        "rollout_bf16": rollout_bf16,
         "use_lstm": use_lstm,
         "more than one device": max_devices_per_host not in (None, 1),
-        "a foreign (non-tracking) env": not isinstance(environment, Env),
-        # the phases are record_function scopes: a torch.profiler around the
-        # call traces them
-        "profile_dir": profile_dir is not None,
     }
     for what, asked in unsupported.items():
         if asked:
-            raise NotImplementedError(f"{what}: not ported (ROADMAP 5b/5d/5e)")
+            raise NotImplementedError(f"{what}: not ported (ROADMAP 5d/5e)")
+    if freeze_decoder and checkpoint_to_restore is None:
+        raise ValueError("freeze_decoder needs checkpoint_to_restore, the run whose decoder it freezes")
     device = _device(device)
     xt = time.time()
     config_dict = config_dict if config_dict is not None else {"network_config": {}, "env_config": {"render_interval": 1}}
 
     env_step_per_training_step = batch_size * unroll_length * num_minibatches * action_repeat
     num_evals_after_init = max(num_evals - 1, 1)
-    key_init, key_env, key_train, key_eval, key_eval_test = seeded_generators(seed, device, 4)
-
-    env = wrappers.wrap(environment, episode_length=episode_length, action_repeat=action_repeat)
+    key_init, key_env, key_train, key_eval, key_eval_test, key_randomize, key_randomize_eval = seeded_generators(
+        seed, device, 6
+    )
+    env = _wrapper_for(environment)(
+        environment, episode_length=episode_length, action_repeat=action_repeat,
+        randomization_fn=bind_randomization(randomization_fn, key_randomize, num_envs),
+    )
     env_state = env.reset(key_env, num_envs)
     obs_size = env_state.obs.shape[-1]
     reference_obs_size = int(env_state.info.get("reference_obs_size", obs_size))
@@ -378,9 +440,29 @@ def train(
             max_value=kl_weight, ramp_steps=int(num_evals * kl_ramp_up_frac), schedule="linear"
         )
 
+    frozen_normalizer = None
+    if freeze_decoder:
+        if proprioceptive_obs_size == 0:
+            raise ValueError("Proprioceptive observation size is 0, but decoder parameters are being frozen.")
+        loaded_normalizer, loaded_policy = checkpointing.CheckpointStore(checkpoint_to_restore).policy(device=device)
+        decoder = {k: v for k, v in loaded_policy.items() if network_masks.is_decoder(k)}
+        missing, unexpected = ppo_network.policy_network.load_state_dict(decoder, strict=False)
+        if unexpected or any(network_masks.is_decoder(k) for k in missing):
+            raise ValueError(f"the checkpoint's decoder does not fit: missing {missing}, unexpected {unexpected}")
+        logging.info("Restored decoder parameters from %s; freezing them", checkpoint_to_restore)
+        frozen_normalizer = running_statistics.RunningStatisticsState(
+            **{
+                k: getattr(loaded_normalizer, k)[-proprioceptive_obs_size:]
+                for k in ("mean", "summed_variance", "std")
+            },
+            count=torch.zeros((), device=device),
+        )
+
     def make_learner(networks: ppo_networks.PPOImitationNetworks) -> Learner:
         """The learning half over `networks`: the clipped Adam of both
-        networks' parameters and the PPO loss at this call's settings."""
+        networks' parameters and the PPO loss at this call's settings (with
+        `freeze_decoder`, the decoder frozen and the normalizer's
+        proprioceptive slice pinned)."""
         optimizer = gradients.make_optimizer(
             [*networks.policy_network.parameters(), *networks.value_network.parameters()], learning_rate
         )
@@ -396,11 +478,18 @@ def train(
             normalize_advantage=normalize_advantage,
             kl_schedule=kl_schedule,
         )
-        return Learner(loss_fn, optimizer, num_minibatches, num_updates_per_batch)
+        frozen = ()
+        if freeze_decoder:
+            frozen = [p for n, p in networks.policy_network.named_parameters() if network_masks.is_decoder(n)]
+        return Learner(loss_fn, optimizer, num_minibatches, num_updates_per_batch, frozen=frozen,
+                       pinned=frozen_normalizer)
 
     learner = make_learner(ppo_network)
-    training_state = TrainingState(ppo_network, learner.optimizer, running_statistics.init_state(obs_size, device), 0)
-    if checkpoint_to_restore is not None:
+    normalizer = running_statistics.init_state(obs_size, device)
+    if freeze_decoder:
+        normalizer = running_statistics.pin_tail(normalizer, frozen_normalizer)
+    training_state = TrainingState(ppo_network, learner.optimizer, normalizer, 0)
+    if checkpoint_to_restore is not None and not freeze_decoder:
         training_state.load_state_dict(checkpointing.load_training_state(checkpoint_to_restore))
         logging.info("Restored latest checkpoint at %s", checkpoint_to_restore)
 
@@ -410,11 +499,15 @@ def train(
         steps_per_epoch(num_timesteps, num_evals, env_step_per_training_step, num_resets_per_eval, epoch_steps_per_call),
         env_step_per_training_step,
         num_resets_per_eval,
+        profile_dir,
     )
+    # the rollout's policy forward only: the loss, the normalizer and the
+    # master parameters stay float32
+    rollout_dtype = torch.bfloat16 if rollout_bf16 else None
 
     def training_step(it) -> List[Dict[str, torch.Tensor]]:
         nonlocal env_state
-        policy = make_policy(training_state.normalizer_params)
+        policy = make_policy(training_state.normalizer_params, compute_dtype=rollout_dtype)
         t0 = time.perf_counter()
         with record_function("rollout"):
             unrolls = []
@@ -435,7 +528,8 @@ def train(
     # ---- evaluators ------------------------------------------------------
     def make_evaluator(env_: Env, key: torch.Generator) -> acting.Evaluator:
         return acting.Evaluator(
-            wrappers.wrap(env_, episode_length=episode_length, action_repeat=action_repeat),
+            _wrapper_for(env_)(env_, episode_length=episode_length, action_repeat=action_repeat,
+                 randomization_fn=bind_randomization(randomization_fn, key_randomize_eval, num_eval_envs)),
             functools.partial(make_policy, deterministic=deterministic_eval),
             num_eval_envs=num_eval_envs,
             episode_length=episode_length,

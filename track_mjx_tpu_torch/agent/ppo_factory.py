@@ -6,8 +6,10 @@ Port of track_mjx_tpu/agent/ppo_factory.py, for both pipelines.
   decoder, or with `recurrent_decoder` the LSTM decoder), the value MLP and
   the NormalTanh action distribution; the networks are `nn.Module`s whose
   weights come from flax's initializers, drawn from `generator`.
-- `make_inference_fn(networks)(normalizer_params, deterministic)` returns
-  `policy(obs, key) -> (action, extras)`, under `torch.no_grad()` (a
+- `make_inference_fn(networks)(normalizer_params, deterministic,
+  compute_dtype=None)` returns `policy(obs, key) -> (action, extras)`,
+  the network body in `compute_dtype` where given (the trainers'
+  `rollout_bf16`; outputs float32, agent/intention.py), under `torch.no_grad()` (a
   rollout's actions; a trainer's loss recomputes what it differentiates).
   `key` is a `torch.Generator` or a `types.PolicyNoise`. The JAX policy
   splits its key into one key for the network's latent and one for the
@@ -95,9 +97,13 @@ def make_inference_fn(ppo_networks: PPOImitationNetworks, recurrent: bool = Fals
     deterministic) -> policy(obs, key) -> (action, extras), or with
     `recurrent` policy(obs, key, carry) -> (action, extras, carry')."""
 
-    def make_policy(params: Any, deterministic: bool = False) -> types.Policy:
-        policy_network = ppo_networks.policy_network
+    def make_policy(
+        params: Any, deterministic: bool = False, compute_dtype: Optional[torch.dtype] = None
+    ) -> types.Policy:
         dist = ppo_networks.parametric_action_distribution
+
+        def policy_network(*args):
+            return ppo_networks.policy_network(*args, compute_dtype=compute_dtype)
 
         if recurrent:
 

@@ -79,6 +79,16 @@ def update(
     return RunningStatisticsState(count=count, mean=new_mean, summed_variance=new_summed_variance, std=new_std)
 
 
+def pin_tail(state: RunningStatisticsState, pinned: RunningStatisticsState) -> RunningStatisticsState:
+    """`state` with the last len(pinned.mean) entries of its mean, summed
+    variance and std set to `pinned`'s (the decoder-transfer trainer's
+    proprioceptive slice); the count stays `state`'s."""
+    n = pinned.mean.shape[0]
+    return state.replace(
+        **{k: torch.cat([getattr(state, k)[:-n], getattr(pinned, k)]) for k in ("mean", "summed_variance", "std")}
+    )
+
+
 def normalize(batch: torch.Tensor, mean_std: RunningStatisticsState, max_abs_value=None):
     """(x - mean) / std, optionally clipped to +-max_abs_value."""
     data = (batch - mean_std.mean) / mean_std.std

@@ -1,8 +1,9 @@
-"""Episode and auto-reset wrappers for the batched tracking env.
+"""Training wrappers for the batched tracking env and for foreign envs.
 
 Port of the training wrappers of track_mjx_tpu/envs/wrappers.py. The port's
 envs are batched already, so `wrap` composes Episode -> AutoReset with no
-vmap wrapper between them.
+vmap wrapper between them (with a `randomization_fn`, the domain
+randomization wrapper stands there).
 
 - ``EpisodeWrapper`` counts steps and sets truncation (float32 [B]), with
   `action_repeat` as a loop over env steps.
@@ -16,30 +17,61 @@ vmap wrapper between them.
   passes a fixed PRNGKey(0) that a zero initializer ignores). A step leaves
   it alone: `acting.recurrent_actor_step` reseeds a finished episode's
   carry from it.
+- ``DomainRandomizationVmapWrapper`` steps the envs on a model some of whose
+  leaves carry a leading env axis. `randomization_fn(model)` returns that
+  model and the names of its randomized leaves, where the JAX one returns
+  vmap's `in_axes`; the trainers bind the port's signature
+  `randomization_fn(model, generator, num_envs)` to one generator stream
+  for the training envs and one for the eval envs. The stages that read a
+  randomized leaf broadcast it per env: `geom_friction` (contact friction,
+  which reaches the CG kernels through the contact rows) and `dof_damping`
+  (passive damping and the Euler implicit-damping solve). Any other leaf
+  raises NotImplementedError naming it.
+- ``ExternalEnvAdapter``, ``AutoResetWrapper`` and ``wrap_external`` train a
+  foreign env (not a port `Env`): duck-typed and batch-first, `reset(generator,
+  batch_size)` and `step(state, action)` on a state with obs, reward, done,
+  metrics, info, `pipeline_state` (or `data`) and `replace(**changes)`,
+  and an `action_size`. Unlike the reference (ADVICE.md), dict
+  observations raise a ValueError, and the adapter writes the wrappers'
+  obs back into the foreign state before a step, so a foreign step that
+  reads its observation sees the auto-reset one.
+- ``HighLevelWrapper`` folds a frozen decoder into the env: its actions are
+  latent intentions, decoded together with the egocentric part of the
+  observation.
 
-The render (`RenderRolloutWrapperTrackingLSTM` among them),
-domain-randomization, external-env and high-level wrappers are not ported.
+The render wrappers (`RenderRolloutWrapperTrackingLSTM` among them) are not
+ported.
 """
 
 from __future__ import annotations
 
 import torch
 
+import dataclasses
+from collections.abc import Mapping
+from typing import Callable, Optional
+
 from track_mjx_tpu_torch.envs.base import Env, State, Wrapper
 from track_mjx_tpu_torch.physics import forward as phys_forward
+
+# Model leaves that the physics reads per env when they carry a leading env axis
+RANDOMIZABLE = ("geom_friction", "dof_damping")
 
 
 def wrap(
     env: Env,
     episode_length: int = 1000,
     action_repeat: int = 1,
+    randomization_fn: Optional[Callable] = None,
     use_lstm: bool = False,
     hidden_state_dim: int = 128,
     hidden_layer_num: int = 2,
 ) -> Wrapper:
-    """The training wrapper stack: Episode -> AutoReset (the LSTM one with
-    `use_lstm`)."""
+    """The training wrapper stack: Episode -> (domain randomization, with a
+    `randomization_fn`) -> AutoReset (the LSTM one with `use_lstm`)."""
     env = EpisodeWrapper(env, episode_length, action_repeat)
+    if randomization_fn is not None:
+        env = DomainRandomizationVmapWrapper(env, randomization_fn)
     if use_lstm:
         return LSTMAutoResetWrapperTracking(env, lstm_features=hidden_state_dim, hidden_layer_num=hidden_layer_num)
     return AutoResetWrapperTracking(env)
@@ -137,3 +169,176 @@ class LSTMAutoResetWrapperTracking(AutoResetWrapperTracking):
             state.obs.shape[0], self.lstm_features, self.hidden_layer_num, state.obs.device
         )
         return state.replace(info=dict(state.info, hidden_state=hidden))
+
+
+class DomainRandomizationVmapWrapper(Wrapper):
+    """Steps the envs on a model whose randomized leaves carry a leading env
+    axis (module docstring). `randomization_fn(model)` returns (that
+    model, the names of its randomized leaves); a reset or step must cover
+    exactly those envs. The model is swapped into the unwrapped env for the
+    duration of each call, so other wrappers of the same env (the trainer's
+    evaluator) keep theirs."""
+
+    def __init__(self, env: Env, randomization_fn: Callable):
+        super().__init__(env)
+        base = self.env.unwrapped.model
+        self._model_v, names = randomization_fn(base)
+        self.randomized = tuple(names)
+        unsupported = sorted(set(self.randomized) - set(RANDOMIZABLE))
+        if unsupported:
+            raise NotImplementedError(
+                f"randomizing {unsupported}: the port's physics reads only {list(RANDOMIZABLE)} per env"
+            )
+        sizes = set()
+        for name in self.randomized:
+            leaf, shared = getattr(self._model_v, name), getattr(base, name)
+            if tuple(leaf.shape[1:]) != tuple(shared.shape):
+                raise ValueError(f"{name}: {tuple(leaf.shape)} is not [num_envs] + {tuple(shared.shape)}")
+            sizes.add(leaf.shape[0])
+        if len(sizes) != 1:
+            raise ValueError(f"the randomized leaves {self.randomized} disagree on the number of envs: {sizes}")
+        (self.num_envs,) = sizes
+
+    def _on_model(self, batch: int, fn: Callable[[], State]) -> State:
+        if batch != self.num_envs:
+            raise ValueError(f"{batch} envs against a model randomized for {self.num_envs}")
+        unwrapped = self.env.unwrapped
+        shared = unwrapped.model
+        unwrapped.model = self._model_v
+        try:
+            return fn()
+        finally:
+            unwrapped.model = shared
+
+    def reset(self, rng, batch_size: int) -> State:
+        return self._on_model(batch_size, lambda: self.on_reset(self.env.reset(rng, batch_size)))
+
+    def reset_from_clip(self, start_frame, *args, **kwargs) -> State:
+        return self._on_model(
+            start_frame.shape[0], lambda: self.on_reset(self.env.reset_from_clip(start_frame, *args, **kwargs))
+        )
+
+    def step(self, state: State, action: torch.Tensor) -> State:
+        return self._on_model(action.shape[0], lambda: self.env.step(state, action))
+
+
+def _where_done_tree(done: torch.Tensor, x, y):
+    """`_where_done` over two equal nests of tensors (dataclasses, dicts,
+    tuples and lists)."""
+    if isinstance(x, torch.Tensor):
+        return _where_done(done, x, y)
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(
+            x, **{f.name: _where_done_tree(done, getattr(x, f.name), getattr(y, f.name)) for f in dataclasses.fields(x)}
+        )
+    if isinstance(x, Mapping):
+        return {k: _where_done_tree(done, x[k], y[k]) for k in x}
+    if isinstance(x, (tuple, list)):
+        return type(x)(_where_done_tree(done, a, b) for a, b in zip(x, y))
+    return y
+
+
+class AutoResetWrapper(Wrapper):
+    """Generic swap-based auto-reset for foreign envs: caches the first
+    pipeline state and obs at reset and swaps them back per env on done
+    (the tracking variant also restores prev_ctrl)."""
+
+    def on_reset(self, state: State) -> State:
+        info = dict(state.info, first_pipeline_state=state.pipeline_state, first_obs=state.obs)
+        return state.replace(info=info)
+
+    def step(self, state: State, action: torch.Tensor) -> State:
+        if "steps" in state.info:
+            info = dict(state.info)
+            info["steps"] = torch.where(state.done > 0, torch.zeros_like(info["steps"]), info["steps"])
+            state = state.replace(info=info)
+        state = state.replace(done=torch.zeros_like(state.done))
+        state = self.env.step(state, action)
+        done = state.done
+        pipeline_state = _where_done_tree(done, state.info["first_pipeline_state"], state.pipeline_state)
+        obs = _where_done(done, state.info["first_obs"], state.obs)
+        return state.replace(pipeline_state=pipeline_state, obs=obs)
+
+
+class ExternalEnvAdapter(Env):
+    """A foreign env (module docstring) as a port `Env`: its states become
+    `State`s, the foreign state riding in info["_foreign_state"]."""
+
+    def __init__(self, env):
+        self._env = env
+
+    @property
+    def action_size(self) -> int:
+        return int(self._env.action_size)
+
+    @property
+    def unwrapped(self):
+        return self._env
+
+    def _to_state(self, s) -> State:
+        if isinstance(s.obs, Mapping):
+            raise ValueError(
+                f"the foreign env returned dict observations ({sorted(s.obs)}): the trainers take one "
+                "[num_envs, features] tensor; flatten them in the env"
+            )
+        ps = s.pipeline_state if hasattr(s, "pipeline_state") else getattr(s, "data", None)
+        return State(
+            pipeline_state=ps,
+            obs=s.obs,
+            reward=s.reward,
+            done=s.done,
+            metrics=dict(getattr(s, "metrics", {}) or {}),
+            info=dict(getattr(s, "info", {}) or {}),
+        )
+
+    def reset(self, rng, batch_size: int) -> State:
+        foreign = self._env.reset(rng, batch_size)
+        state = self._to_state(foreign)
+        state.info["_foreign_state"] = foreign
+        return state
+
+    def step(self, state: State, action: torch.Tensor) -> State:
+        # write back what the wrappers may have changed: done (zeroed), the
+        # pipeline state and the obs (swapped in by an auto-reset)
+        foreign = state.info["_foreign_state"].replace(done=state.done, obs=state.obs)
+        if hasattr(foreign, "pipeline_state"):
+            foreign = foreign.replace(pipeline_state=state.pipeline_state)
+        elif hasattr(foreign, "data"):
+            foreign = foreign.replace(data=state.pipeline_state)
+        nforeign = self._env.step(foreign, action)
+        nstate = self._to_state(nforeign)
+        nstate.info.update({k: v for k, v in state.info.items() if k not in nstate.info})
+        nstate.info["_foreign_state"] = nforeign
+        return nstate
+
+
+def wrap_external(
+    env,
+    episode_length: int = 1000,
+    action_repeat: int = 1,
+    randomization_fn: Optional[Callable] = None,
+    **_unused,
+) -> Wrapper:
+    """`wrap` for a foreign env: Adapter -> Episode -> (domain
+    randomization) -> generic AutoReset."""
+    env = EpisodeWrapper(ExternalEnvAdapter(env), episode_length, action_repeat)
+    if randomization_fn is not None:
+        env = DomainRandomizationVmapWrapper(env, randomization_fn)
+    return AutoResetWrapper(env)
+
+
+class HighLevelWrapper(Wrapper):
+    """Folds a frozen decoder into the env: a step's actions are latent
+    intentions [B, latents], decoded by `decoder_inference_fn(x) ->
+    (action, extras)` from [latents, obs[..., reference_obs_size:]]."""
+
+    def __init__(self, env: Env, decoder_inference_fn: Callable, reference_obs_size: int):
+        super().__init__(env)
+        self._decoder_inference_fn = decoder_inference_fn
+        self._reference_obs_size = reference_obs_size
+
+    def step(self, state: State, latents: torch.Tensor) -> State:
+        action, _ = self._decoder_inference_fn(
+            torch.cat([latents, state.obs[..., self._reference_obs_size :]], dim=-1)
+        )
+        return self.env.step(state, action)

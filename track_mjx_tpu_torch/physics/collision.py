@@ -33,12 +33,14 @@ from track_mjx_tpu_torch.physics.model import (
 @dataclasses.dataclass(frozen=True)
 class Contact:
     """Static-shape contact set, [B, ncon, ...] (friction, solref, solimp and
-    includemargin depend only on the model and are [ncon, ...])."""
+    includemargin depend only on the model and are [ncon, ...]; friction is
+    [B, ncon, 5] where the model's geom_friction has a leading env axis,
+    envs/wrappers.DomainRandomizationVmapWrapper)."""
 
     dist: torch.Tensor  # [B, ncon]
     pos: torch.Tensor  # [B, ncon, 3]
     frame: torch.Tensor  # [B, ncon, 3, 3], rows = [normal, tangent1, tangent2]
-    friction: torch.Tensor  # [ncon, 5]
+    friction: torch.Tensor  # [ncon, 5] or [B, ncon, 5]
     solref: torch.Tensor  # [ncon, 2]
     solimp: torch.Tensor  # [ncon, 5]
     includemargin: torch.Tensor  # [ncon]
@@ -78,11 +80,12 @@ def _combine_params(model: Model, g1: torch.Tensor, g2: torch.Tensor):
     )
     solimp = mix * model.geom_solimp[g1] + (1 - mix) * model.geom_solimp[g2]
 
-    f1, f2 = model.geom_friction[g1], model.geom_friction[g2]
+    # geom_friction [ngeom, 3], or [B, ngeom, 3] randomized per env
+    f1, f2 = model.geom_friction[..., g1, :], model.geom_friction[..., g2, :]
     fri_pri = torch.where((p1 > p2)[:, None], f1, f2)
     fri3 = torch.where((p1 == p2)[:, None], torch.maximum(f1, f2), fri_pri)
     friction = torch.stack(
-        [fri3[:, 0], fri3[:, 0], fri3[:, 1], fri3[:, 2], fri3[:, 2]], dim=1
+        [fri3[..., 0], fri3[..., 0], fri3[..., 1], fri3[..., 2], fri3[..., 2]], dim=-1
     )
     includemargin = model.geom_margin[g1] + model.geom_margin[g2]
     return friction, solref, solimp, includemargin
@@ -210,7 +213,7 @@ def collide(plan: PhysicsPlan, model: Model, data: Data) -> tuple[Data, Contact]
             dist=like.new_zeros((bsz, 0)),
             pos=like.new_zeros((bsz, 0, 3)),
             frame=like.new_zeros((bsz, 0, 3, 3)),
-            friction=like.new_zeros((0, 5)),
+            friction=like.new_zeros(model.geom_friction.shape[:-2] + (0, 5)),
             solref=like.new_zeros((0, 2)),
             solimp=like.new_zeros((0, 5)),
             includemargin=like.new_zeros((0,)),
@@ -219,7 +222,7 @@ def collide(plan: PhysicsPlan, model: Model, data: Data) -> tuple[Data, Contact]
         dist=torch.cat(dists, dim=1),
         pos=torch.cat(poss, dim=1),
         frame=torch.cat(frames, dim=1),
-        friction=torch.cat(fris),
+        friction=torch.cat(fris, dim=-2),
         solref=torch.cat(refs),
         solimp=torch.cat(imps),
         includemargin=torch.cat(margins),

@@ -73,7 +73,7 @@ class EfcData:
     jb_sw: torch.Tensor | None = None  # [B, nv, 6]
     jb_fq: torch.Tensor | None = None  # [B, ncon, 3, 6] (ncon may be 0)
     jb_ll: torch.Tensor | None = None  # [B, nlimit] side * active
-    jb_mu: torch.Tensor | None = None  # [ncon, 2] tangential friction (pyramidal, and models without contacts)
+    jb_mu: torch.Tensor | None = None  # [ncon, 2] (or [B, ncon, 2]) tangential friction (pyramidal, and models without contacts)
     ell_mu: torch.Tensor | None = None  # [ncon] mu_1 of each cone block (elliptic)
     J: torch.Tensor | None = None  # [B, nefc, nv] off the compact layouts
     fmin: torch.Tensor | None = None  # [nefc] off the compact layouts
@@ -460,14 +460,14 @@ def _cone_blocks(model: Model, active, jv3, pos, k, b, imp, invweight_n, mu):
     no position term and reuse the normal row's impedance, D_f = D_n
     impratio (mu_i / mu_1)^2. The contacts' per-contact terms come in
     indexed alike: active, pos, imp [B, n3], jv3 [B, n3, 3], k, b,
-    invweight_n [n3], tangential friction mu [n3, 2]."""
+    invweight_n [n3], tangential friction mu [n3, 2] (or [B, n3, 2])."""
     jv = torch.where(active[..., None], jv3, 0.0)
     aref = -b[..., None] * jv
     aref = torch.cat([aref[..., :1] - (k * imp * pos)[..., None], aref[..., 1:]], dim=-1)
     aref = torch.where(active[..., None], aref, 0.0)
     d_n = imp / torch.clamp((1.0 - imp) * invweight_n, min=1e-12)
-    mu1 = torch.clamp(mu[:, 0], min=1e-12)
-    d_f = d_n[..., None] * model.opt_impratio * (mu / mu1[:, None]) ** 2
+    mu1 = torch.clamp(mu[..., 0], min=1e-12)
+    d_f = d_n[..., None] * model.opt_impratio * (mu / mu1[..., None]) ** 2
     return aref, torch.cat([d_n[..., None], d_f], dim=-1), mu1
 
 
@@ -501,7 +501,7 @@ def _compact_rows(plan, model, data, contact, elliptic: bool) -> EfcData:
     pos, active, k, b, imp, jv3 = t.pos, t.active, t.k, t.b, t.imp, t.jv3
     jb_sw = torch.cat([t.s, t.w], dim=-1)
     jb_fq = torch.cat([contact.frame, t.q], dim=-1) * active[..., None, None].to(like.dtype)
-    mu = contact.friction[:, :2]
+    mu = contact.friction[..., :2]  # [ncon, 2], or [B, ncon, 2] randomized per env
     invweight_n = t.invweight_n
 
     if elliptic:
@@ -513,10 +513,10 @@ def _compact_rows(plan, model, data, contact, elliptic: bool) -> EfcData:
         jvn = jv3[..., 0]
         jv = torch.stack(
             [
-                jvn + mu[:, 0] * jv3[..., 1],
-                jvn - mu[:, 0] * jv3[..., 1],
-                jvn + mu[:, 1] * jv3[..., 2],
-                jvn - mu[:, 1] * jv3[..., 2],
+                jvn + mu[..., 0] * jv3[..., 1],
+                jvn - mu[..., 0] * jv3[..., 1],
+                jvn + mu[..., 1] * jv3[..., 2],
+                jvn - mu[..., 1] * jv3[..., 2],
             ],
             dim=-1,
         )  # [B, ncon, 4]
@@ -524,7 +524,7 @@ def _compact_rows(plan, model, data, contact, elliptic: bool) -> EfcData:
         aref = -b[..., None] * jv - (k * imp * pos)[..., None]
         aref = torch.where(active[..., None], aref, 0.0)
         # C regularizes every pyramid row with the first friction coefficient
-        mu0 = mu[:, 0:1]
+        mu0 = mu[..., 0:1]
         invweight_pyr = invweight_n[:, None] * (1.0 + mu0**2) * 2.0 * mu0**2 / model.opt_impratio
         impg = imp[..., None]
         D = (impg / torch.clamp((1.0 - impg) * invweight_pyr, min=1e-12)).expand(-1, -1, 4)
@@ -608,7 +608,7 @@ def _dense_rows(plan, model, data, contact) -> EfcData:
             c = static_tensor(plan, ("con", "cd3"), like, lambda: cd3)
             act = active[:, c]
             aref, D, ell_mu = _cone_blocks(model, act, jv3[:, c], pos[:, c], k[c], b[c], imp[:, c],
-                                           t.invweight_n[c], contact.friction[c, :2])
+                                           t.invweight_n[c], contact.friction[..., c, :2])
             j = torch.where(act[..., None, None], jfr[:, c], 0.0)
             zc = torch.zeros_like(pos[:, c])
             nr = 3 * len(cd3)
@@ -620,24 +620,24 @@ def _dense_rows(plan, model, data, contact) -> EfcData:
                 grp = cd3[plan.contact_condim[cd3] == cdim]
                 g = static_tensor(plan, ("con", "grp", cdim), like, lambda: grp)
                 nfr = cdim - 1  # friction directions: 2 tangential, then rotational
-                mu = contact.friction[g, :nfr]  # [ng, nfr]
+                mu = contact.friction[..., g, :nfr]  # [ng, nfr], or [B, ng, nfr]
                 jng, jdg, act = jn[:, g], jdirs[:, g], active[:, g]
                 pyr = []
                 for i in range(nfr):
-                    pyr += [jng + mu[:, i, None] * jdg[:, :, i], jng - mu[:, i, None] * jdg[:, :, i]]
+                    pyr += [jng + mu[..., i, None] * jdg[:, :, i], jng - mu[..., i, None] * jdg[:, :, i]]
                 j = torch.where(act[..., None, None], torch.stack(pyr, dim=2), 0.0)  # [B, ng, 2 nfr, nv]
                 # pyramid jv from the directions' jv (J is linear in them)
                 jv_dirs = torch.cat([jv3[:, g, 1:], jv_rot[:, g, : nfr - 2]], dim=2) if nfr > 2 else jv3[:, g, 1:]
                 jvn = jv3[:, g, 0]
                 jv = []
                 for i in range(nfr):
-                    jv += [jvn + mu[:, i] * jv_dirs[..., i], jvn - mu[:, i] * jv_dirs[..., i]]
+                    jv += [jvn + mu[..., i] * jv_dirs[..., i], jvn - mu[..., i] * jv_dirs[..., i]]
                 jv = torch.where(act[..., None], torch.stack(jv, dim=2), 0.0)  # [B, ng, 2 nfr]
                 aref = -b[g, None] * jv - (k[g] * imp[:, g] * pos[:, g])[..., None]
                 aref = torch.where(act[..., None], aref, 0.0)
                 # C regularizes every pyramid row with the first friction
                 # coefficient; per-direction mu appears only in J
-                mu0 = mu[:, 0:1]
+                mu0 = mu[..., 0:1]
                 invweight_pyr = t.invweight_n[g, None] * (1.0 + mu0**2) * 2.0 * mu0**2 / model.opt_impratio
                 impg = imp[:, g, None]
                 D = (impg / torch.clamp((1.0 - impg) * invweight_pyr, min=1e-12)).expand(-1, -1, 2 * nfr)

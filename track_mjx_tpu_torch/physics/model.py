@@ -7,8 +7,8 @@ are batch-first, [B, ...].
 
 `put_model` reads either a live `mujoco.MjModel` or a compiled-model
 snapshot that `tools/export_torch_model.py` writes (`load_snapshot`; one per
-workload config: rodent-full-clips, fly-mc-intention), so the port runs
-where MuJoCo is not installed. MuJoCo enum values are plain int constants
+workload config: rodent-full-clips, fly-mc-intention, rodent-sps-per-actor),
+so the port runs where MuJoCo is not installed. MuJoCo enum values are plain int constants
 here.
 
 Tensors go to the CUDA device unless the caller names another one: a CPU run
@@ -45,7 +45,7 @@ _ASSETS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 # workload config name -> compiled-model snapshot
 SNAPSHOTS = {
     name: os.path.join(_ASSETS, name.replace("-", "_") + ".npz")
-    for name in ("rodent-full-clips", "fly-mc-intention")
+    for name in ("rodent-full-clips", "fly-mc-intention", "rodent-sps-per-actor")
 }
 # probe models (tests/test_equality.py's equality and frictionloss probes),
 # exported by tools/export_torch_model.py --probes: "probe-<name>" -> snapshot

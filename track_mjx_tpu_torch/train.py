@@ -8,6 +8,12 @@ Port of track_mjx_tpu/train.py, both pipelines:
 - resume: with `train_setup.checkpoint_to_restore` set, the checkpoint's
   stored config is authoritative, its training state is restored and the
   eval iteration count starts again at 0;
+- decoder transfer: with `train_setup.freeze_decoder` as well, the given
+  config runs as a new run, and only the checkpoint's decoder (frozen) and
+  the proprioceptive slice of its normalizer (pinned) carry over
+  (agent/mlp_ppo/ppo.py). The JAX CLI replaces the config with the
+  checkpoint's there too, so its freeze_decoder is the source run's and the
+  run writes into the source's directory (ROADMAP, standing divergences);
 - checkpoints go to <logging_config.model_path>/<run_id>, PPONetwork_<step>;
 - the clips come from `data_path` (`.npz`, or `.h5` where h5py is
   installed) through `io.load.load_data`, split by `train_subset_ratio` or
@@ -16,7 +22,9 @@ Port of track_mjx_tpu/train.py, both pipelines:
   steps per reference frame; num_evals = num_timesteps / eval_every;
   num_resets_per_eval = eval_every // reset_every;
 - the walker is the config's (`env_config.walker_name`: rodent or fly,
-  `workload.WALKERS`);
+  `workload.WALKERS`) on its workload's snapshot (`config_name`, set by
+  `load_config`; a walker_config override that the snapshot was not
+  exported with raises, `workload.make_walker`);
 - the pipeline is the MLP one (agent/mlp_ppo), or with
   `train_setup.train_config.use_lstm` the LSTM one (agent/lstm_ppo), whose
   carry widths come from `network_config.hidden_state_size` and
@@ -24,11 +32,11 @@ Port of track_mjx_tpu/train.py, both pipelines:
   and 2, the JAX LSTM trainer's defaults);
 - progress goes to `logging`.
 
-Not ported (ROADMAP 5d/5e), and refused rather than skipped: decoder
-freezing, multi-host `distributed`, preemption run-state files
-(`restore_from_run_state`) and `-m` multirun (the trainers refuse the bf16
-rollout and `randomization_fn`). There is no wandb and no
-rendering.
+`train_config`'s `rollout_bf16` and `profile_dir` reach the trainers as
+they are. Not ported (ROADMAP 5d/5e), and refused rather than skipped:
+multi-host `distributed`, preemption run-state files
+(`restore_from_run_state`, and the trainers' `checkpoint_callback`) and
+`-m` multirun. There is no wandb and no rendering.
 
 Usage:
     python -m track_mjx_tpu_torch.train [--config-name NAME] [key.sub=value ...]
@@ -60,11 +68,14 @@ def _refuse_unported(cfg: ConfigDict) -> None:
         "distributed": bool(cfg.get("distributed")),
         "train_setup.restore_from_run_state (preemption run states)": train_setup.get("restore_from_run_state")
         is not None,
-        "train_setup.freeze_decoder": bool(train_setup.get("freeze_decoder", False)),
     }
     for what, asked in refused.items():
         if asked:
             raise NotImplementedError(f"{what}: not ported (ROADMAP 5d/5e)")
+    if train_setup.get("freeze_decoder") and train_setup["train_config"].get("use_lstm"):
+        raise NotImplementedError(
+            "train_setup.freeze_decoder with the LSTM pipeline: its policy has no `decoder` module to freeze"
+        )
 
 
 def main(cfg: ConfigDict, progress_fn=None, batch_callback=None):
@@ -74,8 +85,9 @@ def main(cfg: ConfigDict, progress_fn=None, batch_callback=None):
     data, make_learner)` goes to the trainer (`ppo.train`)."""
     _refuse_unported(cfg)
     device = cfg.get("device", "cuda")
+    freeze_decoder = bool(cfg["train_setup"].get("freeze_decoder", False))
 
-    if cfg["train_setup"].get("checkpoint_to_restore") is not None:
+    if cfg["train_setup"].get("checkpoint_to_restore") is not None and not freeze_decoder:
         checkpoint_to_restore = str(Path(cfg["train_setup"]["checkpoint_to_restore"]).resolve())
         # the checkpoint's stored config is authoritative on resume
         cfg = ConfigDict(checkpointing.load_config_from_checkpoint(checkpoint_to_restore))
@@ -85,12 +97,15 @@ def main(cfg: ConfigDict, progress_fn=None, batch_callback=None):
         run_id = os.path.basename(checkpoint_path)
         _refuse_unported(cfg)
     else:
+        if cfg["train_setup"].get("checkpoint_to_restore") is not None:  # the decoder's source run
+            cfg["train_setup"]["checkpoint_to_restore"] = str(Path(cfg["train_setup"]["checkpoint_to_restore"]).resolve())
         run_id = datetime.now().strftime("%y%m%d_%H%M%S_%f")
         model_path = Path(cfg["logging_config"]["model_path"])
         if not model_path.is_absolute():
             model_path = Path.cwd() / model_path
         checkpoint_path = str(model_path / run_id)
 
+    workload.snapshot_name(cfg)  # before anything runs: a walker the snapshot does not hold raises
     cfg_dict = cfg.to_dict()
     logging.info("Configs: %s", cfg_dict)
     train_setup = cfg["train_setup"]
@@ -154,6 +169,7 @@ def main(cfg: ConfigDict, progress_fn=None, batch_callback=None):
         config_dict=cfg_dict,
         use_kl_schedule=network_config["kl_schedule"],
         eval_env_test_set=test_env,
+        freeze_decoder=freeze_decoder,
         progress_fn=progress,
         device=device,
         batch_callback=batch_callback,

@@ -19,6 +19,9 @@ from pathlib import Path
 from typing import Any, Iterable, Optional, Union
 
 ASSETS = Path(__file__).resolve().parent.parent / "assets"
+# the key under which `load_config` records the workload a config was loaded
+# as, which names its compiled-model snapshot (workload.make_walker)
+CONFIG_NAME = "config_name"
 
 
 class ConfigDict(dict):
@@ -75,15 +78,19 @@ def config_path(name: str) -> Path:
 
 def load_config(name_or_path: Union[str, Path], overrides: Iterable[str] = ()) -> ConfigDict:
     """Loads a workload's exported JSON by name, or a JSON file by path, and
-    applies dotted overrides like "train_setup.train_config.num_envs=128"."""
+    applies dotted overrides like "train_setup.train_config.num_envs=128".
+    A workload loaded by name gets its name under CONFIG_NAME."""
     path = Path(name_or_path)
-    if path.suffix != ".json" or not path.exists():
+    named = path.suffix != ".json" or not path.exists()
+    if named:
         path = config_path(str(name_or_path))
     if not path.exists():
         have = sorted(p.stem.replace("_", "-") for p in ASSETS.glob("*.json"))
         raise FileNotFoundError(f"no config {name_or_path!r}; have {have}")
     with open(path) as f:
         cfg = ConfigDict(json.load(f))
+    if named:
+        cfg[CONFIG_NAME] = str(name_or_path)
     return apply_overrides(cfg, overrides)
 
 
