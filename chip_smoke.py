@@ -2,8 +2,8 @@
 steps, the rodent rollout, the trainer on the rodent (MLP and LSTM
 pipelines) and on the fly, the rest of the physics (RK4 and implicit
 integrators, condim-1/4/6 contacts, frictionloss and equality rows, on
-pyramidal and on elliptic cones), and the third workload config with the
-trainer's options.
+pyramidal and on elliptic cones), the third workload config with the
+trainer's options, and the CLI's run management and per-eval logging.
 
 Usage (from the repository root, on a machine with a CUDA device and nvcc):
 
@@ -65,6 +65,7 @@ It imports nothing of JAX. Phases, each of which raises on failure:
    contacts active; 64 envs are compared with the CPU as in 3.
 8. Rodent training: the port's trainer through its entry point,
    track_mjx_tpu_torch.train.main(load_config("rodent-full-clips", ...)),
+   without its per-eval logging rollout (phase 13 runs that; so in 9-11c),
    at the config's widths and 4096 envs, cut in depth only (TRAIN_OVERRIDES:
    8 synthetic clips of 80 frames written to build/, episodes of 25 control
    steps, 4 minibatches of 1024 trajectories, one epoch of 2 training steps
@@ -183,9 +184,31 @@ It imports nothing of JAX. Phases, each of which raises on failure:
    ratio to the library call. This phase comes after every rate: it
    starts torch.profiler, which no host-clock rate should run after (only
    11c's profile_dir check follows it).
-13. Prints the seconds of each phase and the total, the kernels' JSON line
+13. The CLI's run management and per-eval logging (runs after 11c, before
+   12): train.main on rodent-full-clips at the config's widths, cut in
+   depth (LOG_*: 4 synthetic clips of 30 frames, 256 envs, one training
+   step of one unroll, 2 evals, a video every eval, SLURM_JOB_ID set). A
+   first run stopped right after its first checkpoint (a BaseException
+   raised once the checkpoint callback has updated the record, as a
+   SIGTERM's SystemExit would) must leave its run-state record with
+   latest_checkpoint_step 0; a second
+   run of the same config must resume that run directory, keep the record
+   while it runs, write step 1 and remove the record; cg_solve must launch
+   exactly the trainer's count plus 1 + 30 x 10 for the logging rollout at
+   B = 1; metrics.jsonl must hold eval/episode_reward, the latents/* keys
+   and eval/rollout_pos_reward, and the video 30 non-constant frames of 512
+   x 512 x 3. Then the LSTM rodent's and the fly's logging rollouts, 10
+   control steps each through collect_rollout (exact launches of cg_solve
+   and ell_cg_solve at B = 1) and one frame rendered each; cg_solve and
+   ell_cg_solve at B = 1 on those rollouts' last states against their plain
+   versions (KERNEL_REL at the plan's 5/5, FLY_KERNEL_REL at 1/0, and the
+   float64 rule), timed beside the plain version and the bound of one env.
+   Prints ms per logging control step at B = 1 beside phase 4's rollout
+   step, ms per rendered frame, and the phase's seconds.
+14. Prints the seconds of each phase and the total, the kernels' JSON line
    (each kernel's launches on every path that runs it under
-   "launches_by_path") and, last, {"ok": true, "device": {...}}.
+   "launches_by_path"; cg_solve's and ell_cg_solve's B = 1 records under
+   "b1") and, last, {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -205,6 +228,9 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 T_START = time.perf_counter()
+# train.main logs through the local stand-in of wandb: without a key the port
+# does not import the real module, whose init would try to reach its servers
+os.environ.pop("WANDB_API_KEY", None)
 N_ENVS = 4096
 N_CPU = 64
 SUBSTEPS = 10
@@ -472,6 +498,47 @@ SPS_RANDOM_SCALE = (0.5, 1.5)
 # the point-mass foreign env of phase 11c: one epoch of one training step
 SPS_FOREIGN_ENVS = 1024
 
+# --- phase 13: the CLI's run management and per-eval logging
+# Clips of LOG_CLIP_LENGTH frames make a logging rollout of that many control
+# steps (the rodent: one per frame) and evals of 30 - 5 - 5 = 20. LOG_ENVS
+# envs, batch_size LOG_ENVS and 1 minibatch make a training step one unroll
+# of 20; num_timesteps = 2 x eval_every = 20 x LOG_ENVS make 2 evals (the
+# initial one and one after one training step), a logging rollout and a
+# video after the second.
+LOG_CLIP_LENGTH = 30
+LOG_ENVS = 256
+LOG_EVAL_ENVS = 128
+LOG_CLIPS = 4
+LOG_JOB = "chip_smoke_13"  # SLURM_JOB_ID: the second run finds the first one's record
+LOG_OTHER_STEPS = 10  # the LSTM and fly logging rollouts' control steps
+LOG_FRAME = (512, 512)  # the JAX make_rollout_renderer's
+
+
+def log_overrides(device: str, root: str) -> list:
+    return [
+        f"device={device}",
+        f"data_path={os.path.join(root, 'clips.npz')}",
+        f"logging_config.model_path={os.path.join(root, 'ckpts')}",
+        f"reference_config.clip_length={LOG_CLIP_LENGTH}",
+        "reference_config.random_init_range=5",
+        "train_setup.train_subset_ratio=null",
+        f"train_setup.eval_every={10 * LOG_ENVS}",
+        f"train_setup.reset_every={10 * LOG_ENVS}",
+        f"train_setup.train_config.num_timesteps={20 * LOG_ENVS}",
+        f"train_setup.train_config.num_envs={LOG_ENVS}",
+        f"train_setup.train_config.batch_size={LOG_ENVS}",
+        "train_setup.train_config.num_minibatches=1",
+        f"train_setup.train_config.num_eval_envs={LOG_EVAL_ENVS}",
+        "env_config.render_interval=1",
+    ]
+
+
+class Preempted(BaseException):
+    """Stops phase 13's first run right after its first checkpoint and its
+    record's update, as the SystemExit of a SIGTERM would: no `except
+    Exception` of the trainer catches it."""
+
+
 REPLACES = {  # the TPU kernel bodies, track_mjx_tpu/ops/batched_linalg.py
     "cholesky": "track_mjx_tpu/ops/batched_linalg.py:86",
     "cho_solve": "track_mjx_tpu/ops/batched_linalg.py:248",
@@ -650,6 +717,17 @@ def bound_ms(nbytes: int, flops: int) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes > t_ops else (t_ops, "operations")
+
+
+def no_logging(**_) -> None:
+    """train.main's per-eval logging rollout, left out: phases 8-11c hold
+    the trainer's own launches and rates; phase 13 runs the logging."""
+
+
+def run_dirs(model_path: str) -> list:
+    """The run directories in a model path (train.main's log, wandb_local,
+    sits beside them)."""
+    return sorted(d for d in os.listdir(model_path) if d != "wandb_local" and os.path.isdir(os.path.join(model_path, d)))
 
 
 def card_name() -> str:
@@ -1078,6 +1156,7 @@ class Phases:
         peak = torch.cuda.max_memory_allocated()
         rates = sorted(unroll * N_ENVS / s for s in seconds)
         median = rates[len(rates) // 2] if len(rates) % 2 else 0.5 * (rates[len(rates) // 2 - 1] + rates[len(rates) // 2])
+        self.rollout_step_ms = 1e3 * N_ENVS / median  # ms per control step at the median rate (phase 13)
         policy_ms, policy_host_ms = _times(lambda: policy(state.obs, gen), 20)
         # the policy's products (a multiply-add counts 2) and weights, read once
         linears = [m for m in ro.networks.policy_network.modules() if isinstance(m, torch.nn.Linear)]
@@ -1239,7 +1318,7 @@ class Phases:
             op.launches = 0  # the trainer's run: the path's launches
         t0 = time.perf_counter()
         make_policy, params = ttrain.main(cfg, progress_fn=lambda s, m: progress.append((s, m)),
-                                          batch_callback=on_batch)
+                                          batch_callback=on_batch, policy_params_fn=no_logging)
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
         launches = kernel.launches
@@ -1263,7 +1342,7 @@ class Phases:
         final = progress[-1][1]
         losses = {k: v for k, v in final.items() if k.startswith("training/") and k.endswith("loss")}
         assert len(losses) == 5 and all(math.isfinite(v) for v in losses.values()), losses
-        run_dir = os.path.join(root, "ckpts", os.listdir(os.path.join(root, "ckpts"))[0])
+        run_dir = os.path.join(root, "ckpts", run_dirs(os.path.join(root, "ckpts"))[0])
         store = checkpointing.CheckpointStore(run_dir)
         stored = store.training_state()
         for group in ("policy", "value"):
@@ -2388,7 +2467,7 @@ class Phases:
         ])
         tk.cg_solve.launches = 0
         t0 = time.perf_counter()
-        _, (_, policy) = ttrain.main(cfg)
+        _, (_, policy) = ttrain.main(cfg, policy_params_fn=no_logging)
         torch.cuda.synchronize()
         launches = tk.cg_solve.launches
         _, source = checkpointing.CheckpointStore(run_dir).policy(device=self.dev)  # the state dict on the CPU
@@ -2397,7 +2476,7 @@ class Phases:
         encoder = [k for k in policy if ".encoder." in f".{k}"]
         same = all(torch.equal(policy[k], source[k]) for k in decoder)
         moved = max(float((policy[k] - source[k]).abs().max()) for k in encoder)
-        runs = os.listdir(os.path.join(root, "transfer"))
+        runs = run_dirs(os.path.join(root, "transfer"))
         print(f"{SPS_CONFIG}, freeze_decoder: one training step and one eval in {time.perf_counter() - t0:.1f} s, "
               f"cg_solve launches {launches}, new run {runs}; the {len(decoder)} decoder tensors bitwise the "
               f"checkpoint's: {same}; the encoder moved by up to {moved:.3e}")
@@ -2524,6 +2603,284 @@ class Phases:
         print(f"phase 11c: {time.perf_counter() - t_start:.1f} s ({self.card})")
         return record, launches
 
+    # -----------------------------------------------------------------------
+    # phase 13: the CLI's run management and per-eval logging
+    # -----------------------------------------------------------------------
+
+    def run_logging(self) -> dict:
+        """train.main on rodent-full-clips at the config's widths (LOG_*
+        cuts): a first run stopped after its first checkpoint leaves its
+        run-state record, a second run of the same config resumes it (same
+        run directory, a later step, the record removed), logs to
+        metrics.jsonl and renders the logging rollout's ghost video; the
+        LSTM and fly logging rollouts; K2 and K3 at B = 1 against their
+        plain versions on those rollouts' states. Returns the kernels' B = 1
+        records and launches."""
+        from track_mjx_tpu_torch import train as ttrain
+        from track_mjx_tpu_torch.agent import checkpointing, preemption
+        from track_mjx_tpu_torch.agent import wandb_logging as wl
+        from track_mjx_tpu_torch.io import load
+        from track_mjx_tpu_torch.io.synthetic import synthesize_clips
+        from track_mjx_tpu_torch.utils.config import load_config
+
+        tk = self.tk
+        phase_t0 = time.perf_counter()
+        root = os.path.join(REPO, "build", "chip_smoke_logging")
+        shutil.rmtree(root, ignore_errors=True)
+        os.makedirs(root)
+        clips = synthesize_clips(self.tm.load_snapshot("rodent-full-clips"), n_clips=LOG_CLIPS,
+                                 n_frames=LOG_CLIP_LENGTH, mocap_hz=50, seed=SEED, device=self.dev)
+        load.save_npz(clips, os.path.join(root, "clips.npz"))
+        cfg = load_config("rodent-full-clips", log_overrides(self.dev.type, root))
+        substeps = cfg.env_config.env_args.physics_steps_per_control_step
+        net = cfg.network_config
+        assert (net.encoder_layer_sizes, net.decoder_layer_sizes, net.critic_layer_sizes,
+                net.intention_size) == TRAIN_WIDTHS["rodent-full-clips"]
+
+        # the logging rollouts and the videos, as train.main's hook runs them
+        rollouts, videos = [], []
+        collect, write, ghost = wl.collect_rollout, wl.write_video, wl.render_ghost_video
+
+        def counted_collect(*args, **kwargs):
+            torch.cuda.synchronize()
+            before, t0 = tk.cg_solve.launches, time.perf_counter()
+            trace = collect(*args, **kwargs)
+            torch.cuda.synchronize()
+            rollouts.append({"s": time.perf_counter() - t0, "launches": tk.cg_solve.launches - before,
+                             "steps": trace.latent_means.shape[0]})
+            return trace
+
+        def timed_ghost(*args, **kwargs):
+            t0 = time.perf_counter()
+            path = ghost(*args, **kwargs)
+            videos[-1]["s"] = time.perf_counter() - t0
+            return path
+
+        def kept_write(frames, path_stem, fps):
+            path = write(frames, path_stem, fps)
+            videos.append({"shape": tuple(frames.shape), "dtype": str(frames.dtype), "min": int(frames.min()),
+                           "max": int(frames.max()), "path": path})
+            return path
+
+        old_job = os.environ.get("SLURM_JOB_ID")
+        os.environ["SLURM_JOB_ID"] = LOG_JOB
+        wl.collect_rollout, wl.write_video, wl.render_ghost_video = counted_collect, kept_write, timed_ghost
+        try:
+            record = preemption.RunStateStore(cfg).path
+            make_callback = preemption.RunStateStore.checkpoint_callback
+
+            def preempting(store, *args):
+                update = make_callback(store, *args)
+
+                def on_checkpoint(step):
+                    update(step)
+                    raise Preempted
+
+                return on_checkpoint
+
+            tk.cg_solve.launches = 0
+            t0 = time.perf_counter()
+            preemption.RunStateStore.checkpoint_callback = preempting
+            try:
+                ttrain.main(cfg)
+                raise AssertionError("the first run was not stopped")
+            except Preempted:
+                pass
+            finally:
+                preemption.RunStateStore.checkpoint_callback = make_callback
+            first_s, first_launches = time.perf_counter() - t0, tk.cg_solve.launches
+            kept = json.loads(open(record).read())
+            (run_dir,) = run_dirs(os.path.join(root, "ckpts"))
+            run_dir = os.path.join(root, "ckpts", run_dir)
+            steps = sorted(checkpointing.committed_steps(run_dir))
+            print(f"logging: first run stopped after its first checkpoint in {first_s:.1f} s (cg_solve launches "
+                  f"{first_launches}); record {os.path.basename(record)} kept with latest_checkpoint_step "
+                  f"{kept.get('latest_checkpoint_step')} (written by checkpoint_callback), run {kept['run_id']}, "
+                  f"steps {steps}")
+            assert kept.get("latest_checkpoint_step") == 0 and steps == [0] and not rollouts
+            assert first_launches == 1 + 1 + (LOG_CLIP_LENGTH - 10) * substeps, "the first run went past its eval"
+            assert kept["checkpoint_path"] == os.path.realpath(run_dir)
+
+            seen = []
+            tk.cg_solve.launches = 0
+            t0 = time.perf_counter()
+            ttrain.main(cfg, progress_fn=lambda s, m: seen.append(record.exists()))
+            torch.cuda.synchronize()
+            second_s, launches = time.perf_counter() - t0, tk.cg_solve.launches
+        finally:
+            wl.collect_rollout, wl.write_video, wl.render_ghost_video = collect, write, ghost
+            if old_job is None:
+                os.environ.pop("SLURM_JOB_ID", None)
+            else:
+                os.environ["SLURM_JOB_ID"] = old_job
+
+        steps = sorted(checkpointing.committed_steps(run_dir))
+        print(f"logging: second run (the first resumed) in {second_s:.1f} s: record there at each progress report "
+              f"{seen}, after the run {record.exists()}; runs {run_dirs(os.path.join(root, 'ckpts'))}, steps {steps}")
+        assert seen and all(seen) and not record.exists(), "the run-state record was not kept during the run"
+        assert run_dirs(os.path.join(root, "ckpts")) == [os.path.basename(run_dir)] and steps == [0, 1]
+
+        # K2 launches: the trainer's own (reset, one unroll, the reset after
+        # the epoch, 2 evals) and one logging rollout (reset + a control step
+        # per frame)
+        episode = LOG_CLIP_LENGTH - 5 - 5
+        trainer = 1 + 20 * substeps + 1 + 2 * (1 + episode * substeps)
+        per_rollout = 1 + LOG_CLIP_LENGTH * substeps
+        print(f"logging: cg_solve launches {launches} = trainer {trainer} + logging rollouts "
+              f"{[r['launches'] for r in rollouts]} (expected {per_rollout} each: 1 + {LOG_CLIP_LENGTH} x {substeps})")
+        assert len(rollouts) == 1 and rollouts[0]["launches"] == per_rollout and rollouts[0]["steps"] == LOG_CLIP_LENGTH
+        assert launches == trainer + per_rollout, f"cg_solve launched {launches}, expected {trainer + per_rollout}"
+
+        (metrics_path,) = [os.path.join(d, f) for d, _, fs in os.walk(os.path.join(root, "ckpts", "wandb_local"))
+                           for f in fs if f == "metrics.jsonl"]
+        lines = [json.loads(x) for x in open(metrics_path)]
+        keys = set().union(*lines)
+        latents = sorted(k for k in keys if k.startswith("latents/"))
+        last = lines[-1]
+        print(f"logging: {metrics_path} holds {len(lines)} lines (both runs, one wandb run "
+              f"{os.path.basename(os.path.dirname(metrics_path))}); last eval/episode_reward "
+              f"{last.get('eval/episode_reward')}, {len(latents)} latents/* keys, latents/nonfinite_frames "
+              f"{last.get('latents/nonfinite_frames')}, eval/rollout_pos_reward {last.get('eval/rollout_pos_reward')}")
+        assert os.path.basename(os.path.dirname(metrics_path)) == kept["wandb_run_id"]
+        assert "eval/episode_reward" in keys and "eval/rollout_pos_reward" in keys
+        assert len(latents) == 1 + 4 * net.intention_size
+
+        (video,) = videos
+        frames = (LOG_CLIP_LENGTH, *LOG_FRAME, 3)
+        print(f"logging: video {video['path']}: frames {video['shape']} {video['dtype']}, values "
+              f"{video['min']}-{video['max']}; rendered and written in {video['s']:.2f} s")
+        assert os.path.exists(video["path"]) and os.path.dirname(video["path"]) == run_dir
+        assert video["shape"] == frames and video["min"] < video["max"], "the video is not 30 non-constant frames"
+        assert last["videos/rollout"]["path"] == video["path"]
+
+        step_ms = 1e3 * rollouts[0]["s"] / LOG_CLIP_LENGTH
+        frame_ms = 1e3 * video["s"] / LOG_CLIP_LENGTH
+
+        # the LSTM and fly logging rollouts, and K2 and K3 at B = 1 on their states
+        lstm_launches, lstm_state, lstm_plan = self.other_logging_rollout("rodent-full-clips", clips, LSTM_OVERRIDES)
+        fly_launches, fly_state, fly_plan = self.other_logging_rollout("fly-mc-intention", None, [])
+        k2 = self.kernel_at_one_env(tk.cg_solve, tk.cg_solve_plain, lstm_plan, lstm_state, "solve_inputs", 4,
+                                    "the rodent LSTM logging rollout's last state", KERNEL_REL, None)
+        k3 = self.kernel_at_one_env(tk.ell_cg_solve, tk.ell_cg_solve_plain, fly_plan, fly_state, "ell_solve_inputs",
+                                    3, "the fly logging rollout's last state", FLY_KERNEL_REL, (1, 0))
+        seconds = time.perf_counter() - phase_t0
+        ref_steps = 250  # rodent-full-clips' clip_length: the reference run's logging rollout
+        print(f"logging: {step_ms:.1f} ms per logging control step at B = 1 (host clock, policy and env included) "
+              f"against {self.rollout_step_ms:.1f} ms per rollout control step at B = {N_ENVS} (phase 4, this run); "
+              f"{frame_ms:.1f} ms per rendered 512 x 512 frame (playback kinematics on the card, rasterization "
+              f"and the file on the host); at the reference clip of {ref_steps} frames an eval gains "
+              f"{ref_steps * step_ms / 1e3:.1f} s of logging rollout and, every render_interval evals, "
+              f"{ref_steps * frame_ms / 1e3:.1f} s of video (extrapolated from {LOG_CLIP_LENGTH} frames); "
+              f"phase {seconds:.1f} s ({self.card})")
+        return {
+            "cg_solve": {**k2, "launches_by_path": {
+                "rodent logging rollout, train.main (phase 13)": rollouts[0]["launches"],
+                "rodent training with logging, both runs of train.main (phase 13)": first_launches + launches,
+                "rodent LSTM logging rollout (phase 13)": lstm_launches}},
+            "ell_cg_solve": {**k3, "launches_by_path": {"fly logging rollout (phase 13)": fly_launches}},
+            "logging": {"ms_per_control_step_b1": step_ms, "rollout_ms_per_control_step_b4096": self.rollout_step_ms,
+                        "ms_per_frame": frame_ms, "seconds": seconds},
+        }
+
+    def other_logging_rollout(self, config: str, clips, extra) -> tuple:
+        """LOG_OTHER_STEPS control steps of a logging rollout (the render
+        wrapper, the config's full-width networks, deterministic) through
+        wandb_logging.collect_rollout, and one frame of it rendered; returns
+        the path's fused solve's launches, the last state's Data and (plan,
+        model)."""
+        from track_mjx_tpu_torch import workload
+        from track_mjx_tpu_torch.agent import running_statistics
+        from track_mjx_tpu_torch.agent import wandb_logging as wl
+        from track_mjx_tpu_torch.agent.lstm_ppo import ppo_networks as lstm_networks
+        from track_mjx_tpu_torch.agent.mlp_ppo import ppo_networks as mlp_networks
+        from track_mjx_tpu_torch.analysis import render
+        from track_mjx_tpu_torch.envs import wrappers
+        from track_mjx_tpu_torch.envs.base import Wrapper
+        from track_mjx_tpu_torch.io.synthetic import synthesize_clips
+        from track_mjx_tpu_torch.utils.config import load_config
+
+        tk = self.tk
+        cfg = load_config(config, [f"device={self.dev.type}", *extra])
+        lstm = bool(cfg.train_setup.train_config.get("use_lstm", False))
+        if clips is None:
+            clips = synthesize_clips(self.tm.load_snapshot(config), n_clips=2, n_frames=LOG_CLIP_LENGTH,
+                                     mocap_hz=cfg.env_config.env_args.mocap_hz, seed=SEED, device=self.dev)
+        env = workload.make_env(cfg, clips, device=self.dev)
+        pn = lstm_networks if lstm else mlp_networks
+        networks = pn.network_factory(cfg.network_config, torch.Generator().manual_seed(SEED))(
+            env.observation_size, env.reference_obs_size, env.action_size,
+            preprocess_observations_fn=running_statistics.normalize, device=self.dev)
+        policy = pn.make_inference_fn(networks)(running_statistics.init_state(env.observation_size, self.dev),
+                                                deterministic=True)
+        if lstm:
+            rw = wrappers.RenderRolloutWrapperTrackingLSTM(env, lstm_features=cfg.network_config.hidden_state_size,
+                                                           hidden_layer_num=cfg.network_config.hidden_layer_num)
+        else:
+            rw = wrappers.RenderRolloutWrapperMulticlipTracking(env)
+
+        class Keep(Wrapper):
+            """Keeps the last step's Data (the kernels' B = 1 inputs)."""
+
+            def reset(self, rng):
+                return self.env.reset(rng)
+
+            def step(self, state, action):
+                state = self.env.step(state, action)
+                self.last = state.pipeline_state
+                return state
+
+        kept = Keep(rw)
+        op = tk.ell_cg_solve if config == "fly-mc-intention" else tk.cg_solve
+        substeps = cfg.env_config.env_args.physics_steps_per_control_step
+        torch.cuda.synchronize()
+        op.launches, t0 = 0, time.perf_counter()
+        trace = wl.collect_rollout(kept, cfg, policy, torch.Generator(device=self.dev).manual_seed(SEED),
+                                   steps=LOG_OTHER_STEPS)
+        torch.cuda.synchronize()
+        rollout_s, launches = time.perf_counter() - t0, op.launches
+        renderer = render.make_rollout_renderer(cfg, self.dev)
+        qref = wl.reference_qpos(rw, trace.info)
+        t0 = time.perf_counter()
+        frame = renderer.render(torch.cat([trace.qpos[-1:], qref[LOG_OTHER_STEPS:LOG_OTHER_STEPS + 1]], dim=-1),
+                                cfg.env_config.render_camera_name)
+        frame_s = time.perf_counter() - t0
+        expected = 1 + LOG_OTHER_STEPS * substeps
+        what = f"{config}{' LSTM' if lstm else ''}"
+        print(f"logging: {what} logging rollout of {LOG_OTHER_STEPS} control steps at B = 1 in {rollout_s:.2f} s "
+              f"({1e3 * rollout_s / LOG_OTHER_STEPS:.1f} ms a step), {op.__name__} launches {launches} (expected "
+              f"1 + {LOG_OTHER_STEPS} x {substeps}), latents finite {bool(torch.isfinite(trace.latent_means).all())}; "
+              f"one frame {frame.shape} from {cfg.env_config.render_camera_name} in {1e3 * frame_s:.1f} ms, "
+              f"{int((frame != 255).any(-1).sum())} pixels drawn")
+        assert launches == expected, f"{op.__name__} launched {launches} times, expected {expected}"
+        assert trace.latent_means.shape[0] == LOG_OTHER_STEPS and torch.isfinite(trace.latent_means).all()
+        assert frame.shape == (1, *LOG_FRAME, 3) and (frame != 255).any(), "the frame is empty"
+        return launches, kept.last, (env.plan, env.model)
+
+    def kernel_at_one_env(self, op, plain, plan_model, data, inputs_of, rows_per_con, what, bars, gate_its) -> dict:
+        """`op` at B = 1 on a logging rollout's state against its plain
+        version (at `gate_its` iterations and linesearch steps, or the
+        plan's), within `bars` and by the float64 rule; timed beside the
+        plain version, with the bound of one env's work."""
+        plan, model = plan_model
+        its, ls = plan.iterations, plan.ls_iterations
+        inputs = self.solver_inputs(plan, model, data.qpos, data.qvel, data.ctrl, data.qacc_warmstart,
+                                    getattr(self.ts, inputs_of))
+        g_its, g_ls = gate_its or (its, ls)
+        out, max_abs = self.fused_kernel_vs_plain(op, plain, inputs, f"{what} (B = 1, {g_its}/{g_ls})", g_its, g_ls,
+                                                  True, gate=True, bars=bars)
+        active = int((out.efc_force != 0).sum())
+        out = op(**inputs, iterations=its, ls_iterations=ls)
+        nl, nc = inputs["lim1h"].shape[0], inputs["fq"].shape[1]
+        ms = _time_ms(lambda: op(**inputs, iterations=its, ls_iterations=ls), 50)
+        plain_ms = _time_ms(lambda: plain(**inputs, iterations=its, ls_iterations=ls), 5)
+        b_ms, b_by = bound_ms(tensor_bytes([*inputs.values(), *[t for t in out if t is not None]]),
+                              solve_flops(plan.nv, nl, nc, rows_per_con, its, ls))
+        print(f"{op.__name__} at B = 1 on {what}: {active} active rows; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+              f"bound {b_ms:.6f} ms ({b_by}) at {its}/{ls}: one CTA on one of "
+              f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs, so the kernel's latency, not the "
+              f"card's bandwidth or rate, sets its time ({self.card})")
+        return {"b1": {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": max_abs}}
+
     def sps_profile_dir(self) -> None:
         """Phase 11c's profile_dir check, after every rate of the script: a
         small run of the config through train.main with profile_dir (two
@@ -2556,7 +2913,7 @@ class Phases:
             f"train_setup.train_config.profile_dir={trace_dir}",
         ])
         t0 = time.perf_counter()
-        ttrain.main(cfg)
+        ttrain.main(cfg, policy_params_fn=no_logging)
         (name,) = os.listdir(trace_dir)
         path = os.path.join(trace_dir, name)
         with open(path) as f:
@@ -2614,6 +2971,7 @@ def main() -> None:
     rest_launches = {f"{k} control steps (phase 11)": v for k, v in rest_launches.items()}
     rest_launches.update({f"{k} control steps (phase 11b)": v for k, v in fly_launches.items()})
     sps_record, sps_launches = timed("11c rodent-sps-per-actor", phases.sps_per_actor)
+    logging_record = timed("13 run management and logging", phases.run_logging)
     kernels += timed("12 standalone linalg", phases.newton_kernels, *newton)
     timed("11c profile_dir", phases.sps_profile_dir)
     for k in kernels:  # each kernel's launches on every path that runs it, as counted there
@@ -2636,6 +2994,9 @@ def main() -> None:
         for path, counts in rest_launches.items():
             if counts.get(k["name"]):
                 k["launches_by_path"][path] = counts[k["name"]]
+        if k["name"] in logging_record:  # the logging rollouts at B = 1 (phase 13)
+            k["launches_by_path"].update(logging_record[k["name"]]["launches_by_path"])
+            k["b1"] = logging_record[k["name"]]["b1"]
     print("seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
           + f"; total since start {time.perf_counter() - T_START:.1f} s")
     print(card)

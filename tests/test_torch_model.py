@@ -46,6 +46,21 @@ def test_snapshot_equals_fresh_export(export_tool, live_walker):
         assert json.load(f) == export_tool.config_sections("rodent-full-clips")
 
 
+@pytest.mark.parametrize("walker_name, scale", [("rodent", 0.9), ("rodent", 0.8), ("fly", 1.0)])
+def test_playback_snapshot_equals_fresh_export(export_tool, walker_name, scale):
+    """The renderer's committed playback models (walker + ghost) are what
+    tools/export_torch_model.py --playback writes now."""
+    from track_mjx_tpu_torch.analysis import render
+
+    assert (walker_name, scale) in export_tool.playbacks()
+    fresh = export_tool.playback_arrays(walker_name, scale)
+    with np.load(render.playback_path(walker_name, scale)) as z:
+        assert sorted(z.files) == sorted(fresh)
+        for name, arr in fresh.items():
+            assert z[name].dtype == arr.dtype, name
+            np.testing.assert_array_equal(z[name], arr, err_msg=name)
+
+
 def test_snapshot_walker_tables_equal_the_jax_rodent(live_walker):
     """The port's Rodent, built from the snapshot with no MuJoCo, holds the
     index tables that the JAX Rodent resolves by name."""
@@ -132,7 +147,11 @@ def test_port_imports_neither_jax_nor_mujoco():
         "import track_mjx_tpu_torch.io.synthetic, track_mjx_tpu_torch.agent.acting\n"
         "import track_mjx_tpu_torch.agent.ppo_factory, track_mjx_tpu_torch.agent.mlp_ppo.ppo_networks\n"
         "import track_mjx_tpu_torch.agent.network_masks, track_mjx_tpu_torch.testing\n"
-        "bad = [m for m in ('jax', 'flax', 'mujoco', 'yaml', 'h5py', 'track_mjx_tpu') if m in sys.modules]\n"
+        "import track_mjx_tpu_torch.train, track_mjx_tpu_torch.agent.preemption\n"
+        "import track_mjx_tpu_torch.agent.wandb_logging, track_mjx_tpu_torch.utils.wandb_compat\n"
+        "import track_mjx_tpu_torch.analysis.render, track_mjx_tpu_torch.analysis.software_render\n"
+        "bad = [m for m in ('jax', 'flax', 'mujoco', 'yaml', 'h5py', 'track_mjx_tpu', 'matplotlib')\n"
+        "       if m in sys.modules]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )

@@ -352,8 +352,8 @@ def test_cli_trains_and_checkpoints(tmp_path, monkeypatch):
     monkeypatch.setattr(wrappers.AutoResetWrapperTracking, "on_reset",
                         lambda self, state: resets.append(state.obs.shape[0]) or on_reset(self, state))
     train.cli(["--config-name", NAME, f"data_path={clips}", f"logging_config.model_path={tmp_path / 'ckpts'}", *TINY])
-    (run_dir,) = list((tmp_path / "ckpts").iterdir())
-    assert sorted(p.name for p in run_dir.iterdir()) == ["PPONetwork_0", "PPONetwork_1"]
+    (run_dir,) = [p for p in (tmp_path / "ckpts").iterdir() if p.name != "wandb_local"]
+    assert sorted(p.name for p in run_dir.iterdir() if p.is_dir()) == ["PPONetwork_0", "PPONetwork_1"]
     store = checkpointing.CheckpointStore(str(run_dir))
     cfg = store.config()
     assert cfg[tconfig.CONFIG_NAME] == NAME and cfg["walker_config"]["torque_actuators"] is False

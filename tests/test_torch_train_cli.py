@@ -83,7 +83,7 @@ def trained(tmp_path_factory):
         "rodent-full-clips", [f"data_path={root / 'clips.npz'}", f"logging_config.model_path={root / 'ckpts'}", *TINY]
     )
     make_policy, params = train.main(cfg, progress_fn=lambda step, metrics: progress.append((step, metrics)))
-    (run_dir,) = list((root / "ckpts").iterdir())
+    (run_dir,) = [p for p in (root / "ckpts").iterdir() if p.name != "wandb_local"]  # beside it: the log
     return root, run_dir, make_policy, params, progress
 
 
@@ -104,7 +104,7 @@ def test_cli_trains_and_reports_finite_metrics(trained):
 
 def test_checkpoints_load_for_eval_bit_for_bit(trained):
     _, run_dir, make_policy, params, _ = trained
-    steps = sorted(p.name for p in run_dir.iterdir())
+    steps = sorted(p.name for p in run_dir.iterdir() if p.is_dir())
     assert steps == ["PPONetwork_0", "PPONetwork_1"]
     store = checkpointing.CheckpointStore(str(run_dir))
     bundle = store.for_eval(device="cpu")
@@ -163,7 +163,7 @@ def _tiny_run(root, name, extra=()):
         cfg, progress_fn=lambda step, metrics: progress.append((step, metrics)),
         batch_callback=lambda state, data, _: batches.append((getattr(state, "hidden_state", None), data)),
     )
-    (run_dir,) = list((root / "ckpts").iterdir())
+    (run_dir,) = [p for p in (root / "ckpts").iterdir() if p.name != "wandb_local"]
     return run_dir, make_policy, params, progress, batches
 
 
@@ -277,18 +277,21 @@ def test_cli_reads_the_config_name_and_overrides(monkeypatch, argv, name, overri
 
 
 @pytest.mark.parametrize(
-    "overrides",
+    "overrides, error",
     [
         # the LSTM pipeline is ported; decoder freezing is not, in the LSTM pipeline
         pytest.param(["train_setup.train_config.use_lstm=true", "train_setup.freeze_decoder=true"],
-                     id="train_setup.train_config.use_lstm=true"),
-        pytest.param(["train_setup.restore_from_run_state=run.json"], id="train_setup.restore_from_run_state=run.json"),
-        pytest.param(["distributed=true"], id="distributed=true"),
+                     NotImplementedError, id="train_setup.train_config.use_lstm=true"),
+        # run states are ported: a record that is not there is refused by name
+        pytest.param(["train_setup.restore_from_run_state=run.json"], FileNotFoundError,
+                     id="train_setup.restore_from_run_state=run.json"),
+        pytest.param(["distributed=true"], NotImplementedError, id="distributed=true"),
     ],
 )
-def test_unported_options_are_refused(overrides):
-    with pytest.raises(NotImplementedError):
-        train.main(tconfig.load_config("rodent-full-clips", [*overrides, "device=cpu"]))
+def test_unported_options_are_refused(overrides, error, tmp_path):
+    with pytest.raises(error):
+        train.main(tconfig.load_config(
+            "rodent-full-clips", [*overrides, "device=cpu", f"logging_config.model_path={tmp_path}"]))
 
 
 @pytest.mark.parametrize("entry", ["clip_from_numpy", "load_data", "train.main"])
@@ -311,9 +314,13 @@ def test_default_device_is_the_card(entry, tmp_path):
             call()
 
 
-def test_multirun_is_refused():
-    with pytest.raises(NotImplementedError):
-        train.cli(["-m", "seed=1,2"])
+def test_multirun_is_refused(monkeypatch):
+    """-m runs each job of the sweep (tests/test_torch_run_management.py);
+    an override without "=" is refused by name, where the JAX CLI writes
+    it as "key=" (ROADMAP, Queue 3)."""
+    monkeypatch.setattr(train, "main", lambda cfg: pytest.fail("a job ran"))
+    with pytest.raises(ValueError, match="'seed'"):
+        train.cli(["-m", "seed"])
 
 
 @pytest.mark.parametrize("name", ["rodent-full-clips", "fly-mc-intention", "rodent-sps-per-actor"])

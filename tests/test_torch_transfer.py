@@ -331,13 +331,13 @@ def test_cli_transfer_is_a_new_run(tmp_path):
     load.save_npz(clips, tmp_path / "clips.npz")
     base = [f"data_path={tmp_path / 'clips.npz'}", f"logging_config.model_path={tmp_path / 'ckpts'}", *TINY]
     train.main(tconfig.load_config("rodent-full-clips", base))
-    (src,) = list((tmp_path / "ckpts").iterdir())
+    (src,) = [p for p in (tmp_path / "ckpts").iterdir() if p.name != "wandb_local"]
     src_steps = sorted(p.name for p in src.iterdir())
     _, (_, policy) = train.main(tconfig.load_config("rodent-full-clips", [
         *base, f"train_setup.checkpoint_to_restore={src}", "train_setup.freeze_decoder=true",
         "train_setup.train_config.num_updates_per_batch=2",  # the given config holds, not the stored one
     ]))
-    runs = sorted((tmp_path / "ckpts").iterdir())
+    runs = sorted(p for p in (tmp_path / "ckpts").iterdir() if p.name != "wandb_local")
     assert len(runs) == 2 and sorted(p.name for p in src.iterdir()) == src_steps
     (new,) = [r for r in runs if r != src]
     store = checkpointing.CheckpointStore(str(new))

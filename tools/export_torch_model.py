@@ -3,12 +3,26 @@
 Usage: python tools/export_torch_model.py [--config NAME] [--out FILE.npz]
        python tools/export_torch_model.py --xml FILE_OR_STRING --out FILE.npz
        python tools/export_torch_model.py --probes
+       python tools/export_torch_model.py --playback
 
 --xml compiles a MuJoCo XML file (or an XML string) as it is and writes its
 snapshot, put_model's fields only. --probes writes the equality and
 frictionloss probes of tests/test_equality.py (connect, weld, joint, tendon,
 friction) that way to track_mjx_tpu_torch/assets/probes/<name>.npz, a few
 KB each, so that a machine without MuJoCo can step them (chip_smoke.py).
+
+--playback writes the playback models that the port's renderer draws the
+logging rollout's ghost videos from (track_mjx_tpu_torch/analysis/render.py):
+for each workload's walker and scale (the rodent at 0.9 and 0.8, the fly at
+1.0), the JAX package's `analysis.render.build_playback_model` (the walker
+plus a translucent ghost at GHOST_OFFSET, tracking sites red) goes to
+track_mjx_tpu_torch/assets/<walker>_playback_<scale>.npz: put_model's fields
+(kinematics and subtree_com run on them) and, under `render.` keys, what
+mjv_updateScene reads to draw: per geom its type, size, group and rgba (a
+material's rgba where the geom keeps the default one, as the scene does),
+per site the same, the cameras (mode, bodies, pos, quat, poscom0, pos0,
+mat0, fovy and names), and the free camera's statistics and visual
+settings.
 
 NAME is rodent-full-clips (the default), fly-mc-intention or
 rodent-sps-per-actor (the rodent with position actuators at scale 0.8). The
@@ -145,6 +159,74 @@ def snapshot_arrays(m) -> dict:
     return out
 
 
+def playbacks() -> list:
+    """(walker_name, rescale_factor) of every workload config, once each."""
+    from track_mjx_tpu.utils.config import load_config
+
+    out = []
+    for config in CONFIGS:
+        cfg = load_config(config)
+        key = (cfg.env_config.walker_name, float(cfg.walker_config.rescale_factor))
+        if key not in out:
+            out.append(key)
+    return out
+
+
+def playback_out(walker_name: str, scale: float) -> str:
+    return os.path.join(REPO, "track_mjx_tpu_torch", "assets", f"{walker_name}_playback_{scale!r}.npz")
+
+
+_DEFAULT_RGBA = np.array([0.5, 0.5, 0.5, 1.0], np.float32)
+
+
+def _scene_rgba(rgba, matid, mat_rgba):
+    """The rgba mjv_updateScene draws: the material's where the element
+    keeps the default rgba."""
+    rgba = np.array(rgba, np.float32)
+    for i, mid in enumerate(matid):
+        if mid >= 0 and np.array_equal(rgba[i], _DEFAULT_RGBA):
+            rgba[i] = mat_rgba[mid]
+    return rgba
+
+
+def render_arrays(m) -> dict:
+    """The fields the port's renderer reads beside put_model's, `render.` keys."""
+    out = {
+        "render.geom_type": np.array(m.geom_type),
+        "render.geom_size": np.array(m.geom_size),
+        "render.geom_group": np.array(m.geom_group),
+        "render.geom_rgba": _scene_rgba(m.geom_rgba, m.geom_matid, m.mat_rgba),
+        "render.site_type": np.array(m.site_type),
+        "render.site_size": np.array(m.site_size),
+        "render.site_group": np.array(m.site_group),
+        "render.site_rgba": _scene_rgba(m.site_rgba, m.site_matid, m.mat_rgba),
+        "render.cam_names": np.array([m.camera(i).name for i in range(m.ncam)]),
+        "render.stat_center": np.array(m.stat.center),
+        "render.stat_extent": np.array(m.stat.extent),
+        "render.vis_fovy": np.array(m.vis.global_.fovy),
+        "render.vis_azimuth": np.array(m.vis.global_.azimuth),
+        "render.vis_elevation": np.array(m.vis.global_.elevation),
+        "render.vis_znear": np.array(m.vis.map.znear),
+    }
+    for name in ("cam_mode", "cam_bodyid", "cam_targetbodyid", "cam_pos", "cam_quat", "cam_poscom0", "cam_pos0",
+                 "cam_mat0", "cam_fovy"):
+        out["render." + name] = np.array(getattr(m, name))
+    return out
+
+
+def playback_model(walker_name: str, scale: float):
+    """The JAX package's playback model (walker + ghost) of a walker and scale."""
+    sys.path.insert(0, REPO)
+    from track_mjx_tpu.analysis.render import build_playback_model
+
+    return build_playback_model(walker_name, scale)
+
+
+def playback_arrays(walker_name: str, scale: float) -> dict:
+    m = playback_model(walker_name, scale)
+    return {**snapshot_arrays(m), **render_arrays(m)}
+
+
 def xml_model(xml: str):
     """The MjModel of an XML file, or of an XML string."""
     import mujoco
@@ -179,7 +261,16 @@ def main(argv):
     ap.add_argument("--xml", default=None, help="an XML file or string to snapshot as it is (needs --out)")
     ap.add_argument("--probes", action="store_true", help="snapshot tests/test_equality.py's probes")
     ap.add_argument("--out", default=None, help="default: the port's assets/<config>.npz")
+    ap.add_argument("--playback", action="store_true", help="write the renderer's playback models")
     args = ap.parse_args(argv[1:])
+    if args.playback:
+        sys.path.insert(0, REPO)
+        for walker_name, scale in playbacks():
+            out = playback_out(walker_name, scale)
+            arrays = playback_arrays(walker_name, scale)
+            np.savez_compressed(out, **arrays)
+            print(f"wrote {len(arrays)} fields, {os.path.getsize(out)} bytes to {out}")
+        return
     if args.probes:
         sys.path.insert(0, REPO)
         for name, xml in probe_xmls().items():

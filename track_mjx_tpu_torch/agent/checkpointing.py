@@ -11,7 +11,8 @@ items per step with Orbax; the port saves the same three with `torch.save`
 
 Tensors are stored on the CPU and read back with `weights_only=True`. A step
 is written into a temporary directory and renamed into place, so a reader
-never sees half of one. As with Orbax's CheckpointManager, a step at or
+never sees half of one, and a reader counts a step only where all three
+files are there (`committed_steps`). As with Orbax's CheckpointManager, a step at or
 below the newest one in the directory is not written and no step is ever
 overwritten: a resumed run, whose eval iterations count from 0 again,
 leaves the steps it resumed from as they are. The stored config is
@@ -36,6 +37,7 @@ from track_mjx_tpu_torch.agent.mlp_ppo import ppo_networks
 from track_mjx_tpu_torch.physics.model import _device
 
 STEP_PREFIX = "PPONetwork"
+STEP_FILES = ("policy.pt", "train_state.pt", "config.json")
 
 
 def normalizer_to_dict(state: running_statistics.RunningStatisticsState) -> dict:
@@ -68,6 +70,13 @@ def _step_dirs(path: str) -> dict:
             if m and os.path.isdir(os.path.join(path, name)):
                 out[int(m.group(1))] = os.path.join(path, name)
     return out
+
+
+def committed_steps(path: str) -> dict:
+    """{step: directory} of the steps in `path` that hold all three files."""
+    return {
+        step: d for step, d in _step_dirs(path).items() if all(os.path.isfile(os.path.join(d, f)) for f in STEP_FILES)
+    }
 
 
 class CheckpointManager:
@@ -121,9 +130,9 @@ class CheckpointStore:
 
     def __init__(self, checkpoint_path: str):
         self.path = checkpoint_path
-        self._steps = _step_dirs(checkpoint_path)
+        self._steps = committed_steps(checkpoint_path)
         if not self._steps:
-            raise FileNotFoundError(f"no {STEP_PREFIX}_<step> checkpoint in {checkpoint_path}")
+            raise FileNotFoundError(f"no committed {STEP_PREFIX}_<step> checkpoint in {checkpoint_path}")
 
     def resolve_step(self, step: Optional[int]) -> int:
         return max(self._steps) if step is None else step

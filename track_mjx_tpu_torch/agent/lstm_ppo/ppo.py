@@ -135,13 +135,8 @@ def train(
         )
     if not isinstance(environment, Env):
         raise NotImplementedError("a foreign (non-tracking) env with the LSTM pipeline: use the MLP trainer")
-    unsupported = {
-        "checkpoint_callback": checkpoint_callback is not None,
-        "more than one device": max_devices_per_host not in (None, 1),
-    }
-    for what, asked in unsupported.items():
-        if asked:
-            raise NotImplementedError(f"{what}: not ported (ROADMAP 5d/5e)")
+    if max_devices_per_host not in (None, 1):
+        raise NotImplementedError("more than one device: not ported (ROADMAP 5d)")
     device = _device(device)
     xt = time.time()
     config_dict = config_dict if config_dict is not None else {
@@ -261,7 +256,8 @@ def train(
 
     def save(step: int) -> None:
         if ckpt_mgr is not None:
-            ckpt_mgr.save(step, training_state.policy_params(), training_state.state_dict(), config_dict)
+            wrote = ckpt_mgr.save(step, training_state.policy_params(), training_state.state_dict(), config_dict)
+            mlp_ppo.call_checkpoint_callback(checkpoint_callback, step, wrote)
 
     # ---- initial eval + checkpoint ---------------------------------------
     metrics = {}

@@ -331,6 +331,18 @@ class EpochTimer:
         }
 
 
+def call_checkpoint_callback(checkpoint_callback: Optional[Callable[[int], None]], step: int, wrote: bool) -> None:
+    """`checkpoint_callback(step)` after a save that wrote `step` (one that
+    the manager skipped calls nothing); a callback that raises is logged and
+    training goes on, as in the JAX package's `checkpointing.save`."""
+    if checkpoint_callback is None or not wrote:
+        return
+    try:
+        checkpoint_callback(step)
+    except Exception as e:  # noqa: BLE001 - the callback must not stop training
+        logging.warning("Checkpoint callback failed: %s", e)
+
+
 def train(
     environment: Env,
     num_timesteps: int,
@@ -390,9 +402,6 @@ def train(
     if batch_size * num_minibatches % num_envs:
         raise ValueError(f"batch_size * num_minibatches ({batch_size * num_minibatches}) is no multiple of num_envs")
     unsupported = {
-        # the JAX package's only checkpoint callback writes the preemption
-        # run state, which train.py refuses
-        "checkpoint_callback": checkpoint_callback is not None,
         "use_lstm": use_lstm,
         "more than one device": max_devices_per_host not in (None, 1),
     }
@@ -552,7 +561,8 @@ def train(
 
     def save(step: int) -> None:
         if ckpt_mgr is not None:
-            ckpt_mgr.save(step, training_state.policy_params(), training_state.state_dict(), config_dict)
+            wrote = ckpt_mgr.save(step, training_state.policy_params(), training_state.state_dict(), config_dict)
+            call_checkpoint_callback(checkpoint_callback, step, wrote)
 
     start_it = 0
     logging.info("Starting at iteration %s with %s evals left", start_it, num_evals_after_init)

@@ -169,6 +169,11 @@ class SingleClipTracking(Env):
 
     # ---- sizes -----------------------------------------------------------
     @property
+    def dt(self) -> float:
+        """Seconds of one control step."""
+        return float(self._mj_model.opt.timestep) * self._n_frames
+
+    @property
     def action_size(self) -> int:
         return self.plan.nu
 

@@ -39,8 +39,20 @@ randomization wrapper stands there).
   latent intentions, decoded together with the egocentric part of the
   observation.
 
-The render wrappers (`RenderRolloutWrapperTrackingLSTM` among them) are not
-ported.
+The render wrappers reset the unwrapped tracking env for the trainer's
+logging rollout (agent/wandb_logging.py), batch-first, with no auto-reset:
+the rollout steps past done, as the JAX one does.
+
+- ``RenderRolloutWrapperMulticlipTracking``: frame 0 of a random or given
+  clip, prev_ctrl zero; ``RenderRolloutWrapperTrackingLSTM`` the same with a
+  zero LSTM carry in info["hidden_state"], [B, hidden_layer_num,
+  lstm_features] twice; ``RenderRolloutWrapperSingleclipTracking`` a given
+  start frame of the one clip. `reset(rng, clip_idx=None, batch_size=1)`
+  draws the clip (unless given), then the qpos and the qvel noise from the
+  generator; `reset_from_draws` takes them as given (the parity tests feed
+  the JAX reset's draws there).
+- ``RenderRolloutVmapWrapper`` resets a batch of them to `clip_idx` [B]
+  (default clip 0 for each of `batch_size` envs).
 """
 
 from __future__ import annotations
@@ -342,3 +354,66 @@ class HighLevelWrapper(Wrapper):
             torch.cat([latents, state.obs[..., self._reference_obs_size :]], dim=-1)
         )
         return self.env.step(state, action)
+
+
+class RenderRolloutWrapperMulticlipTracking(Wrapper):
+    """Logging rollouts: frame 0 of a random or given clip, prev_ctrl zero."""
+
+    def reset(self, rng: torch.Generator, clip_idx=None, batch_size: int = 1) -> State:
+        if clip_idx is None:
+            clip_idx = torch.randint(0, self._n_clips, (batch_size,), generator=rng, device=self.device)
+        clip_idx = torch.as_tensor(clip_idx, device=self.device).reshape(-1).expand(batch_size)
+        qpos_noise = self._uniform(rng, (batch_size, self.plan.nq))
+        qvel_noise = self._uniform(rng, (batch_size, self.plan.nv))
+        return self.reset_from_draws(clip_idx, qpos_noise, qvel_noise)
+
+    def reset_from_draws(self, clip_idx, qpos_noise: torch.Tensor, qvel_noise: torch.Tensor) -> State:
+        """The reset at given draws: clip [B], qpos noise [B, nq], qvel noise [B, nv]."""
+        bsz = qpos_noise.shape[0]
+        clip_idx = torch.as_tensor(clip_idx, device=self.device).reshape(-1).expand(bsz)
+        start = torch.zeros((bsz,), dtype=torch.int64, device=self.device)
+        return self.reset_from_clip(start, qpos_noise, qvel_noise, clip_idx=clip_idx)
+
+
+class RenderRolloutWrapperTrackingLSTM(RenderRolloutWrapperMulticlipTracking):
+    """The LSTM pipeline's: as the multi-clip one, with a zero carry."""
+
+    def __init__(self, env: Env, lstm_features: int = 128, hidden_layer_num: int = 2):
+        super().__init__(env)
+        self.lstm_features = lstm_features
+        self.hidden_layer_num = hidden_layer_num
+
+    def on_reset(self, state: State) -> State:
+        hidden = initialize_lstm_hidden(state.obs.shape[0], self.lstm_features, self.hidden_layer_num, state.obs.device)
+        return state.replace(info=dict(state.info, hidden_state=hidden))
+
+
+class RenderRolloutWrapperSingleclipTracking(Wrapper):
+    """Logging rollouts of the single-clip env: a given start frame."""
+
+    def reset(self, rng: torch.Generator, start_frame: int = 0, batch_size: int = 1) -> State:
+        qpos_noise = self._uniform(rng, (batch_size, self.plan.nq))
+        qvel_noise = self._uniform(rng, (batch_size, self.plan.nv))
+        return self.reset_from_draws(start_frame, qpos_noise, qvel_noise)
+
+    def reset_from_draws(self, start_frame, qpos_noise: torch.Tensor, qvel_noise: torch.Tensor) -> State:
+        bsz = qpos_noise.shape[0]
+        start = torch.as_tensor(start_frame, dtype=torch.int64, device=self.device).reshape(-1).expand(bsz)
+        return self.reset_from_clip(start, qpos_noise, qvel_noise)
+
+
+class RenderRolloutVmapWrapper(Wrapper):
+    """A batch of render-wrapper envs: `reset(rng, clip_idx)` with one clip
+    per env (default: clip 0 for each of `batch_size` envs)."""
+
+    def __init__(self, env: Env, batch_size: Optional[int] = None):
+        super().__init__(env)
+        self.batch_size = batch_size
+
+    def reset(self, rng: torch.Generator, clip_idx=None) -> State:
+        if clip_idx is None:
+            if self.batch_size is None:
+                raise ValueError("RenderRolloutVmapWrapper.reset needs clip_idx or a batch_size")
+            clip_idx = torch.zeros((self.batch_size,), dtype=torch.int64)
+        clip_idx = torch.as_tensor(clip_idx).reshape(-1)
+        return self.env.reset(rng, clip_idx, batch_size=clip_idx.shape[0])

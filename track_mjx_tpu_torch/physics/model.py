@@ -296,12 +296,20 @@ def load_snapshot(name: str = "rodent-full-clips") -> Any:
     paths = {**SNAPSHOTS, **PROBE_SNAPSHOTS}
     if name not in paths:
         raise ValueError(f"no snapshot for {name!r}; have {sorted(paths)}")
+    return snapshot_from_file(paths[name])
+
+
+def snapshot_from_file(path: str) -> Any:
+    """A snapshot .npz as `load_snapshot` returns it; a key `group.field`
+    becomes `snap.group.field` (`opt` and `walker` are always there)."""
     snap = types.SimpleNamespace(opt=types.SimpleNamespace(), walker=types.SimpleNamespace())
-    with np.load(paths[name], allow_pickle=False) as z:
+    with np.load(path, allow_pickle=False) as z:
         for key in z.files:
             val = z[key]
             val = val.item() if val.ndim == 0 else val
             group, _, field = key.rpartition(".")
+            if group and not hasattr(snap, group):
+                setattr(snap, group, types.SimpleNamespace())
             setattr(getattr(snap, group) if group else snap, field, val)
     return snap
 

@@ -30,20 +30,41 @@ Port of track_mjx_tpu/train.py, both pipelines:
   carry widths come from `network_config.hidden_state_size` and
   `hidden_layer_num` (no YAML sets them: give them as overrides, e.g. 128
   and 2, the JAX LSTM trainer's defaults);
-- progress goes to `logging`.
+- run management, as the JAX CLI: a preemption run-state record
+  (agent/preemption.py, keyed by the scheduler's job id and the hash of the
+  config as given) found at the start resumes its run (its checkpoint, run
+  directory and wandb id); `train_setup.restore_from_run_state=<file under
+  logging_config.model_path>` restores from a record by hand; a fresh run
+  writes its record, each checkpoint written updates it, and a run that
+  ends without an error removes it;
+- logging: progress goes to `logging` and to `wandb` (utils/wandb_compat.py:
+  the real one where installed and WANDB_API_KEY is set, else JSONL under
+  <logging_config.model_path>/wandb_local/<project>/<run>/, where the JAX
+  CLI writes wandb_local/ into the working directory), which gets the
+  config, every progress report with `num_steps_thousands`, and after
+  every eval the logging rollout's `latents/*` (agent/wandb_logging.py:
+  one env over the whole clip through the render wrapper); every
+  `env_config.render_interval` evals also its `eval/rollout_<metric>`
+  curves and a ghost-pair video, `<run dir>/<it>.mp4` (or .gif, or .npz
+  without imageio), drawn by analysis/render.py;
+- `-m/--multirun` runs the cartesian product of comma-separated override
+  values one job after another (`expand_multirun`: Hydra's order; a value
+  that parses as a JSON list is no sweep; an override without "=" raises,
+  where the JAX one writes "key=").
 
 `train_config`'s `rollout_bf16` and `profile_dir` reach the trainers as
-they are. Not ported (ROADMAP 5d/5e), and refused rather than skipped:
-multi-host `distributed`, preemption run-state files
-(`restore_from_run_state`, and the trainers' `checkpoint_callback`) and
-`-m` multirun. There is no wandb and no rendering.
+they are. Multi-host `distributed` is not ported (ROADMAP 5d) and is
+refused rather than skipped.
 
 Usage:
-    python -m track_mjx_tpu_torch.train [--config-name NAME] [key.sub=value ...]
+    python -m track_mjx_tpu_torch.train [--config-name NAME] [-m] [key.sub=value ...]
 """
 
 from __future__ import annotations
 
+import copy
+import functools
+import itertools
 import json
 import logging
 import os
@@ -52,42 +73,53 @@ from datetime import datetime
 from pathlib import Path
 
 from track_mjx_tpu_torch import workload
-from track_mjx_tpu_torch.agent import checkpointing
+from track_mjx_tpu_torch.agent import checkpointing, preemption, wandb_logging
 from track_mjx_tpu_torch.agent.lstm_ppo import ppo as lstm_ppo
 from track_mjx_tpu_torch.agent.lstm_ppo import ppo_networks as lstm_ppo_networks
 from track_mjx_tpu_torch.agent.mlp_ppo import ppo as mlp_ppo
 from track_mjx_tpu_torch.agent.mlp_ppo import ppo_networks as mlp_ppo_networks
+from track_mjx_tpu_torch.analysis import render
+from track_mjx_tpu_torch.envs import wrappers
 from track_mjx_tpu_torch.io import load
 from track_mjx_tpu_torch.physics import forward as phys_forward
-from track_mjx_tpu_torch.utils.config import ConfigDict, load_config
+from track_mjx_tpu_torch.utils.config import CONFIG_NAME, ConfigDict, load_config
+from track_mjx_tpu_torch.utils.wandb_compat import wandb
 
 
 def _refuse_unported(cfg: ConfigDict) -> None:
+    if cfg.get("distributed"):
+        raise NotImplementedError("distributed: not ported (ROADMAP 5d)")
     train_setup = cfg["train_setup"]
-    refused = {
-        "distributed": bool(cfg.get("distributed")),
-        "train_setup.restore_from_run_state (preemption run states)": train_setup.get("restore_from_run_state")
-        is not None,
-    }
-    for what, asked in refused.items():
-        if asked:
-            raise NotImplementedError(f"{what}: not ported (ROADMAP 5d/5e)")
     if train_setup.get("freeze_decoder") and train_setup["train_config"].get("use_lstm"):
         raise NotImplementedError(
             "train_setup.freeze_decoder with the LSTM pipeline: its policy has no `decoder` module to freeze"
         )
 
 
-def main(cfg: ConfigDict, progress_fn=None, batch_callback=None):
+def main(cfg: ConfigDict, progress_fn=None, batch_callback=None, policy_params_fn=None):
     """Runs training from a loaded config; returns (make_policy, (normalizer,
     policy state dict)). `progress_fn(num_steps_thousands, metrics)` is
     called beside the logging of progress; `batch_callback(training_state,
-    data, make_learner)` goes to the trainer (`ppo.train`)."""
+    data, make_learner)` goes to the trainer (`ppo.train`);
+    `policy_params_fn`, where given, replaces the per-eval logging rollout
+    (`wandb_logging.rollout_logging_fn`) as the trainer's hook."""
     _refuse_unported(cfg)
+    cfg = copy.deepcopy(cfg)
     device = cfg.get("device", "cuda")
     freeze_decoder = bool(cfg["train_setup"].get("freeze_decoder", False))
+    store = preemption.RunStateStore(cfg)  # keyed by the config as given, for every record operation
 
-    if cfg["train_setup"].get("checkpoint_to_restore") is not None and not freeze_decoder:
+    existing_run_state = store.discover()
+    if existing_run_state:
+        logging.info("Resuming from existing run: %s", existing_run_state["run_id"])
+    elif cfg["train_setup"].get("restore_from_run_state") is not None:
+        full_path = Path(cfg["logging_config"]["model_path"]).resolve() / cfg["train_setup"]["restore_from_run_state"]
+        existing_run_state = preemption.read_locked(full_path)
+        logging.info("Restoring from run state: %s", existing_run_state["run_id"])
+    if existing_run_state:
+        cfg["train_setup"]["checkpoint_to_restore"] = str(Path(existing_run_state["checkpoint_path"]).resolve())
+
+    if existing_run_state or (cfg["train_setup"].get("checkpoint_to_restore") is not None and not freeze_decoder):
         checkpoint_to_restore = str(Path(cfg["train_setup"]["checkpoint_to_restore"]).resolve())
         # the checkpoint's stored config is authoritative on resume
         cfg = ConfigDict(checkpointing.load_config_from_checkpoint(checkpoint_to_restore))
@@ -100,10 +132,7 @@ def main(cfg: ConfigDict, progress_fn=None, batch_callback=None):
         if cfg["train_setup"].get("checkpoint_to_restore") is not None:  # the decoder's source run
             cfg["train_setup"]["checkpoint_to_restore"] = str(Path(cfg["train_setup"]["checkpoint_to_restore"]).resolve())
         run_id = datetime.now().strftime("%y%m%d_%H%M%S_%f")
-        model_path = Path(cfg["logging_config"]["model_path"])
-        if not model_path.is_absolute():
-            model_path = Path.cwd() / model_path
-        checkpoint_path = str(model_path / run_id)
+        checkpoint_path = str(Path(cfg["logging_config"]["model_path"]).resolve() / run_id)
 
     workload.snapshot_name(cfg)  # before anything runs: a walker the snapshot does not hold raises
     cfg_dict = cfg.to_dict()
@@ -143,18 +172,52 @@ def main(cfg: ConfigDict, progress_fn=None, batch_callback=None):
     logging.info("episode_length %s", episode_length)
     train_config = dict(train_setup["train_config"])
     network_config = cfg["network_config"]
-
-    def progress(num_steps, metrics):
-        logging.info("num_steps_thousands %s: %s", num_steps, metrics)
-        if progress_fn is not None:
-            progress_fn(num_steps, metrics)
-
-    if train_config.get("use_lstm"):
+    use_lstm = bool(train_config.get("use_lstm"))
+    if use_lstm:
         logging.info("Using LSTM pipeline")
         ppo, ppo_networks = lstm_ppo, lstm_ppo_networks
     else:
         logging.info("Using MLP pipeline")
         ppo, ppo_networks = mlp_ppo, mlp_ppo_networks
+
+    # ---- wandb and the run-state record (JAX train.py:227-256) ----------
+    logging_config = cfg["logging_config"]
+    # rodent-sps-per-actor's YAML has no exp_name (the JAX CLI raises a KeyError there)
+    run_id = f"{logging_config.get('exp_name') or cfg.get(CONFIG_NAME, 'run')}_{run_id}"
+    if existing_run_state:
+        wandb_run_id, wandb_resume = existing_run_state["wandb_run_id"], "must"
+    else:
+        wandb_run_id, wandb_resume = run_id, "allow"
+    wandb.init(
+        project=logging_config["project_name"],
+        config=cfg_dict,
+        id=wandb_run_id,
+        resume=wandb_resume,
+        group=logging_config["group_name"],
+        dir=str(Path(logging_config["model_path"]).resolve() / "wandb_local"),
+    )
+    if not existing_run_state:
+        store.save(run_id, checkpoint_path, wandb.run.id)
+    checkpoint_callback = store.checkpoint_callback(run_id, checkpoint_path, wandb.run.id)
+
+    def progress(num_steps, metrics):
+        logging.info("num_steps_thousands %s: %s", num_steps, metrics)
+        wandb.log({**metrics, "num_steps_thousands": num_steps})
+        if progress_fn is not None:
+            progress_fn(num_steps, metrics)
+
+    if policy_params_fn is None:
+        if use_lstm:
+            rollout_env = wrappers.RenderRolloutWrapperTrackingLSTM(
+                env, lstm_features=network_config["hidden_state_size"],
+                hidden_layer_num=network_config["hidden_layer_num"],
+            )
+        else:
+            rollout_env = wrappers.RenderRolloutWrapperMulticlipTracking(env)
+        policy_params_fn = functools.partial(
+            wandb_logging.rollout_logging_fn, rollout_env, cfg, checkpoint_path,
+            render.make_rollout_renderer(cfg, device),
+        )
 
     make_inference_fn, params, _ = ppo.train(
         environment=env,
@@ -170,18 +233,47 @@ def main(cfg: ConfigDict, progress_fn=None, batch_callback=None):
         use_kl_schedule=network_config["kl_schedule"],
         eval_env_test_set=test_env,
         freeze_decoder=freeze_decoder,
+        checkpoint_callback=checkpoint_callback,
         progress_fn=progress,
+        policy_params_fn=policy_params_fn,
         device=device,
         batch_callback=batch_callback,
     )
+    wandb.finish()
+    store.clear()
+    logging.info("Training completed successfully, cleaned up run state")
     return make_inference_fn, params
 
 
+def expand_multirun(overrides):
+    """Hydra's multirun sweep: comma-separated values (`a.b=1,2 c=x,y`)
+    expand to the cartesian product of single-value override sets, the
+    first override varying slowest. A value that parses as a JSON list
+    (`a=[1,2]`) is no sweep. An override without "=" raises a ValueError
+    (the JAX package's writes it as `key=`)."""
+    axes = []
+    for ov in overrides:
+        key, sep, raw = ov.partition("=")
+        if not sep:
+            raise ValueError(f"override {ov!r} has no '=': write key=value")
+        parts = raw.split(",") if raw else [raw]
+        if len(parts) > 1:
+            try:
+                if isinstance(json.loads(raw), list):
+                    parts = [raw]
+            except json.JSONDecodeError:
+                pass
+        axes.append([f"{key}={p}" for p in parts])
+    return [list(combo) for combo in itertools.product(*axes)]
+
+
 def cli(argv=None):
-    """python -m track_mjx_tpu_torch.train [--config-name NAME] [a.b=c ...]"""
+    """python -m track_mjx_tpu_torch.train [--config-name NAME] [-m|--multirun]
+    [a.b=c ...]; with -m, each job of `expand_multirun(overrides)` in turn."""
     logging.basicConfig(level=logging.INFO)
     args = sys.argv[1:] if argv is None else list(argv)
     config_name = "rodent-full-clips"
+    multirun = False
     overrides = []
     i = 0
     while i < len(args):
@@ -192,10 +284,18 @@ def cli(argv=None):
             config_name = args[i].split("=", 1)[1]
             i += 1
         elif args[i] in ("-m", "--multirun"):
-            raise NotImplementedError("-m/--multirun: not ported; run one job per call")
+            multirun = True
+            i += 1
         else:
             overrides.append(args[i])
             i += 1
+    if multirun:
+        jobs = expand_multirun(overrides)
+        out = []
+        for k, job in enumerate(jobs):
+            logging.info("multirun job %d/%d: %s", k + 1, len(jobs), job)
+            out.append(main(load_config(config_name, job)))
+        return out
     return main(load_config(config_name, overrides))
 
 
