@@ -3,7 +3,8 @@ steps, the rodent rollout, the trainer on the rodent (MLP and LSTM
 pipelines) and on the fly, the rest of the physics (RK4 and implicit
 integrators, condim-1/4/6 contacts, frictionloss and equality rows, on
 pyramidal and on elliptic cones), the third workload config with the
-trainer's options, and the CLI's run management and per-eval logging.
+trainer's options, the CLI's run management and per-eval logging, and the
+analysis of a trained checkpoint.
 
 Usage (from the repository root, on a machine with a CUDA device and nvcc):
 
@@ -194,10 +195,11 @@ It imports nothing of JAX. Phases, each of which raises on failure:
    latest_checkpoint_step 0; a second
    run of the same config must resume that run directory, keep the record
    while it runs, write step 1 and remove the record; cg_solve must launch
-   exactly the trainer's count plus 1 + 30 x 10 for the logging rollout at
+   exactly the trainer's count plus 1 + 20 x 10 for the logging rollout at
    B = 1; metrics.jsonl must hold eval/episode_reward, the latents/* keys
-   and eval/rollout_pos_reward, and the video 30 non-constant frames of 512
-   x 512 x 3. Then the LSTM rodent's and the fly's logging rollouts, 10
+   and eval/rollout_pos_reward, and the video 20 non-constant frames of 512
+   x 512 x 3 (clips of 20 frames: 30 before phase 14 was added, cut to
+   make room for it). Then the LSTM rodent's and the fly's logging rollouts, 10
    control steps each through collect_rollout (exact launches of cg_solve
    and ell_cg_solve at B = 1) and one frame rendered each; cg_solve and
    ell_cg_solve at B = 1 on those rollouts' last states against their plain
@@ -205,10 +207,37 @@ It imports nothing of JAX. Phases, each of which raises on failure:
    float64 rule), timed beside the plain version and the bound of one env.
    Prints ms per logging control step at B = 1 beside phase 4's rollout
    step, ms per rendered frame, and the phase's seconds.
-14. Prints the seconds of each phase and the total, the kernels' JSON line
+14. Analysis from a checkpoint (runs after 13, before 12): phase 8's
+   full-width rodent-full-clips checkpoint loaded by
+   load_checkpoint_for_eval, its config pointed at ANALYSIS_CLIPS (256)
+   synthetic clips of 30 frames; create_environment, load_inference_fn
+   with get_activation and create_rollout_generator's rollout of all 256
+   clips as one batch (29 control steps) with every channel logged: the
+   JAX tests' shapes, every channel finite on the envs that the NaN guard
+   did not flag, a nonzero contact wrench wherever a contact penetrates,
+   cg_solve launched exactly 1 + 29 x 10 times and no other kernel;
+   cfrc_ext of the last step's Data on the card against the CPU's for 64
+   envs within CFRC_REL. The LSTM rodent (phase 10's checkpoint) and the
+   fly (phase 9's) the same way at 8 clips and 10 control steps (cg_solve,
+   ell_cg_solve, each exactly 1 + 10 x 10). On the rodent's analysis env:
+   AutoAlignWrapperTracking for 10 control steps under 0.2 x U(-1, 1)
+   controls (the envs that end done sit at their reference frame's qpos and
+   qvel bit for bit, the others equal the unwrapped step bit for bit in
+   every Data field and the obs; some must end done);
+   EvalClipWrapperTracking's reset (frame 0 of each clip plus the qpos
+   draw, qvel zero, bit for bit: the JAX wrapper's noise=False zeroes the
+   qvel draw only); HighLevelWrapper driven by make_decoder_policy_fn(phase
+   8's checkpoint) for 5 control steps, the latents the full policy's
+   means, its action the full policy's bit for bit. Then the stick (its
+   snapshot's names, rodent-full-clips' env args and widths, 64 clips of 10
+   frames) for 5 control steps, the solve kernels' launches printed and
+   held (RK4 from the stick's XML: cg_solve without its Euler solve, 4 a
+   substep). Prints ms per analysis control step at B = 256 beside phase
+   4's rollout step, cfrc_ext's ms a call and the phase's seconds.
+15. Prints the seconds of each phase and the total, the kernels' JSON line
    (each kernel's launches on every path that runs it under
-   "launches_by_path"; cg_solve's and ell_cg_solve's B = 1 records under
-   "b1") and, last, {"ok": true, "device": {...}}.
+   "launches_by_path", phase 14's among them; cg_solve's and ell_cg_solve's
+   B = 1 records under "b1") and, last, {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -500,12 +529,12 @@ SPS_FOREIGN_ENVS = 1024
 
 # --- phase 13: the CLI's run management and per-eval logging
 # Clips of LOG_CLIP_LENGTH frames make a logging rollout of that many control
-# steps (the rodent: one per frame) and evals of 30 - 5 - 5 = 20. LOG_ENVS
+# steps (the rodent: one per frame) and evals of 20 - 5 - 5 = 10. LOG_ENVS
 # envs, batch_size LOG_ENVS and 1 minibatch make a training step one unroll
 # of 20; num_timesteps = 2 x eval_every = 20 x LOG_ENVS make 2 evals (the
 # initial one and one after one training step), a logging rollout and a
 # video after the second.
-LOG_CLIP_LENGTH = 30
+LOG_CLIP_LENGTH = 20  # 30 before phase 14 was added, cut to make room for it
 LOG_ENVS = 256
 LOG_EVAL_ENVS = 128
 LOG_CLIPS = 4
@@ -537,6 +566,25 @@ class Preempted(BaseException):
     """Stops phase 13's first run right after its first checkpoint and its
     record's update, as the SystemExit of a SIGTERM would: no `except
     Exception` of the trainer catches it."""
+
+
+# --- phase 14: analysis from a checkpoint
+# The analysis rollout: ANALYSIS_CLIPS synthetic clips of ANALYSIS_FRAMES
+# frames, one env each, ANALYSIS_FRAMES - 1 control steps (the rodent: one
+# per frame). The LSTM rodent's and the fly's at ANALYSIS_OTHER_CLIPS clips
+# and ANALYSIS_OTHER_STEPS control steps, the wrappers on the rodent's
+# analysis env, the stick at STICK_CLIPS clips of STICK_FRAMES frames.
+ANALYSIS_CLIPS = 256
+ANALYSIS_FRAMES = 30
+ANALYSIS_OTHER_CLIPS = 8
+ANALYSIS_OTHER_STEPS = 10
+ANALYSIS_CPU = 64  # envs whose cfrc_ext is held against the CPU's
+CFRC_REL = 1e-5  # cfrc_ext, card against CPU on the same Data: float32 roundoff of products and sums
+ALIGN_STEPS = 10
+HIGH_LEVEL_STEPS = 5
+STICK_CLIPS = 64
+STICK_FRAMES = 10
+STICK_STEPS = 5
 
 
 REPLACES = {  # the TPU kernel bodies, track_mjx_tpu/ops/batched_linalg.py
@@ -750,6 +798,7 @@ class Phases:
         self.dev = torch.device(device)
         self.gen = torch.Generator(device=self.dev)
         self.gen.manual_seed(SEED)
+        self.train_runs = {}  # phase -> (run directory, config) of its train.main run
 
     def uniform(self, shape, lo, hi):
         return lo + (hi - lo) * torch.rand(shape, generator=self.gen, device=self.dev)
@@ -1388,6 +1437,7 @@ class Phases:
         check = self.learning_steps_versus_cpu if step_by_step else self.learning_half_versus_cpu
         check(bundle["cfg"], captured, what)
         self.train_run = run_dir, cfg
+        self.train_runs[phase] = run_dir, cfg
         if config == "fly-mc-intention":
             self.fly_env_layer_versus_cpu(cfg, clips)
         peak = torch.cuda.max_memory_allocated()
@@ -2750,7 +2800,7 @@ class Phases:
         print(f"logging: video {video['path']}: frames {video['shape']} {video['dtype']}, values "
               f"{video['min']}-{video['max']}; rendered and written in {video['s']:.2f} s")
         assert os.path.exists(video["path"]) and os.path.dirname(video["path"]) == run_dir
-        assert video["shape"] == frames and video["min"] < video["max"], "the video is not 30 non-constant frames"
+        assert video["shape"] == frames and video["min"] < video["max"], f"the video is not {LOG_CLIP_LENGTH} non-constant frames"
         assert last["videos/rollout"]["path"] == video["path"]
 
         step_ms = 1e3 * rollouts[0]["s"] / LOG_CLIP_LENGTH
@@ -2881,6 +2931,308 @@ class Phases:
               f"card's bandwidth or rate, sets its time ({self.card})")
         return {"b1": {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": max_abs}}
 
+    def analysis_config(self, cfg, root: str, name: str, n_clips: int, n_frames: int, snapshot) -> dict:
+        """A copy of `cfg` (a checkpoint's config) pointed at `n_clips`
+        synthetic clips of `n_frames` frames of `snapshot`'s walker, written
+        to <root>/<name>.npz, with the NaN guard's flag among the rollout
+        metrics."""
+        from track_mjx_tpu_torch.io import load
+        from track_mjx_tpu_torch.io.synthetic import synthesize_clips
+
+        cfg = json.loads(json.dumps(cfg))
+        clips = synthesize_clips(snapshot, n_clips=n_clips, n_frames=n_frames,
+                                 mocap_hz=cfg["env_config"]["env_args"]["mocap_hz"], seed=SEED, device=self.dev)
+        cfg["data_path"] = os.path.join(root, f"{name}.npz")
+        load.save_npz(clips, cfg["data_path"])
+        cfg["reference_config"]["clip_length"] = n_frames
+        metrics = cfg["logging_config"].get("rollout_metrics", [])
+        cfg["logging_config"]["rollout_metrics"] = [*metrics, *(["nan"] if "nan" not in metrics else [])]
+        return cfg
+
+    def analysis_rollout(self, what: str, cfg, env, policy, n: int, model: str = "mlp") -> tuple:
+        """create_rollout_generator's rollout of `n` clips with every channel
+        logged; checks the JAX tests' shapes (tests/test_analysis.py:54-83)
+        and that every channel is finite up to the state at which the NaN
+        guard first flags its env (the rollout steps on past it, as the JAX
+        one does). Returns (outputs, seconds, the valid states [n, steps]:
+        those before each env's first flagged one)."""
+        from track_mjx_tpu_torch.analysis import rollout as arollout
+
+        gen = arollout.create_rollout_generator(cfg, env, policy, model=model, log_activations=True, log_metrics=True,
+                                                log_sensor_data=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = gen(torch.arange(n, device=self.dev), seed=SEED)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        steps = int(cfg["reference_config"]["clip_length"] * env._steps_for_cur_frame)
+        p = env.plan
+        ref_steps = env._clip_frames * int(env._steps_for_cur_frame)  # the whole clip's, as in JAX
+        shapes = {"qposes_rollout": (n, steps, p.nq), "qposes_ref": (n, ref_steps, p.nq), "ctrl": (n, steps - 1, p.nu),
+                  "state_rewards": (n, steps), "joint_forces": (n, steps - 1, p.nbody, 6),
+                  "sensor_readings": (n, steps - 1, p.nsensordata)}
+        got = {k: tuple(out[k].shape) for k in shapes}
+        assert got == shapes, f"{what}: shapes {got}, expected {shapes}"
+        names = cfg["logging_config"]["rollout_metrics"]
+        assert sorted(out["rollout_metrics"]) == sorted(f"{k}s" for k in names)
+        assert all(v.shape == (n, steps) for v in out["rollout_metrics"].values())
+        taps = {}
+
+        def leaves(tree, path):
+            if isinstance(tree, torch.Tensor):
+                taps[path] = tree
+            elif isinstance(tree, dict):
+                for k, v in tree.items():
+                    leaves(v, f"{path}/{k}")
+            else:
+                for i, v in enumerate(tree):
+                    leaves(v, f"{path}/{i}")
+
+        leaves(out["activations"], "activations")
+        assert all(t.shape[:2] == (n, steps - 1) for t in taps.values()), {k: t.shape for k, t in taps.items()}
+        # states before each env's first flagged one; a transition is valid
+        # where the state it ends in is
+        valid = torch.cumsum(out["rollout_metrics"]["nans"] > 0, dim=1) == 0
+        per_state = {"qposes_rollout": out["qposes_rollout"], "state_rewards": out["state_rewards"],
+                     **{f"rollout_metrics/{k}": v for k, v in out["rollout_metrics"].items()}}
+        per_step = {k: out[k] for k in ("ctrl", "joint_forces", "sensor_readings")} | taps
+        bad = sorted([k for k, v in per_state.items() if not torch.isfinite(v[valid]).all()]
+                     + [k for k, v in per_step.items() if not torch.isfinite(v[valid[:, 1:]]).all()])
+        flagged = ~valid[:, -1]
+        first = (~valid).float().argmax(1)[flagged]
+        print(f"analysis: {what}: {n} clips x {steps - 1} control steps in {seconds:.1f} s; shapes {got}; activation "
+              f"taps {sorted(taps)}; envs flagged by the NaN guard {int(flagged.sum())} (first flagged at control "
+              f"steps {sorted(first.tolist())[:8]}...; {float(valid.float().mean()):.3f} of the states before "
+              f"it); channels non-finite before an env's first flag {bad}")
+        assert not bad, f"{what}: non-finite {bad} before the NaN guard flagged the env"
+        return out, seconds, valid
+
+    def analysis(self) -> dict:
+        """Phase 14 (module docstring): the analysis path from phase 8's,
+        9's and 10's checkpoints; returns the fused solves' launches on its
+        paths and its times."""
+        from track_mjx_tpu_torch import workload
+        from track_mjx_tpu_torch.agent import checkpointing, running_statistics
+        from track_mjx_tpu_torch.agent.mlp_ppo import ppo_networks as mlp_networks
+        from track_mjx_tpu_torch.analysis import rollout as arollout
+        from track_mjx_tpu_torch.envs import wrappers
+        from track_mjx_tpu_torch.envs.base import Wrapper
+        from track_mjx_tpu_torch.physics import postconstraint
+        from track_mjx_tpu_torch.utils.config import load_config
+
+        tk, tm, bl = self.tk, self.tm, self.bl
+        ops = (tk.cg_solve, tk.ell_cg_solve, tk.cg_solve_dense, tk.ell_cg_solve_dense, bl.cholesky, bl.cho_solve,
+               bl.solve_spd)
+
+        def counts():
+            return {op.__name__: op.launches for op in ops if op.launches}
+
+        def zero():
+            for op in ops:
+                op.launches = 0
+
+        phase_t0 = time.perf_counter()
+        root = os.path.join(REPO, "build", "chip_smoke_analysis")
+        shutil.rmtree(root, ignore_errors=True)
+        os.makedirs(root)
+        launches = {"cg_solve": {}, "ell_cg_solve": {}}
+
+        # the rodent at full width over ANALYSIS_CLIPS clips, phase 8's checkpoint
+        run_dir = self.train_runs["8"][0]
+        bundle = checkpointing.load_checkpoint_for_eval(run_dir, device=self.dev)
+        cfg = self.analysis_config(bundle["cfg"], root, "rodent", ANALYSIS_CLIPS, ANALYSIS_FRAMES,
+                                   tm.load_snapshot(workload.snapshot_name(bundle["cfg"])))
+        env = arollout.create_environment(cfg, device=self.dev)
+        substeps = cfg["env_config"]["env_args"]["physics_steps_per_control_step"]
+        policy = checkpointing.load_inference_fn(cfg, bundle["policy"], get_activation=True, device=self.dev)
+        cfrc = postconstraint.cfrc_ext
+        seen = {"pen": [], "forced": [], "hit": [], "d64": []}
+        contact_rows = env.plan.ne + env.plan.nf + len(env.plan.limited_jnt_ids)  # the efc rows before the contacts'
+
+        def kept_cfrc(plan, model, data):  # per step: contacts in and with force, a nonzero wrench, Data
+            out = cfrc(plan, model, data)
+            seen["data"] = data
+            seen["pen"].append((data.contact_dist < 0).any(1))
+            seen["forced"].append(data.efc_force[:, contact_rows:].abs().amax(1) > 0)
+            seen["hit"].append(out.abs().flatten(1).amax(1) > 0)
+            seen["d64"].append(dataclasses.replace(
+                data, **{f.name: getattr(data, f.name)[:ANALYSIS_CPU] for f in dataclasses.fields(data)}))
+            return out
+
+        steps = ANALYSIS_FRAMES * int(env._steps_for_cur_frame) - 1
+        zero()
+        postconstraint.cfrc_ext = kept_cfrc
+        try:
+            out, rollout_s, valid = self.analysis_rollout("rodent (phase 8's checkpoint)", cfg, env, policy,
+                                                          ANALYSIS_CLIPS)
+        finally:
+            postconstraint.cfrc_ext = cfrc
+        expected = 1 + steps * substeps
+        got = counts()
+        print(f"analysis: rodent launches {got}, expected cg_solve 1 (reset) + {steps} x {substeps} = {expected}")
+        assert got == {"cg_solve": expected}, got
+        launches["cg_solve"][f"rodent analysis rollout, {ANALYSIS_CLIPS} clips (phase 14)"] = expected
+        ok = valid[:, 1:]  # the steps that end before the env's first flag
+        pen, forced, hit = (torch.stack(seen[k], 1) & ok for k in ("pen", "forced", "hit"))
+        print(f"analysis: before their first flag, {int(forced.any(1).sum())} of {ANALYSIS_CLIPS} envs had contact "
+              f"rows with force ({int(forced.sum())} of {int(ok.sum())} env steps) and a nonzero contact wrench in "
+              f"each of those steps: {bool(torch.equal(forced, hit))}; a penetrating contact in {int(pen.sum())} env "
+              f"steps ({int((pen & ~forced).sum())} of them with no force: separating); max |wrench| "
+              f"{float(out['joint_forces'][ok].abs().max()):.4f}")
+        assert forced.any() and torch.equal(forced, hit), "the contact forces of an env step gave no wrench, or no force one"
+
+        # cfrc_ext on the card against the CPU's on the same Data: the last
+        # step at which the first envs are all unflagged
+        first_ok = ok[:ANALYSIS_CPU]
+        t_cmp = max([t for t in range(steps) if first_ok[:, t].all()] or [0])
+        d64 = seen["d64"][t_cmp]
+        keep = first_ok[:, t_cmp]
+        card_w = cfrc(env.plan, env.model, d64).cpu()[keep.cpu()]
+        cpu_w = cfrc(env.plan, _on_cpu(env.model), _on_cpu(d64))[keep.cpu()]
+        err = _rel(card_w, cpu_w)
+        cfrc_ms = _time_ms(lambda: cfrc(env.plan, env.model, seen["data"]), 20)
+        print(f"analysis: cfrc_ext on the Data of control step {t_cmp + 1} of {int(keep.sum())} of the first "
+              f"{ANALYSIS_CPU} envs (unflagged), card against CPU: max |diff| / max(1, max |CPU|) {err:.3e} (bar "
+              f"{CFRC_REL}; max |wrench| {float(cpu_w.abs().max()):.4f}); {cfrc_ms:.3f} ms a call at "
+              f"B = {ANALYSIS_CLIPS}")
+        assert float(cpu_w.abs().max()) > 0 and err < CFRC_REL, f"cfrc_ext card against CPU: {err:.3e}"
+        step_ms = 1e3 * rollout_s / steps
+
+        # the LSTM rodent (phase 10's checkpoint) and the fly (phase 9's)
+        for phase, what, op, model in (("10", "rodent LSTM", tk.cg_solve, "lstm"), ("9", "fly", tk.ell_cg_solve, "mlp")):
+            b = checkpointing.load_checkpoint_for_eval(self.train_runs[phase][0], device=self.dev)
+            c = self.analysis_config(b["cfg"], root, what.replace(" ", "_"), ANALYSIS_OTHER_CLIPS,
+                                     ANALYSIS_OTHER_STEPS + 1, tm.load_snapshot(workload.snapshot_name(b["cfg"])))
+            assert bool(c["train_setup"]["train_config"].get("use_lstm", False)) == (model == "lstm")
+            e = arollout.create_environment(c, device=self.dev)
+            p = checkpointing.load_inference_fn(c, b["policy"], get_activation=True, device=self.dev)
+            zero()
+            self.analysis_rollout(f"{what} (phase {phase}'s checkpoint)", c, e, p, ANALYSIS_OTHER_CLIPS, model)
+            sub = c["env_config"]["env_args"]["physics_steps_per_control_step"]
+            n_steps = int((ANALYSIS_OTHER_STEPS + 1) * e._steps_for_cur_frame) - 1
+            expected_other = 1 + n_steps * sub
+            got = counts()
+            print(f"analysis: {what} launches {got}, expected {op.__name__} 1 + {n_steps} x {sub} = {expected_other}")
+            assert got == {op.__name__: expected_other}, got
+            launches[op.__name__][f"{what} analysis rollout, {ANALYSIS_OTHER_CLIPS} clips (phase 14)"] = expected_other
+
+        # the wrappers on the rodent's analysis env
+        class Keep(Wrapper):
+            """Keeps the unwrapped step's state."""
+
+            def step(self, state, action):
+                self.last = self.env.step(state, action)
+                return self.last
+
+        kept = Keep(env)
+        aligned = wrappers.AutoAlignWrapperTracking(kept)
+        render = wrappers.RenderRolloutWrapperMulticlipTracking(env)
+        state = render.reset(self.gen, torch.arange(ANALYSIS_CLIPS, device=self.dev), batch_size=ANALYSIS_CLIPS)
+        zero()
+        realigned = 0
+        for t in range(ALIGN_STEPS):
+            action = self.uniform((ANALYSIS_CLIPS, env.action_size), -RODENT_CTRL_SCALE, RODENT_CTRL_SCALE)
+            state = aligned.step(state, action)
+            inner = kept.last
+            done = state.done > 0
+            assert torch.equal(state.done, inner.done)
+            ref, d, di = state.info["reference_frame"], state.pipeline_state, inner.pipeline_state
+            assert torch.equal(d.qpos[done], torch.cat([ref.position, ref.quaternion, ref.joints], -1)[done])
+            assert torch.equal(d.qvel[done], torch.cat([ref.velocity, ref.angular_velocity, ref.joints_velocity],
+                                                       -1)[done])
+            assert torch.isfinite(d.xpos[done]).all()
+            for f in dataclasses.fields(d):
+                assert torch.equal(getattr(d, f.name)[~done], getattr(di, f.name)[~done]), f"{f.name} at step {t}"
+            assert torch.equal(state.obs[~done], inner.obs[~done])
+            realigned += int(done.sum())
+        align_launches = counts()
+        print(f"analysis: AutoAlignWrapperTracking, {ALIGN_STEPS} control steps of {ANALYSIS_CLIPS} envs under "
+              f"{RODENT_CTRL_SCALE} x U(-1, 1) controls: {realigned} env steps ended done and sit at their reference "
+              f"pose (qpos, qvel bitwise, kinematics run again); the others equal the unwrapped step bit for bit "
+              f"(every Data field and the obs); launches {align_launches}")
+        assert realigned > 0, "no env ended done: the realignment was not exercised"
+        assert align_launches == {"cg_solve": ALIGN_STEPS * substeps}, align_launches
+        launches["cg_solve"]["rodent AutoAlignWrapperTracking (phase 14)"] = ALIGN_STEPS * substeps
+
+        evaluation = wrappers.EvalClipWrapperTracking(env)
+        clip = torch.arange(ANALYSIS_CLIPS, device=self.dev).flip(0)
+        noise = env._uniform(self.gen, (ANALYSIS_CLIPS, env.plan.nq))
+        s = evaluation.reset_from_draws(clip, noise)
+        rc = env._reference_clips
+        frame0 = torch.cat([rc.position, rc.quaternion, rc.joints], -1)[clip, 0]
+        drawn = evaluation.reset(self.gen, clip_idx=3, batch_size=4)
+        print(f"analysis: EvalClipWrapperTracking.reset: qpos is each clip's frame 0 plus the qpos draw bit for bit "
+              f"{torch.equal(s.pipeline_state.qpos, frame0 + noise)}, qvel zero {not s.pipeline_state.qvel.any()}, "
+              f"start frame 0 {not s.info['start_frame'].any()}; from a generator: clips "
+              f"{drawn.info['clip_idx'].tolist()}, qvel zero {not drawn.pipeline_state.qvel.any()}")
+        assert torch.equal(s.pipeline_state.qpos, frame0 + noise) and not s.pipeline_state.qvel.any()
+        assert not s.info["start_frame"].any() and drawn.info["clip_idx"].tolist() == [3] * 4
+        assert not drawn.pipeline_state.qvel.any()
+
+        decoder = mlp_networks.make_decoder_policy_fn(run_dir, device=self.dev)
+        full = checkpointing.load_inference_fn(cfg, bundle["policy"], get_activation=False, device=self.dev)
+        recorded = {}
+
+        def recording(x):
+            recorded["action"], extras = decoder(x)
+            return recorded["action"], extras
+
+        high = wrappers.HighLevelWrapper(env, recording, env.reference_obs_size)
+        state = render.reset(self.gen, torch.arange(ANALYSIS_CLIPS, device=self.dev), batch_size=ANALYSIS_CLIPS)
+        zero()
+        same = []
+        for _ in range(HIGH_LEVEL_STEPS):
+            action, extras = full(state.obs)
+            state = high.step(state, extras["latent_mean"])
+            same.append(torch.equal(recorded["action"], action))
+        high_launches = counts()
+        print(f"analysis: HighLevelWrapper driven by make_decoder_policy_fn({os.path.basename(run_dir)}): "
+              f"{HIGH_LEVEL_STEPS} control steps of {ANALYSIS_CLIPS} envs, latents the full policy's means; the "
+              f"decoder's action equals the full policy's bit for bit at each step {same}; launches {high_launches}")
+        assert all(same), "the decoder-only policy acts otherwise than the full policy's decoder"
+        assert high_launches == {"cg_solve": HIGH_LEVEL_STEPS * substeps}, high_launches
+        launches["cg_solve"]["rodent HighLevelWrapper, decoder-only policy (phase 14)"] = HIGH_LEVEL_STEPS * substeps
+
+        # the stick: its snapshot's names, rodent-full-clips' env args and widths
+        snap = tm.load_snapshot("stick")
+        base = load_config("rodent-full-clips", [f"device={self.dev.type}"]).to_dict()
+        base["env_config"]["walker_name"] = "stick"
+        base["walker_config"] = {
+            "joint_names": [str(x) for x in snap.names.joint[1:]],
+            "body_names": [str(x) for x in snap.names.body[2:]],
+            "end_eff_names": [str(x) for x in snap.names.body if "claws" in str(x)],
+            "torque_actuators": False,
+            "rescale_factor": 1.0,
+        }
+        c = self.analysis_config(base, root, "stick", STICK_CLIPS, STICK_FRAMES, snap)
+        c["reference_config"]["clip_length"] = STICK_STEPS + 1
+        e = arollout.create_environment(c, device=self.dev)
+        networks = mlp_networks.network_factory(c["network_config"], torch.Generator().manual_seed(SEED))(
+            e.observation_size, e.reference_obs_size, e.action_size,
+            preprocess_observations_fn=running_statistics.normalize, device=self.dev)
+        p = mlp_networks.make_inference_fn(networks)(running_statistics.init_state(e.observation_size, self.dev),
+                                                      deterministic=True, get_activation=True)
+        zero()
+        stick_out, stick_s, _ = self.analysis_rollout("stick", c, e, p, STICK_CLIPS)
+        stick_launches = counts()
+        per_substep = 4 if e.plan.integrator == tm.INT_RK4 else 1
+        stick_expected = 1 + STICK_STEPS * substeps * per_substep
+        print(f"analysis: stick (nq {e.plan.nq}, nv {e.plan.nv}, nu {e.plan.nu}, {e.plan.nefc} rows: limits only, "
+              f"integrator {e.plan.integrator}, solver {e.plan.solver} {e.plan.iterations}/{e.plan.ls_iterations}): "
+              f"{STICK_STEPS} control steps of {STICK_CLIPS} envs in {stick_s:.1f} s; solve kernels launched "
+              f"{stick_launches} (expected cg_solve without its Euler solve 1 + {STICK_STEPS} x {substeps} x "
+              f"{per_substep} = {stick_expected}); largest qpos change in a control step "
+              f"{float(stick_out['qposes_rollout'].diff(dim=1).abs().max()):.4f}")
+        assert stick_launches == {"cg_solve": stick_expected}, stick_launches
+        launches["cg_solve"]["stick analysis rollout, RK4 without the Euler solve (phase 14)"] = stick_expected
+
+        seconds = time.perf_counter() - phase_t0
+        print(f"analysis: {step_ms:.1f} ms per analysis control step at B = {ANALYSIS_CLIPS} (host clock; policy with "
+              f"taps, env, cfrc_ext and the logged channels) against {self.rollout_step_ms:.1f} ms per rollout control "
+              f"step at B = {N_ENVS} (phase 4, this run); cfrc_ext {cfrc_ms:.3f} ms a step at B = {ANALYSIS_CLIPS}; "
+              f"phase {seconds:.1f} s ({self.card})")
+        return {"launches": launches, "ms_per_control_step": step_ms, "cfrc_ext_ms": cfrc_ms, "seconds": seconds}
+
     def sps_profile_dir(self) -> None:
         """Phase 11c's profile_dir check, after every rate of the script: a
         small run of the config through train.main with profile_dir (two
@@ -2972,6 +3324,7 @@ def main() -> None:
     rest_launches.update({f"{k} control steps (phase 11b)": v for k, v in fly_launches.items()})
     sps_record, sps_launches = timed("11c rodent-sps-per-actor", phases.sps_per_actor)
     logging_record = timed("13 run management and logging", phases.run_logging)
+    analysis_record = timed("14 analysis from a checkpoint", phases.analysis)
     kernels += timed("12 standalone linalg", phases.newton_kernels, *newton)
     timed("11c profile_dir", phases.sps_profile_dir)
     for k in kernels:  # each kernel's launches on every path that runs it, as counted there
@@ -2997,6 +3350,7 @@ def main() -> None:
         if k["name"] in logging_record:  # the logging rollouts at B = 1 (phase 13)
             k["launches_by_path"].update(logging_record[k["name"]]["launches_by_path"])
             k["b1"] = logging_record[k["name"]]["b1"]
+        k["launches_by_path"].update(analysis_record["launches"].get(k["name"], {}))  # phase 14
     print("seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
           + f"; total since start {time.perf_counter() - T_START:.1f} s")
     print(card)

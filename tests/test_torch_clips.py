@@ -136,6 +136,8 @@ def test_port_imports_with_jax_h5py_and_yaml_blocked(tmp_path):
         "from track_mjx_tpu_torch.utils.config import load_config\n"
         "assert load_config('rodent-full-clips').train_setup.train_config.unroll_length == 20\n"
         "import track_mjx_tpu_torch.agent.network_masks, track_mjx_tpu_torch.testing\n"
+        "import track_mjx_tpu_torch.analysis.rollout, track_mjx_tpu_torch.analysis.utils\n"
+        "import track_mjx_tpu_torch.physics.postconstraint, track_mjx_tpu_torch.envs.walker.stick\n"
         "assert load_config('rodent-sps-per-actor').train_setup.train_config.num_envs == 8192\n"
         "print('ok')\n"
     )

@@ -4,6 +4,7 @@ Usage: python tools/export_torch_model.py [--config NAME] [--out FILE.npz]
        python tools/export_torch_model.py --xml FILE_OR_STRING --out FILE.npz
        python tools/export_torch_model.py --probes
        python tools/export_torch_model.py --playback
+       python tools/export_torch_model.py --stick [--out FILE.npz]
 
 --xml compiles a MuJoCo XML file (or an XML string) as it is and writes its
 snapshot, put_model's fields only. --probes writes the equality and
@@ -23,6 +24,14 @@ material's rgba where the geom keeps the default one, as the scene does),
 per site the same, the cameras (mode, bodies, pos, quat, poscom0, pos0,
 mat0, fovy and names), and the free camera's statistics and visual
 settings.
+
+--stick writes the stick insect (the JAX package's `Stick` walker,
+stick/stick_fast.xml as it stands, at its scale, 1.0) to
+track_mjx_tpu_torch/assets/stick.npz: put_model's fields, its joint and body
+names in MuJoCo's order under `names.joint` and `names.body` (the port's
+`Stick` resolves its config's names against them, as mj_name2id does) and
+the scale under `stick.rescale_factor`. No workload config names the stick,
+so no JSON goes beside it.
 
 NAME is rodent-full-clips (the default), fly-mc-intention or
 rodent-sps-per-actor (the rodent with position actuators at scale 0.8). The
@@ -248,6 +257,25 @@ def probe_xmls() -> dict:
     return {name: getattr(mod, attr) for name, attr in PROBES.items()}
 
 
+def stick_arrays() -> dict:
+    """The stick's snapshot: put_model's fields, its name tables and scale."""
+    sys.path.insert(0, REPO)
+    from track_mjx_tpu.envs.walker.stick import Stick
+
+    rescale_factor = 1.0
+    m = Stick([], [], [], rescale_factor=rescale_factor)._mj_model
+    return {
+        **snapshot_arrays(m),
+        "names.joint": np.array([m.joint(i).name for i in range(m.njnt)]),
+        "names.body": np.array([m.body(i).name for i in range(m.nbody)]),
+        "stick.rescale_factor": np.array(float(rescale_factor)),
+    }
+
+
+def stick_out() -> str:
+    return os.path.join(REPO, "track_mjx_tpu_torch", "assets", "stick.npz")
+
+
 def write_snapshot(m, out: str) -> None:
     arrays = snapshot_arrays(m)
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
@@ -262,7 +290,14 @@ def main(argv):
     ap.add_argument("--probes", action="store_true", help="snapshot tests/test_equality.py's probes")
     ap.add_argument("--out", default=None, help="default: the port's assets/<config>.npz")
     ap.add_argument("--playback", action="store_true", help="write the renderer's playback models")
+    ap.add_argument("--stick", action="store_true", help="snapshot the stick walker with its name tables")
     args = ap.parse_args(argv[1:])
+    if args.stick:
+        out = args.out or stick_out()
+        arrays = stick_arrays()
+        np.savez_compressed(out, **arrays)
+        print(f"wrote {len(arrays)} fields, {os.path.getsize(out)} bytes to {out}")
+        return
     if args.playback:
         sys.path.insert(0, REPO)
         for walker_name, scale in playbacks():

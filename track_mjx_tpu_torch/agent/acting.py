@@ -92,6 +92,8 @@ def _stack(items: list):
         return {k: _stack([it[k] for it in items]) for k in first}
     if isinstance(first, tuple) and hasattr(first, "_fields"):
         return type(first)(*(_stack([it[i] for it in items]) for i in range(len(first))))
+    if isinstance(first, (tuple, list)):  # e.g. an LSTM carry (h, c) among the activation taps
+        return type(first)(_stack([it[i] for it in items]) for i in range(len(first)))
     raise TypeError(f"cannot stack {type(first)}")
 
 

@@ -186,15 +186,22 @@ def make_ppo_network_from_cfg(cfg: dict, device: torch.device | str = "cuda"):
 
 
 def load_inference_fn(
-    cfg: dict, policy_params, deterministic: bool = True, device: torch.device | str = "cuda"
+    cfg: dict,
+    policy_params,
+    deterministic: bool = True,
+    get_activation: bool = True,
+    device: torch.device | str = "cuda",
 ) -> Callable:
     """A policy from a config and restored (normalizer, policy state dict):
     `policy(obs, key)`, or for an LSTM run the recurrent `policy(obs, key,
-    carry) -> (action, extras, carry')`."""
+    carry) -> (action, extras, carry')`; with `get_activation` (the JAX
+    package's default) its extras carry the activation taps."""
     networks = make_ppo_network_from_cfg(cfg, device)
     normalizer, params = policy_params
     networks.policy_network.load_state_dict(params)
-    return _networks_module(cfg).make_inference_fn(networks)(normalizer, deterministic=deterministic)
+    return _networks_module(cfg).make_inference_fn(networks)(
+        normalizer, deterministic=deterministic, get_activation=get_activation
+    )
 
 
 def load_config_from_checkpoint(checkpoint_path: str, step: Optional[int] = None) -> dict:
@@ -203,3 +210,25 @@ def load_config_from_checkpoint(checkpoint_path: str, step: Optional[int] = None
 
 def load_training_state(checkpoint_path: str, step: Optional[int] = None) -> dict:
     return CheckpointStore(checkpoint_path).training_state(step)
+
+
+def load_policy(
+    checkpoint_path: str,
+    cfg: Optional[dict] = None,
+    ckpt_mgr=None,
+    step: Optional[int] = None,
+    device: torch.device | str = "cuda",
+):
+    """(normalizer state on `device`, policy state dict) of a checkpoint's
+    step (default: the newest). `cfg` and `ckpt_mgr` are accepted for the
+    JAX signature's sake; the stored state needs neither."""
+    del cfg, ckpt_mgr
+    return CheckpointStore(checkpoint_path).policy(step, device)
+
+
+def load_checkpoint_for_eval(
+    checkpoint_path: str, step: Optional[int] = None, device: torch.device | str = "cuda"
+) -> dict:
+    """The {cfg, policy} bundle of a checkpoint's step for offline analysis:
+    `load_inference_fn(bundle["cfg"], bundle["policy"])` acts with it."""
+    return CheckpointStore(checkpoint_path).for_eval(step, device)

@@ -24,6 +24,22 @@ parameters.
   input kernels start lecun_uniform, the hidden ones orthogonal (per gate),
   the bias zero.
 
+With `get_activation` a policy also returns its activation taps, the JAX
+package's tree with its key names (so an analysis script written for the
+JAX output reads the port's): per trunk the normalized output of each
+block, `layer_{i}` (the decoder's raw last layer is not one); the encoder's
+`mean` and `logvar`; the recurrent decoder's `lstm_projection`. The
+feed-forward policy's tree is {encoder, decoder, egocentric_obs, traj_obs,
+intention} (the two observation slices after the normalizer, the latent
+used), the recurrent one's {encoder, decoder, intention, hidden_state}
+(the carry after the step). A module records into the `taps` dict it is
+given.
+
+`make_decoder_only_policy` is the decoder alone for a frozen decoder
+driven by latents (`ppo_factory.make_decoder_policy_fn`): its input is
+[latent, egocentric obs], and the normalizer it is given covers the
+egocentric slice only (the latents were never normalized in training).
+
 A `compute_dtype` (the trainers' `rollout_bf16`) runs the network body of
 the rollout's policy forward in that dtype, as the JAX package's apply does:
 the normalizer stays float32, the parameters are cast per apply (the
@@ -84,11 +100,13 @@ class NormedTrunk(nn.Module):
                 self.add_module(f"LayerNorm_{i}", norm)
             self.blocks.append((getattr(self, f"hidden_{i}"), norm))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for layer, norm in self.blocks:
+    def forward(self, x: torch.Tensor, taps: Optional[dict] = None) -> torch.Tensor:
+        for i, (layer, norm) in enumerate(self.blocks):
             x = layer(x)
             if norm is not None:
                 x = norm(self.activation(x))
+                if taps is not None:
+                    taps[f"layer_{i}"] = x
         return x
 
 
@@ -107,9 +125,12 @@ class Encoder(nn.Module):
         self.fc2_mean = dense(layer_sizes[-1], latents, generator, init=lecun_normal_)
         self.fc2_logvar = dense(layer_sizes[-1], latents, generator, init=lecun_normal_)
 
-    def forward(self, x: torch.Tensor):
-        x = self.trunk(x)
-        return self.fc2_mean(x), self.fc2_logvar(x)
+    def forward(self, x: torch.Tensor, taps: Optional[dict] = None):
+        x = self.trunk(x, taps)
+        mean, logvar = self.fc2_mean(x), self.fc2_logvar(x)
+        if taps is not None:
+            taps.update(mean=mean, logvar=logvar)
+        return mean, logvar
 
 
 class Decoder(nn.Module):
@@ -124,8 +145,8 @@ class Decoder(nn.Module):
         super().__init__()
         self.trunk = NormedTrunk(in_size, layer_sizes, skip_final_norm=True, generator=generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.trunk(x)
+    def forward(self, x: torch.Tensor, taps: Optional[dict] = None) -> torch.Tensor:
+        return self.trunk(x, taps)
 
 
 Carry = Tuple[torch.Tensor, torch.Tensor]  # (h, c), each [B, layers, hidden]
@@ -175,14 +196,17 @@ class RecurrentDecoder(nn.Module):
             self.cells.append(getattr(self, f"lstm_{layer}"))
         self.lstm_projection = dense(hidden_size, out_size, generator)
 
-    def forward(self, x: torch.Tensor, carry: Carry):
+    def forward(self, x: torch.Tensor, carry: Carry, taps: Optional[dict] = None):
         h_stack, c_stack = carry
         next_h, next_c = [], []
         for layer, cell in enumerate(self.cells):
             x, c = cell(x, h_stack[:, layer], c_stack[:, layer])
             next_h.append(x)
             next_c.append(c)
-        return self.lstm_projection(x), (torch.stack(next_h, dim=1), torch.stack(next_c, dim=1))
+        x = self.lstm_projection(x)
+        if taps is not None:
+            taps["lstm_projection"] = x
+        return x, (torch.stack(next_h, dim=1), torch.stack(next_c, dim=1))
 
 
 def sample_latent(mean: torch.Tensor, logvar: torch.Tensor, noise: Noise) -> torch.Tensor:
@@ -193,7 +217,8 @@ def sample_latent(mean: torch.Tensor, logvar: torch.Tensor, noise: Noise) -> tor
 class IntentionPolicy(nn.Module):
     """Encoder + feed-forward decoder with the intention bottleneck between
     them. `forward(obs, noise)` returns (logits, latent_mean,
-    latent_logvar); the latent is the mean when `noise` is None."""
+    latent_logvar), and with `get_activation` the taps after them; the
+    latent is the mean when `noise` is None."""
 
     def __init__(
         self,
@@ -210,19 +235,23 @@ class IntentionPolicy(nn.Module):
         egocentric = total_obs_size - reference_obs_size
         self.decoder = Decoder(latents + egocentric, decoder_layers, generator)
 
-    def forward(self, obs: torch.Tensor, noise: Optional[Noise] = None):
+    def forward(self, obs: torch.Tensor, noise: Optional[Noise] = None, get_activation: bool = False):
         reference = obs[..., : self.reference_obs_size]
         egocentric = obs[..., self.reference_obs_size :]
-        mean, logvar = self.encoder(reference)
+        enc, dec = ({}, {}) if get_activation else (None, None)
+        mean, logvar = self.encoder(reference, enc)
         z = mean if noise is None else sample_latent(mean, logvar, noise)
-        logits = self.decoder(torch.cat([z, egocentric], dim=-1))
+        logits = self.decoder(torch.cat([z, egocentric], dim=-1), dec)
+        if get_activation:
+            taps = {"encoder": enc, "decoder": dec, "egocentric_obs": egocentric, "traj_obs": reference, "intention": z}
+            return logits, mean, logvar, taps
         return logits, mean, logvar
 
 
 class RecurrentIntentionPolicy(nn.Module):
     """Encoder + recurrent decoder; the latent is the encoder's mean.
     `forward(obs, carry)` returns (logits, latent_mean, latent_logvar,
-    carry')."""
+    carry'), and with `get_activation` the taps after them."""
 
     def __init__(
         self,
@@ -241,9 +270,12 @@ class RecurrentIntentionPolicy(nn.Module):
         egocentric = total_obs_size - reference_obs_size
         self.lstm_decoder = RecurrentDecoder(latents + egocentric, out_size, hidden_size, num_lstm_layers, generator)
 
-    def forward(self, obs: torch.Tensor, carry: Carry):
-        mean, logvar = self.encoder(obs[..., : self.reference_obs_size])
-        logits, carry = self.lstm_decoder(torch.cat([mean, obs[..., self.reference_obs_size :]], dim=-1), carry)
+    def forward(self, obs: torch.Tensor, carry: Carry, get_activation: bool = False):
+        enc, dec = ({}, {}) if get_activation else (None, None)
+        mean, logvar = self.encoder(obs[..., : self.reference_obs_size], enc)
+        logits, carry = self.lstm_decoder(torch.cat([mean, obs[..., self.reference_obs_size :]], dim=-1), carry, dec)
+        if get_activation:
+            return logits, mean, logvar, carry, {"encoder": enc, "decoder": dec, "intention": mean, "hidden_state": carry}
         return logits, mean, logvar, carry
 
 
@@ -257,40 +289,61 @@ def _cast_params(module: nn.Module, *dtypes: torch.dtype) -> dict:
     return out
 
 
-def _apply_in(module: nn.Module, obs: torch.Tensor, arg, dtype: torch.dtype):
+def _float(tree):
+    """Every tensor of a nest of dicts and tuples as float32."""
+    if isinstance(tree, torch.Tensor):
+        return tree.float()
+    if isinstance(tree, dict):
+        return {k: _float(v) for k, v in tree.items()}
+    return tuple(_float(v) for v in tree)
+
+
+def _apply_in(module: nn.Module, obs: torch.Tensor, arg, dtype: torch.dtype, get_activation: bool = False):
     """`module(obs, arg)` with its body in `dtype`, flax's promotions kept
     (module docstring); outputs float32."""
     if isinstance(module, RecurrentIntentionPolicy):
         carry = tuple(c.to(dtype) for c in arg)
-        out = functional_call(module, _cast_params(module, dtype), (obs.to(dtype), carry))
-        logits, mean, logvar, carry = out
-        return logits.float(), mean.float(), logvar.float(), tuple(c.float() for c in carry)
+        out = functional_call(module, _cast_params(module, dtype), (obs.to(dtype), carry),
+                              {"get_activation": get_activation})
+        return _float(out)
     obs = obs.to(dtype)
-    mean, logvar = functional_call(module.encoder, _cast_params(module.encoder, dtype),
-                                   (obs[..., : module.reference_obs_size],))
+    enc, dec = ({}, {}) if get_activation else (None, None)
+    reference, egocentric = obs[..., : module.reference_obs_size], obs[..., module.reference_obs_size :]
+    mean, logvar = functional_call(module.encoder, _cast_params(module.encoder, dtype), (reference, enc))
     # float32 noise: bf16 * float32 promotes, as under jax
     z = mean if arg is None else mean + torch.exp(0.5 * logvar) * standard_normal(arg, logvar.float())
-    decoder_in = torch.cat([z, obs[..., module.reference_obs_size :]], dim=-1)
-    logits = functional_call(module.decoder, _cast_params(module.decoder, dtype, decoder_in.dtype), (decoder_in,))
+    decoder_in = torch.cat([z, egocentric], dim=-1)
+    logits = functional_call(module.decoder, _cast_params(module.decoder, dtype, decoder_in.dtype), (decoder_in, dec))
+    if get_activation:
+        taps = {"encoder": enc, "decoder": dec, "egocentric_obs": egocentric, "traj_obs": reference, "intention": z}
+        return _float((logits, mean, logvar, taps))
     return logits.float(), mean.float(), logvar.float()
 
 
 class NormalizedIntentionPolicy(nn.Module):
     """An intention policy behind the observation normalizer:
-    `forward(processor_params, obs, arg, compute_dtype=None)`, `arg` the
-    feed-forward policy's noise or the recurrent policy's carry; with
-    `compute_dtype` the body runs in that dtype (module docstring)."""
+    `forward(processor_params, obs, arg, compute_dtype=None,
+    get_activation=False)`, `arg` the feed-forward policy's noise or the
+    recurrent policy's carry; with `compute_dtype` the body runs in that
+    dtype, with `get_activation` the taps come last (module docstring)."""
 
     def __init__(self, module: nn.Module, preprocess_observations_fn: types.PreprocessObservationFn):
         super().__init__()
         self.module = module
         self.preprocess_observations_fn = preprocess_observations_fn
 
-    def forward(self, processor_params, obs: torch.Tensor, arg=None, compute_dtype: Optional[torch.dtype] = None):
+    def forward(
+        self,
+        processor_params,
+        obs: torch.Tensor,
+        arg=None,
+        compute_dtype: Optional[torch.dtype] = None,
+        get_activation: bool = False,
+    ):
         obs = self.preprocess_observations_fn(obs, processor_params)
         if compute_dtype is None:
-            return self.module(obs, arg)
-        return _apply_in(self.module, obs, arg, compute_dtype)
+            return self.module(obs, arg, get_activation=get_activation)
+        return _apply_in(self.module, obs, arg, compute_dtype, get_activation)
 
 
 def make_feedforward_intention_policy(
@@ -345,3 +398,35 @@ def make_recurrent_intention_policy(
         generator,
     )
     return NormalizedIntentionPolicy(module, preprocess_observations_fn).to(_device(device))
+
+
+class DecoderOnlyPolicy(nn.Module):
+    """The decoder alone behind the normalizer of its egocentric slice:
+    `forward(processor_params, obs)` with obs [latent, egocentric] returns
+    (logits, {}); the normalizer's width n says how many trailing features
+    it normalizes."""
+
+    def __init__(self, decoder: Decoder, preprocess_observations_fn: types.PreprocessObservationFn):
+        super().__init__()
+        self.decoder = decoder
+        self.preprocess_observations_fn = preprocess_observations_fn
+
+    def forward(self, processor_params, obs: torch.Tensor):
+        n_norm = processor_params.mean.shape[-1]
+        tail = self.preprocess_observations_fn(obs[..., -n_norm:], processor_params)
+        return self.decoder(torch.cat([obs[..., :-n_norm], tail], dim=-1)), {}
+
+
+def make_decoder_only_policy(
+    param_size: int,
+    decoder_obs_size: int,
+    preprocess_observations_fn: types.PreprocessObservationFn = types.identity_observation_preprocessor,
+    decoder_hidden_layer_sizes: Sequence[int] = (1024, 1024),
+    generator: Optional[torch.Generator] = None,
+    device: torch.device | str = "cuda",
+) -> DecoderOnlyPolicy:
+    """The standalone decoder of [latent, egocentric obs] (decoder_obs_size
+    features) to `param_size` distribution parameters; its state dict is
+    the intention policy's `decoder.*`."""
+    decoder = Decoder(decoder_obs_size, tuple(decoder_hidden_layer_sizes) + (param_size,), generator)
+    return DecoderOnlyPolicy(decoder, preprocess_observations_fn).to(_device(device))

@@ -124,8 +124,11 @@ def train(
     """Trains an LSTM intention PPO policy; returns (make_policy,
     (normalizer, policy state dict), metrics), `make_policy(normalizer,
     deterministic)` a recurrent policy. `batch_callback` as in the MLP
-    trainer; its Learner runs plain adam and the normalizer update last."""
-    del use_kl_schedule, kl_ramp_up_frac, eval_env_test_set, get_activation, use_lstm
+    trainer; its Learner runs plain adam and the normalizer update last.
+    With `get_activation` the rollout's and the evaluator's policies carry
+    the activation taps in their extras, as the JAX LSTM trainer's do (its
+    logging policy never does)."""
+    del use_kl_schedule, kl_ramp_up_frac, eval_env_test_set, use_lstm
     if batch_size * num_minibatches % num_envs:
         raise ValueError(f"batch_size * num_minibatches ({batch_size * num_minibatches}) is no multiple of num_envs")
     if freeze_decoder:
@@ -225,7 +228,8 @@ def train(
 
     def training_step() -> List[Dict[str, torch.Tensor]]:
         nonlocal env_state
-        policy = make_policy(training_state.normalizer_params, compute_dtype=rollout_dtype)
+        policy = make_policy(training_state.normalizer_params, compute_dtype=rollout_dtype,
+                             get_activation=get_activation)
         carry = training_state.hidden_state
         t0 = time.perf_counter()
         with record_function("rollout"):
@@ -247,7 +251,7 @@ def train(
 
     evaluator = acting.Evaluator(
         wrap(environment if eval_env is None else eval_env, key_randomize_eval, num_eval_envs),
-        functools.partial(make_policy, deterministic=deterministic_eval),
+        functools.partial(make_policy, deterministic=deterministic_eval, get_activation=get_activation),
         num_eval_envs=num_eval_envs,
         episode_length=episode_length,
         action_repeat=action_repeat,

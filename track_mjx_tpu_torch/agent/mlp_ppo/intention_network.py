@@ -11,6 +11,7 @@ from track_mjx_tpu_torch.agent.intention import (  # noqa: F401  (public API)
     Decoder,
     Encoder,
     IntentionPolicy as IntentionNetwork,
+    make_decoder_only_policy as make_decoder_policy,
     make_feedforward_intention_policy as make_intention_policy,
     sample_latent as reparameterize,
 )

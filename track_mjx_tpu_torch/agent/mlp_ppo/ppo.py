@@ -397,8 +397,9 @@ def train(
     before the learning half changes the state; `make_learner(networks)` is
     the trainer's own Learner (loss, optimizer, minibatches and passes) over
     other networks of the same shapes, e.g. a copy on another device.
-    `randomization_fn(model, generator, num_envs)` (module docstring)."""
-    del get_activation  # the port's inference policy has no activation taps
+    `randomization_fn(model, generator, num_envs)` (module docstring).
+    With `get_activation` the logging policy handed to `policy_params_fn`
+    carries the activation taps in its extras, as the JAX trainer's does."""
     if batch_size * num_minibatches % num_envs:
         raise ValueError(f"batch_size * num_minibatches ({batch_size * num_minibatches}) is no multiple of num_envs")
     unsupported = {
@@ -590,7 +591,9 @@ def train(
         render_interval = config_dict.get("env_config", {}).get("render_interval", 1)
         policy_params_fn(
             current_step=it,
-            jit_logging_inference_fn=make_policy(training_state.normalizer_params, deterministic=True),
+            jit_logging_inference_fn=make_policy(
+                training_state.normalizer_params, deterministic=True, get_activation=get_activation
+            ),
             params=training_state.policy_params(),
             policy_params_fn_key=key_eval,
             render_video=(it % render_interval == 0),

@@ -20,6 +20,7 @@ make_intention_ppo_networks = functools.partial(
     ppo_factory.make_intention_ppo_networks, recurrent_decoder=False
 )
 params_from_flax = ppo_factory.params_from_flax
+make_decoder_policy_fn = ppo_factory.make_decoder_policy_fn
 
 
 def network_factory(network_config: Mapping[str, Any], generator: Optional[torch.Generator] = None):

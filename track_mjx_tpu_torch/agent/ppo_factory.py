@@ -7,7 +7,8 @@ Port of track_mjx_tpu/agent/ppo_factory.py, for both pipelines.
   the NormalTanh action distribution; the networks are `nn.Module`s whose
   weights come from flax's initializers, drawn from `generator`.
 - `make_inference_fn(networks)(normalizer_params, deterministic,
-  compute_dtype=None)` returns `policy(obs, key) -> (action, extras)`,
+  get_activation=False, compute_dtype=None)` returns `policy(obs, key) ->
+  (action, extras)`,
   the network body in `compute_dtype` where given (the trainers'
   `rollout_bf16`; outputs float32, agent/intention.py), under `torch.no_grad()` (a
   rollout's actions; a trainer's loss recomputes what it differentiates).
@@ -18,7 +19,14 @@ Port of track_mjx_tpu/agent/ppo_factory.py, for both pipelines.
   latent_logvar; stochastic extras add log_prob, raw_action and logits.
   With `recurrent=True` the policy is `policy(obs, key, carry) -> (action,
   extras, carry')`; its latent is the mean, so it draws only the action
-  noise (of a `PolicyNoise`, the `action` field).
+  noise (of a `PolicyNoise`, the `action` field). With `get_activation`
+  the extras also carry `activations`, the policy's taps
+  (agent/intention.py), deterministic or not; without it they carry no
+  such key, where the JAX stochastic extras hold `activations: None`.
+- `make_decoder_policy_fn(ckpt_path, step)` is the deterministic
+  decoder-only policy of a checkpoint (`policy(x) -> (action, extras)`,
+  x = [latent, egocentric obs]): the feed-forward decoder's weights and
+  the egocentric slice of the normalizer, for `envs.wrappers.HighLevelWrapper`.
 - `params_from_flax` carries the JAX package's parameters across (an
   LSTM cell's eight gate Dense layers stacked into its `weight_ih`,
   `weight_hh` and `bias_hh`), and `optimizer_state_from_optax` its Adam
@@ -35,7 +43,11 @@ import torch
 from torch import nn
 
 from track_mjx_tpu_torch.agent import distribution, networks, running_statistics, types
-from track_mjx_tpu_torch.agent.intention import make_feedforward_intention_policy, make_recurrent_intention_policy
+from track_mjx_tpu_torch.agent.intention import (
+    make_decoder_only_policy,
+    make_feedforward_intention_policy,
+    make_recurrent_intention_policy,
+)
 from track_mjx_tpu_torch.physics.model import _device
 
 
@@ -98,19 +110,28 @@ def make_inference_fn(ppo_networks: PPOImitationNetworks, recurrent: bool = Fals
     `recurrent` policy(obs, key, carry) -> (action, extras, carry')."""
 
     def make_policy(
-        params: Any, deterministic: bool = False, compute_dtype: Optional[torch.dtype] = None
+        params: Any,
+        deterministic: bool = False,
+        compute_dtype: Optional[torch.dtype] = None,
+        get_activation: bool = False,
     ) -> types.Policy:
         dist = ppo_networks.parametric_action_distribution
 
         def policy_network(*args):
-            return ppo_networks.policy_network(*args, compute_dtype=compute_dtype)
+            out = ppo_networks.policy_network(*args, compute_dtype=compute_dtype, get_activation=get_activation)
+            return out if get_activation else (*out, None)
+
+        def with_taps(extras: dict, taps) -> dict:
+            if get_activation:
+                extras["activations"] = taps
+            return extras
 
         if recurrent:
 
             @torch.no_grad()
             def recurrent_policy(observations: torch.Tensor, key: types.Key, carry):
-                logits, latent_mean, latent_logvar, carry = policy_network(params, observations, carry)
-                extras = {"latent_mean": latent_mean, "latent_logvar": latent_logvar}
+                logits, latent_mean, latent_logvar, carry, taps = policy_network(params, observations, carry)
+                extras = with_taps({"latent_mean": latent_mean, "latent_logvar": latent_logvar}, taps)
                 if deterministic:
                     return dist.mode(logits), extras, carry
                 action_noise = key.action if isinstance(key, types.PolicyNoise) else key
@@ -123,14 +144,14 @@ def make_inference_fn(ppo_networks: PPOImitationNetworks, recurrent: bool = Fals
         @torch.no_grad()
         def policy(observations: torch.Tensor, key: types.Key = None):
             if deterministic:
-                logits, latent_mean, latent_logvar = policy_network(params, observations, None)
-                extras = {"latent_mean": latent_mean, "latent_logvar": latent_logvar}
+                logits, latent_mean, latent_logvar, taps = policy_network(params, observations, None)
+                extras = with_taps({"latent_mean": latent_mean, "latent_logvar": latent_logvar}, taps)
                 return dist.mode(logits), extras
             if isinstance(key, types.PolicyNoise):
                 latent_noise, action_noise = key.latent, key.action
             else:  # one generator: the latent's draw, then the action's
                 latent_noise = action_noise = key
-            logits, latent_mean, latent_logvar = policy_network(params, observations, latent_noise)
+            logits, latent_mean, latent_logvar, taps = policy_network(params, observations, latent_noise)
             raw_actions = dist.sample_no_postprocessing(logits, action_noise)
             log_prob = dist.log_prob(logits, raw_actions)
             extras = {
@@ -140,7 +161,7 @@ def make_inference_fn(ppo_networks: PPOImitationNetworks, recurrent: bool = Fals
                 "raw_action": raw_actions,
                 "logits": logits,
             }
-            return dist.postprocess(raw_actions), extras
+            return dist.postprocess(raw_actions), with_taps(extras, taps)
 
         return policy
 
@@ -251,3 +272,42 @@ def optimizer_state_from_optax(
     if sum(len(g["params"]) for g in groups) != len(named):
         raise ValueError("the optimizer does not hold the policy's and the value's parameters")
     return {"state": state, "param_groups": groups}
+
+
+def make_decoder_policy_fn(ckpt_path: str, step: Optional[int] = None, device: torch.device | str = "cuda"):
+    """The deterministic decoder-only policy of a checkpoint of the MLP
+    pipeline: `policy(x) -> (action, extras)`, x = [latent, egocentric obs]
+    [B, intention_size + observation_size - reference_obs_size], the
+    normalizer's egocentric slice on the egocentric part (the JAX
+    reference builds no LSTM counterpart either)."""
+    from track_mjx_tpu_torch.agent import checkpointing
+
+    cfg = checkpointing.load_config_from_checkpoint(ckpt_path, step=step)
+    if bool(cfg["train_setup"]["train_config"].get("use_lstm", False)):
+        raise NotImplementedError("make_decoder_policy_fn: the LSTM pipeline's decoder is recurrent; the MLP one's only")
+    net = cfg["network_config"]
+    ref = net["reference_obs_size"]
+    normalizer, params = checkpointing.load_policy(ckpt_path, cfg, step=step, device=device)
+    dist = distribution.NormalTanhDistribution(event_size=net["action_size"])
+    decoder = make_decoder_only_policy(
+        dist.param_size,
+        decoder_obs_size=net["observation_size"] - ref + net["intention_size"],
+        preprocess_observations_fn=running_statistics.normalize,
+        decoder_hidden_layer_sizes=net["decoder_layer_sizes"],
+        device=device,
+    )
+    prefix = "module.decoder."
+    decoder.decoder.load_state_dict({k[len(prefix):]: v for k, v in params.items() if k.startswith(prefix)})
+    decoder_normalizer = running_statistics.RunningStatisticsState(
+        count=torch.zeros((), device=normalizer.mean.device),
+        mean=normalizer.mean[ref:],
+        summed_variance=normalizer.summed_variance[ref:],
+        std=normalizer.std[ref:],
+    )
+
+    @torch.no_grad()
+    def policy(observations: torch.Tensor):
+        logits, extras = decoder(decoder_normalizer, observations)
+        return dist.mode(logits), extras
+
+    return policy

@@ -53,6 +53,19 @@ the rollout steps past done, as the JAX one does.
   the JAX reset's draws there).
 - ``RenderRolloutVmapWrapper`` resets a batch of them to `clip_idx` [B]
   (default clip 0 for each of `batch_size` envs).
+
+The analysis wrappers (offline evaluation of a trained policy):
+
+- ``EvalClipWrapperTracking``: frame 0 of a given clip (one, or one per
+  env), qvel zero. As in the JAX package (`reset_from_clip(..., noise=False)`)
+  the qpos noise stays: `noise=False` zeroes the qvel draw only.
+- ``AutoAlignWrapperTracking``: where a step ends in done, the env is not
+  reset but teleported: qpos and qvel set to the current reference frame
+  and kinematics run again on them, per env (`_where_done` over every field
+  of the Data); the obs is taken again from the merged Data. The step's
+  done stays in the state (the next step starts from done zero), so a
+  caller sees which envs were realigned. The wrapped env carries full Data
+  (no auto-reset wrapper under it).
 """
 
 from __future__ import annotations
@@ -65,6 +78,7 @@ from typing import Callable, Optional
 
 from track_mjx_tpu_torch.envs.base import Env, State, Wrapper
 from track_mjx_tpu_torch.physics import forward as phys_forward
+from track_mjx_tpu_torch.physics import kinematics as phys_kinematics
 
 # Model leaves that the physics reads per env when they carry a leading env axis
 RANDOMIZABLE = ("geom_friction", "dof_damping")
@@ -417,3 +431,46 @@ class RenderRolloutVmapWrapper(Wrapper):
             clip_idx = torch.zeros((self.batch_size,), dtype=torch.int64)
         clip_idx = torch.as_tensor(clip_idx).reshape(-1)
         return self.env.reset(rng, clip_idx, batch_size=clip_idx.shape[0])
+
+
+class EvalClipWrapperTracking(Wrapper):
+    """Deterministic evaluation: frame 0 of clip `clip_idx` (an int, or [B]
+    one per env), prev_ctrl zero, qvel zero; the qpos noise is drawn from
+    the generator (module docstring)."""
+
+    def reset(self, rng: torch.Generator, clip_idx=0, batch_size: int = 1) -> State:
+        return self.reset_from_draws(clip_idx, self._uniform(rng, (batch_size, self.plan.nq)))
+
+    def reset_from_draws(self, clip_idx, qpos_noise: torch.Tensor) -> State:
+        """The reset at a given qpos noise [B, nq] (the parity tests feed
+        the JAX reset's draw)."""
+        bsz = qpos_noise.shape[0]
+        clip_idx = torch.as_tensor(clip_idx, device=self.device).reshape(-1).expand(bsz)
+        start = torch.zeros((bsz,), dtype=torch.int64, device=self.device)
+        zeros = torch.zeros((bsz, self.plan.nv), device=self.device)
+        return self.reset_from_clip(start, qpos_noise, zeros, clip_idx=clip_idx, noise=False)
+
+
+class AutoAlignWrapperTracking(Wrapper):
+    """On done, teleports the env to the current reference frame and runs
+    kinematics again instead of resetting it (module docstring)."""
+
+    def step(self, state: State, action: torch.Tensor) -> State:
+        if "steps" in state.info:
+            info = dict(state.info)
+            info["steps"] = torch.where(state.done > 0, torch.zeros_like(info["steps"]), info["steps"])
+            state = state.replace(info=info)
+        state = self.env.step(state.replace(done=torch.zeros_like(state.done)), action)
+        done = state.done
+        ref = state.info["reference_frame"]
+        data = state.pipeline_state
+        aligned = data.replace(
+            qpos=torch.cat((ref.position, ref.quaternion, ref.joints), dim=-1),
+            qvel=torch.cat((ref.velocity, ref.angular_velocity, ref.joints_velocity), dim=-1),
+        )
+        aligned = phys_kinematics.kinematics(self.plan, self.model, aligned)
+        data = data.replace(
+            **{f.name: _where_done(done, getattr(aligned, f.name), getattr(data, f.name)) for f in dataclasses.fields(data)}
+        )
+        reference_obs, proprioceptive_obs = self._get_obs(data, state.info)
+        return state.replace(pipeline_state=data, obs=torch.cat([reference_obs, proprioceptive_obs], dim=-1))

@@ -12,6 +12,7 @@ its tensors on the card unless the caller names another device.
 from __future__ import annotations
 
 import dataclasses
+import re
 from pathlib import Path
 from typing import Optional, Tuple, Union
 
@@ -215,6 +216,36 @@ def generate_train_test_split(
     train_idx.sort()
     test_idx.sort()
     return select_clips(data, train_idx), select_clips(data, test_idx)
+
+
+def load_clips_metadata(traj_data_path: Union[str, Path]) -> list:
+    """Behaviour-group metadata [(name, number), ...] from the snips_order
+    paths (`.../<name>_<number>.p`) of a stac-mjx file's embedded config;
+    needs h5py and PyYAML."""
+    with _h5py().File(traj_data_path, "r") as data:
+        yaml_str = data["config"][()]
+    if isinstance(yaml_str, bytes):
+        yaml_str = yaml_str.decode("utf-8")
+    config = _yaml_load(yaml_str)
+    pattern = re.compile(r"/([^/]+)_([0-9]+)\.p$")
+    clip_metadata = []
+    for path in config["model"]["snips_order"]:
+        match = pattern.search(path)
+        if match:
+            name, number = match.groups()
+            clip_metadata.append((name, int(number)))
+    return clip_metadata
+
+
+def sub_sample_training_set(train_idx, train_ratio: float = 0.1, seed: Optional[int] = None) -> np.ndarray:
+    """A sorted random subset, without replacement, of int(len * ratio)
+    training clip indices; the draw is the JAX package's numpy one, so a
+    seed gives its indices."""
+    rng = np.random if seed is None else np.random.RandomState(seed)
+    train_idx = np.asarray(train_idx)
+    sampled_idx = rng.choice(train_idx, size=int(len(train_idx) * train_ratio), replace=False)
+    sampled_idx.sort()
+    return sampled_idx
 
 
 def select_clips(clips: ReferenceClip, indices) -> ReferenceClip:

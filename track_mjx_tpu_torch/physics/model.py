@@ -47,6 +47,11 @@ SNAPSHOTS = {
     name: os.path.join(_ASSETS, name.replace("-", "_") + ".npz")
     for name in ("rodent-full-clips", "fly-mc-intention", "rodent-sps-per-actor")
 }
+# walkers of no workload config, exported by tools/export_torch_model.py
+# --stick with their joint and body name tables (`names.joint`,
+# `names.body`), which the walker resolves its config's names against:
+# walker name -> snapshot
+WALKER_SNAPSHOTS = {"stick": os.path.join(_ASSETS, "stick.npz")}
 # probe models (tests/test_equality.py's equality and frictionloss probes),
 # exported by tools/export_torch_model.py --probes: "probe-<name>" -> snapshot
 PROBE_SNAPSHOTS = {
@@ -287,13 +292,13 @@ class Data:
 
 def load_snapshot(name: str = "rodent-full-clips") -> Any:
     """Loads the compiled-model snapshot of workload config `name` (a key of
-    SNAPSHOTS, or of PROBE_SNAPSHOTS; .npz written by
+    SNAPSHOTS, WALKER_SNAPSHOTS or PROBE_SNAPSHOTS; .npz written by
     tools/export_torch_model.py) as an object with
     MjModel's attribute names: `m.nv`, `m.body_parentid`, `m.opt.timestep`,
     ... Sizes and scalar options come back as Python numbers, array fields as
     numpy arrays. The walker's index tables are under `m.walker`
     (`joint_idxs`, `body_idxs`, `endeff_idxs`, `torso_idx`)."""
-    paths = {**SNAPSHOTS, **PROBE_SNAPSHOTS}
+    paths = {**SNAPSHOTS, **WALKER_SNAPSHOTS, **PROBE_SNAPSHOTS}
     if name not in paths:
         raise ValueError(f"no snapshot for {name!r}; have {sorted(paths)}")
     return snapshot_from_file(paths[name])

@@ -25,12 +25,17 @@ from track_mjx_tpu_torch.envs.task import tracking  # noqa: F401  (registers the
 from track_mjx_tpu_torch.envs.task.reward import RewardConfig
 from track_mjx_tpu_torch.envs.walker.fly import Fly
 from track_mjx_tpu_torch.envs.walker.rodent import Rodent
+from track_mjx_tpu_torch.envs.walker.stick import Stick
 from track_mjx_tpu_torch.io.load import ReferenceClip
 from track_mjx_tpu_torch.physics import model as phys_model
 from track_mjx_tpu_torch.utils.config import CONFIG_NAME, load_config
 
 # walker_name -> walker class
-WALKERS = {"rodent": Rodent, "fly": Fly}
+WALKERS = {"rodent": Rodent, "fly": Fly, "stick": Stick}
+# walkers that resolve their config's names against their own snapshot's
+# name tables, as the JAX walker does with mj_name2id (no workload config
+# exports them)
+BY_NAME = {"stick"}
 
 
 def snapshot_name(cfg: Mapping[str, Any]) -> str:
@@ -65,7 +70,10 @@ def snapshot_name(cfg: Mapping[str, Any]) -> str:
 def make_walker(cfg: Mapping[str, Any]):
     """The config's walker on a fresh copy of its workload's snapshot
     (`snapshot_name`; the env writes the solver options into the model it
-    is given)."""
+    is given); a stick from its walker_config's names."""
+    name = cfg["env_config"]["walker_name"]
+    if name in BY_NAME:
+        return WALKERS[name](**_plain(cfg["walker_config"]))
     workload = snapshot_name(cfg)
     return WALKERS[cfg["env_config"]["walker_name"]].from_snapshot(phys_model.load_snapshot(workload))
 
