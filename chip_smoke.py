@@ -3,8 +3,9 @@ steps, the rodent rollout, the trainer on the rodent (MLP and LSTM
 pipelines) and on the fly, the rest of the physics (RK4 and implicit
 integrators, condim-1/4/6 contacts, frictionloss and equality rows, on
 pyramidal and on elliptic cones), the third workload config with the
-trainer's options, the CLI's run management and per-eval logging, and the
-analysis of a trained checkpoint.
+trainer's options, the CLI's run management and per-eval logging, the
+analysis of a trained checkpoint, and data-parallel training over
+torch.distributed.
 
 Usage (from the repository root, on a machine with a CUDA device and nvcc):
 
@@ -68,8 +69,8 @@ It imports nothing of JAX. Phases, each of which raises on failure:
    track_mjx_tpu_torch.train.main(load_config("rodent-full-clips", ...)),
    without its per-eval logging rollout (phase 13 runs that; so in 9-11c),
    at the config's widths and 4096 envs, cut in depth only (TRAIN_OVERRIDES:
-   8 synthetic clips of 80 frames written to build/, episodes of 25 control
-   steps, 4 minibatches of 1024 trajectories, one epoch of 2 training steps
+   8 synthetic clips of 80 frames written to build/, episodes of 10 control
+   steps (25 until phase 15 was added), 4 minibatches of 1024 trajectories, one epoch of 2 training steps
    of one unroll each, 4 passes, one eval of 128 envs). cg_solve must launch
    exactly as often as the reset, the unrolls, the reset after the epoch and
    the eval need (the formula is printed), the plain version and the other
@@ -86,7 +87,7 @@ It imports nothing of JAX. Phases, each of which raises on failure:
 9. Fly training: phase 8 on fly-mc-intention (the fly's tracking env, the
    intention networks at the config's widths: encoder [256, 256], decoder
    [256, 256] + 2 x 36, critic [256, 256], intention 60), with the same
-   cuts (8 synthetic clips of 80 frames at 500 Hz, episodes of 25 control
+   cuts (8 synthetic clips of 80 frames at 500 Hz, episodes of 10 control
    steps, one control step per frame); ell_cg_solve must launch exactly as
    the formula says and cg_solve, the plain version and the other kernels
    never; the same checks of losses, parameters, env_steps, checkpoint and
@@ -234,10 +235,37 @@ It imports nothing of JAX. Phases, each of which raises on failure:
    held (RK4 from the stick's XML: cg_solve without its Euler solve, 4 a
    substep). Prints ms per analysis control step at B = 256 beside phase
    4's rollout step, cfrc_ext's ms a call and the phase's seconds.
-15. Prints the seconds of each phase and the total, the kernels' JSON line
+15. Data-parallel training (runs after 14, before 12): train.main with
+   distributed=true on rodent-full-clips at full width, cut in depth (DP_*:
+   4 synthetic clips of 20 frames, 256 envs, one training step of one
+   unroll of 2 steps at the config's 16 minibatches x 4 passes, one eval of
+   1 control step). (a) One NCCL rank through the CLI, `python -m
+   track_mjx_tpu_torch.train ... distributed=true` in a subprocess with
+   RANK=0, WORLD_SIZE=1, LOCAL_RANK=0, LOCAL_WORLD_SIZE=1, MASTER_ADDR
+   127.0.0.1 and a free port: cg_solve's launches exact (its log's `kernel
+   launches` line), its training sps and all-reduce ms per training step
+   (metrics.jsonl) beside the same run in this process without
+   distributed. (b) Two ranks on the one card over gloo (NCCL refuses two
+   ranks on one device; gloo takes CUDA tensors for all_reduce and
+   broadcast), 128 envs each, in subprocesses of this script (`--dp-rank`),
+   against that one-process run of 256 envs on the same seed: each rank's
+   first control step against the one-process run's slice (the state it
+   started from, its actions, and the step redone from them within phase
+   3's card bars; the states after it, which float32 chaos parts, printed);
+   the ranks' learning half against one process's on the gathered batch
+   and the same draws, with no env stepping between, step by step as
+   phase 11c holds its own (loss terms and gradients at phase 8's bars, the
+   parameters within what the gradients' difference moves them through one
+   Adam step), the normalizer update within the float32 bound of two
+   summation orders; the ranks' parameters bit for bit; each
+   rank's cg_solve launches exact; a gradient-sized gloo all-reduce timed.
+   Prints every run's training sps, the all-reduce ms per training step
+   and the phase's seconds.
+16. Prints the seconds of each phase and the total, the kernels' JSON line
    (each kernel's launches on every path that runs it under
-   "launches_by_path", phase 14's among them; cg_solve's and ell_cg_solve's
-   B = 1 records under "b1") and, last, {"ok": true, "device": {...}}.
+   "launches_by_path", phases 14's and 15's among them; cg_solve's and
+   ell_cg_solve's B = 1 records under "b1") and, last, {"ok": true,
+   "device": {...}}.
 """
 
 from __future__ import annotations
@@ -346,7 +374,7 @@ GAP_SUM = 1.1
 
 # --- rodent rollout: the tracking env and the intention policy
 ROLLOUT_CLIPS = 8
-ROLLOUT_TIMED = 2  # timed unrolls after the first (counted) one
+ROLLOUT_TIMED = 1  # timed unrolls after the first (counted) one (2 until phase 15 was added)
 # The env layer on the card's own physics output, card against CPU, per env
 # relative to max(1, max |cpu|): the same float32 formulas (gathers, sums
 # in another order), about 1e-7 in the JAX package's parity tests.
@@ -369,13 +397,17 @@ REWARD_TERMS = ("pos_reward", "quat_reward", "joint_reward", "angvel_reward", "b
 
 # --- rodent training: the trainer through train.main, at full width
 TRAIN_CLIPS = 8
-TRAIN_CLIP_LENGTH = 80  # episodes (and the eval's) of 80 - 50 - 5 = 25 control steps
+TRAIN_CLIP_LENGTH = 80
+# random_init_range 65 (the config's 50 until phase 15 was added, cut to make
+# room for it): episodes (and the eval's) of 80 - 65 - 5 = 10 control steps
+TRAIN_RANDOM_INIT = 65
 # The cuts are depth only: the config's widths and N_ENVS envs, batch_size
 # 1024 (a minibatch is the reference's [1024, 20]); 4 minibatches (16 in the
 # config) make one unroll per training step; num_timesteps = eval_every =
 # reset_every = 163,840 make one epoch of 2 training steps and one eval.
 TRAIN_OVERRIDES = [
     f"reference_config.clip_length={TRAIN_CLIP_LENGTH}",
+    f"reference_config.random_init_range={TRAIN_RANDOM_INIT}",
     "train_setup.train_subset_ratio=null",
     "train_setup.eval_every=163840",
     "train_setup.reset_every=163840",
@@ -498,13 +530,14 @@ KERNEL_F64_FLOOR = 1e-6
 SPS_CONFIG = "rodent-sps-per-actor"
 SPS_CONTROL_STEPS = 2  # timed, after one warm-up control step
 # training cut in depth only, as phase 8: clips of 80 frames (episodes of
-# 25 frames, 50 control steps), num_timesteps = eval_every = 655,360: one epoch of 2
+# 10 frames, 20 control steps), num_timesteps = eval_every = 655,360: one epoch of 2
 # training steps of 16 x 1024 / 8192 = 2 unrolls each, then one eval (the
 # config's reset_every, 50M, leaves eval_every // reset_every = 0: no reset
 # between evals); the decoder-transfer run, one training step and an eval of
 # 10 control steps
 SPS_CUTS = [
     f"reference_config.clip_length={TRAIN_CLIP_LENGTH}",
+    f"reference_config.random_init_range={TRAIN_RANDOM_INIT}",
     "train_setup.eval_every=655360",
     "train_setup.train_config.num_timesteps=655360",
 ]
@@ -585,6 +618,263 @@ HIGH_LEVEL_STEPS = 5
 STICK_CLIPS = 64
 STICK_FRAMES = 10
 STICK_STEPS = 5
+
+# --- phase 15: data-parallel training through train.main's distributed key
+# rodent-full-clips at full width, DP_CLIPS synthetic clips of DP_CLIP_LENGTH
+# frames, DP_ENVS envs, one training step of one unroll of DP_UNROLL steps at
+# the config's 16 minibatches x 4 passes (batch_size DP_ENVS / 16), then one
+# eval of 1 control step (random_init_range 14: 20 - 14 - 5) and a reset.
+DP_ENVS = 256
+DP_CLIPS = 4
+DP_CLIP_LENGTH = 20
+DP_RANDOM_INIT = 14
+DP_UNROLL = 2
+DP_RANKS = 2  # the gloo run's ranks, sharing the one card
+DP_TIMEOUT_S = 300  # each subprocess's limit
+# The learning half of the gloo ranks against one process's on the same
+# global batch and draws, step by step (as phase 11c's): before each
+# gradient step one process takes the ranks' parameters, Adam state and
+# normalizer; the step's loss terms and clipped gradients are held to phase
+# 8's card-against-CPU bars (TRAIN_LOSS_REL, TRAIN_GRAD_REL): the same
+# float32 math, its sums in another order and its matmuls at other batch
+# sizes (a rank's rows of a minibatch, its share of each mean, then the sum
+# over the ranks). The parameters after a step are held to what the
+# gradients' largest difference can move them through one Adam step from
+# one state: where a gradient element is below Adam's eps its update is
+# about lr g / eps, so a difference of 1e-9 in it moves the parameter by
+# 0.1 lr (1.7e-1 lr measured, past phase 8's 1e-2 lr). The normalizer
+# update is held within the float32 bound of its sums in two orders
+# (`normalizer_order_bound`): its first update from zero subtracts nearly
+# equal sums on observation dims that barely vary over the batch.
+ADAM_B1, ADAM_EPS = 0.9, 1e-8  # agent/gradients.make_optimizer's
+# A rank's first actions against the one-process run's, the same inputs:
+# the full-width policy's float32 forward at 128 rows against 256 (cuBLAS
+# picks its kernels by the batch size), relative to max(1, |a|); measured
+# 9.6e-6 and 6.8e-6 on the two ranks (NVIDIA H100 80GB HBM3, 700.00 W).
+DP_ACTION_REL = 1e-4
+DP_EXTRA: list = []  # more overrides (none: the cuts above are depth only)
+DP_ALLREDUCE_REPS = 5  # all-reduces of a gradient-sized buffer timed on the gloo ranks
+
+
+def dp_overrides(device: str, root: str) -> list:
+    step = DP_ENVS * DP_UNROLL  # env steps of one training step
+    return [
+        f"device={device}",
+        f"data_path={os.path.join(os.path.dirname(root), 'clips.npz')}",
+        f"logging_config.model_path={os.path.join(root, 'ckpts')}",
+        f"reference_config.clip_length={DP_CLIP_LENGTH}",
+        f"reference_config.random_init_range={DP_RANDOM_INIT}",
+        "train_setup.train_subset_ratio=null",
+        f"train_setup.eval_every={step}",
+        f"train_setup.reset_every={step}",
+        f"train_setup.train_config.num_timesteps={step}",
+        f"train_setup.train_config.num_envs={DP_ENVS}",
+        f"train_setup.train_config.batch_size={DP_ENVS // 16}",
+        f"train_setup.train_config.unroll_length={DP_UNROLL}",
+        "env_config.render_interval=2",  # no video at the one eval
+        *DP_EXTRA,
+    ]
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dp_env(rank: int, world: int, local_world: int, port: int) -> dict:
+    """The launcher's variables of a rank on this host (as torchrun sets them)."""
+    return dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                LOCAL_WORLD_SIZE=str(local_world), MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                PYTHONPATH=REPO)
+
+
+def first_step_recorder(recorded: dict, gate: str = None):
+    """workload.make_env with the env wrapped to keep its first step (the
+    training rollout's first control step: no initial eval runs at one
+    eval): the state it started from and its actions, and the qpos and qvel
+    after it, on the CPU, and the unwrapped env under "env". With `gate`
+    the first step waits until that file exists: train.main has set up."""
+    from track_mjx_tpu_torch import workload
+    from track_mjx_tpu_torch.envs.base import Wrapper, map_tensors
+
+    make_env = workload.make_env
+
+    class FirstStep(Wrapper):
+        def step(self, state, action):
+            t0 = time.perf_counter()
+            while gate is not None and "qpos" not in recorded and not os.path.exists(gate):
+                time.sleep(0.05)
+            recorded.setdefault("wait_s", time.perf_counter() - t0)
+            nstate = self.env.step(state, action)
+            if "qpos" not in recorded:
+                recorded.update(state=map_tensors(lambda x: x.cpu(), state), action=action.cpu(),
+                                qpos=nstate.pipeline_state.qpos.cpu(), qvel=nstate.pipeline_state.qvel.cpu())
+            return nstate
+
+    def recording(*args, **kwargs):
+        recorded["env"] = make_env(*args, **kwargs)
+        return FirstStep(recorded["env"])
+
+    workload.make_env = recording
+    return make_env
+
+
+def normalizer_order_bound(batch: torch.Tensor, old, new) -> tuple:
+    """Per observation dim, the largest difference that float32 sums of
+    the Welford update (agent/running_statistics.update) in two orders can
+    make from one state `old` over `batch` [..., dims], `new` being either
+    result: each of two sums of n terms within (n - 1) u sum |terms| of the
+    exact one (u = 2^-24), the mean's error carried into the summed
+    variance's second factor. Returns (mean bound, summed variance bound)."""
+    x = batch.reshape(-1, batch.shape[-1]).double()
+    n, u = x.shape[0], 2.0**-24
+    dev_old = (x - old.mean.double()).abs()
+    mean = 2 * (n - 1) * u * dev_old.sum(0) / n + 2 * u * new.mean.double().abs()
+    summed = 2 * (n - 1) * u * (dev_old * (x - new.mean.double()).abs()).sum(0) + dev_old.sum(0) * mean
+    return mean, summed
+
+
+def dp_learning_halves(mesh, state, data, make_learner, tc) -> dict:
+    """Inside a data-parallel training step, before its learning half: the
+    global batch gathered from the ranks; a gradient-sized all-reduce,
+    timed; the ranks' normalizer update against one process's on the
+    global batch (within `normalizer_order_bound`); then the ranks' learning
+    half over copies of the networks with seeded global draws, step by step
+    against one process's (rank 0), which before each gradient step takes
+    the ranks' parameters and Adam state and the ranks' normalizer, as phase
+    11c holds its learning half. Returns rank 0's worst distances
+    (parameters in units of the learning rate of `tc`, the train_config)
+    and the collectives this check ran."""
+    import copy
+
+    from track_mjx_tpu_torch.agent import running_statistics
+    from track_mjx_tpu_torch.envs.base import map_tensors
+    from track_mjx_tpu_torch.parallel import mesh as mesh_lib
+
+    check_t0 = time.perf_counter()
+    collectives = (mesh.collective_s, mesh.collective_calls, mesh.collective_bytes)
+    num_envs = tc.num_envs
+    assert data.observation.shape[0] == num_envs // mesh.world_size, "one unroll a step: a rank's rows are its envs"
+    leaves = []
+    map_tensors(lambda x: leaves.append(x) or x, data)
+    gathered = iter(mesh_lib.gather_batch(leaves, mesh))
+    global_data = map_tensors(lambda x: next(gathered), data)
+
+    dev = data.observation.device
+    g = torch.Generator(device=dev).manual_seed(SEED + 15)
+    m, passes, t, lr = tc.num_minibatches, tc.num_updates_per_batch, data.observation.shape[1], tc.learning_rate
+    per, lat = num_envs // m, data.extras["policy_extras"]["latent_mean"].shape[-1]
+    perms = [torch.randperm(num_envs, generator=g, device=dev) for _ in range(passes)]
+    noises = [[(torch.randn((t, per, lat), generator=g, device=dev),
+                torch.randn((t, per, data.action.shape[-1]), generator=g, device=dev)) for _ in range(m)]
+              for _ in range(passes)]
+
+    n_params = sum(p.numel() for net in (state.networks.policy_network, state.networks.value_network)
+                   for p in net.parameters())
+    grads = torch.zeros(n_params, device=dev)
+    mesh_lib.all_reduce_sum([grads], mesh)  # warm-up
+    t0 = mesh.collective_s
+    for _ in range(DP_ALLREDUCE_REPS):
+        mesh_lib.all_reduce_sum([grads], mesh)
+    grad_ms = 1e3 * (mesh.collective_s - t0) / DP_ALLREDUCE_REPS
+
+    normalizer = running_statistics.update(state.normalizer_params, data.observation, group=mesh)
+    sides = {"dp": copy.deepcopy(state.networks)}
+    learners = {"dp": make_learner(sides["dp"])}
+    worst = {"loss": 0.0, "grad": 0.0, "param": 0.0, "param_bound": 0.0, "mean": 0.0, "summed_variance": 0.0}
+    if mesh.rank == 0:
+        one = running_statistics.update(state.normalizer_params, global_data.observation)
+        bounds = normalizer_order_bound(global_data.observation, state.normalizer_params, one)
+        for name, bound in zip(("mean", "summed_variance"), bounds):
+            diff = (getattr(normalizer, name).double() - getattr(one, name).double()).abs()
+            worst[name] = float((diff / bound.clamp(min=1e-300)).max())
+        sides["one"] = copy.deepcopy(state.networks)
+        learners["one"] = make_learner(sides["one"], one_process=True)
+    t0 = time.perf_counter()
+    for u in range(passes):
+        minibatches = {"dp": learners["dp"]._minibatches(data, perms[u], None, noises[u])}
+        if mesh.rank == 0:
+            minibatches["one"] = learners["one"]._minibatches(global_data, perms[u], None, noises[u])
+        for _ in range(m):
+            if mesh.rank == 0:  # one process starts from the ranks' parameters and Adam state
+                for a, b in ((sides["one"].policy_network, sides["dp"].policy_network),
+                             (sides["one"].value_network, sides["dp"].value_network)):
+                    a.load_state_dict(b.state_dict())
+                learners["one"].optimizer.load_state_dict(copy.deepcopy(learners["dp"].optimizer.state_dict()))
+            step = {}
+            for k, learner in learners.items():
+                mb, latent, entropy, kwargs = next(minibatches[k])
+                _, aux = learner.update_fn(normalizer, mb, latent, entropy, 1, **kwargs)
+                nets = sides[k]
+                params = [p for net in (nets.policy_network, nets.value_network) for p in net.parameters()]
+                step[k] = ({name: float(aux[name]) for name in ("total_loss", "policy_loss", "v_loss",
+                                                                  "kl_latent_loss", "entropy_loss")},
+                           [p.grad.detach().clone() for p in params], [p.detach().clone() for p in params])
+            if mesh.rank == 0:
+                (a_m, a_g, a_p), (b_m, b_g, b_p) = step["dp"], step["one"]
+                worst["loss"] = max(worst["loss"], max(abs(a_m[k] - b_m[k]) / max(1.0, abs(b_m[k])) for k in b_m))
+                worst["grad"] = max(worst["grad"], max(float((x - y).abs().max() / y.abs().max().clamp(min=1e-30))
+                                                       for x, y in zip(a_g, b_g)))
+                moved = max(float((x - y).abs().max()) for x, y in zip(a_p, b_p))
+                worst["param"] = max(worst["param"], moved / lr)
+                # Adam from one state: d(update)/dg <= lr (1 - b1) / ((1 - b1^k) eps), once through m and
+                # once through v, so the gradients' largest difference bounds the parameters'
+                k = float(next(iter(learners["dp"].optimizer.state.values()))["step"])
+                grad_diff = max(float((x - y).abs().max()) for x, y in zip(a_g, b_g))
+                bound = 2 * lr * (1 - ADAM_B1) / (1 - ADAM_B1**k) * grad_diff / ADAM_EPS
+                worst["param_bound"] = max(worst["param_bound"], moved / max(bound, 1e-30))
+    torch.cuda.synchronize(dev) if dev.type == "cuda" else None
+    dp_s = time.perf_counter() - t0
+    params = [p for net in (sides["dp"].policy_network, sides["dp"].value_network) for p in net.parameters()]
+    normalizer_fields = [getattr(normalizer, f) for f in ("count", "mean", "summed_variance", "std")]
+    mesh_lib.assert_is_replicated(params + normalizer_fields, mesh, debug="the ranks' learning-half copies")
+    return {**worst, "dp_s": dp_s, "grad_allreduce_ms": grad_ms, "n_params": n_params, "steps": passes * m,
+            "check_s": time.perf_counter() - check_t0,
+            "ms": 1e3 * (mesh.collective_s - collectives[0]), "calls": mesh.collective_calls - collectives[1],
+            "mb": 1e-6 * (mesh.collective_bytes - collectives[2])}  # this check's collectives
+
+
+def dp_rank_main(rank: int, root: str, device: str) -> None:
+    """One gloo rank of phase 15(b) (`python3 chip_smoke.py --dp-rank RANK
+    ROOT DEVICE`, the launcher's variables set by the parent, at the lowest
+    CPU priority: it sets up while the parent's runs are timed): joins the
+    group, runs train.main with distributed=true (the overrides in
+    ROOT/gloo.json) on its slice of the envs, its first control step
+    waiting for ROOT/go, and saves what the parent checks to
+    ROOT/rank<RANK>.pt."""
+    sys.path.insert(0, REPO)
+    from track_mjx_tpu_torch import train as ttrain
+    from track_mjx_tpu_torch.ops import cg_solver_kernel as tk
+    from track_mjx_tpu_torch.parallel import mesh as mesh_lib
+    from track_mjx_tpu_torch.physics import forward as tf
+    from track_mjx_tpu_torch.utils.config import load_config
+
+    os.nice(19)
+    tf.set_full_f32()
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // DP_RANKS))  # the ranks share the host's cores
+    mesh = mesh_lib.init_from_env(device, backend="gloo")
+    with open(os.path.join(root, "gloo.json")) as f:
+        cfg = load_config("rodent-full-clips", json.load(f))
+    recorded, captured, progress = {}, {}, []
+    first_step_recorder(recorded, gate=os.path.join(root, "go"))
+    tc = cfg.train_setup.train_config
+    tk.cg_solve.launches = 0
+    _, (normalizer, policy) = ttrain.main(
+        cfg, mesh=mesh, policy_params_fn=no_logging, progress_fn=lambda s, m: progress.append(m),
+        batch_callback=lambda st, d, ml: captured.update(dp_learning_halves(mesh, st, d, ml, tc)),
+    )
+    torch.cuda.synchronize() if device == "cuda" else None
+    seconds = time.time() - os.path.getmtime(os.path.join(root, "go"))  # since go
+    recorded.pop("env")
+    torch.save({"first_step": recorded, "captured": captured, "progress": progress, "policy": policy,
+                "normalizer": normalizer, "launches": ttrain.kernel_launches(), "seconds": seconds,
+                "device": str(mesh.device), "collectives": (mesh.collective_s, mesh.collective_calls,
+                                                           mesh.collective_bytes)},
+               os.path.join(root, f"rank{rank}.pt"))
+    mesh_lib.destroy(mesh)
 
 
 REPLACES = {  # the TPU kernel bodies, track_mjx_tpu/ops/batched_linalg.py
@@ -3233,6 +3523,218 @@ class Phases:
               f"phase {seconds:.1f} s ({self.card})")
         return {"launches": launches, "ms_per_control_step": step_ms, "cfrc_ext_ms": cfrc_ms, "seconds": seconds}
 
+    def dp_launches(self, substeps: int, episode: int) -> dict:
+        """cg_solve's launches in each of phase 15's runs: the reset, the
+        unroll, the reset after the epoch; rank 0 and one process the eval
+        (a reset and its episode); the CLI's rank also the logging rollout
+        at B = 1 (a reset and a control step per frame)."""
+        rollout = 1 + DP_UNROLL * substeps + 1
+        evals = 1 + episode * substeps
+        logging_rollout = 1 + DP_CLIP_LENGTH * substeps
+        return {"nccl": rollout + evals + logging_rollout, "one": rollout + evals, "gloo0": rollout + evals,
+                "gloo1": rollout}
+
+    def dp_first_step(self, r: int, got: dict, one: dict, envs: slice) -> None:
+        """Rank r's first control step against the one-process run's envs
+        `envs`: the state it started from (the reset: the rank's rows of
+        the global draws) within ROLLOUT_LAYER_REL, its actions (the
+        policy's noise rows; the full-width forward at another batch size)
+        within DP_ACTION_REL, and the step itself, redone here from the rank's
+        state and actions on the one-process run's env, within phase 3's
+        bars of the rank's. The rank's state after it against the
+        one-process run's is printed only: the untrained policy's O(1)
+        actions make the rodent chaotic in float32 (phase 4), so one
+        control step takes the actions' roundoff to tenths."""
+        from track_mjx_tpu_torch.envs.base import map_tensors
+
+        start, mine = got["state"], map_tensors(lambda x: x[envs], one["state"])
+        leaves, want = [], []
+        map_tensors(lambda x: leaves.append(x) or x, start)
+        map_tensors(lambda x: want.append(x) or x, mine)
+        reset = max(_rel(a.double(), b.double()) for a, b in zip(leaves, want) if a.is_floating_point())
+        assert all(torch.equal(a, b) for a, b in zip(leaves, want) if not a.is_floating_point()), "frames, clips"
+        action = _rel(got["action"], one["action"][envs])
+        redo = one["env"].step(map_tensors(lambda x: x.to(self.dev), start), got["action"].to(self.dev))
+        errs, chaos = {}, {}
+        for name in ("qpos", "qvel"):
+            per_env = _per_env(getattr(redo.pipeline_state, name).cpu(), got[name])
+            errs[name] = (float(per_env.median()), float(per_env.max()))
+            far = _per_env(got[name], one[name][envs])
+            chaos[name] = (float(far.median()), float(far.max()))
+        print(f"data parallel (b): rank {r}'s first control step against the one-process run's envs "
+              f"{envs.start}-{envs.stop - 1}: the state it started from {reset:.3e} (bar {ROLLOUT_LAYER_REL:.0e}), its "
+              f"actions {action:.3e} (bar {DP_ACTION_REL:.0e}); the step redone here from them: per-env rel err qpos max "
+              f"{errs['qpos'][1]:.3e} (bar {STEP_REL['qpos_max']:.0e}), qvel median {errs['qvel'][0]:.3e} (bar "
+              f"{STEP_REL['qvel_median']:.0e}); the states after it, rank against one process (float32 chaos, not "
+              f"held): qpos median {chaos['qpos'][0]:.3e} max {chaos['qpos'][1]:.3e}, qvel median "
+              f"{chaos['qvel'][0]:.3e} max {chaos['qvel'][1]:.3e}")
+        assert reset < ROLLOUT_LAYER_REL and action < DP_ACTION_REL, (reset, action)
+        assert errs["qpos"][1] < STEP_REL["qpos_max"] and errs["qvel"][0] < STEP_REL["qvel_median"], errs
+
+    def data_parallel(self) -> dict:
+        """Phase 15: data-parallel training of the rodent through train.main's
+        distributed key (DP_* cuts). (a) One NCCL rank through the CLI in a
+        subprocess (RANK=0, WORLD_SIZE=1, LOCAL_RANK=0, a free port), then
+        the same run in this process without distributed; (b) DP_RANKS gloo
+        ranks sharing the card, DP_ENVS / DP_RANKS envs each, against that
+        one-process run: each rank's envs after the first control step, the
+        ranks' learning half against one process's on the same global batch
+        and draws (`dp_learning_halves`), the ranks' parameters bit for bit;
+        cg_solve's launches exact in every run. Returns cg_solve's launches
+        by path."""
+        from track_mjx_tpu_torch import train as ttrain
+        from track_mjx_tpu_torch import workload
+        from track_mjx_tpu_torch.io import load
+        from track_mjx_tpu_torch.io.synthetic import synthesize_clips
+        from track_mjx_tpu_torch.utils.config import load_config
+
+        phase_t0 = time.perf_counter()
+        cuda = self.dev.type == "cuda"
+        root = os.path.join(REPO, "build", "chip_smoke_dp")
+        shutil.rmtree(root, ignore_errors=True)
+        os.makedirs(root)
+        clips = synthesize_clips(self.tm.load_snapshot("rodent-full-clips"), n_clips=DP_CLIPS,
+                                 n_frames=DP_CLIP_LENGTH, mocap_hz=50, seed=SEED, device=self.dev)
+        load.save_npz(clips, os.path.join(root, "clips.npz"))
+        cfg = load_config("rodent-full-clips", dp_overrides(self.dev.type, os.path.join(root, "one")))
+        tc, net = cfg.train_setup.train_config, cfg.network_config
+        assert (net.encoder_layer_sizes, net.decoder_layer_sizes, net.critic_layer_sizes,
+                net.intention_size) == TRAIN_WIDTHS["rodent-full-clips"]
+        assert (tc.num_minibatches, tc.num_updates_per_batch) == (16, 4), "not the reference's minibatches and passes"
+        substeps = cfg.env_config.env_args.physics_steps_per_control_step
+        expected = self.dp_launches(substeps, DP_CLIP_LENGTH - DP_RANDOM_INIT - cfg.reference_config.traj_length)
+
+        # (b)'s ranks start first, at the lowest CPU priority: they join their
+        # group and set up train.main while (a) and (a') are timed, and wait at
+        # their first control step for "go"
+        with open(os.path.join(root, "gloo.json"), "w") as f:
+            json.dump([*dp_overrides(self.dev.type, os.path.join(root, "gloo")), "distributed=true"], f)
+        port = free_port()
+        logs = [open(os.path.join(root, f"rank{r}.log"), "w") for r in range(DP_RANKS)]
+        workers = [
+            subprocess.Popen([sys.executable, os.path.join(REPO, "chip_smoke.py"), "--dp-rank", str(r), root,
+                              self.dev.type], cwd=REPO, env=dp_env(r, DP_RANKS, DP_RANKS, port), stdout=logs[r],
+                             stderr=subprocess.STDOUT)
+            for r in range(DP_RANKS)
+        ]
+        try:
+            # (a) one NCCL rank through the CLI
+            cmd = [sys.executable, "-m", "track_mjx_tpu_torch.train", "--config-name", "rodent-full-clips",
+                   *dp_overrides(self.dev.type, os.path.join(root, "nccl")), "distributed=true"]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, cwd=REPO, env=dp_env(0, 1, 1, free_port()), capture_output=True, text=True,
+                                  timeout=DP_TIMEOUT_S)
+            nccl_s = time.perf_counter() - t0
+            log = proc.stdout + proc.stderr
+            with open(os.path.join(root, "nccl.log"), "w") as f:
+                f.write(log)
+            if proc.returncode:
+                print(log[-6000:])
+                raise RuntimeError(f"the distributed CLI run failed ({proc.returncode})")
+            (joined,) = [line for line in log.splitlines() if "rank 0 of 1" in line]
+            nccl_launches = json.loads(log.split("kernel launches (rank 0): ", 1)[1].splitlines()[0])
+            (metrics_path,) = [os.path.join(d, f) for d, _, fs in os.walk(os.path.join(root, "nccl", "ckpts"))
+                               for f in fs if f == "metrics.jsonl"]
+            nccl = [m for m in map(json.loads, open(metrics_path)) if "training/sps" in m][-1]
+            print(f"data parallel (a): `{' '.join(cmd[1:4])} ... distributed=true` in {nccl_s:.1f} s: "
+                  f"{joined.split(':', 2)[-1].strip()}; cg_solve launches {nccl_launches['cg_solve']} (expected "
+                  f"{expected['nccl']}: reset, {DP_UNROLL} x {substeps}, reset, eval, logging rollout), other kernels "
+                  f"{ {k: v for k, v in nccl_launches.items() if k != 'cg_solve'} }")
+            assert ("over nccl" in joined) == cuda, joined
+            assert nccl_launches["cg_solve"] == expected["nccl"], nccl_launches
+            assert not any(v for k, v in nccl_launches.items() if k != "cg_solve"), nccl_launches
+
+            # (a') the same run in this process without distributed: the
+            # reference of (a)'s rates and of (b)'s ranks
+            recorded, progress = {}, []
+            make_env = first_step_recorder(recorded)
+            for op in ttrain.KERNELS:
+                op.launches = 0
+            t0 = time.perf_counter()
+            try:
+                ttrain.main(cfg, progress_fn=lambda s, m: progress.append(m), policy_params_fn=no_logging)
+            finally:
+                workload.make_env = make_env
+            torch.cuda.synchronize() if cuda else None
+            one_s = time.perf_counter() - t0
+            one_launches = ttrain.kernel_launches()
+            one = progress[-1]
+            open(os.path.join(root, "go"), "w").close()
+            t0 = time.perf_counter()
+            codes = [w.wait(timeout=DP_TIMEOUT_S) for w in workers]
+            gloo_s = time.perf_counter() - t0
+        finally:
+            for w in workers:
+                if w.poll() is None:
+                    w.kill()
+                    w.wait()
+            for f in logs:
+                f.close()
+        if any(codes):
+            for r in range(DP_RANKS):
+                print(f"--- rank {r} ---\n" + open(os.path.join(root, f"rank{r}.log")).read()[-4000:])
+            raise RuntimeError(f"the gloo ranks failed: {codes}")
+        ranks = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False) for r in range(DP_RANKS)]
+        print(f"data parallel (a'): the same run in this process without distributed in {one_s:.1f} s: cg_solve "
+              f"launches {one_launches['cg_solve']} (expected {expected['one']})")
+        assert one_launches["cg_solve"] == expected["one"], one_launches
+        assert not any(v for k, v in one_launches.items() if k != "cg_solve"), one_launches
+
+        # (b): launches, the first control step, parameters, the learning half
+        n = tc.num_envs // DP_RANKS
+        for r, rank in enumerate(ranks):
+            want = expected[f"gloo{r}"]
+            print(f"data parallel (b): gloo rank {r} on {rank['device']}, {n} envs, {rank['seconds']:.1f} s in "
+                  f"train.main: cg_solve launches {rank['launches']['cg_solve']} (expected {want})")
+            assert rank["launches"]["cg_solve"] == want, rank["launches"]
+            assert not any(v for k, v in rank["launches"].items() if k != "cg_solve"), rank["launches"]
+            self.dp_first_step(r, rank["first_step"], recorded, slice(r * n, (r + 1) * n))
+        same = all(torch.equal(ranks[0]["policy"][k], ranks[1]["policy"][k]) for k in ranks[0]["policy"])
+        same_norm = all(torch.equal(getattr(ranks[0]["normalizer"], f), getattr(ranks[1]["normalizer"], f))
+                        for f in ("count", "mean", "summed_variance", "std"))
+        print(f"data parallel (b): the ranks' trained policies ({len(ranks[0]['policy'])} tensors) bitwise equal: "
+              f"{same}; normalizers: {same_norm} (and the trainer's assert_is_replicated passed on both)")
+        assert same and same_norm, "the ranks' parameters differ"
+        half = ranks[0]["captured"]
+        print(f"data parallel (b): the ranks' learning half ({half['steps']} Adam steps, {half['dp_s']:.2f} s) step "
+              f"by step against one process's on the gathered batch and the same draws, each step from the ranks' "
+              f"parameters, Adam state and normalizer: loss terms {half['loss']:.3e} (bar {TRAIN_LOSS_REL:.0e}), "
+              f"clipped gradients {half['grad']:.3e} of each tensor's largest element (bar {TRAIN_GRAD_REL:.0e}), "
+              f"parameters after a step {half['param']:.3e} lr, {half['param_bound']:.3e} of the Adam step's bound "
+              f"from the gradients' difference (bar 1); the normalizer update "
+              f"at most {half['mean']:.3e} (mean) and {half['summed_variance']:.3e} (summed variance) of the float32 "
+              f"bound of two summation orders; the ranks' copies bitwise equal (assert_is_replicated)")
+        assert half["loss"] < TRAIN_LOSS_REL and half["grad"] < TRAIN_GRAD_REL and half["param_bound"] <= 1.0, half
+        assert half["mean"] <= 1.0 and half["summed_variance"] <= 1.0, half
+
+        gloo = dict(ranks[0]["progress"][-1])
+        for key, own in (("ms", "training/allreduce_ms"), ("calls", "training/allreduce_calls"),
+                         ("mb", "training/allreduce_mb")):
+            gloo[own] -= half[key]  # the trainer's own collectives: the check's are left out
+        # nor the wait for "go" (in the first rollout step) or the check itself (in the step)
+        idle = ranks[0]["first_step"]["wait_s"] + half["check_s"]
+        gloo["training/rollout_ms"] -= 1e3 * ranks[0]["first_step"]["wait_s"]
+        gloo["training/sps"] = tc.num_envs * DP_UNROLL / (gloo["training/walltime"] - idle)
+        seconds = time.perf_counter() - phase_t0
+
+        def step(m):
+            return (f"training sps {m['training/sps']:.1f}, rollout {m['training/rollout_ms']:.1f} ms, sgd "
+                    f"{m['training/sgd_ms']:.1f} ms per training step"
+                    + (f", all-reduce {m['training/allreduce_ms']:.1f} ms in {m['training/allreduce_calls']:.0f} "
+                       f"calls ({m['training/allreduce_mb']:.1f} MB)" if "training/allreduce_ms" in m else ""))
+
+        print(f"data parallel: one NCCL rank (CLI): {step(nccl)}; without distributed (this process): {step(one)}; "
+              f"gloo, {DP_RANKS} ranks on one card (rank 0, its wait for go and its learning-half check left out): "
+              f"{step(gloo)}; a gloo all-reduce of the gradient ({half['n_params']} float32, "
+              f"{4e-6 * half['n_params']:.1f} MB) {half['grad_allreduce_ms']:.2f} ms (mean of {DP_ALLREDUCE_REPS}, "
+              f"device synchronized around each); (a) {nccl_s:.1f} s, (a') {one_s:.1f} s, (b) {gloo_s:.1f} s after "
+              f"go; phase {seconds:.1f} s ({self.card})")
+        return {
+            "one NCCL rank through the CLI, distributed=true (phase 15)": nccl_launches["cg_solve"],
+            "the same run without distributed (phase 15)": one_launches["cg_solve"],
+            **{f"gloo rank {r} of {DP_RANKS} (phase 15)": rank["launches"]["cg_solve"] for r, rank in enumerate(ranks)},
+        }
+
     def sps_profile_dir(self) -> None:
         """Phase 11c's profile_dir check, after every rate of the script: a
         small run of the config through train.main with profile_dir (two
@@ -3279,6 +3781,9 @@ class Phases:
 
 
 def main() -> None:
+    if sys.argv[1:2] == ["--dp-rank"]:  # one rank of phase 15(b), started by the phase
+        dp_rank_main(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+        return
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device (torch.cuda.is_available() is False)")
     sys.path.insert(0, REPO)
@@ -3325,6 +3830,7 @@ def main() -> None:
     sps_record, sps_launches = timed("11c rodent-sps-per-actor", phases.sps_per_actor)
     logging_record = timed("13 run management and logging", phases.run_logging)
     analysis_record = timed("14 analysis from a checkpoint", phases.analysis)
+    dp_launches = timed("15 data parallel", phases.data_parallel)
     kernels += timed("12 standalone linalg", phases.newton_kernels, *newton)
     timed("11c profile_dir", phases.sps_profile_dir)
     for k in kernels:  # each kernel's launches on every path that runs it, as counted there
@@ -3335,7 +3841,7 @@ def main() -> None:
                                      "rodent rollout, reset + one unroll (phase 4)": rollout_launches,
                                      "rodent training, train.main (phase 8)": training_launches,
                                      "rodent LSTM training, train.main (phase 10)": lstm_training_launches,
-                                     **sps_launches}
+                                     **sps_launches, **dp_launches}
         elif k["name"] == "ell_cg_solve":
             k["no_euler"] = ell_no_euler
             k["launches_by_path"] = {"fly control steps (phase 6)": k["launches"],

@@ -152,7 +152,9 @@ def test_port_imports_neither_jax_nor_mujoco():
         "import track_mjx_tpu_torch.analysis.render, track_mjx_tpu_torch.analysis.software_render\n"
         "import track_mjx_tpu_torch.analysis.rollout, track_mjx_tpu_torch.analysis.utils\n"
         "import track_mjx_tpu_torch.physics.postconstraint, track_mjx_tpu_torch.envs.walker.stick\n"
-        "bad = [m for m in ('jax', 'flax', 'mujoco', 'yaml', 'h5py', 'track_mjx_tpu', 'matplotlib')\n"
+        "import track_mjx_tpu_torch.parallel.mesh\n"
+        "bad = [m for m in ('jax', 'flax', 'mujoco', 'yaml', 'h5py', 'track_mjx_tpu', 'matplotlib', 'sklearn',\n"
+        "                   'imageio', 'IPython')\n"
         "       if m in sys.modules]\n"
         "assert not bad, bad\n"
         "print('ok')\n"

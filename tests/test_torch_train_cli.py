@@ -285,7 +285,8 @@ def test_cli_reads_the_config_name_and_overrides(monkeypatch, argv, name, overri
         # run states are ported: a record that is not there is refused by name
         pytest.param(["train_setup.restore_from_run_state=run.json"], FileNotFoundError,
                      id="train_setup.restore_from_run_state=run.json"),
-        pytest.param(["distributed=true"], NotImplementedError, id="distributed=true"),
+        # data parallel is ported: without a launcher's variables (RANK, ...) it raises
+        pytest.param(["distributed=true"], ValueError, id="distributed=true"),
     ],
 )
 def test_unported_options_are_refused(overrides, error, tmp_path):

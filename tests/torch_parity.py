@@ -366,19 +366,20 @@ def assert_state_close(got, want, rel, what, reward_config=None, frame_rel=1e-6)
 # ---------------------------------------------------------------------------
 
 
-def toy_envs(noise: float = 1e-3):
-    """`testing.make_toy_env()` and the port's MultiClipTracking on its
-    clips, walker and reward config (CPU)."""
+def toy_envs(noise: float = 1e-3, contact: bool = True, clip_length: int = 60):
+    """`testing.make_toy_env(clip_length=..., contact=...)` and the port's
+    MultiClipTracking on its clips, walker and reward config (CPU);
+    `contact=False` is the toy walker without its contacts."""
     from track_mjx_tpu.testing import make_toy_env
     from track_mjx_tpu_torch.envs.task import tracking as tt
     from track_mjx_tpu_torch.physics import forward as tf
 
     tf.set_full_f32()
-    jenv = make_toy_env()
+    jenv = make_toy_env(clip_length=clip_length, contact=contact)
     tenv = tt.MultiClipTracking(
         port_clip(jenv._reference_clips), port_walker(jenv.walker), port_reward_config(jenv._reward_config),
         physics_steps_per_control_step=jenv._n_frames, reset_noise_scale=noise, solver="cg", iterations=4,
-        ls_iterations=4, mj_model_timestep=0.005, mocap_hz=50, clip_length=60, random_init_range=10,
+        ls_iterations=4, mj_model_timestep=0.005, mocap_hz=50, clip_length=clip_length, random_init_range=10,
         traj_length=5, device="cpu",
     )
     return jenv, tenv

@@ -4,8 +4,9 @@ the eval wrapper and the evaluator.
 Port of track_mjx_tpu/agent/acting.py. The JAX scan over `unroll_length`
 becomes a Python loop, and its stacked outputs a Transition of [T, B, ...]
 tensors. `key` is a `torch.Generator` the policy draws from step after step
-(where the JAX package splits its key once per step), or a sequence of one
-policy key per step. The evaluator resets its envs from its own generator.
+(where the JAX package splits its key once per step; or a `parallel.mesh.
+Rows`, this rank's rows of that stream), or a sequence of one policy key
+per step. The evaluator resets its envs from its own generator.
 
 The recurrent actor (the LSTM pipeline) threads the policy's carry (h, c),
 each [B, layers, hidden]: a step records the carry that produced its action
@@ -26,6 +27,9 @@ import torch
 
 from track_mjx_tpu_torch.agent import types
 from track_mjx_tpu_torch.envs.base import Env, State, Wrapper
+from track_mjx_tpu_torch.parallel import mesh
+
+_STREAMS = (torch.Generator, mesh.Rows)  # a key drawn from step after step
 
 
 def _record(env_state: State, nstate: State, actions, policy_extras, extra_fields, carry_extras=None) -> types.Transition:
@@ -101,17 +105,17 @@ def generate_unroll(
     env: Env,
     env_state: State,
     policy: types.Policy,
-    key: Union[torch.Generator, Sequence[types.Key]],
+    key: Union[mesh.Key, Sequence[types.Key]],
     unroll_length: int,
     extra_fields: Sequence[str] = (),
 ) -> Tuple[State, types.Transition]:
     """Collects `unroll_length` transitions, stacked [T, B, ...]."""
-    if not isinstance(key, torch.Generator) and len(key) != unroll_length:
+    if not isinstance(key, _STREAMS) and len(key) != unroll_length:
         raise ValueError(f"{len(key)} step keys for an unroll of {unroll_length}")
     transitions = []
     state = env_state
     for t in range(unroll_length):
-        step_key = key if isinstance(key, torch.Generator) else key[t]
+        step_key = key if isinstance(key, _STREAMS) else key[t]
         state, transition = actor_step(env, state, policy, step_key, extra_fields=extra_fields)
         transitions.append(transition)
     return state, _stack(transitions)
@@ -121,19 +125,19 @@ def recurrent_generate_unroll(
     env: Env,
     env_state: State,
     policy,
-    key: Union[torch.Generator, Sequence[types.Key]],
+    key: Union[mesh.Key, Sequence[types.Key]],
     carry,
     unroll_length: int,
     extra_fields: Sequence[str] = (),
 ):
     """generate_unroll for a recurrent policy: (final state, transitions
     [T, B, ...], the carry after the last step)."""
-    if not isinstance(key, torch.Generator) and len(key) != unroll_length:
+    if not isinstance(key, _STREAMS) and len(key) != unroll_length:
         raise ValueError(f"{len(key)} step keys for an unroll of {unroll_length}")
     transitions = []
     state = env_state
     for t in range(unroll_length):
-        step_key = key if isinstance(key, torch.Generator) else key[t]
+        step_key = key if isinstance(key, _STREAMS) else key[t]
         state, transition, carry = recurrent_actor_step(
             env, state, policy, step_key, carry, extra_fields=extra_fields
         )

@@ -4,7 +4,8 @@ Port of track_mjx_tpu/agent/distribution.py (brax's NormalTanhDistribution):
 param_size = 2 * event_size, scale = (softplus(raw) + min_std) * var_scale,
 tanh postprocessing with the softplus-form log-det-jacobian, and a
 sample-estimated entropy. Sampling takes standard-normal noise shaped like
-the distribution's loc, or a `torch.Generator` to draw it from.
+the distribution's loc, or a `torch.Generator` to draw it from (or a
+`parallel.mesh.Rows`: this rank's rows of a draw at the global batch size).
 """
 
 from __future__ import annotations
@@ -15,14 +16,16 @@ from typing import Union
 import torch
 import torch.nn.functional as F
 
-Noise = Union[torch.Tensor, torch.Generator]
+from track_mjx_tpu_torch.parallel import mesh
+
+Noise = Union[torch.Tensor, torch.Generator, mesh.Rows]
 
 
 def standard_normal(noise: Noise, like: torch.Tensor) -> torch.Tensor:
     """`noise` itself, or a standard-normal draw shaped like `like` from the
-    generator `noise`."""
-    if isinstance(noise, torch.Generator):
-        return torch.randn(like.shape, generator=noise, device=like.device, dtype=like.dtype)
+    generator (or the Rows) `noise`."""
+    if isinstance(noise, (torch.Generator, mesh.Rows)):
+        return mesh.randn(noise, like.shape, like.device, like.dtype)
     return noise
 
 

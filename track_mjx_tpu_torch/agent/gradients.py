@@ -17,6 +17,12 @@ counts the frozen parameters' gradients, and then no update reaches them.
 Here their gradients are dropped after the clip, so Adam skips them and
 keeps no state for them; the other parameters' updates are the same, as
 Adam works elementwise.
+
+Data parallel (`mesh`): each rank's loss is its share of the minibatch's
+mean (agent/ppo_math.py), so the gradients are summed over the ranks (one
+all_reduce of every gradient and the loss terms in one flat buffer) before
+the clip: every rank then clips the same gradient and takes the same Adam
+step, and the parameters stay bitwise replicated.
 """
 
 from __future__ import annotations
@@ -24,6 +30,8 @@ from __future__ import annotations
 from typing import Callable, Iterable, Optional, Sequence
 
 import torch
+
+from track_mjx_tpu_torch.parallel import mesh as mesh_lib
 
 MAX_GRAD_NORM = 10.0
 
@@ -54,11 +62,15 @@ def gradient_update_fn(
     optimizer: torch.optim.Optimizer,
     max_grad_norm: Optional[float] = MAX_GRAD_NORM,
     frozen: Iterable[torch.nn.Parameter] = (),
+    mesh: Optional[mesh_lib.Mesh] = None,
+    summed: Sequence[str] = (),
 ) -> Callable:
     """f(*args) -> (loss, aux): the gradient of `loss_fn(*args) -> (loss,
     aux)` in the optimizer's parameters, clipped by global norm (not with
     `max_grad_norm` None: the LSTM trainer's plain adam), then one optimizer
-    step, in place, which leaves the `frozen` parameters as they are."""
+    step, in place, which leaves the `frozen` parameters as they are. With
+    `mesh` the gradients and the `summed` entries of aux (each rank's
+    share) are summed over the ranks first (module docstring)."""
     params = [p for group in optimizer.param_groups for p in group["params"]]
     frozen = list(frozen)
 
@@ -66,6 +78,12 @@ def gradient_update_fn(
         optimizer.zero_grad()
         loss, aux = loss_fn(*args, **kwargs)
         loss.backward()
+        if mesh is not None:
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+            reduced = mesh_lib.all_reduce_sum(grads + [aux[k] for k in summed], mesh)
+            for p, g in zip(params, reduced):
+                p.grad = g
+            aux = dict(aux, **dict(zip(summed, reduced[len(params):])))
         if max_grad_norm is not None:
             clip_by_global_norm_([p.grad for p in params if p.grad is not None], max_grad_norm)
         for p in frozen:

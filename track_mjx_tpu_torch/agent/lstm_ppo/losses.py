@@ -18,6 +18,7 @@ import torch
 
 from track_mjx_tpu_torch.agent import ppo_math, types
 from track_mjx_tpu_torch.agent.distribution import Noise
+from track_mjx_tpu_torch.parallel import mesh
 from track_mjx_tpu_torch.agent.mlp_ppo.losses import compute_gae  # noqa: F401  (public API)
 from track_mjx_tpu_torch.agent.ppo_math import PPONetworkParams  # noqa: F401  (public API)
 
@@ -37,9 +38,11 @@ def compute_ppo_loss(
     clipping_epsilon: float = 0.3,
     normalize_advantage: bool = True,
     kl_schedule: Optional[Callable] = None,
+    batch: Optional[mesh.BatchShard] = None,
 ) -> Tuple[torch.Tensor, types.Metrics]:
     """Clipped surrogate + value + entropy + standard-normal latent KL over a
-    batch-major Transition [B, T, ...]."""
+    batch-major Transition [B, T, ...] (with `batch`, this rank's rows of a
+    minibatch spread over the ranks: `ppo_math`)."""
     del latent_noise, step, kl_schedule  # z = latent_mean; no KL schedule (reference)
 
     def forward(norm_params, tm_data, noise):
@@ -69,4 +72,5 @@ def compute_ppo_loss(
         gae_lambda=gae_lambda,
         clipping_epsilon=clipping_epsilon,
         normalize_advantage=normalize_advantage,
+        batch=batch,
     )

@@ -1,4 +1,5 @@
-"""PPO trainer of the LSTM intention pipeline, on one device.
+"""PPO trainer of the LSTM intention pipeline, on one device or data
+parallel over the ranks of a `parallel.mesh.Mesh`.
 
 Port of track_mjx_tpu/agent/lstm_ppo/ppo.py. It shares the MLP trainer's
 structure and pieces (agent/mlp_ppo/ppo.py: the batch layout, the Learner,
@@ -31,6 +32,14 @@ envs and one for the eval envs, as the MLP trainers do.
 
 The widths of the carry come from `config_dict["network_config"]`
 (hidden_state_size, hidden_layer_num), as in the reference.
+
+Data parallel (`mesh`) as the MLP trainer (agent/mlp_ppo/ppo.py), with the
+per-env carry sharded with its envs (the JAX trainer's `shard_batch` of
+`hidden_state`): a rank keeps its envs' carry, the loss's re-unroll runs
+over the rank's sequences, and a checkpoint stores the whole batch's
+carry, gathered from every rank (a restore takes each rank's slice).
+`max_devices_per_host` is honoured as in the MLP trainer; the JAX LSTM
+trainer takes it and never reads it (its mesh spans every device).
 """
 
 from __future__ import annotations
@@ -51,7 +60,7 @@ from track_mjx_tpu_torch.agent.lstm_ppo import losses, ppo_networks
 from track_mjx_tpu_torch.agent.mlp_ppo import ppo as mlp_ppo
 from track_mjx_tpu_torch.envs import wrappers
 from track_mjx_tpu_torch.envs.base import Env
-from track_mjx_tpu_torch.physics.model import _device
+from track_mjx_tpu_torch.parallel import mesh as mesh_lib
 
 Metrics = types.Metrics
 UpdateDraws = mlp_ppo.UpdateDraws
@@ -120,6 +129,7 @@ def train(
     *,
     device: torch.device | str = "cuda",
     batch_callback: Optional[Callable[[TrainingState, types.Transition, Callable], None]] = None,
+    mesh: Optional[mesh_lib.Mesh] = None,
 ):
     """Trains an LSTM intention PPO policy; returns (make_policy,
     (normalizer, policy state dict), metrics), `make_policy(normalizer,
@@ -127,7 +137,7 @@ def train(
     trainer; its Learner runs plain adam and the normalizer update last.
     With `get_activation` the rollout's and the evaluator's policies carry
     the activation taps in their extras, as the JAX LSTM trainer's do (its
-    logging policy never does)."""
+    logging policy never does). `mesh`: data parallel (module docstring)."""
     del use_kl_schedule, kl_ramp_up_frac, eval_env_test_set, use_lstm
     if batch_size * num_minibatches % num_envs:
         raise ValueError(f"batch_size * num_minibatches ({batch_size * num_minibatches}) is no multiple of num_envs")
@@ -138,9 +148,9 @@ def train(
         )
     if not isinstance(environment, Env):
         raise NotImplementedError("a foreign (non-tracking) env with the LSTM pipeline: use the MLP trainer")
-    if max_devices_per_host not in (None, 1):
-        raise NotImplementedError("more than one device: not ported (ROADMAP 5d)")
-    device = _device(device)
+    device = mlp_ppo.data_parallel_device(mesh, device, num_envs, max_devices_per_host)
+    main = mesh_lib.is_main(mesh)
+    local_envs = num_envs // (1 if mesh is None else mesh.world_size)
     xt = time.time()
     config_dict = config_dict if config_dict is not None else {
         "network_config": {"hidden_state_size": 128, "hidden_layer_num": 2},
@@ -154,15 +164,17 @@ def train(
         seed, device, 5
     )
 
-    def wrap(env_: Env, generator: torch.Generator, n: int):
+    def wrap(env_: Env, generator: torch.Generator, n: int, mesh_=None):
         return wrappers.wrap(
             env_, episode_length=episode_length, action_repeat=action_repeat,
-            randomization_fn=mlp_ppo.bind_randomization(randomization_fn, generator, n),
+            randomization_fn=mlp_ppo.bind_randomization(randomization_fn, generator, n, mesh_),
             use_lstm=True, hidden_state_dim=hidden_state_size, hidden_layer_num=hidden_layer_num,
         )
 
-    env = wrap(environment, key_randomize, num_envs)
-    env_state = env.reset(key_env, num_envs)
+    # this rank's rows of the resets' and the rollout's draws
+    env_key, train_key = (mesh_lib.rows(g, mesh, num_envs) for g in (key_env, key_train))
+    env = wrap(environment, key_randomize, num_envs, mesh)
+    env_state = env.reset(env_key, local_envs)
     obs_size = env_state.obs.shape[-1]
     reference_obs_size = int(env_state.info["reference_obs_size"])
     proprioceptive_obs_size = int(env_state.info.get("proprioceptive_obs_size", 0))
@@ -183,10 +195,11 @@ def train(
     )
     make_policy = ppo_networks.make_inference_fn(ppo_network)
 
-    def make_learner(networks: ppo_networks.PPOImitationNetworks) -> mlp_ppo.Learner:
+    def make_learner(networks: ppo_networks.PPOImitationNetworks, one_process: bool = False) -> mlp_ppo.Learner:
         """The learning half over `networks`: plain adam over both networks'
         parameters, the LSTM loss at this call's settings, the normalizer
-        updated after the passes."""
+        updated after the passes; data parallel over the mesh unless
+        `one_process`."""
         optimizer = gradients.make_optimizer(
             [*networks.policy_network.parameters(), *networks.value_network.parameters()], learning_rate
         )
@@ -202,7 +215,8 @@ def train(
             normalize_advantage=normalize_advantage,
         )
         return mlp_ppo.Learner(
-            loss_fn, optimizer, num_minibatches, num_updates_per_batch, max_grad_norm=None, normalizer_after_sgd=True
+            loss_fn, optimizer, num_minibatches, num_updates_per_batch, max_grad_norm=None, normalizer_after_sgd=True,
+            mesh=None if one_process else mesh, num_envs=num_envs,
         )
 
     learner = make_learner(ppo_network)
@@ -212,7 +226,9 @@ def train(
     )
     if checkpoint_to_restore is not None:
         training_state.load_state_dict(checkpointing.load_training_state(checkpoint_to_restore))
+        training_state.hidden_state = tuple(mesh_lib.shard_batch(training_state.hidden_state, mesh))
         logging.info("Restored latest checkpoint at %s", checkpoint_to_restore)
+    mesh_lib.replicate(mlp_ppo.replicated_tensors(training_state), mesh)
 
     unrolls_per_step = batch_size * num_minibatches // num_envs
     epoch = mlp_ppo.EpochTimer(
@@ -222,7 +238,8 @@ def train(
         ),
         env_step_per_training_step,
         num_resets_per_eval,
-        profile_dir,
+        profile_dir if main else None,
+        mesh,
     )
     rollout_dtype = torch.bfloat16 if rollout_bf16 else None  # the rollout's policy forward only
 
@@ -236,7 +253,7 @@ def train(
             unrolls = []
             for _ in range(unrolls_per_step):
                 env_state, data, carry = acting.generate_unroll(
-                    env, env_state, policy, key_train, carry, unroll_length, extra_fields=("truncation",)
+                    env, env_state, policy, train_key, carry, unroll_length, extra_fields=("truncation",)
                 )
                 unrolls.append(data)
             data = mlp_ppo._stack_unrolls(unrolls)
@@ -249,26 +266,33 @@ def train(
         training_state.env_steps = next_env_steps(training_state.env_steps, env_step_per_training_step)
         return metrics
 
-    evaluator = acting.Evaluator(
-        wrap(environment if eval_env is None else eval_env, key_randomize_eval, num_eval_envs),
-        functools.partial(make_policy, deterministic=deterministic_eval, get_activation=get_activation),
-        num_eval_envs=num_eval_envs,
-        episode_length=episode_length,
-        action_repeat=action_repeat,
-        key=key_eval,
-    )
+    evaluator = None
+    if main:  # rank 0 alone evaluates
+        evaluator = acting.Evaluator(
+            wrap(environment if eval_env is None else eval_env, key_randomize_eval, num_eval_envs),
+            functools.partial(make_policy, deterministic=deterministic_eval, get_activation=get_activation),
+            num_eval_envs=num_eval_envs,
+            episode_length=episode_length,
+            action_repeat=action_repeat,
+            key=key_eval,
+        )
 
     def save(step: int) -> None:
-        if ckpt_mgr is not None:
-            wrote = ckpt_mgr.save(step, training_state.policy_params(), training_state.state_dict(), config_dict)
+        """Rank 0 writes the checkpoint (where it has a manager), with the
+        whole batch's carry, which every rank takes part in gathering."""
+        hidden = tuple(mesh_lib.gather_batch(training_state.hidden_state, mesh))
+        if ckpt_mgr is not None and main:
+            state = dict(training_state.state_dict(), hidden_state=hidden)
+            wrote = ckpt_mgr.save(step, training_state.policy_params(), state, config_dict)
             mlp_ppo.call_checkpoint_callback(checkpoint_callback, step, wrote)
 
     # ---- initial eval + checkpoint ---------------------------------------
     metrics = {}
     if num_evals > 1:
-        metrics = evaluator.run_evaluation(training_state.normalizer_params, {})
-        logging.info(metrics)
-        progress_fn(0, metrics)
+        if main:
+            metrics = evaluator.run_evaluation(training_state.normalizer_params, {})
+            logging.info(metrics)
+            progress_fn(0, metrics)
         save(0)
 
     training_metrics = {}
@@ -279,18 +303,24 @@ def train(
             training_metrics = epoch(training_step)
             current_step = training_state.env_steps
             if num_resets_per_eval > 0:
-                env_state = env.reset(key_env, num_envs)  # the carry goes on (reference)
+                env_state = env.reset(env_key, local_envs)  # the carry goes on (reference)
 
-        metrics = evaluator.run_evaluation(training_state.normalizer_params, training_metrics)
-        logging.info(metrics)
-        progress_fn(current_step, metrics)
-        policy_params_fn(
-            current_step=it,
-            jit_logging_inference_fn=make_policy(training_state.normalizer_params, deterministic=True),
-            params=training_state.policy_params(),
-            policy_params_fn_key=key_eval,
-        )
+        if main:
+            metrics = evaluator.run_evaluation(training_state.normalizer_params, training_metrics)
+            logging.info(metrics)
+            progress_fn(current_step, metrics)
+            policy_params_fn(
+                current_step=it,
+                jit_logging_inference_fn=make_policy(training_state.normalizer_params, deterministic=True),
+                params=training_state.policy_params(),
+                policy_params_fn_key=key_eval,
+            )
         save(it)
 
+    mesh_lib.assert_is_replicated(  # the carry is per env, not replicated
+        mlp_ppo.replicated_tensors(training_state), mesh,
+        debug=f"rank {mesh and mesh.rank}, {current_step} thousand env steps",
+    )
     logging.info("total steps: %s", current_step)
+    mesh_lib.synchronize_hosts(mesh)
     return make_policy, training_state.policy_params(), metrics

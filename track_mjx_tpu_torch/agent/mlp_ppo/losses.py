@@ -16,6 +16,7 @@ import torch
 
 from track_mjx_tpu_torch.agent import ppo_math, types
 from track_mjx_tpu_torch.agent.distribution import Noise
+from track_mjx_tpu_torch.parallel import mesh
 from track_mjx_tpu_torch.agent.ppo_math import (  # noqa: F401  (public API)
     PPONetworkParams,
     create_ramp_schedule,
@@ -58,9 +59,11 @@ def compute_ppo_loss(
     clipping_epsilon: float = 0.3,
     normalize_advantage: bool = True,
     kl_schedule: Optional[Callable] = None,
+    batch: Optional[mesh.BatchShard] = None,
 ) -> Tuple[torch.Tensor, types.Metrics]:
     """Clipped surrogate + value + entropy + scheduled AR(1) latent KL over a
-    batch-major Transition [B, T, ...]."""
+    batch-major Transition [B, T, ...] (with `batch`, this rank's rows of a
+    minibatch spread over the ranks: `ppo_math`)."""
     if kl_schedule is not None:
         kl_weight = kl_schedule(step)
 
@@ -82,6 +85,7 @@ def compute_ppo_loss(
         gae_lambda=gae_lambda,
         clipping_epsilon=clipping_epsilon,
         normalize_advantage=normalize_advantage,
+        batch=batch,
     )
     metrics["kl_weight"] = torch.as_tensor(kl_weight, dtype=torch.float32, device=total.device)
     return total, metrics

@@ -1,4 +1,5 @@
-"""PPO trainer of the MLP intention pipeline, on one device.
+"""PPO trainer of the MLP intention pipeline, on one device or data
+parallel over the ranks of a `parallel.mesh.Mesh`.
 
 Port of track_mjx_tpu/agent/mlp_ppo/ppo.py. The JAX trainer jits a whole
 epoch as one SPMD program; here a training step is eager PyTorch on one
@@ -38,6 +39,27 @@ pinned again after every normalizer update.
 `Learner`, `EpochTimer`, `steps_per_epoch` and `seeded_generators` serve
 the LSTM trainer (agent/lstm_ppo/ppo.py) too.
 
+Data parallel (`mesh`: one process per device, as the JAX trainer's
+Mesh(("batch",)) over devices): every rank seeds the same generators and
+builds the same networks, which rank 0's broadcast then replicates (after a
+restore too); a rank holds the env_slice of num_envs / world_size
+consecutive envs (the world size must divide num_envs). Every draw is made
+at its global size and the rank keeps its rows (`parallel.mesh.Rows`): the
+resets, the rollout's action and latent noise, `randomization_fn`'s per-env
+leaves. The learning half sees the global batch: the normalizer update
+over every rank's observations, one global permutation per pass (the same
+on every rank), of whose minibatch each rank takes the trajectories of its
+envs (possibly none), the advantages normalized and the loss's means taken
+over the whole minibatch, the gradients and loss terms summed over the
+ranks before the clip; every rank then takes the same Adam step. Rank 0
+alone runs the evals, the per-eval hook, the progress reports, the
+checkpoints and the profile. Before the return every rank's parameters,
+Adam state and normalizer must be rank 0's bit for bit
+(`assert_is_replicated`), then a barrier. `max_devices_per_host` does not
+choose devices here (a process drives one device: launch `torchrun
+--nproc_per_node`); a value below the host's number of ranks raises. A
+one-device comparison run is a run of world size 1.
+
 The phases run under `torch.profiler.record_function("rollout" |
 "normalizer_update" | "sgd")`, the counterparts of the JAX named scopes; on
 the card the trainer synchronizes at each phase's end and reports each
@@ -66,10 +88,13 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from track_mjx_tpu_torch.agent import acting, checkpointing, gradients, network_masks, running_statistics, types
+from track_mjx_tpu_torch.agent import (
+    acting, checkpointing, gradients, network_masks, ppo_math, running_statistics, types,
+)
 from track_mjx_tpu_torch.agent.mlp_ppo import losses, ppo_networks
 from track_mjx_tpu_torch.envs import wrappers
 from track_mjx_tpu_torch.envs.base import Env, map_tensors
+from track_mjx_tpu_torch.parallel import mesh as mesh_lib
 from track_mjx_tpu_torch.physics.model import _device
 
 Metrics = types.Metrics
@@ -149,7 +174,15 @@ class Learner:
     are. With `normalizer_after_sgd` (the LSTM trainer's order) the passes
     run on the normalizer the step started with and the update comes after
     them. With `pinned` (a normalizer's tail slice) every update ends with
-    that slice pinned. `phase_s` sums each phase's host seconds."""
+    that slice pinned. `phase_s` sums each phase's host seconds.
+
+    With `mesh` the batch is this rank's trajectories of a global batch over
+    `num_envs` envs (trajectory = unroll * num_envs + env; the rank's rows
+    unroll * envs_per_rank + local env): the normalizer update, the
+    permutations, the minibatches, the loss's noises, its means and the
+    gradients are the global batch's (module docstring), and a permutation
+    given in `draws` is one of the global batch, its noises of the global
+    minibatch."""
 
     def __init__(
         self,
@@ -161,10 +194,18 @@ class Learner:
         normalizer_after_sgd: bool = False,
         frozen: Sequence[torch.nn.Parameter] = (),
         pinned: Optional[running_statistics.RunningStatisticsState] = None,
+        mesh: Optional[mesh_lib.Mesh] = None,
+        num_envs: Optional[int] = None,
     ):
+        if mesh is not None and num_envs is None:
+            raise ValueError("a data-parallel Learner needs num_envs, the global batch's envs")
         self.loss_fn = loss_fn
         self.optimizer = optimizer
-        self.update_fn = gradients.gradient_update_fn(loss_fn, optimizer, max_grad_norm, frozen)
+        self.mesh = mesh
+        self.num_envs = num_envs
+        self.update_fn = gradients.gradient_update_fn(
+            loss_fn, optimizer, max_grad_norm, frozen, mesh=mesh, summed=ppo_math.LOSS_TERMS
+        )
         self.pinned = pinned
         self.num_minibatches = num_minibatches
         self.num_updates_per_batch = num_updates_per_batch
@@ -174,7 +215,7 @@ class Learner:
     def _update_normalizer(self, training_state: TrainingState, observation: torch.Tensor) -> None:
         t0 = time.perf_counter()
         with record_function("normalizer_update"):
-            normalizer = running_statistics.update(training_state.normalizer_params, observation)
+            normalizer = running_statistics.update(training_state.normalizer_params, observation, group=self.mesh)
             if self.pinned is not None:
                 normalizer = running_statistics.pin_tail(normalizer, self.pinned)
             training_state.normalizer_params = normalizer
@@ -196,7 +237,7 @@ class Learner:
         if not self.normalizer_after_sgd:
             self._update_normalizer(training_state, data.observation)
         t1 = time.perf_counter()
-        n = data.observation.shape[0]
+        n = data.observation.shape[0] * (1 if self.mesh is None else self.mesh.world_size)
         metrics = []
         with record_function("sgd"):
             for u in range(self.num_updates_per_batch):
@@ -204,20 +245,38 @@ class Learner:
                     perm = torch.randperm(n, generator=generator, device=device)
                 else:
                     perm = draws[u].permutation.to(device)
-                shuffled = map_tensors(
-                    lambda x: x[perm].reshape((self.num_minibatches, -1) + x.shape[1:]), data
-                )
-                for m in range(self.num_minibatches):
-                    minibatch = map_tensors(lambda x: x[m], shuffled)
-                    latent, entropy = (generator, generator) if draws is None else draws[u].noises[m]
+                minibatches = self._minibatches(data, perm, generator, None if draws is None else draws[u].noises)
+                for minibatch, latent, entropy, kwargs in minibatches:
                     _, step_metrics = self.update_fn(
-                        training_state.normalizer_params, minibatch, latent, entropy, it
+                        training_state.normalizer_params, minibatch, latent, entropy, it, **kwargs
                     )
                     metrics.append({k: v.detach() for k, v in step_metrics.items()})
         self.phase_s["sgd"] += _clock(device) - t1
         if self.normalizer_after_sgd:
             self._update_normalizer(training_state, data.observation)
         return metrics
+
+    def _minibatches(self, data: types.Transition, perm: torch.Tensor, generator, noises):
+        """(minibatch, latent noise, entropy noise, loss kwargs) of each
+        minibatch of one pass: its rows of `data` in `perm`'s order (with a
+        mesh, those of this rank's envs and the loss's BatchShard), the
+        noises from `generator` or `noises` (with a mesh, their columns of
+        those rows)."""
+        if self.mesh is None:
+            shuffled = map_tensors(lambda x: x[perm].reshape((self.num_minibatches, -1) + x.shape[1:]), data)
+            for m in range(self.num_minibatches):
+                latent, entropy = (generator, generator) if noises is None else noises[m]
+                yield map_tensors(lambda x: x[m], shuffled), latent, entropy, {}
+            return
+        size = perm.shape[0] // self.num_minibatches
+        for m in range(self.num_minibatches):
+            rows, positions = mesh_lib.trajectory_rows(self.mesh, perm[m * size : (m + 1) * size], self.num_envs)
+            if noises is None:
+                latent = entropy = mesh_lib.Rows(generator, size, positions, dim=1)
+            else:
+                latent, entropy = (x.index_select(1, positions.to(x.device)) for x in noises[m])
+            batch = mesh_lib.BatchShard(self.mesh, size)
+            yield map_tensors(lambda x: x[rows], data), latent, entropy, {"batch": batch}
 
 
 def _mean_metrics(metrics: Sequence[Dict[str, torch.Tensor]]) -> Dict[str, float]:
@@ -232,12 +291,61 @@ def _stack_unrolls(unrolls: Sequence[types.Transition]) -> types.Transition:
     return map_tensors(lambda x: x.transpose(1, 2).reshape((-1,) + x.shape[1:2] + x.shape[3:]), stacked)
 
 
-def bind_randomization(randomization_fn: Optional[Callable], generator: torch.Generator, num_envs: int):
+def bind_randomization(
+    randomization_fn: Optional[Callable],
+    generator: torch.Generator,
+    num_envs: int,
+    mesh: Optional[mesh_lib.Mesh] = None,
+):
     """`randomization_fn(model, generator, num_envs)` bound to one generator
-    stream and env count, as the wrappers take it (None stays None)."""
+    stream and env count, as the wrappers take it (None stays None). With a
+    mesh of more than one rank it randomizes all `num_envs` envs and keeps
+    this rank's env_slice of each randomized leaf."""
     if randomization_fn is None:
         return None
-    return functools.partial(randomization_fn, generator=generator, num_envs=num_envs)
+    bound = functools.partial(randomization_fn, generator=generator, num_envs=num_envs)
+    if mesh is None or mesh.world_size == 1:
+        return bound
+
+    def local(model):
+        model_v, names = bound(model)
+        envs = mesh_lib.env_slice(mesh, num_envs)
+        return dataclasses.replace(model_v, **{n: getattr(model_v, n)[envs] for n in names}), names
+
+    return local
+
+
+def data_parallel_device(
+    mesh: Optional[mesh_lib.Mesh], device: torch.device | str, num_envs: int, max_devices_per_host: Optional[int]
+) -> torch.device:
+    """The trainer's device: `device`, or with a mesh the mesh's, whose
+    world size must divide num_envs. A process drives one device, so
+    `max_devices_per_host` (None or 0: no bound) below the ranks on this
+    host raises: the devices a host uses are torchrun's --nproc_per_node."""
+    local_ranks = 1 if mesh is None else mesh.local_world_size
+    if max_devices_per_host and max_devices_per_host < local_ranks:
+        raise ValueError(
+            f"max_devices_per_host={max_devices_per_host}, but this host runs {local_ranks} ranks, one device each: "
+            "launch fewer with torchrun --nproc_per_node (a one-device run is a run of world size 1)"
+        )
+    if mesh is None:
+        return _device(device)
+    mesh_lib.env_slice(mesh, num_envs)  # raises unless the world size divides num_envs
+    if _device(device).type != mesh.device.type:
+        raise ValueError(f"device {device} against the mesh's {mesh.device}")
+    return mesh.device
+
+
+def replicated_tensors(training_state: TrainingState) -> List[torch.Tensor]:
+    """Every tensor the ranks keep equal: both networks' parameters and
+    buffers, the normalizer and the optimizer's state."""
+    nets = (training_state.networks.policy_network, training_state.networks.value_network)
+    normalizer = training_state.normalizer_params
+    return [
+        *(t for net in nets for t in (*net.parameters(), *net.buffers())),
+        *(getattr(normalizer, f.name) for f in dataclasses.fields(normalizer)),
+        *(v for st in training_state.optimizer.state.values() for v in st.values() if isinstance(v, torch.Tensor)),
+    ]
 
 
 def _wrapper_for(env) -> Callable:
@@ -280,10 +388,13 @@ class EpochTimer:
     JAX package's training/sps (the steps of one epoch times the resets per
     eval, an epoch being one of num_resets_per_eval between evals) and
     walltime, the loss metrics' means, and each phase's host ms per
-    training step. With `profile_dir`, the second epoch (the first after
-    the warm-up) runs under torch.profiler, whose trace goes to
-    `<profile_dir>/epoch_1.pt.trace.json`: the phases appear there as
-    record_function scopes, and on the card the kernels."""
+    training step; with a `mesh`, the host ms of its collectives per
+    training step (the device synchronized around each), their count and
+    their MB, as training/allreduce_ms, _calls and _mb. With `profile_dir`,
+    the second epoch (the first after the warm-up) runs under
+    torch.profiler, whose trace goes to `<profile_dir>/epoch_1.pt.trace.json`:
+    the phases appear there as record_function scopes, and on the card the
+    kernels."""
 
     def __init__(
         self,
@@ -292,8 +403,10 @@ class EpochTimer:
         env_step_per_training_step: int,
         num_resets_per_eval: int,
         profile_dir: Optional[str] = None,
+        mesh: Optional[mesh_lib.Mesh] = None,
     ):
         self.learner = learner
+        self.mesh = mesh
         self.steps = steps
         self.env_steps_per_epoch = steps * env_step_per_training_step * max(num_resets_per_eval, 1)
         self.rollout_s = 0.0  # host seconds of the epoch's rollouts, added by the training step
@@ -305,6 +418,9 @@ class EpochTimer:
         t = time.time()
         self.rollout_s = 0.0
         self.learner.phase_s = dict.fromkeys(self.learner.phase_s, 0.0)
+        collectives = None
+        if self.mesh is not None:
+            collectives = (self.mesh.collective_s, self.mesh.collective_calls, self.mesh.collective_bytes)
         profile = self.profile_dir is not None and self.epochs_run == 1
         self.epochs_run += 1
         activities = [torch.profiler.ProfilerActivity.CPU]
@@ -323,12 +439,17 @@ class EpochTimer:
         epoch_training_time = time.time() - t
         self.walltime += epoch_training_time
         phase_ms = {"rollout": self.rollout_s, **self.learner.phase_s}
-        return {
+        metrics = {
             "training/sps": self.env_steps_per_epoch / epoch_training_time,
             "training/walltime": self.walltime,
             **{f"training/{name}": value for name, value in loss_metrics.items()},
             **{f"training/{k}_ms": 1e3 * v / self.steps for k, v in phase_ms.items()},
         }
+        if collectives is not None:
+            metrics["training/allreduce_ms"] = 1e3 * (self.mesh.collective_s - collectives[0]) / self.steps
+            metrics["training/allreduce_calls"] = (self.mesh.collective_calls - collectives[1]) / self.steps
+            metrics["training/allreduce_mb"] = 1e-6 * (self.mesh.collective_bytes - collectives[2]) / self.steps
+        return metrics
 
 
 def call_checkpoint_callback(checkpoint_callback: Optional[Callable[[int], None]], step: int, wrote: bool) -> None:
@@ -389,6 +510,7 @@ def train(
     *,
     device: torch.device | str = "cuda",
     batch_callback: Optional[Callable[[TrainingState, types.Transition, Callable], None]] = None,
+    mesh: Optional[mesh_lib.Mesh] = None,
 ):
     """Trains an intention PPO policy; returns (make_policy, (normalizer,
     policy state dict), metrics). `make_policy(normalizer, deterministic)`
@@ -396,22 +518,24 @@ def train(
     make_learner)`, if given, sees each training step's state and batch
     before the learning half changes the state; `make_learner(networks)` is
     the trainer's own Learner (loss, optimizer, minibatches and passes) over
-    other networks of the same shapes, e.g. a copy on another device.
+    other networks of the same shapes, e.g. a copy on another device, and
+    `make_learner(networks, one_process=True)` the same without the mesh
+    (the one-process Learner of the whole batch).
     `randomization_fn(model, generator, num_envs)` (module docstring).
     With `get_activation` the logging policy handed to `policy_params_fn`
-    carries the activation taps in its extras, as the JAX trainer's does."""
+    carries the activation taps in its extras, as the JAX trainer's does.
+    With `mesh`, data parallel over its ranks (module docstring): the
+    batch is this rank's envs' and the metrics are rank 0's ({} on the
+    others, as the JAX trainer's on processes other than 0)."""
     if batch_size * num_minibatches % num_envs:
         raise ValueError(f"batch_size * num_minibatches ({batch_size * num_minibatches}) is no multiple of num_envs")
-    unsupported = {
-        "use_lstm": use_lstm,
-        "more than one device": max_devices_per_host not in (None, 1),
-    }
-    for what, asked in unsupported.items():
-        if asked:
-            raise NotImplementedError(f"{what}: not ported (ROADMAP 5d/5e)")
+    if use_lstm:
+        raise NotImplementedError("use_lstm in the MLP trainer: the LSTM pipeline is agent/lstm_ppo/ppo.py")
     if freeze_decoder and checkpoint_to_restore is None:
         raise ValueError("freeze_decoder needs checkpoint_to_restore, the run whose decoder it freezes")
-    device = _device(device)
+    device = data_parallel_device(mesh, device, num_envs, max_devices_per_host)
+    main = mesh_lib.is_main(mesh)
+    local_envs = num_envs // (1 if mesh is None else mesh.world_size)
     xt = time.time()
     config_dict = config_dict if config_dict is not None else {"network_config": {}, "env_config": {"render_interval": 1}}
 
@@ -420,11 +544,13 @@ def train(
     key_init, key_env, key_train, key_eval, key_eval_test, key_randomize, key_randomize_eval = seeded_generators(
         seed, device, 6
     )
+    # this rank's rows of the resets' and the rollout's draws
+    env_key, train_key = (mesh_lib.rows(g, mesh, num_envs) for g in (key_env, key_train))
     env = _wrapper_for(environment)(
         environment, episode_length=episode_length, action_repeat=action_repeat,
-        randomization_fn=bind_randomization(randomization_fn, key_randomize, num_envs),
+        randomization_fn=bind_randomization(randomization_fn, key_randomize, num_envs, mesh),
     )
-    env_state = env.reset(key_env, num_envs)
+    env_state = env.reset(env_key, local_envs)
     obs_size = env_state.obs.shape[-1]
     reference_obs_size = int(env_state.info.get("reference_obs_size", obs_size))
     proprioceptive_obs_size = int(env_state.info.get("proprioceptive_obs_size", 0))
@@ -468,11 +594,12 @@ def train(
             count=torch.zeros((), device=device),
         )
 
-    def make_learner(networks: ppo_networks.PPOImitationNetworks) -> Learner:
+    def make_learner(networks: ppo_networks.PPOImitationNetworks, one_process: bool = False) -> Learner:
         """The learning half over `networks`: the clipped Adam of both
         networks' parameters and the PPO loss at this call's settings (with
         `freeze_decoder`, the decoder frozen and the normalizer's
-        proprioceptive slice pinned)."""
+        proprioceptive slice pinned), data parallel over the mesh unless
+        `one_process`."""
         optimizer = gradients.make_optimizer(
             [*networks.policy_network.parameters(), *networks.value_network.parameters()], learning_rate
         )
@@ -491,8 +618,9 @@ def train(
         frozen = ()
         if freeze_decoder:
             frozen = [p for n, p in networks.policy_network.named_parameters() if network_masks.is_decoder(n)]
+        dp = None if one_process else mesh
         return Learner(loss_fn, optimizer, num_minibatches, num_updates_per_batch, frozen=frozen,
-                       pinned=frozen_normalizer)
+                       pinned=frozen_normalizer, mesh=dp, num_envs=num_envs)
 
     learner = make_learner(ppo_network)
     normalizer = running_statistics.init_state(obs_size, device)
@@ -502,6 +630,7 @@ def train(
     if checkpoint_to_restore is not None and not freeze_decoder:
         training_state.load_state_dict(checkpointing.load_training_state(checkpoint_to_restore))
         logging.info("Restored latest checkpoint at %s", checkpoint_to_restore)
+    mesh_lib.replicate(replicated_tensors(training_state), mesh)
 
     unrolls_per_step = batch_size * num_minibatches // num_envs
     epoch = EpochTimer(
@@ -509,7 +638,8 @@ def train(
         steps_per_epoch(num_timesteps, num_evals, env_step_per_training_step, num_resets_per_eval, epoch_steps_per_call),
         env_step_per_training_step,
         num_resets_per_eval,
-        profile_dir,
+        profile_dir if main else None,
+        mesh,
     )
     # the rollout's policy forward only: the loss, the normalizer and the
     # master parameters stay float32
@@ -523,7 +653,7 @@ def train(
             unrolls = []
             for _ in range(unrolls_per_step):
                 env_state, data = acting.generate_unroll(
-                    env, env_state, policy, key_train, unroll_length, extra_fields=("truncation",)
+                    env, env_state, policy, train_key, unroll_length, extra_fields=("truncation",)
                 )
                 unrolls.append(data)
             data = _stack_unrolls(unrolls)
@@ -547,10 +677,11 @@ def train(
             key=key,
         )
 
-    evaluator = make_evaluator(environment if eval_env is None else eval_env, key_eval)
-    evaluator_test_set = None
-    if eval_env_test_set is not None:
-        evaluator_test_set = make_evaluator(eval_env_test_set, key_eval_test)
+    evaluator = evaluator_test_set = None
+    if main:  # rank 0 alone evaluates
+        evaluator = make_evaluator(environment if eval_env is None else eval_env, key_eval)
+        if eval_env_test_set is not None:
+            evaluator_test_set = make_evaluator(eval_env_test_set, key_eval_test)
 
     def evaluate(training_metrics: Metrics) -> Metrics:
         metrics = evaluator.run_evaluation(training_state.normalizer_params, training_metrics)
@@ -561,7 +692,7 @@ def train(
         return metrics
 
     def save(step: int) -> None:
-        if ckpt_mgr is not None:
+        if ckpt_mgr is not None and main:
             wrote = ckpt_mgr.save(step, training_state.policy_params(), training_state.state_dict(), config_dict)
             call_checkpoint_callback(checkpoint_callback, step, wrote)
 
@@ -570,7 +701,7 @@ def train(
 
     # ---- initial eval + checkpoint ---------------------------------------
     metrics = {}
-    if num_evals > 1:
+    if num_evals > 1 and main:
         metrics = evaluate({})
         logging.info(metrics)
         progress_fn(start_it, metrics)
@@ -585,8 +716,10 @@ def train(
             training_metrics = epoch(functools.partial(training_step, it))
             current_step = training_state.env_steps
             if num_resets_per_eval > 0:
-                env_state = env.reset(key_env, num_envs)
+                env_state = env.reset(env_key, local_envs)
 
+        if not main:
+            continue
         metrics = evaluate(training_metrics)
         render_interval = config_dict.get("env_config", {}).get("render_interval", 1)
         policy_params_fn(
@@ -602,5 +735,9 @@ def train(
         progress_fn(current_step, metrics)
         save(it)
 
+    mesh_lib.assert_is_replicated(
+        replicated_tensors(training_state), mesh, debug=f"rank {mesh and mesh.rank}, {current_step} thousand env steps"
+    )
     logging.info("total steps: %s", current_step)
+    mesh_lib.synchronize_hosts(mesh)
     return make_policy, training_state.policy_params(), metrics

@@ -7,18 +7,30 @@ standard-normal draws themselves (time-major, [T, B, latents] and
 [T, B, action_size]), or a `torch.Generator` to draw them from; so a test
 can feed the JAX draws. The advantages are normalized with the population
 std (ddof 0, `jnp.std`'s; `torch.std` defaults to ddof 1).
+
+Data parallel (`batch`, a `parallel.mesh.BatchShard`): a rank holds some
+rows of the minibatch; the advantages are normalized over the whole
+minibatch (all-reduced sums) and every mean is this rank's share of the
+mean over the whole minibatch, its sum over the global count, so that the
+ranks' loss terms and gradients sum to the one-process ones. The loss
+terms (`LOSS_TERMS`) are then those shares, to be summed over the ranks.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, NamedTuple, Tuple, Union
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
 from track_mjx_tpu_torch.agent import types
 from track_mjx_tpu_torch.agent.distribution import Noise
 from track_mjx_tpu_torch.envs.base import map_tensors
+from track_mjx_tpu_torch.parallel import mesh
+
+Mean = Callable[[torch.Tensor], torch.Tensor]
+# the metrics of `assemble_ppo_loss` that are means over the minibatch
+LOSS_TERMS = ("total_loss", "policy_loss", "v_loss", "kl_latent_loss", "entropy_loss")
 
 
 class PPONetworkParams(NamedTuple):
@@ -75,19 +87,22 @@ def clipped_surrogate(
     behavior_log_prob: torch.Tensor,
     advantages: torch.Tensor,
     epsilon: float,
+    mean: Mean = torch.mean,
 ) -> torch.Tensor:
     """PPO-clip policy objective (negated: a loss)."""
     ratio = torch.exp(target_log_prob - behavior_log_prob)
     clipped = torch.clamp(ratio, 1.0 - epsilon, 1.0 + epsilon)
-    return -torch.mean(torch.minimum(ratio * advantages, clipped * advantages))
+    return -mean(torch.minimum(ratio * advantages, clipped * advantages))
 
 
-def value_objective(targets: torch.Tensor, baseline: torch.Tensor) -> torch.Tensor:
+def value_objective(targets: torch.Tensor, baseline: torch.Tensor, mean: Mean = torch.mean) -> torch.Tensor:
     """0.25 · MSE, the reference's halved half-quadratic."""
-    return 0.25 * torch.mean(torch.square(targets - baseline))
+    return 0.25 * mean(torch.square(targets - baseline))
 
 
-def gaussian_kl_ar1(mean: torch.Tensor, logvar: torch.Tensor, alpha: float = 0.95) -> torch.Tensor:
+def gaussian_kl_ar1(
+    mean: torch.Tensor, logvar: torch.Tensor, alpha: float = 0.95, reduce: Mean = torch.mean
+) -> torch.Tensor:
     """Mean KL(q_t ‖ p_t) under the AR(1) latent prior over the time axis 0:
     p(z_0) = N(0, I), p(z_t | z_{t-1}) = N(α·mean_{t-1}, (1-α²)·I)."""
     prior_mean = torch.cat([torch.zeros_like(mean[:1]), alpha * mean[:-1]], dim=0)
@@ -101,12 +116,12 @@ def gaussian_kl_ar1(mean: torch.Tensor, logvar: torch.Tensor, alpha: float = 0.9
         + torch.log(prior_var)
         - logvar
     )
-    return 0.5 * torch.mean(kl)
+    return 0.5 * reduce(kl)
 
 
-def gaussian_kl_standard(mean: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:
+def gaussian_kl_standard(mean: torch.Tensor, logvar: torch.Tensor, reduce: Mean = torch.mean) -> torch.Tensor:
     """Mean KL(q ‖ N(0, I))."""
-    return 0.5 * torch.mean(torch.exp(logvar) + torch.square(mean) - 1.0 - logvar)
+    return 0.5 * reduce(torch.exp(logvar) + torch.square(mean) - 1.0 - logvar)
 
 
 # ---------------------------------------------------------------------------
@@ -139,11 +154,14 @@ def assemble_ppo_loss(
     gae_lambda: float,
     clipping_epsilon: float,
     normalize_advantage: bool,
+    batch: Optional[mesh.BatchShard] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The PPO loss over a batch-major Transition [B, T, ...], differentiable
     in the parameters of `ppo_network`'s modules. It is swapped to
     time-major once, for every consumer. A generator given as a noise is
-    drawn from latent first, then entropy."""
+    drawn from latent first, then entropy. With `batch` the rows are this
+    rank's of a minibatch spread over the ranks (module docstring)."""
+    mean = torch.mean if batch is None else batch.mean
     dist = ppo_network.parametric_action_distribution
     data = time_major(data)
     logits, latent_mean, latent_logvar = policy_forward(normalizer_params, data, latent_noise)
@@ -162,18 +180,21 @@ def assemble_ppo_loss(
         lambda_=gae_lambda,
         discount=discounting,
     )
-    if normalize_advantage:
+    if normalize_advantage and batch is None:
         advantages = (advantages - advantages.mean()) / (advantages.std(correction=0) + 1e-8)
+    elif normalize_advantage:
+        advantages = batch.normalize(advantages)
 
     policy_loss = clipped_surrogate(
         dist.log_prob(logits, data.extras["policy_extras"]["raw_action"]),
         data.extras["policy_extras"]["log_prob"],
         advantages,
         clipping_epsilon,
+        mean,
     )
-    v_loss = value_objective(targets, baseline)
-    entropy_loss = -entropy_cost * torch.mean(dist.entropy(logits, entropy_noise))
-    kl_latent_loss = kl_weight * latent_kl(latent_mean, latent_logvar)
+    v_loss = value_objective(targets, baseline, mean)
+    entropy_loss = -entropy_cost * mean(dist.entropy(logits, entropy_noise))
+    kl_latent_loss = kl_weight * latent_kl(latent_mean, latent_logvar, reduce=mean)
 
     total = policy_loss + v_loss + entropy_loss + kl_latent_loss
     return total, {

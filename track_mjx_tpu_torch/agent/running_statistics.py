@@ -3,8 +3,13 @@ denormalize.
 
 Port of track_mjx_tpu/agent/running_statistics.py. The state holds one flat
 observation's statistics as float32 tensors; `update` reduces over every
-leading batch dim of its batch on the batch's device (one device: the JAX
-package's `pmap_axis_name` has no counterpart).
+leading batch dim of its batch on the batch's device, and with a `group`
+(a `parallel.mesh.Mesh`: the batch spread over its ranks) over the whole
+global batch, as the JAX trainer's update under its mesh does: the count
+and the sum of the differences to the old mean are all-reduced, then the
+summed cross terms against the new mean. Every rank ends with the same
+state, the one-process state of the concatenated batch up to the order of
+the sums.
 """
 
 from __future__ import annotations
@@ -14,6 +19,8 @@ import math
 from typing import Optional
 
 import torch
+
+from track_mjx_tpu_torch.parallel import mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,8 +56,10 @@ def update(
     std_max_value: float = 1e6,
     validate_shapes: bool = True,
     mask: Optional[torch.Tensor] = None,
+    group: Optional[mesh.Mesh] = None,
 ) -> RunningStatisticsState:
-    """Welford update over all leading batch dims of `batch` [..., size].
+    """Welford update over all leading batch dims of `batch` [..., size],
+    and with `group` over every rank's batch (module docstring).
 
     `weights` (shaped like the batch dims) weight each sample; dims where
     `mask` > 0 keep their old statistics."""
@@ -59,13 +68,20 @@ def update(
         raise ValueError(f"batch {tuple(batch.shape)} does not end in {tuple(state.mean.shape)}")
     axes = tuple(range(len(batch_dims)))
     step_increment = float(math.prod(batch_dims)) if weights is None else weights.sum()
-    count = state.count + step_increment
-
     diff_to_old_mean = batch - state.mean
     if weights is not None:
         diff_to_old_mean = diff_to_old_mean * weights.reshape(weights.shape + (1,) * (batch.dim() - weights.dim()))
-    new_mean = state.mean + diff_to_old_mean.sum(axes) / count
+    diff_sum = diff_to_old_mean.sum(axes)
+    if group is not None:
+        step_increment, diff_sum = mesh.all_reduce_sum(
+            [torch.as_tensor(step_increment, dtype=torch.float32, device=batch.device), diff_sum], group
+        )
+    count = state.count + step_increment
+
+    new_mean = state.mean + diff_sum / count
     variance_update = (diff_to_old_mean * (batch - new_mean)).sum(axes)
+    if group is not None:
+        (variance_update,) = mesh.all_reduce_sum([variance_update], group)
     # the cross-term sum is non-negative only in exact arithmetic: a constant
     # dim can drive it below zero in float32, and sqrt would NaN its std
     new_summed_variance = torch.clamp(state.summed_variance + variance_update, min=0.0)

@@ -28,11 +28,23 @@ A frame whose camera is not finite (a trackcom camera on a walker that
 blew up) is drawn from the last finite camera pose (empty where there was
 none yet), so the ghost stays in view; an element whose pose is not finite
 is not drawn.
+
+The JAX module's two plotting helpers, `plot_pca_intention_video` (the PCA
+path of a rollout's intentions, drawn by matplotlib, fitted by
+scikit-learn, written by imageio) and `display_video` (a notebook's inline
+HTML video: imageio, IPython), are the JAX functions with their lazy
+imports; without one of their packages they raise an ImportError that names
+it (the card's machine has none of matplotlib, scikit-learn, imageio and
+IPython, so they run on a workstation, not on the card).
 """
 
 from __future__ import annotations
 
+import base64
+import importlib
+import logging
 import os
+import tempfile
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -190,3 +202,83 @@ def render_rollout(
         fps = (1.0 / renderer.snap.opt.timestep) / cfg["env_config"]["env_args"]["physics_steps_per_control_step"]
     frames = renderer.render(torch.as_tensor(qpos, dtype=torch.float32), cfg["env_config"]["render_camera_name"])
     return list(frames), fps
+
+
+def _require(module: str, package: str, what: str):
+    """`import module`, or an ImportError naming the package `what` needs."""
+    try:
+        return importlib.import_module(module)
+    except ImportError as e:
+        raise ImportError(f"{what} needs {package}, which is not installed") from e
+
+
+def _mp4_writable() -> bool:
+    """True when imageio has an mp4 backend (ffmpeg) available."""
+    try:
+        import imageio_ffmpeg  # noqa: F401
+
+        return True
+    except ImportError:
+        return False
+
+
+def plot_pca_intention_video(
+    intentions: np.ndarray,
+    out_path: str,
+    fps: int = 25,
+    n_components: int = 2,
+    trail: int = 50,
+) -> str:
+    """Writes a video of the PCA-projected intention trajectory [T,
+    latents] progressing through time: the whole path faint, the last
+    `trail` steps bold, the current point red (as the JAX function, with
+    the reference's undefined `pca_embedded` fixed: the embedding is fitted
+    once). An mp4 path becomes .gif where imageio has no ffmpeg. Returns the
+    path written."""
+    matplotlib = _require("matplotlib", "matplotlib", "plot_pca_intention_video")
+    matplotlib.use("Agg")
+    imageio = _require("imageio", "imageio", "plot_pca_intention_video")
+    plt = _require("matplotlib.pyplot", "matplotlib", "plot_pca_intention_video")
+    decomposition = _require("sklearn.decomposition", "scikit-learn", "plot_pca_intention_video")
+
+    intentions = np.asarray(intentions)
+    embedded = decomposition.PCA(n_components=n_components).fit_transform(intentions)
+
+    if out_path.endswith(".mp4") and not _mp4_writable():
+        out_path = out_path[:-4] + ".gif"
+        logging.warning("no mp4 backend (ffmpeg); writing %s instead", out_path)
+
+    frames = []
+    fig, ax = plt.subplots(figsize=(5, 5))
+    for t in range(len(embedded)):
+        ax.clear()
+        lo = max(0, t - trail)
+        ax.plot(embedded[: t + 1, 0], embedded[: t + 1, 1], alpha=0.3, lw=0.5)
+        ax.plot(embedded[lo : t + 1, 0], embedded[lo : t + 1, 1], lw=1.5)
+        ax.scatter(embedded[t, 0], embedded[t, 1], c="r", s=20)
+        ax.set_xlim(embedded[:, 0].min() - 0.5, embedded[:, 0].max() + 0.5)
+        ax.set_ylim(embedded[:, 1].min() - 0.5, embedded[:, 1].max() + 0.5)
+        ax.set_title(f"intention PCA (t={t})")
+        fig.canvas.draw()
+        frames.append(np.asarray(fig.canvas.buffer_rgba())[..., :3].copy())
+    plt.close(fig)
+    imageio.mimsave(out_path, frames, fps=fps)
+    return out_path
+
+
+def display_video(frames: List[np.ndarray], fps: int = 30):
+    """Frames as an inline HTML video for a notebook (an mp4, base64 in a
+    <video> tag), or without IPython the base64 text itself, as the JAX
+    function."""
+    imageio = _require("imageio", "imageio", "display_video")
+    with tempfile.NamedTemporaryFile(suffix=".mp4", delete=False) as f:
+        path = f.name
+    imageio.mimsave(path, frames, fps=fps)
+    with open(path, "rb") as f:
+        data = base64.b64encode(f.read()).decode()
+    os.unlink(path)
+    try:
+        from IPython.display import HTML
+    except ImportError:
+        return data
+    return HTML(f'<video controls autoplay loop src="data:video/mp4;base64,{data}"></video>')

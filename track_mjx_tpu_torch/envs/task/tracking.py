@@ -11,7 +11,9 @@ functions of [B, ...] tensors, and physics runs through the port's
   step reads its reference (the current frame and the observation window)
   with one row gather;
 - reset is split: `reset_from_clip` takes the start frame, the clip index
-  and both noises as tensors; `reset(generator, batch_size)` draws them.
+  and both noises as tensors; `reset(generator, batch_size)` draws them
+  (from a `parallel.mesh.Rows` in place of the generator: this rank's rows
+  of the draws at the global batch size);
   The JAX package draws the qpos and the qvel noise from one key
   (`rng1`, reused); the port draws them one after the other from its
   generator, a different random stream (ROADMAP, standing divergences);
@@ -34,6 +36,7 @@ from track_mjx_tpu_torch.envs.base import Env, State, register_environment
 from track_mjx_tpu_torch.envs.task.reward import RewardConfig, compute_tracking_rewards
 from track_mjx_tpu_torch.envs.walker.base import BaseWalker
 from track_mjx_tpu_torch.io.load import ReferenceClip
+from track_mjx_tpu_torch.parallel import mesh
 from track_mjx_tpu_torch.physics import forward as phys_forward
 from track_mjx_tpu_torch.physics import model as phys_model
 
@@ -210,15 +213,15 @@ class SingleClipTracking(Env):
         return phys_forward.n_step(self.plan, self.model, data, self._n_frames)
 
     # ---- reset -----------------------------------------------------------
-    def _uniform(self, rng: torch.Generator, shape) -> torch.Tensor:
+    def _uniform(self, rng: mesh.Key, shape) -> torch.Tensor:
         s = self._reset_noise_scale
-        return -s + 2 * s * torch.rand(shape, generator=rng, device=self.device)
+        return -s + 2 * s * mesh.rand(rng, shape, self.device)
 
-    def reset(self, rng: torch.Generator, batch_size: int) -> State:
+    def reset(self, rng: mesh.Key, batch_size: int) -> State:
         """Single-clip reset: a uniform start frame in the valid range, then
         the qpos and the qvel noise, drawn from `rng` in that order."""
         frame_range = max(self._clip_length - self._random_init_range - self._ref_len, 1)
-        start_frame = torch.randint(0, frame_range, (batch_size,), generator=rng, device=self.device)
+        start_frame = mesh.randint(rng, 0, frame_range, (batch_size,), self.device)
         qpos_noise = self._uniform(rng, (batch_size, self.plan.nq))
         qvel_noise = self._uniform(rng, (batch_size, self.plan.nv))
         return self.reset_from_clip(start_frame, qpos_noise, qvel_noise)
@@ -488,12 +491,12 @@ class MultiClipTracking(SingleClipTracking):
             self._reference_clips = None
             self._n_clips = 0
 
-    def reset(self, rng: torch.Generator, batch_size: int) -> State:
+    def reset(self, rng: mesh.Key, batch_size: int) -> State:
         """Multi-clip reset: start frame from the reference's hard-coded
         44-frame window, a uniform clip, then the qpos and the qvel noise,
         drawn from `rng` in that order."""
-        start_frame = torch.randint(0, 44, (batch_size,), generator=rng, device=self.device)
-        clip_idx = torch.randint(0, self._n_clips, (batch_size,), generator=rng, device=self.device)
+        start_frame = mesh.randint(rng, 0, 44, (batch_size,), self.device)
+        clip_idx = mesh.randint(rng, 0, self._n_clips, (batch_size,), self.device)
         qpos_noise = self._uniform(rng, (batch_size, self.plan.nq))
         qvel_noise = self._uniform(rng, (batch_size, self.plan.nv))
         return self.reset_from_clip(start_frame, qpos_noise, qvel_noise, clip_idx=clip_idx)

@@ -14,6 +14,8 @@ from typing import Any, Dict
 
 import torch
 
+from track_mjx_tpu_torch.parallel import mesh
+
 
 @dataclasses.dataclass(frozen=True)
 class PointMassState:
@@ -30,7 +32,8 @@ class PointMassState:
 
 class PointMassEnv:
     """Point mass on `device`; `reset(generator, batch_size)` draws each
-    position from U(-0.5, 0.5)."""
+    position from U(-0.5, 0.5) (a `parallel.mesh.Rows` as the generator:
+    this rank's rows of the draw)."""
 
     action_size = 2
     observation_size = 4
@@ -44,8 +47,8 @@ class PointMassEnv:
         zero = torch.zeros(pos.shape[0], device=pos.device)
         return PointMassState(x, x, zero, zero, {"reward": zero, "dist": pos.abs().sum(-1)}, {})
 
-    def reset(self, rng: torch.Generator, batch_size: int) -> PointMassState:
-        u = torch.rand((batch_size, 2), generator=rng, device=self.device)
+    def reset(self, rng: mesh.Key, batch_size: int) -> PointMassState:
+        u = mesh.rand(rng, (batch_size, 2), self.device)
         return self.reset_at(u - 0.5)
 
     def step(self, state: PointMassState, action: torch.Tensor) -> PointMassState:

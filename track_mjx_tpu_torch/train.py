@@ -50,14 +50,26 @@ Port of track_mjx_tpu/train.py, both pipelines:
 - `-m/--multirun` runs the cartesian product of comma-separated override
   values one job after another (`expand_multirun`: Hydra's order; a value
   that parses as a JSON list is no sweep; an override without "=" raises,
-  where the JAX one writes "key=").
+  where the JAX one writes "key=");
+- `distributed=true`: data-parallel training, one process per device
+  (parallel/mesh.py, where the JAX CLI calls jax.distributed.initialize()):
+  the process group comes from torchrun's variables (RANK, WORLD_SIZE,
+  LOCAL_RANK, LOCAL_WORLD_SIZE, MASTER_ADDR, MASTER_PORT), else SLURM's,
+  and a rank trains on cuda:LOCAL_RANK over NCCL (with `device=cpu`, on the
+  CPU over gloo). Without them, or where the group's init fails, it
+  raises: nothing trains alone instead. Every rank reads the same run-state
+  records and checkpoint (a barrier follows the discovery, before rank 0
+  writes a new record); rank 0 alone writes the run directory, the
+  checkpoints, the records and the logs, and runs the evals and the
+  logging rollout. The process group is left at the end.
 
 `train_config`'s `rollout_bf16` and `profile_dir` reach the trainers as
-they are. Multi-host `distributed` is not ported (ROADMAP 5d) and is
-refused rather than skipped.
+they are. At the end every process logs its kernels' launch counts
+(`kernel launches: {...}`, the wrappers' `.launches`).
 
 Usage:
     python -m track_mjx_tpu_torch.train [--config-name NAME] [-m] [key.sub=value ...]
+    torchrun --nproc_per_node=N -m track_mjx_tpu_torch.train distributed=true [key.sub=value ...]
 """
 
 from __future__ import annotations
@@ -81,14 +93,25 @@ from track_mjx_tpu_torch.agent.mlp_ppo import ppo_networks as mlp_ppo_networks
 from track_mjx_tpu_torch.analysis import render
 from track_mjx_tpu_torch.envs import wrappers
 from track_mjx_tpu_torch.io import load
+from track_mjx_tpu_torch.ops import batched_linalg, cg_solver_kernel
+from track_mjx_tpu_torch.parallel import mesh as mesh_lib
 from track_mjx_tpu_torch.physics import forward as phys_forward
 from track_mjx_tpu_torch.utils.config import CONFIG_NAME, ConfigDict, load_config
 from track_mjx_tpu_torch.utils.wandb_compat import wandb
 
 
+KERNELS = (
+    cg_solver_kernel.cg_solve, cg_solver_kernel.cg_solve_dense, cg_solver_kernel.ell_cg_solve,
+    cg_solver_kernel.ell_cg_solve_dense, batched_linalg.cholesky, batched_linalg.cho_solve, batched_linalg.solve_spd,
+)
+
+
+def kernel_launches() -> dict:
+    """Each kernel wrapper's launch count in this process."""
+    return {fn.__name__: fn.launches for fn in KERNELS}
+
+
 def _refuse_unported(cfg: ConfigDict) -> None:
-    if cfg.get("distributed"):
-        raise NotImplementedError("distributed: not ported (ROADMAP 5d)")
     train_setup = cfg["train_setup"]
     if train_setup.get("freeze_decoder") and train_setup["train_config"].get("use_lstm"):
         raise NotImplementedError(
@@ -96,20 +119,41 @@ def _refuse_unported(cfg: ConfigDict) -> None:
         )
 
 
-def main(cfg: ConfigDict, progress_fn=None, batch_callback=None, policy_params_fn=None):
+def main(cfg: ConfigDict, progress_fn=None, batch_callback=None, policy_params_fn=None, mesh=None):
     """Runs training from a loaded config; returns (make_policy, (normalizer,
     policy state dict)). `progress_fn(num_steps_thousands, metrics)` is
     called beside the logging of progress; `batch_callback(training_state,
     data, make_learner)` goes to the trainer (`ppo.train`);
     `policy_params_fn`, where given, replaces the per-eval logging rollout
-    (`wandb_logging.rollout_logging_fn`) as the trainer's hook."""
+    (`wandb_logging.rollout_logging_fn`) as the trainer's hook. With
+    `distributed` set the process group comes from the launcher's
+    variables, unless `mesh` (a `parallel.mesh.Mesh` already joined) is
+    given; `mesh` without `distributed` raises."""
     _refuse_unported(cfg)
     cfg = copy.deepcopy(cfg)
     device = cfg.get("device", "cuda")
+    if mesh is not None and not cfg.get("distributed"):
+        raise ValueError("a process group was given, but the config does not set distributed=true")
+    joined = cfg.get("distributed") and mesh is None
+    if joined:
+        mesh = mesh_lib.init_from_env(device)
+    try:
+        return _main(cfg, device if mesh is None else str(mesh.device), mesh, progress_fn, batch_callback,
+                     policy_params_fn)
+    finally:
+        logging.info("kernel launches%s: %s", "" if mesh is None else f" (rank {mesh.rank})",
+                     json.dumps(kernel_launches()))
+        if joined:
+            mesh_lib.destroy(mesh)
+
+
+def _main(cfg: ConfigDict, device: str, mesh, progress_fn, batch_callback, policy_params_fn):
+    main_rank = mesh_lib.is_main(mesh)
     freeze_decoder = bool(cfg["train_setup"].get("freeze_decoder", False))
     store = preemption.RunStateStore(cfg)  # keyed by the config as given, for every record operation
 
     existing_run_state = store.discover()
+    mesh_lib.synchronize_hosts(mesh)  # every rank reads the records before rank 0 writes a new one
     if existing_run_state:
         logging.info("Resuming from existing run: %s", existing_run_state["run_id"])
     elif cfg["train_setup"].get("restore_from_run_state") is not None:
@@ -122,9 +166,11 @@ def main(cfg: ConfigDict, progress_fn=None, batch_callback=None, policy_params_f
     if existing_run_state or (cfg["train_setup"].get("checkpoint_to_restore") is not None and not freeze_decoder):
         checkpoint_to_restore = str(Path(cfg["train_setup"]["checkpoint_to_restore"]).resolve())
         # the checkpoint's stored config is authoritative on resume
+        distributed = cfg.get("distributed")
         cfg = ConfigDict(checkpointing.load_config_from_checkpoint(checkpoint_to_restore))
         cfg["train_setup"]["checkpoint_to_restore"] = checkpoint_to_restore
         cfg["device"] = device
+        cfg["distributed"] = distributed
         checkpoint_path = checkpoint_to_restore
         run_id = os.path.basename(checkpoint_path)
         _refuse_unported(cfg)
@@ -138,11 +184,13 @@ def main(cfg: ConfigDict, progress_fn=None, batch_callback=None, policy_params_f
     cfg_dict = cfg.to_dict()
     logging.info("Configs: %s", cfg_dict)
     train_setup = cfg["train_setup"]
-    ckpt_mgr = checkpointing.CheckpointManager(
-        checkpoint_path,
-        max_to_keep=train_setup.get("checkpoint_max_to_keep"),
-        keep_period=train_setup.get("checkpoint_keep_period"),
-    )
+    ckpt_mgr = None
+    if main_rank:  # rank 0 alone writes the run directory
+        ckpt_mgr = checkpointing.CheckpointManager(
+            checkpoint_path,
+            max_to_keep=train_setup.get("checkpoint_max_to_keep"),
+            keep_period=train_setup.get("checkpoint_keep_period"),
+        )
     logging.info("run_id: %s", run_id)
     logging.info("Training checkpoint path: %s", checkpoint_path)
 
@@ -188,17 +236,19 @@ def main(cfg: ConfigDict, progress_fn=None, batch_callback=None, policy_params_f
         wandb_run_id, wandb_resume = existing_run_state["wandb_run_id"], "must"
     else:
         wandb_run_id, wandb_resume = run_id, "allow"
-    wandb.init(
-        project=logging_config["project_name"],
-        config=cfg_dict,
-        id=wandb_run_id,
-        resume=wandb_resume,
-        group=logging_config["group_name"],
-        dir=str(Path(logging_config["model_path"]).resolve() / "wandb_local"),
-    )
-    if not existing_run_state:
-        store.save(run_id, checkpoint_path, wandb.run.id)
-    checkpoint_callback = store.checkpoint_callback(run_id, checkpoint_path, wandb.run.id)
+    checkpoint_callback = None
+    if main_rank:  # rank 0 alone logs and keeps the run-state record
+        wandb.init(
+            project=logging_config["project_name"],
+            config=cfg_dict,
+            id=wandb_run_id,
+            resume=wandb_resume,
+            group=logging_config["group_name"],
+            dir=str(Path(logging_config["model_path"]).resolve() / "wandb_local"),
+        )
+        if not existing_run_state:
+            store.save(run_id, checkpoint_path, wandb.run.id)
+        checkpoint_callback = store.checkpoint_callback(run_id, checkpoint_path, wandb.run.id)
 
     def progress(num_steps, metrics):
         logging.info("num_steps_thousands %s: %s", num_steps, metrics)
@@ -206,7 +256,7 @@ def main(cfg: ConfigDict, progress_fn=None, batch_callback=None, policy_params_f
         if progress_fn is not None:
             progress_fn(num_steps, metrics)
 
-    if policy_params_fn is None:
+    if policy_params_fn is None and main_rank:  # the trainers call it on rank 0 only
         if use_lstm:
             rollout_env = wrappers.RenderRolloutWrapperTrackingLSTM(
                 env, lstm_features=network_config["hidden_state_size"],
@@ -238,10 +288,12 @@ def main(cfg: ConfigDict, progress_fn=None, batch_callback=None, policy_params_f
         policy_params_fn=policy_params_fn,
         device=device,
         batch_callback=batch_callback,
+        mesh=mesh,
     )
-    wandb.finish()
-    store.clear()
-    logging.info("Training completed successfully, cleaned up run state")
+    if main_rank:
+        wandb.finish()
+        store.clear()
+        logging.info("Training completed successfully, cleaned up run state")
     return make_inference_fn, params
 
 
