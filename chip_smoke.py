@@ -112,7 +112,8 @@ It imports nothing of JAX. Phases, each of which raises on failure:
    KERNEL_REL; every one of them also against the plain version run in
    float64 (KERNEL_VS_F64, over the batch and per env). Both are timed by
    CUDA events beside the plain version and the bound, with
-   cg_solve_dense's registers, shared memory and CTAs per SM. Then
+   cg_solve_dense's registers, shared memory, CTAs per SM, waves and the
+   panels it walks J in. Then
    five rodent paths at 4096 envs, 1 warm-up and 1 timed control step each
    with exact launches per substep and no plain version run: RK4 (cg_solve
    without Euler, 4), implicitfast (cg_solve without Euler and solve_spd, 1
@@ -139,7 +140,8 @@ It imports nothing of JAX. Phases, each of which raises on failure:
    floor and geom 79 at condim 1), with and without the Euler solve, at 1/0
    within FLY_KERNEL_REL and by the float64 rule, at 4/4 by the optimality
    gap; each timed beside its plain version and bound, with the dense
-   mode's registers, shared memory and CTAs per SM. Then three fly paths at
+   mode's registers, shared memory, CTAs per SM, waves and the panels it
+   walks J in. Then three fly paths at
    4096 envs, 1 warm-up and 1 timed control step each with exact launches
    per substep and no plain version run: condim 1 (ell_cg_solve_dense 1;
    condim-1 contacts active), RK4 (ell_cg_solve without Euler, 4) and
@@ -2372,12 +2374,16 @@ class Phases:
         info = (ctypes.c_int * 4)()
         from track_mjx_tpu_torch.ops import kernel_lib
 
-        err = kernel_lib.load_library().cg_solve_dense_kernel_info(plan.nv, e, info)
+        lib = kernel_lib.load_library()
+        err = lib.cg_solve_dense_kernel_info(plan.nv, e, info)
         assert err == 0, f"cg_solve_dense_kernel_info failed with cudaError {err}"
+        panels = (ctypes.c_int * 3)()
+        assert lib.cg_solve_dense_panels(plan.nv, e, panels) == 0
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         print(f"cg_solve_dense kernel at n={plan.nv}, e={e}: {info[3]} threads per CTA (one env), {info[0]} "
               f"registers per thread, {info[1]} B of shared memory per CTA, {info[2]} resident CTAs per SM, "
-              f"{-(-N_ENVS // (info[2] * sms))} waves of {N_ENVS} envs on {sms} SMs ({self.card})")
+              f"{-(-N_ENVS // (info[2] * sms))} waves of {N_ENVS} envs on {sms} SMs; J walked in {panels[1]} panels "
+              f"of at most {panels[0]} rows{' (copied once)' if panels[2] else ''} ({self.card})")
         times = {}
         for we in (True, False):
             out = tk.cg_solve_dense(**inputs, with_euler=we, iterations=its, ls_iterations=ls)
@@ -2615,12 +2621,16 @@ class Phases:
         self.gap_check(inputs, kernel.qacc, plain.qacc, ns, f"ell_cg_solve_dense vs plain, {its}/{ls}")
         del plain
         info = (ctypes.c_int * 4)()
-        err = kernel_lib.load_library().ell_cg_solve_dense_kernel_info(plan.nv, ns, nc, info)
+        lib = kernel_lib.load_library()
+        err = lib.ell_cg_solve_dense_kernel_info(plan.nv, ns, nc, info)
         assert err == 0, f"ell_cg_solve_dense_kernel_info failed with cudaError {err}"
+        panels = (ctypes.c_int * 3)()
+        assert lib.ell_cg_solve_dense_panels(plan.nv, ns, nc, panels) == 0
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         print(f"ell_cg_solve_dense kernel at n={plan.nv}, ns={ns}, nc={nc}: {info[3]} threads per CTA (one env), "
               f"{info[0]} registers per thread, {info[1]} B of shared memory per CTA, {info[2]} resident CTAs per "
-              f"SM, {-(-N_ENVS // (info[2] * sms))} waves of {N_ENVS} envs on {sms} SMs ({self.card})")
+              f"SM, {-(-N_ENVS // (info[2] * sms))} waves of {N_ENVS} envs on {sms} SMs; J walked in {panels[1]} "
+              f"panels of at most {panels[0]} rows{' (copied once)' if panels[2] else ''} ({self.card})")
         times = {}
         for we in (True, False):
             out = tk.ell_cg_solve_dense(**inputs, with_euler=we, iterations=its, ls_iterations=ls)

@@ -3,18 +3,24 @@ built with kDense) and its no-Euler mode: the wrapper and the plain version
 on the CPU, the kernel against its plain version on a CUDA machine. The
 plain version is K2's schedule over a given J, as the compact plain version
 is; tests/test_torch_condim.py holds it to the JAX package's dense-J TPU
-kernel and to the reference's unfused CG. Inputs come from the port's own
+kernel and to the reference's unfused CG. The kernel walks J in panels
+(csrc/j_panels.cuh); `PanelJ` mirrors the walks in torch, held bit for bit
+against the same sums over the whole J and, inside the plain solve, within
+SOLVE_REL of it (tests/test_torch_ell_kernel.py does the same for K3's
+panels of whole cone blocks). Inputs come from the port's own
 forward stages on the rodent-full-clips snapshot, and on the same rodent
 with mixed condims (chip_smoke.mixed_condim), with no jax: this file
 imports none, so that `python -m pytest --noconftest
 tests/test_torch_cg_dense_kernel.py -m cuda` runs the card's tests where
 jax is not installed (README)."""
 
+import numpy as np
 import pytest
 import torch
 
 import chip_smoke
-from torch_parity import SOLVE_REL, contact_rich_states, rel_err
+from test_torch_cg_kernel import _seq_matv
+from torch_parity import SOLVE_REL, assert_close, contact_rich_states, rel_err
 from track_mjx_tpu_torch.ops import batched_linalg as bl
 from track_mjx_tpu_torch.ops import cg_solver_kernel as tk
 
@@ -31,6 +37,74 @@ OUTS = ("qacc_smooth", "qacc", "efc_force", "qfrc_constraint", "qacc_eff")
 # compact kernel is held to SOLVE_REL as well.
 VS_F64 = 3.0
 F64_FLOOR = 1e-6
+# Products whose order the kernel keeps, against the plain version's
+# matmuls, relative to max(1, max |plain|) (tests/test_torch_ell_kernel.py's
+# bar, at sums of up to 73 terms here)
+PRODUCT_REL = 5e-6
+
+
+class PanelJ:
+    """A dense J [B, e, n] walked as the dense kernels walk it (csrc/
+    j_panels.cuh, panels of `tk.j_panels(op, n, e, ns)`): J x panel by
+    panel, each row summed one term at a time in increasing d; J^T f
+    column by column over the panels' rows in order, the partial sums
+    carried from panel to panel. Under `@` it stands in for J in the plain
+    versions (`j @ x[..., None]`, `f[:, None, :] @ j`)."""
+
+    def __init__(self, op: str | None, j: torch.Tensor, ns: int | None = None):
+        """op None: J whole, one panel (the same sums over the whole J)."""
+        self.j, self.shape = j, j.shape
+        cuts = (0, j.shape[1]) if op is None else tk.j_panels(op, j.shape[2], j.shape[1], ns).cuts
+        self.spans = list(zip(cuts[:-1], cuts[1:]))
+
+    def matv(self, x: torch.Tensor) -> torch.Tensor:
+        parts = []
+        for r0, r1 in self.spans:
+            s = torch.zeros(x.shape[0], r1 - r0, dtype=x.dtype)
+            for d in range(self.shape[2]):
+                s = s + self.j[:, r0:r1, d] * x[:, d, None]
+            parts.append(s)
+        return torch.cat(parts, dim=1)
+
+    def matv_t(self, f: torch.Tensor) -> torch.Tensor:
+        s = torch.zeros(f.shape[0], self.shape[2], dtype=f.dtype)
+        for r0, r1 in self.spans:
+            for r in range(r0, r1):
+                s = s + self.j[:, r] * f[:, r, None]
+        return s
+
+    def __matmul__(self, x):
+        return self.matv(x[..., 0])[..., None]
+
+    def __rmatmul__(self, f):
+        return self.matv_t(f[:, 0])[:, None]
+
+
+def assert_panels_cut(p: tk.JPanels, e: int, ns: int, n: int, ring_floats: int):
+    """Panels cover rows 0 .. e - 1 in order, at most p.rows each (a
+    multiple of 3 where there are cone blocks), no boundary inside a cone
+    block; J is copied once where it fits the slots, and the ring within its
+    floats."""
+    cuts = p.cuts
+    assert cuts[0] == 0 and cuts[-1] == e and len(cuts) - 1 == -(-e // p.rows)
+    assert all(0 < b - a <= p.rows for a, b in zip(cuts[:-1], cuts[1:])), cuts
+    assert all(c <= ns or (c - ns) % 3 == 0 for c in cuts), cuts
+    if ns < e:
+        assert p.rows % 3 == 0
+    assert p.resident == (len(cuts) - 1 <= tk.J_SLOTS)
+    assert tk.J_SLOTS * (p.rows * n + 4) <= ring_floats or p.rows == (3 if ns < e else 1)
+
+
+def assert_walks_equal_whole_j(op: str, j: torch.Tensor, x: torch.Tensor, f: torch.Tensor, ns: int | None = None):
+    """The panel walks against the same sums over the whole J, one term at a
+    time (bit for bit), and against the plain matmuls (PRODUCT_REL)."""
+    walk = PanelJ(op, j, ns)
+    got, got_t = walk.matv(x), walk.matv_t(f)
+    assert torch.equal(got, _seq_matv(j, x))
+    assert torch.equal(got_t, _seq_matv(j.transpose(1, 2), f))
+    assert_close("J x", got, (j @ x[..., None])[..., 0], PRODUCT_REL * max(1.0, float(x.abs().max())))
+    assert_close("J^T f", got_t, (f[:, None, :] @ j)[:, 0], PRODUCT_REL * max(1.0, float(f.abs().max())))
+    return walk
 
 
 def _rodent(device: str, n_envs: int, seed: int, mixed: bool):
@@ -109,6 +183,47 @@ def test_cpu_wrapper_runs_the_plain_version(cpu_states):
     for name in OUTS:
         assert torch.equal(getattr(got, name), getattr(want, name)), name
     assert tk.cg_solve_dense.launches == before  # counts kernel launches only
+
+
+# (n, e): the mixed-condim rodent's 228 rows, the default rodent's 187 (not a
+# multiple of the panel), fewer rows than one panel, J copied once in 2
+# panels, one row more, and the widest n
+PANEL_SIZES = ((73, 228), (73, 187), (73, 20), (73, 140), (73, 141), (128, 300))
+
+
+@pytest.mark.parametrize("n, e", PANEL_SIZES)
+def test_panels_cut_the_rows(n, e):
+    p = tk.j_panels("cg_solve_dense", n, e)
+    assert_panels_cut(p, e, e, n, tk.J_RING_FLOATS["cg_solve_dense"])
+    if n == 73:
+        assert p.rows == 70 and p.resident == (e <= 140)
+
+
+@pytest.mark.parametrize("n, e", PANEL_SIZES)
+def test_panel_walks_equal_whole_j_sums(n, e):
+    rng = np.random.RandomState(n + e)
+    j, x, f = (torch.tensor(rng.normal(size=s).astype(np.float32)) for s in ((2, e, n), (2, n), (2, e)))
+    assert_walks_equal_whole_j("cg_solve_dense", j, x, f)
+
+
+@pytest.mark.parametrize("rows", (None, 20, 141))
+def test_panel_walks_in_the_plain_solve(cpu_states, rows):
+    """The plain solve with J's products taken as the kernel's walks take
+    them: bit for bit the solve with the same sums over the whole J, and
+    within SOLVE_REL of the plain version; on the default rodent's 187 rows
+    (3 panels), and its first 20 (one panel) and 141 (3 panels, the last of
+    one row)."""
+    _, dense, its, ls = cpu_states
+    if rows is not None:
+        dense = dict(dense, **{k: dense[k][:, :rows].contiguous() for k in ("J", "aref", "D")})
+    want = tk.cg_solve_dense_plain(**dense, iterations=its, ls_iterations=ls, with_euler=True)
+    qm = tk.assemble_qm(dense["buf"], dense["cdof"], dense["anc"], dense["arm"])
+    got, whole = (tk._pyramidal_plain(qm, PanelJ(op, dense["J"]), dense["aref"], dense["D"], dense["qfrc_smooth"],
+                                      dense["warm"], dense["hd"], dense["tolscale"], its, ls, True)
+                  for op in ("cg_solve_dense", None))
+    for name in OUTS:
+        assert torch.equal(getattr(got, name), getattr(whole, name)), name
+        assert_close(name, getattr(got, name), getattr(want, name), SOLVE_REL[name])
 
 
 @pytest.mark.parametrize("bad", ("J_rows", "J_cols", "dtype", "device_mix", "noncontiguous"))
@@ -229,10 +344,11 @@ def test_cuda_compact_kernel_without_euler(card_states, states):
 
 @pytest.mark.cuda
 def test_cuda_refuses_a_model_over_the_shared_memory():
-    """J lives in shared memory: 600 rows at n = 128 need more than a CTA
-    has, and the wrapper raises before it launches."""
+    """J is walked in panels, but each row's vectors live in shared memory:
+    6,000 rows at n = 128 need more than a CTA has (5,700 fit), and the
+    wrapper raises before it launches."""
     _needs_cuda()
-    n, e = bl.MAX_N, 600
+    n, e = bl.MAX_N, 6000
     args = dict(buf=(1, n, 6), cdof=(1, n, 6), J=(1, e, n), aref=(1, e), D=(1, e), qfrc_smooth=(1, n),
                 warm=(1, n), hd=(1, n), tolscale=(1,), anc=(n, n), arm=(n,))
     before = tk.cg_solve_dense.launches
@@ -240,6 +356,21 @@ def test_cuda_refuses_a_model_over_the_shared_memory():
         tk.cg_solve_dense(**{k: torch.zeros(s, device="cuda") for k, s in args.items()},
                           iterations=5, ls_iterations=5, with_euler=True)
     assert tk.cg_solve_dense.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, e", PANEL_SIZES)
+def test_cuda_dense_panels_match_the_mirror(n, e):
+    """The kernel's panels (cg_solve_dense_panels) are `tk.j_panels`'."""
+    _needs_cuda()
+    import ctypes
+
+    from track_mjx_tpu_torch.ops import kernel_lib
+
+    out = (ctypes.c_int * 3)()
+    assert kernel_lib.load_library().cg_solve_dense_panels(n, e, out) == 0
+    p = tk.j_panels("cg_solve_dense", n, e)
+    assert (out[0], out[1], bool(out[2])) == (p.rows, len(p.cuts) - 1, p.resident)
 
 
 @pytest.mark.cuda
@@ -252,6 +383,6 @@ def test_cuda_dense_kernel_info():
     lib = kernel_lib.load_library()
     info = (ctypes.c_int * 4)()
     assert lib.cg_solve_dense_kernel_info(73, 228, info) == 0
-    assert info[0] > 0 and info[1] == lib.cg_solve_dense_smem_bytes(73, 228) and info[2] >= 1
-    assert info[3] == 128
+    assert info[0] > 0 and info[1] == lib.cg_solve_dense_smem_bytes(73, 228) and info[2] >= 3
+    assert info[0] <= 168 and info[3] == 128
     assert lib.cg_solve_dense_kernel_info(bl.MAX_N + 1, 10, info) != 0

@@ -22,6 +22,9 @@ job in turn; the parent meanwhile computes the one-process references.
   widths): rank 0 alone writes the checkpoint and the run-state record,
   both ranks return the same parameters bit for bit; on the LSTM pipeline
   rank 0's checkpoints hold the whole batch's carry.
+- The CLI's train/test split (`train.split_clips`) at train_subset_ratio
+  0.8 over 40 clips, each rank's numpy stream seeded differently: every
+  rank takes rank 0's clips; without a mesh the draw is the JAX CLI's.
 - No fallback: distributed=true without a launcher's variables raises, so
   do a world size that does not divide num_envs, `max_devices_per_host`
   below the host's ranks and NCCL asked for two ranks on one device; the
@@ -101,6 +104,9 @@ CLI = [
 CLI_LSTM = ["train_setup.train_config.use_lstm=true", "network_config.hidden_state_size=8",
             "network_config.hidden_layer_num=2"]
 LEARN_ENVS = 4  # the learning half's batch of tests/test_torch_trainer.py: 2 unrolls x 4 envs
+# the split job: 40 clips, 0.8 of them for training, each rank's numpy
+# global stream seeded SPLIT_SEED + rank
+SPLIT_CLIPS, SPLIT_RATIO, SPLIT_SEED = 40, 0.8, 100
 
 
 def _factory(pipeline):
@@ -221,8 +227,27 @@ def _job_cli_lstm(mesh, spec):
     return _job_cli(mesh, spec, [*CLI_LSTM, f"logging_config.model_path={spec['lstm_root']}"])
 
 
+def _job_split(mesh, spec):
+    """The clips train.split_clips selects (their original indices), under
+    the mesh and with mesh=None, and generate_train_test_split's, each after
+    seeding numpy's global stream with SPLIT_SEED + rank."""
+    from track_mjx_tpu_torch import train
+    from track_mjx_tpu_torch.io import load
+
+    index = torch.arange(SPLIT_CLIPS, dtype=torch.float32)[:, None]
+    clips = load.ReferenceClip(**{k: index.clone() for k in load.CLIP_KEYS})
+    setup = {"train_subset_ratio": SPLIT_RATIO}
+    out = {}
+    for name, split in (("mesh", lambda: train.split_clips(clips, setup, mesh)),
+                        ("no_mesh", lambda: train.split_clips(clips, setup, None)),
+                        ("generate", lambda: load.generate_train_test_split(clips, test_ratio=1 - SPLIT_RATIO))):
+        np.random.seed(SPLIT_SEED + mesh.rank)
+        out[name] = tuple(c.original_clip_idx[:, 0].clone() for c in split())
+    return out
+
+
 JOBS = {"helpers": _job_helpers, "normalizer": _job_normalizer, "learning_half": _job_learning_half,
-        "trainers": _job_trainers, "cli": _job_cli, "cli_lstm": _job_cli_lstm}
+        "trainers": _job_trainers, "cli": _job_cli, "cli_lstm": _job_cli_lstm, "split": _job_split}
 
 
 def _worker(rank: int, world: int, root: str) -> None:
@@ -486,6 +511,30 @@ def test_cli_distributed_lstm_checkpoints_the_whole_carry(ranks):
     assert [tuple(c.shape) for c in carry] == [(4, 2, 8)] * 2
     assert all(torch.isfinite(c).all() for c in carry) and any(c.abs().max() > 0 for c in carry)
     _assert_bitwise(got[0]["policy"], got[1]["policy"], "policy")
+
+
+def test_ranks_split_the_clips_as_rank_zero(ranks):
+    """Each rank's numpy stream differs, yet under a mesh every rank trains
+    and evaluates on rank 0's clips; with mesh=None each rank's split is its
+    own draw, generate_train_test_split's and the JAX CLI's (the numpy lines
+    of track_mjx_tpu/io/load.py's generate_train_test_split)."""
+    got = _ranks_job(ranks, "split")
+    draws = []
+    for rank, out in enumerate(got):
+        np.random.seed(SPLIT_SEED + rank)
+        indices = np.arange(SPLIT_CLIPS)
+        test = np.random.choice(indices, size=int(SPLIT_CLIPS * (1 - SPLIT_RATIO)), replace=False)
+        draw = (np.sort(indices[~np.isin(indices, test)]), np.sort(test))
+        draws.append(draw)
+        for name in ("no_mesh", "generate"):
+            for part, want in zip(out[name], draw):
+                assert np.array_equal(part.numpy(), want), (rank, name)
+    assert not all(np.array_equal(a, b) for a, b in zip(*draws)), "the ranks drew alike: the test shows nothing"
+    for rank, out in enumerate(got):
+        for part, want in zip(out["mesh"], draws[0]):
+            assert np.array_equal(part.numpy(), want), f"rank {rank} does not split the clips as rank 0"
+    train, test = got[0]["mesh"]
+    assert len(test) == 7 and sorted(train.tolist() + test.tolist()) == list(range(SPLIT_CLIPS))
 
 
 # ---------------------------------------------------------------------------

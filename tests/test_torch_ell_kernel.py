@@ -15,7 +15,11 @@ itself sums vectorized, and is held to it at cho_solve's roundoff bar).
 K3's compact J (each limit
 row its dof, each contact its three frame rows, J^T through a per-dof list
 of limit rows) is held bit for bit against the dense J's sums at the fly's
-sizes and with no contacts. Inputs come from the port's own forward stages
+sizes and with no contacts. The dense-J mode's walks over J in panels of
+whole cone blocks (csrc/j_panels.cuh) are mirrored by
+tests/test_torch_cg_dense_kernel.py's PanelJ: held bit for bit against the
+same sums over the whole J, and inside the plain solve within SOLVE_REL of
+it. Inputs come from the port's own forward stages
 on the fly-mc-intention snapshot. This file imports no jax, so that
 `python -m pytest --noconftest tests/test_torch_ell_kernel.py -m cuda` runs
 the card's tests where jax is not installed (README)."""
@@ -24,8 +28,9 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_cg_dense_kernel import PanelJ, assert_panels_cut, assert_walks_equal_whole_j
 from test_torch_cg_kernel import _seq_matv, _slots, _tri
-from torch_parity import assert_close, rel_err
+from torch_parity import SOLVE_REL, assert_close, rel_err
 from track_mjx_tpu_torch.ops import batched_linalg as bl
 from track_mjx_tpu_torch.ops import cg_solver_kernel as tk
 
@@ -362,6 +367,61 @@ def test_dense_wrapper_checks_its_rows():
                                      D=torch.zeros(1, 0)), ns=0, with_euler=True, iterations=1, ls_iterations=0)
 
 
+# (n, ns, nc): the fly with a condim-1 leg (113 rows: boundaries at 39 and
+# 78 would part the cone blocks of rows 38-40 and 77-79), the fly's own rows, fewer rows
+# than one panel, cone blocks alone, scalar rows alone (J copied once), and
+# the widest n
+ELL_PANEL_SIZES = ((42, 38, 25), (42, 36, 27), (42, 5, 5), (42, 0, 40), (42, 70, 0), (128, 20, 60))
+
+
+@pytest.mark.parametrize("n, ns, nc", ELL_PANEL_SIZES)
+def test_dense_panels_hold_whole_cone_blocks(n, ns, nc):
+    e = ns + 3 * nc
+    p = tk.j_panels("ell_cg_solve_dense", n, e, ns)
+    assert_panels_cut(p, e, ns, n, tk.J_RING_FLOATS["ell_cg_solve_dense"])
+    if (n, ns, nc) == (42, 38, 25):
+        assert p.rows == 39 and p.cuts == (0, 38, 77, 113) and not p.resident
+
+
+@pytest.mark.parametrize("n, ns, nc", ELL_PANEL_SIZES)
+def test_dense_panel_walks_equal_whole_j_sums(n, ns, nc):
+    e = ns + 3 * nc
+    rng = np.random.RandomState(n + e)
+    j, x, f = (torch.tensor(rng.normal(size=s).astype(np.float32)) for s in ((2, e, n), (2, n), (2, e)))
+    assert_walks_equal_whole_j("ell_cg_solve_dense", j, x, f, ns)
+
+
+@pytest.mark.parametrize("name, cut", [("fly", {}), ("nl34", dict(nl=34)), ("nc3", dict(nc=3))])
+def test_dense_panel_walks_in_the_plain_solve(fly, name, cut):
+    """The plain elliptic solve with J's products taken as the dense kernel's
+    walks take them: at the fly's 4/4 bit for bit the solve with the same
+    sums over the whole J, and at 1/0 within SOLVE_REL of the plain version
+    (at 4/4 the linesearch's bracket decisions flip under reassociation:
+    the plain version summed one term at a time parts from its matmuls by
+    1.5e-2 in qacc on one of these 4 envs, in float64 too; chip_smoke.py
+    holds the kernel at 1/0 the same way). The fly's rows as a dense J (36
+    scalar rows, 3 panels), with 34 limit rows (a boundary at 39 would part
+    a cone block) and with 3 contacts (J copied once)."""
+    a = _cut(fly, **cut)
+    j = tk.build_j_ell(a["fq"], a["sw"], a["ll"], a["dm"], a["lim1h"]).contiguous()
+    ns = a["lim1h"].shape[0]
+    qm = tk.assemble_qm(a["buf"], a["cdof"], a["anc"], a["arm"])
+    dense = {k: a[k] for k in ("buf", "cdof", "aref", "D", "mu", "qfrc_smooth", "warm", "hd", "tolscale", "anc",
+                               "arm")}
+
+    def solve(op, its, ls):
+        return tk._elliptic_plain(qm, PanelJ(op, j, ns), a["aref"], a["D"], a["mu"], a["qfrc_smooth"], a["warm"],
+                                  a["hd"], a["tolscale"], ns, its, ls, True)
+
+    got, whole = (solve(op, *fly["its"]) for op in ("ell_cg_solve_dense", None))
+    for out in OUTS:
+        assert torch.equal(getattr(got, out), getattr(whole, out)), out
+    got = solve("ell_cg_solve_dense", 1, 0)
+    want = tk.ell_cg_solve_dense_plain(**dense, J=j, ns=ns, with_euler=True, iterations=1, ls_iterations=0)
+    for out in OUTS:
+        assert_close(out, getattr(got, out), getattr(want, out), SOLVE_REL[out])
+
+
 @pytest.mark.parametrize("op", ("ell_cg_solve", "cho_solve"))
 def test_wrappers_raise_above_the_tiled_range(op):
     """Both kernels keep their factor in the tiles, n <= MAX_N; the check
@@ -562,6 +622,21 @@ def test_cuda_ell_dense_kernel_on_the_compact_rows(card_fly):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n, ns, nc", ELL_PANEL_SIZES)
+def test_cuda_ell_dense_panels_match_the_mirror(n, ns, nc):
+    """The kernel's panels (ell_cg_solve_dense_panels) are `tk.j_panels`'."""
+    _needs_cuda()
+    import ctypes
+
+    from track_mjx_tpu_torch.ops import kernel_lib
+
+    out = (ctypes.c_int * 3)()
+    assert kernel_lib.load_library().ell_cg_solve_dense_panels(n, ns, nc, out) == 0
+    p = tk.j_panels("ell_cg_solve_dense", n, ns + 3 * nc, ns)
+    assert (out[0], out[1], bool(out[2])) == (p.rows, len(p.cuts) - 1, p.resident)
+
+
+@pytest.mark.cuda
 def test_cuda_ell_dense_kernel_info():
     """Registers, shared memory, CTAs per SM and threads of the dense-J
     kernel as built, at the fly condim-1 plan's sizes (n 42, 38 scalar rows,
@@ -574,8 +649,8 @@ def test_cuda_ell_dense_kernel_info():
     lib = kernel_lib.load_library()
     info = (ctypes.c_int * 4)()
     assert lib.ell_cg_solve_dense_kernel_info(42, 38, 25, info) == 0
-    assert info[0] > 0 and info[1] == lib.ell_cg_solve_dense_smem_bytes(42, 38, 25) and info[2] >= 1
-    assert info[3] in (64, 128)
+    assert info[0] > 0 and info[1] == lib.ell_cg_solve_dense_smem_bytes(42, 38, 25) and info[2] >= 8
+    assert info[3] == 64
     assert lib.ell_cg_solve_dense_kernel_info(bl.MAX_N + 1, 0, 1, info) != 0
 
 

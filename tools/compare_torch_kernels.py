@@ -36,6 +36,18 @@ directly:
   path's; the stamps build's cycles per env of each phase on both; each
   build's registers (with ptxas's spills), shared memory, CTAs per SM and
   waves;
+- cg_solve_dense and ell_cg_solve_dense (K2's and K3's dense-J modes):
+  whether this tree's outputs equal the parent's bit for bit, with and
+  without the Euler solve, at the path's iterations and at 1/0, on two
+  state sets each (K2: 4096 rodents with mixed condims from chip_smoke.py's
+  generator, 228 rows, and the default rodent's J of the chip_smoke set
+  above, 187 rows; K3: 4096 flies with a condim-1 leg, seeds 0 and 1, 113
+  rows); both times, with and without the Euler solve, by iterations /
+  ls_iterations as above, and at one and at a full wave of CTAs (132 envs,
+  and the build's CTAs per SM x 132); both builds' cycles per env of each
+  phase (stamps builds of both trees); each build's registers (with
+  ptxas's spills), shared memory, CTAs per SM and waves, and this tree's
+  panels (rows per panel, panels per pass);
 - cho_solve (K4b): whether this tree's output equals the parent's bit for
   bit on the Newton path's qM factor, on a ragged batch of 4095 envs and
   with the factor's strict upper triangle NaN; both times; each build's
@@ -106,15 +118,16 @@ def _load_kernel_lib(root: str, name: str):
     return mod
 
 
-def _ptxas(log: str, kernel: str) -> dict:
+def _ptxas(log: str, kernel: str, dense: bool = False) -> dict:
     """Registers, stack frame and spill bytes of the entry function whose
     name holds `kernel` (and not a longer name ending in it; of a template
     kernel, its instance with the template argument false, the compact
-    mode), from nvcc's -Xptxas -v output."""
+    mode, or with `dense` true), from nvcc's -Xptxas -v output."""
     lines = log.splitlines()
+    instance = "ILb1EE" if dense else "(?:E|ILb0EE)"
     for k, line in enumerate(lines):
         m = re.search(r"Compiling entry function '([^']+)'", line)
-        if m and re.search(rf"\d{kernel}(?:E|ILb0EE)", m.group(1)):
+        if m and re.search(rf"\d{kernel}{instance}", m.group(1)):
             out = {}
             for later in lines[k + 1 : k + 5]:
                 r = re.search(r"Used (\d+) registers", later)
@@ -198,10 +211,133 @@ def _kernel_occupancy(lib, built_log: str, op: str, dims: tuple, n_envs: int) ->
     return out
 
 
+def call_dense(lib, op: str, a: dict, its: int, ls: int, with_euler: bool = True) -> tk.CGOut:
+    """One launch of `{op}_f32` (cg_solve_dense, ell_cg_solve_dense) from
+    `lib` on the inputs `a` (the wrapper's keyword arguments, ns for
+    ell_cg_solve_dense); without `with_euler`, qacc_eff is left unwritten."""
+    names = tk._DENSE_ARG_NAMES if op == "cg_solve_dense" else tk._ELL_DENSE_ARG_NAMES
+    bsz, n = a["qfrc_smooth"].shape
+    e = a["J"].shape[1]
+    dims = (n, e) if op == "cg_solve_dense" else (n, a["ns"], (e - a["ns"]) // 3)
+    out = tk.CGOut(*(torch.empty(bsz, m, device="cuda") for m in (n, n, e, n, n)))
+    err = getattr(lib, f"{op}_f32")(
+        *[a[k].data_ptr() for k in names], out.qacc_smooth.data_ptr(), out.qacc.data_ptr(),
+        out.qfrc_constraint.data_ptr(), out.qacc_eff.data_ptr() if with_euler else None, out.efc_force.data_ptr(),
+        bsz, *dims, its, ls, int(with_euler), torch.cuda.current_stream().cuda_stream,
+    )
+    assert err == 0, f"{op}_f32 failed with cudaError {err}"
+    return out
+
+
+def _dense_occupancy(lib, built_log: str, op: str, dims: tuple, n_envs: int) -> dict:
+    """The occupancy of the dense mode `op` at dims from its kernel_info,
+    ptxas's report of its kernel (the kDense instance of the template kernel,
+    or a kernel `{op}_kernel` of its own), and where the build has them its
+    panels (rows per panel, panels per pass, J copied once)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    info = (ctypes.c_int * 4)()
+    err = getattr(lib, f"{op}_kernel_info")(*dims, info)
+    assert err == 0, f"{op}_kernel_info failed with cudaError {err}"
+    out = dict(registers=info[0], smem=info[1], ctas=info[2], threads=info[3],
+               ctas_by_limits=ctas_per_sm(info[0], info[3], info[1]))
+    out["waves"] = math.ceil(n_envs / (out["ctas"] * sms))
+    try:
+        out["ptxas"] = _ptxas(built_log, op.replace("_dense", "_kernel"), dense=True)
+    except RuntimeError:
+        out["ptxas"] = _ptxas(built_log, f"{op}_kernel")
+    if hasattr(lib, f"{op}_panels"):
+        panels = (ctypes.c_int * 3)()
+        fn = getattr(lib, f"{op}_panels")
+        fn.argtypes = [ctypes.c_int] * len(dims) + [ctypes.c_void_p]
+        assert fn(*dims, panels) == 0
+        out["panels"] = dict(rows=panels[0], per_pass=panels[1], resident=bool(panels[2]))
+    return out
+
+
+def dense_modes(libs: dict, built: dict, stamps_libs: dict, args, card: str) -> dict:
+    """Both dense modes of this tree against the parent's: occupancy,
+    bitwise outputs, times (the module docstring). Its states come from a
+    generator of their own (chip_smoke.py's, seed 0), so the other kernels'
+    states are those of a run without this part."""
+    from track_mjx_tpu_torch.physics import model as tm
+
+    n_envs = chip_smoke.N_ENVS
+    phases = chip_smoke.Phases(card)
+    ts = phases.ts
+    report = {}
+    plan, model = tm.put_model(tm.load_snapshot("rodent-full-clips"), device="cuda")
+    mplan, mmodel = tm.put_model(chip_smoke.mixed_condim(tm.load_snapshot("rodent-full-clips")), device="cuda")
+    d, efc = phases.solver_inputs(mplan, mmodel, *phases.rodent_drop(mplan, mmodel),
+                                  lambda p, m, d, e: (d, e))
+    a = phases.rodent_states(plan, model)
+    j = tk.build_j(a["fq"], a["sw"], a["ll"], a["mu"], a["dm"], a["lim1h"]).contiguous()
+    fplan, fmodel = tm.put_model(chip_smoke.fly_condim1(tm.load_snapshot("fly-mc-intention")), device="cuda")
+    seed1 = chip_smoke.Phases(card)
+    seed1.gen.manual_seed(1)
+    cases = {
+        "cg_solve_dense": ((mplan.iterations, mplan.ls_iterations), {
+            "mixed_condim": ts.dense_solve_inputs(mplan, mmodel, d, efc),
+            "default_rodent": dict({k: a[k] for k in tk._DENSE_ARG_NAMES if k != "J"}, J=j),
+        }),
+        "ell_cg_solve_dense": ((fplan.iterations, fplan.ls_iterations), {
+            "fly_condim1": phases.fly_states(fplan, fmodel, dense=True),
+            "fly_condim1_seed1": seed1.fly_states(fplan, fmodel, dense=True),
+        }),
+    }
+    del d, efc, a, j
+    for op, ((its, ls), sets) in cases.items():
+        first = next(iter(sets.values()))
+        e = first["J"].shape[1]
+        dims = (first["qfrc_smooth"].shape[1], e) if op == "cg_solve_dense" else (
+            first["qfrc_smooth"].shape[1], first["ns"], (e - first["ns"]) // 3)
+        occ = {k: _dense_occupancy(lib, built[k][2], op, dims, n_envs) for k, lib in libs.items()}
+        for k, o in occ.items():
+            _print_occ(op, k, o, n_envs, card)
+        same = {}
+        for what, s in sets.items():
+            for cfg in ((its, ls), (1, 0)):
+                for we in (True, False):
+                    outs = {k: call_dense(lib, op, s, *cfg, with_euler=we) for k, lib in libs.items()}
+                    torch.cuda.synchronize()
+                    key = f"{what} {cfg[0]}/{cfg[1]}" + ("" if we else " without Euler")
+                    names = OUTS if we else OUTS[:4]
+                    out, ref = outs["change"], outs["parent"]
+                    same[key] = all(torch.equal(getattr(out, name), getattr(ref, name)) for name in names)
+                    print(f"{op} on {what} states ({key}), outputs bitwise the parent's: {same[key]}")
+                    if not same[key]:
+                        print("  " + "; ".join(
+                            f"{name} {int((getattr(out, name) != getattr(ref, name)).any(1).sum())} envs, "
+                            f"max rel {chip_smoke._rel(getattr(out, name), getattr(ref, name)):.2e}"
+                            for name in names))
+                    del outs, out, ref
+        times = {}
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        configs = [(cfg, True, n_envs) for cfg in (CONFIGS if op == "cg_solve_dense" else K3_CONFIGS)]
+        configs += [((its, ls), False, n_envs)]
+        configs += [((its, ls), True, b) for b in sorted({sms, *(o["ctas"] * sms for o in occ.values())})]
+        for cfg, we, bsz in configs:
+            key = f"{cfg[0]}/{cfg[1]}" + ("" if we else " without Euler") + ("" if bsz == n_envs else f" at B={bsz}")
+            sub = {k: (v[:bsz].contiguous() if isinstance(v, torch.Tensor) and v.dim() and v.shape[0] == n_envs
+                       else v) for k, v in first.items()}
+            times[key] = timed({k: (lambda lib=lib, cfg=cfg, we=we, sub=sub: call_dense(lib, op, sub, *cfg, we))
+                                for k, lib in libs.items()}, args.reps, args.rounds)
+            print(f"{op} at B={bsz}, {key}: " + "; ".join(
+                f"{k} " + " ".join(f"{t:.4f}" for t in v) + " ms" for k, v in times[key].items()) + f" ({card})")
+        kernel = op.replace("_dense", "")
+        stamps = {k: _stamps(getattr(lib, f"{kernel}_stamps"), lambda lib=lib: call_dense(lib, op, first, its, ls),
+                             PHASES if kernel == "cg_solve" else K3_PHASES,
+                             f"{op} ({k}) phases at B={n_envs}, {its}/{ls}", n_envs, card)
+                  for k, lib in stamps_libs.items()}
+        report[op] = {"occupancy": occ, "bitwise_parent": same, "ms": times, "stamps_cycles_per_env": stamps}
+    del cases
+    return report
+
+
 def _print_occ(name: str, k: str, o: dict, n_envs: int, card: str) -> None:
     print(f"{name} {k}: {o['threads']} threads per CTA (one env), {o['registers']} registers"
           + (f" (ptxas: {o['ptxas']})" if "ptxas" in o else "")
-          + f", {o['smem']} B shared, {o['ctas']} CTAs per SM, {o['waves']} waves of {n_envs} envs ({card})")
+          + f", {o['smem']} B shared, {o['ctas']} CTAs per SM, {o['waves']} waves of {n_envs} envs"
+          + (f", J in panels {o['panels']}" if "panels" in o else "") + f" ({card})")
 
 
 def main_path_fly_states(phases, plan, model) -> dict:
@@ -243,11 +379,13 @@ def main() -> None:
         "parent": parent_kl.build_library,
         "change": kernel_lib.build_library,
         "stamps": lambda: kernel_lib.build_library(("CG_SOLVE_STAMPS=1",)),
+        "parent_stamps": lambda: parent_kl.build_library(("CG_SOLVE_STAMPS=1",)),
     }
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         built = {k: f.result() for k, f in {k: pool.submit(fn) for k, fn in jobs.items()}.items()}
     libs = {"parent": parent_kl.load_library(), "change": kernel_lib.open_library(built["change"][0])}
     stamps_lib = kernel_lib.open_library(built["stamps"][0])
+    stamps_libs = {"parent": parent_kl.open_library(built["parent_stamps"][0]), "change": stamps_lib}
     for k, (_, seconds, _) in built.items():
         print(f"built {k} in {seconds:.1f} s")
 
@@ -261,6 +399,12 @@ def main() -> None:
     its, ls = plan.iterations, plan.ls_iterations
     nl, nc = plan.nlimit, plan.ncon
     report = {"card": card, "k2": {}, "k3": {}, "k4b": {}, "same_as_parent": {}, "ms": {}}
+
+    # the dense modes of K2 and K3
+    report["dense"] = dense_modes(libs, built, stamps_libs, args, card)
+    for op, r in report["dense"].items():
+        report["same_as_parent"][op] = all(r["bitwise_parent"].values())
+        report["ms"][op] = r["ms"]
 
     # K2: occupancy
     occ = {k: _kernel_occupancy(lib, built[k][2], "cg_solve", (plan.nv, nl, nc), n_envs)

@@ -57,13 +57,29 @@
 // - the dense mode (cg_solve_dense_f32, kDense) replaces _cg_kernel with
 //   jb_dims None: J is a dense [e][n] array per env, the rows of pyramidal
 //   plans with condim-1, -4 or -6 contacts beside the limits (the rodent
-//   with mixed condims: about 237 rows, 69 KB). J is copied whole into
-//   shared memory, each row js = n | 1 floats apart, so that a warp's rows
-//   (J x) or columns (J^T f) fall in distinct banks; J x sums each row in
-//   increasing d, J^T f each column in row order. Everything else is the
-//   compact mode's code. About 105 KB of shared memory per env at 237 rows
-//   (2 CTAs per SM), 143 KB at 367 rows (every rodent contact at condim 6,
-//   1 CTA per SM); a model over 227 KB is refused by the wrapper.
+//   with mixed condims: 228 rows, 66.6 KB). J stays in device memory and
+//   every pass over it walks it in panels of rows through two slots of
+//   shared memory (j_panels.cuh), the next panel's copy in flight: J x sums
+//   each row in increasing d, J^T f each column in row order with its
+//   partial sum carried across panels, as over a resident J, so the
+//   outputs are the first dense design's bit for bit. J x walks run
+//   backward and J^T f walks forward, so that each starts on the two
+//   panels the last one ended on. Everything else is the compact mode's
+//   code, but for two passes saved: J of the warm start and of the smooth
+//   start are taken in one walk after the smooth solve, and qfrc is the J^T
+//   f of the last CG pass (the force has not changed since). A dense J in
+//   shared memory (the first dense design) took 66.6 KB beside the CTA's
+//   35.6 KB and held the SM to 2 CTAs; the slots' 40 KB (kJRingFloats: 70
+//   rows of 73, 4 panels a pass at 228 rows) keep 3, as the compact mode
+//   has, at 168 registers (kDenseMinCtas). Device memory is read once
+//   (the resident CTAs' J, 26 MB, stays in L2) and each pass copies 2 of the
+//   4 panels from L2. What it costs beside the compact mode's chain: a J x
+//   pass is 4 rows in series per thread where a resident J took 3 (rows and
+//   M rows over 128 threads), 6 more CTA barriers a CG iteration (12 before),
+//   and the waits for copies asked for one step ahead (PERF.md, Findings).
+//   A model whose J fits in 2 panels is copied once, whole, and walked
+//   without a barrier; the rows' vectors grow with e, so a model over 227
+//   KB (about 8,000 rows at n = 73) is refused by the wrapper.
 // - with_euler = 0 (plans on RK4 or an implicit integrator, as the TPU
 //   kernel's hd=None): no factor of M + diag(hd), no qacc_eff.
 //
@@ -72,17 +88,25 @@
 // (cudaErrorInvalidValue for n > 128); cg_solve_smem_bytes and
 // cg_solve_dense_smem_bytes give the dynamic shared memory one CTA needs;
 // cg_solve_kernel_info and cg_solve_dense_kernel_info its registers, shared
-// memory, resident CTAs per SM and threads; cg_solve_stamps the phase
-// stamps of a build with CG_SOLVE_STAMPS.
+// memory, resident CTAs per SM and threads; cg_solve_dense_panels the
+// panels of its walks over J; cg_solve_stamps the phase stamps of a build
+// with CG_SOLVE_STAMPS.
 
 #include <cuda_runtime.h>
 
 #include "cholesky.cuh"
+#include "j_panels.cuh"
 #include "tiled_cholesky.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
+// The dense mode: J's two slots in shared memory, at most 40 KB, and the
+// resident CTAs per SM asked of the register allocator (168 registers a
+// thread; cg_solve_dense_kernel, below).
+constexpr int kJRingFloats = 10240;
+constexpr int kDenseMinCtas = 3;
+static_assert(kThreads >= kMaxN, "a J^T f walk keeps one column per thread");
 
 __host__ __device__ inline int up4(int k) { return (k + 3) & ~3; }
 
@@ -117,8 +141,8 @@ __device__ unsigned long long g_stamps[kStamps];
 // tiles (before the factor, the staged per-env operands: buf, cdof, sw, fq);
 // the panel inverses; jfr (before it, a copy of lim1h); 5 row vectors; the
 // limit-row tables; mu; 10 dof vectors; the reductions' two buffers. The
-// dense mode (e_dense >= 0 rows of a dense J, nl = nc = 0) keeps J where
-// jfr lies, each row js floats apart, and stages only buf and cdof.
+// dense mode (e_dense >= 0 rows of a dense J, nl = nc = 0) keeps J's slots
+// (j_panels.cuh) where jfr lies and stages only buf and cdof.
 struct Layout {
   int tiles, lreg, dinv, jfr, js, rows, lim, dofs, total;
   __host__ __device__ Layout(int n, int nl, int nc, int e_dense = -1) {
@@ -127,8 +151,9 @@ struct Layout {
     tiles = (int)tiles_floats(n);
     lreg = max(tiles, up4(dense ? 12 * n : 18 * n + 18 * nc));
     dinv = up4(((n + kPanel - 1) / kPanel) * kPanel * kPanel);
-    js = n | 1;  // odd: neighbouring rows in distinct banks
-    jfr = dense ? up4(e * js) : up4(max(3 * nc * js, nl * n));  // lim1h's copy before jfr
+    js = n | 1;  // odd: neighbouring contacts' rows in distinct banks
+    jfr = dense ? JPanels(n, e, e, kJRingFloats).floats()
+                : up4(max(3 * nc * js, nl * n));  // lim1h's copy before jfr
     rows = up4(e);
     lim = up4(nl);
     dofs = up4(n);
@@ -264,50 +289,55 @@ struct Env {
   }
 };
 
-// One env's operands in shared memory, J dense: e rows of n, js apart.
+// One env's operands in shared memory, J dense: walked in panels
+// (j_panels.cuh), each row summed by row_dot.
 struct DenseEnv {
   Tiles M;
-  const float* j;
-  int n, e, js;
+  int n;
 
   __device__ float m_row(const float* v, const float* sub, int i) const {
     return m_row_of(M, n, v, sub, i);
   }
-
-  // (J x)[r] - sub[r] (sub may be null), d in increasing order.
-  __device__ float j_row(const float* x, const float* sub, int r) const {
-    const float* row = j + r * js;
-    float s = 0.f;
-    for (int d = 0; d < n; ++d) s += row[d] * x[d];
-    return sub ? s - sub[r] : s;
-  }
-
-  // base[d] - (J^T f)[d] (base may be null: (J^T f)[d]), rows in order.
-  __device__ float jt_col(const float* f, const float* base, int d) const {
-    float s = 0.f;
-    for (int r = 0; r < e; ++r) s += j[r * js + d] * f[r];
-    return base ? base[d] - s : s;
-  }
 };
 
-// kDense: J is g_j [B][e_dense][n] (the compact operands fq, sw, ll, mu,
-// dm and lim1h are not read, nl = nc = 0); else J is built from them.
-// with_euler = 0 skips the factor of M + diag(hd) and o_eff.
+// sum_d row[d] x[d], d in increasing order (and the same of x2 in the same
+// loop, where kTwo).
+template <bool kTwo>
+__device__ __forceinline__ void row_dot(const float* row, const float* x, const float* x2, int n,
+                                        float& s, float& s2) {
+  s = 0.f;
+  s2 = 0.f;
+  for (int d = 0; d < n; ++d) {
+    s += row[d] * x[d];
+    if constexpr (kTwo) s2 += row[d] * x2[d];
+  }
+}
+
+// The kernels' parameters, and their names as arguments.
+#define CG_SOLVE_PARAMS                                                                          \
+  const float *__restrict__ g_buf, const float *__restrict__ g_cdof,                             \
+      const float *__restrict__ g_fq, const float *__restrict__ g_sw,                            \
+      const float *__restrict__ g_ll, const float *__restrict__ g_mu,                            \
+      const float *__restrict__ g_j, const float *__restrict__ g_aref,                           \
+      const float *__restrict__ g_D, const float *__restrict__ g_qfs,                            \
+      const float *__restrict__ g_warm, const float *__restrict__ g_hd,                          \
+      const float *__restrict__ g_tolscale, const float *__restrict__ anc,                       \
+      const float *__restrict__ arm, const float *__restrict__ dm,                               \
+      const float *__restrict__ lim1h, float *__restrict__ o_smooth,                             \
+      float *__restrict__ o_qacc, float *__restrict__ o_qfrc, float *__restrict__ o_eff,         \
+      float *__restrict__ o_force, int n, int nl, int nc, int e_dense, int iterations,           \
+      int ls_iterations, int with_euler
+#define CG_SOLVE_ARGS                                                                            \
+  g_buf, g_cdof, g_fq, g_sw, g_ll, g_mu, g_j, g_aref, g_D, g_qfs, g_warm, g_hd, g_tolscale, anc, \
+      arm, dm, lim1h, o_smooth, o_qacc, o_qfrc, o_eff, o_force, n, nl, nc, e_dense, iterations,  \
+      ls_iterations, with_euler
+
+// One env's solve, the body of both kernels below. kDense: J is g_j
+// [B][e_dense][n] (the compact operands fq, sw, ll, mu, dm and lim1h are not
+// read, nl = nc = 0); else J is built from them. with_euler = 0 skips the
+// factor of M + diag(hd) and o_eff.
 template <bool kDense>
-__global__ void __launch_bounds__(kThreads)
-cg_solve_kernel(const float* __restrict__ g_buf, const float* __restrict__ g_cdof,
-                const float* __restrict__ g_fq, const float* __restrict__ g_sw,
-                const float* __restrict__ g_ll, const float* __restrict__ g_mu,
-                const float* __restrict__ g_j,
-                const float* __restrict__ g_aref, const float* __restrict__ g_D,
-                const float* __restrict__ g_qfs, const float* __restrict__ g_warm,
-                const float* __restrict__ g_hd, const float* __restrict__ g_tolscale,
-                const float* __restrict__ anc, const float* __restrict__ arm,
-                const float* __restrict__ dm, const float* __restrict__ lim1h,
-                float* __restrict__ o_smooth, float* __restrict__ o_qacc,
-                float* __restrict__ o_qfrc, float* __restrict__ o_eff,
-                float* __restrict__ o_force, int n, int nl, int nc, int e_dense, int iterations,
-                int ls_iterations, int with_euler) {
+__device__ __forceinline__ void cg_solve_body(CG_SOLVE_PARAMS) {
   constexpr int NT = kThreads;
   extern __shared__ __align__(16) float smem[];
   const Layout lay = kDense ? Layout(n, 0, 0, e_dense) : Layout(n, nl, nc);
@@ -356,7 +386,7 @@ cg_solve_kernel(const float* __restrict__ g_buf, const float* __restrict__ g_cdo
 
   const auto env = [&]() {
     if constexpr (kDense) {
-      return DenseEnv{Tiles(M_s, n), jfr, n, e, lay.js};
+      return DenseEnv{Tiles(M_s, n), n};
     } else {
       return Env{Tiles(M_s, n), jfr, mu, ldof, lval, lnext, lfirst, n, nl, nc, lay.js};
     }
@@ -367,9 +397,27 @@ cg_solve_kernel(const float* __restrict__ g_buf, const float* __restrict__ g_cdo
   const float* qfs = g_qfs + b * n;
   const float* hd = g_hd + b * n;
   const float tolscale = g_tolscale[b];
+  // the dense mode: J in device memory, its panels' stream (j_panels.cuh)
+  const JPanels jpan(n, e, e, kJRingFloats);
+  const float* gj = kDense ? g_j + b * e * n : nullptr;
+  JPanels::Stream jst{};
+  // The walks alternate: J x backward, J^T f forward, each starting on the
+  // panel the last one ended on. J^T f of the dense walks: out[d] = base[d]
+  // - (J^T f)[d], and (J^T f)[d] into o_qfrc (the last pass's is qfrc)
+  const auto jt_walk = [&](const float* base, float* out) {
+    float s = 0.f;
+    jpan.walk<NT>(jfr, gj, jst, false, true, [&](int, int r0, int r1, const float* rows) {
+      if (tid < n)
+        for (int r = r0; r < r1; ++r) s += rows[(r - r0) * n + tid] * f[r];
+    });
+    if (tid < n) {
+      out[tid] = base[tid] - s;
+      o_qfrc[b * n + tid] = s;
+    }
+  };
 
-  // 1. every per-env operand and lim1h (dense: J, row by row) into shared
-  // memory, all copies in flight at once (ll into lval)
+  // 1. every per-env operand and lim1h into shared memory, all copies in
+  // flight at once (ll into lval); dense: then J's first panel
   {
     auto copy = [&](float* dst, const float* src, int count) {
       for (int t = tid; t < count; t += NT) cp_async4(dst + t, src + t);
@@ -379,16 +427,14 @@ cg_solve_kernel(const float* __restrict__ g_buf, const float* __restrict__ g_cdo
     copy(x, g_warm + b * n, n);
     copy(s_buf, g_buf + b * 6 * n, 6 * n);
     copy(s_cdof, g_cdof + b * 6 * n, 6 * n);
-    if constexpr (kDense) {
-      const float* gj = g_j + b * e * n;
-      for (int t = tid; t < e * n; t += NT) cp_async4(jfr + (t / n) * lay.js + t % n, gj + t);
-    } else {
+    if constexpr (!kDense) {
       copy(mu, g_mu + b * 2 * nc, 2 * nc);
       copy(lval, g_ll + b * nl, nl);
       copy(s_sw, g_sw + b * 6 * n, 6 * n);
       copy(s_fq, g_fq + b * 18 * nc, 18 * nc);
       copy(jfr, lim1h, nl * n);
     }
+    if constexpr (kDense) jst = jpan.start<NT>(jfr, gj, true);
     asm volatile("cp.async.wait_all;\n" ::: "memory");
   }
   __syncthreads();
@@ -489,7 +535,7 @@ cg_solve_kernel(const float* __restrict__ g_buf, const float* __restrict__ g_cdo
   STAMP(3);
 
   // 2. factor qM, its panel inverses; the solo warp solves qacc_smooth
-  // while the others take jar of the warm start
+  // while the others take jar of the warm start (dense: in step 3's walk)
   tiled_factor<NT>(L, n, solo);
   STAMP(4);
   invert_diag_blocks<NT>(L, dinv, n);
@@ -497,7 +543,7 @@ cg_solve_kernel(const float* __restrict__ g_buf, const float* __restrict__ g_cdo
   STAMP(5);
   if (warp == solo) {
     warp_pinv_solve(L, dinv, qfs, smooth, y, n);
-  } else {
+  } else if constexpr (!kDense) {
     const int other = ((warp - solo - 1 + NT / 32) % (NT / 32)) * 32 + lane;
     for (int r = other; r < e; r += NT - 32) jar[r] = env.j_row(x, aref, r);
   }
@@ -506,11 +552,29 @@ cg_solve_kernel(const float* __restrict__ g_buf, const float* __restrict__ g_cdo
 
   // 3. warm start vs smooth start, the cheaper per env; cost(smooth) has no
   // quadratic term. mdx = M (warm - smooth), jp = jar of smooth.
-  for (int t = tid; t < n + e; t += NT) {
-    if (t < n) {
-      mdx[t] = env.m_row(x, smooth, t);
-    } else {
-      jp[t - n] = env.j_row(smooth, aref, t - n);
+  if constexpr (kDense) {  // jar and jp of each row at once
+    jpan.walk<NT>(jfr, gj, jst, true, false, [&](int k, int r0, int r1, const float* rows) {
+      const int2 mr = jpan.m_rows(k);
+      const int m = mr.y - mr.x;
+      for (int t = tid; t < m + r1 - r0; t += NT) {
+        if (t < m) {
+          mdx[mr.x + t] = env.m_row(x, smooth, mr.x + t);
+        } else {
+          const int r = r0 + t - m;
+          float sx, ss;
+          row_dot<true>(rows + (t - m) * n, x, smooth, n, sx, ss);
+          jar[r] = sx - aref[r];
+          jp[r] = ss - aref[r];
+        }
+      }
+    });
+  } else {
+    for (int t = tid; t < n + e; t += NT) {
+      if (t < n) {
+        mdx[t] = env.m_row(x, smooth, t);
+      } else {
+        jp[t - n] = env.j_row(smooth, aref, t - n);
+      }
     }
   }
   __syncthreads();
@@ -539,7 +603,11 @@ cg_solve_kernel(const float* __restrict__ g_buf, const float* __restrict__ g_cdo
   __syncthreads();
   STAMP(8);
   // grad = M dx - J^T force; mgrad = (L L^T)^-1 grad; p = -mgrad
-  for (int d = tid; d < n; d += NT) grad[d] = env.jt_col(f, mdx, d);
+  if constexpr (kDense) {
+    jt_walk(mdx, grad);
+  } else {
+    for (int d = tid; d < n; d += NT) grad[d] = env.jt_col(f, mdx, d);
+  }
   __syncthreads();
   STAMP(9);
   float imp = 1.f;
@@ -552,11 +620,27 @@ cg_solve_kernel(const float* __restrict__ g_buf, const float* __restrict__ g_cdo
 
   // 4. PR-CG with Newton linesearch; converged envs take zero-length steps.
   for (int it = 0; it < iterations; ++it) {
-    for (int t = tid; t < n + e; t += NT) {
-      if (t < n) {
-        mp[t] = env.m_row(p, nullptr, t);
-      } else {
-        jp[t - n] = env.j_row(p, nullptr, t - n);
+    if constexpr (kDense) {
+      jpan.walk<NT>(jfr, gj, jst, true, false, [&](int k, int r0, int r1, const float* rows) {
+        const int2 mr = jpan.m_rows(k);
+        const int m = mr.y - mr.x;
+        for (int t = tid; t < m + r1 - r0; t += NT) {
+          if (t < m) {
+            mp[mr.x + t] = env.m_row(p, nullptr, mr.x + t);
+          } else {
+            float s, unused;
+            row_dot<false>(rows + (t - m) * n, p, nullptr, n, s, unused);
+            jp[r0 + t - m] = s;
+          }
+        }
+      });
+    } else {
+      for (int t = tid; t < n + e; t += NT) {
+        if (t < n) {
+          mp[t] = env.m_row(p, nullptr, t);
+        } else {
+          jp[t - n] = env.j_row(p, nullptr, t - n);
+        }
       }
     }
     __syncthreads();
@@ -599,7 +683,11 @@ cg_solve_kernel(const float* __restrict__ g_buf, const float* __restrict__ g_cdo
     }
     __syncthreads();
     STAMP(13);
-    for (int d = tid; d < n; d += NT) v0[d] = env.jt_col(f, mdx, d);  // new gradient
+    if constexpr (kDense) {  // new gradient
+      jt_walk(mdx, v0);
+    } else {
+      for (int d = tid; d < n; d += NT) v0[d] = env.jt_col(f, mdx, d);
+    }
     __syncthreads();
     STAMP(14);
     if (warp == solo) warp_pinv_solve(L, dinv, v0, v1, y, n);  // new preconditioned gradient
@@ -624,15 +712,22 @@ cg_solve_kernel(const float* __restrict__ g_buf, const float* __restrict__ g_cdo
     STAMP(16);
   }
 
-  // 5. force (f = force of jar since the last update), qfrc = J^T force;
-  // Euler: factor M + diag(hd), solve qacc_eff from qfrc_smooth + qfrc
+  // 5. force (f = force of jar since the last update), qfrc = J^T force
+  // (dense: the last walk's, written to o_qfrc by this thread; the stream's
+  // copies beyond it end); Euler: factor M + diag(hd), solve qacc_eff from
+  // qfrc_smooth + qfrc
+  if constexpr (kDense) asm volatile("cp.async.wait_all;\n" ::: "memory");
   for (int r = tid; r < e; r += NT) o_force[b * e + r] = f[r];
   for (int d = tid; d < n; d += NT) {
-    v0[d] = env.jt_col(f, nullptr, d);
+    if constexpr (kDense) {
+      v0[d] = o_qfrc[b * n + d];
+    } else {
+      v0[d] = env.jt_col(f, nullptr, d);
+    }
     v1[d] = qfs[d] + v0[d];
     o_smooth[b * n + d] = smooth[d];
     o_qacc[b * n + d] = x[d];
-    o_qfrc[b * n + d] = v0[d];
+    if constexpr (!kDense) o_qfrc[b * n + d] = v0[d];
   }
   if (!with_euler) return;  // the same for every thread of the CTA
   for (int t = tid; t < lay.tiles / 4; t += NT)
@@ -652,6 +747,31 @@ cg_solve_kernel(const float* __restrict__ g_buf, const float* __restrict__ g_cdo
   STAMP(19);
 }
 
+// The compact mode keeps ptxas's own register choice (168 registers, with
+// 56 B of spills); the dense mode asks for kDenseMinCtas CTAs per SM of the
+// register allocator. On an NVIDIA H100: left to ptxas, the dense mode
+// spilled 92 B and ran 7% slower; asked of the compact mode, 3 CTAs ran
+// 1.5% slower and 1 took 209 registers (2 CTAs per SM, 36% slower).
+__global__ void __launch_bounds__(kThreads) cg_solve_kernel(CG_SOLVE_PARAMS) {
+  cg_solve_body<false>(CG_SOLVE_ARGS);
+}
+
+__global__ void __launch_bounds__(kThreads, kDenseMinCtas) cg_solve_dense_kernel(CG_SOLVE_PARAMS) {
+  cg_solve_body<true>(CG_SOLVE_ARGS);
+}
+
+#undef CG_SOLVE_PARAMS
+#undef CG_SOLVE_ARGS
+
+template <bool kDense>
+constexpr auto kernel_of() {
+  if constexpr (kDense) {
+    return cg_solve_dense_kernel;
+  } else {
+    return cg_solve_kernel;
+  }
+}
+
 }  // namespace
 
 extern "C" long cg_solve_smem_bytes(int n, int nl, int nc) {
@@ -665,19 +785,18 @@ extern "C" long cg_solve_dense_smem_bytes(int n, int e) {
 namespace {
 
 // info[0..3] = registers per thread, dynamic shared memory per CTA (bytes),
-// resident CTAs per SM and threads per CTA (one env) of cg_solve_kernel<kDense>
-// with smem bytes of dynamic shared memory, as built.
+// resident CTAs per SM and threads per CTA (one env) of the kDense mode's
+// kernel with smem bytes of dynamic shared memory, as built.
 template <bool kDense>
 int kernel_info(long smem, int* info) {
-  cudaError_t err = cudaFuncSetAttribute(cg_solve_kernel<kDense>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const auto kernel = kernel_of<kDense>();
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, cg_solve_kernel<kDense>);
+  err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return (int)err;
   int ctas = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, cg_solve_kernel<kDense>, kThreads,
-                                                      (size_t)smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel, kThreads, (size_t)smem);
   if (err != cudaSuccess) return (int)err;
   info[0] = attr.numRegs;
   info[1] = (int)smem;
@@ -698,10 +817,10 @@ int launch(const float* buf, const float* cdof, const float* fq, const float* sw
       ls_iterations < 0 || (kDense && e_dense <= 0) || (with_euler && !qacc_eff))
     return (int)cudaErrorInvalidValue;
   const long smem = kDense ? cg_solve_dense_smem_bytes(n, e_dense) : cg_solve_smem_bytes(n, nl, nc);
-  cudaError_t err = cudaFuncSetAttribute(
-      cg_solve_kernel<kDense>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const auto kernel = kernel_of<kDense>();
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  cg_solve_kernel<kDense><<<batch, kThreads, smem, (cudaStream_t)stream>>>(
+  kernel<<<batch, kThreads, smem, (cudaStream_t)stream>>>(
       buf, cdof, fq, sw, ll, mu, j, aref, D, qfrc_smooth, warm, hd, tolscale, anc, arm, dm,
       lim1h, qacc_smooth, qacc, qfrc_constraint, qacc_eff, efc_force, n, nl, nc, e_dense,
       iterations, ls_iterations, with_euler);
@@ -722,6 +841,17 @@ extern "C" int cg_solve_kernel_info(int n, int nl, int nc, int* info) {
 extern "C" int cg_solve_dense_kernel_info(int n, int e, int* info) {
   if (n <= 0 || n > kMaxN || e <= 0) return (int)cudaErrorInvalidValue;
   return kernel_info<true>(cg_solve_dense_smem_bytes(n, e), info);
+}
+
+// out[0..2] = rows per panel, panels per pass and 1 if J is copied once,
+// whole, of cg_solve_dense's walks over J (j_panels.cuh) at n and e rows.
+extern "C" int cg_solve_dense_panels(int n, int e, int* out) {
+  if (n <= 0 || n > kMaxN || e <= 0) return (int)cudaErrorInvalidValue;
+  const JPanels p(n, e, e, kJRingFloats);
+  out[0] = p.rows;
+  out[1] = p.np;
+  out[2] = p.resident;
+  return 0;
 }
 
 // out[0..kStamps) = the phase stamps' cycles summed over every CTA since the

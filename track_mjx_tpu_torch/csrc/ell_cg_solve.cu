@@ -82,14 +82,30 @@
 //   first ns rows unilateral scalar rows of any content (limits and
 //   condim-1 contacts), then the cone blocks (elliptic plans with condim-1
 //   contacts beside the cone blocks: the fly with a condim-1 leg, 113 rows).
-//   J is copied whole into shared memory where jfr lies, each row js = n | 1
-//   floats apart, so that a warp's rows (J x) or columns (J^T f) fall in
-//   distinct banks; buf and cdof are staged in L's region instead. A thread
-//   still takes a scalar row or a whole cone block in the row passes; J x
-//   sums each row in increasing d, J^T f each column in row order. The
-//   per-dof limit lists do not apply. Everything else is the compact
-//   mode's code. About 33.5 KB of shared memory per env at the fly's 113
-//   rows (6 CTAs per SM against the compact mode's 8).
+//   J stays in device memory and every pass over it walks it in panels of
+//   whole items (a cone block's three rows never part) through two slots of
+//   shared memory (j_panels.cuh), the next panel's copy in flight; buf and
+//   cdof are staged in L's region. In the row passes a thread takes a row
+//   (a block's three rows are three sums, each its own), and the cone
+//   forces follow the jar pass behind a barrier; J x sums each row in
+//   increasing d, J^T f each column in row order with its partial sum
+//   carried across panels, as over a resident J, so the outputs are the
+//   first dense design's bit for bit. The per-dof limit lists do not apply.
+//   Each walk starts on the panels the last one ended on (J p forward, jar
+//   backward, J^T f forward) but the J p walk, whose first panel is copied
+//   while the solo warp solves. Everything else is the compact mode's code,
+//   but for two passes saved: jar of the warm start and of the smooth start
+//   are taken in one walk after the smooth solve, and qfrc is the J^T f of
+//   the last CG pass (the force has not changed since). A dense J in shared
+//   memory (the first dense design) took 19.4 KB beside the CTA's 14.1 KB
+//   and held the SM to 6 CTAs; the slots' 13.2 KB (kJRingFloats: 39 rows of
+//   42, 3 panels a pass at 113 rows) keep the compact mode's 8. What it
+//   costs: a J x pass is 3 rows in series per thread where a resident J took
+//   2 items, 8 more CTA barriers a CG iteration (ls_iterations + 7 before),
+//   and the waits for copies asked for one step ahead (PERF.md, Findings).
+//   Device memory is read once (the resident CTAs' J, 20 MB, stays in L2). A
+//   model whose J fits in 2 panels is copied once, whole, and walked
+//   without a barrier.
 // - with_euler = 0 (plans on RK4 or an implicit integrator, as the TPU
 //   kernel's hd=None), in both modes: no factor of M + diag(hd), no
 //   qacc_eff; the other four outputs are the with-Euler launch's bits.
@@ -100,13 +116,15 @@
 // ell_cg_solve_smem_bytes and ell_cg_solve_dense_smem_bytes give the dynamic
 // shared memory one CTA needs; ell_cg_solve_kernel_info and
 // ell_cg_solve_dense_kernel_info its registers, shared memory, resident CTAs
-// per SM and threads; ell_cg_solve_stamps the phase stamps of a build with
+// per SM and threads; ell_cg_solve_dense_panels the panels of its walks
+// over J; ell_cg_solve_stamps the phase stamps of a build with
 // CG_SOLVE_STAMPS.
 
 #include <cfloat>
 #include <cuda_runtime.h>
 
 #include "cholesky.cuh"
+#include "j_panels.cuh"
 #include "tiled_cholesky.cuh"
 
 namespace {
@@ -116,6 +134,10 @@ namespace {
 // fly's 28,096 B of shared memory lets 8 CTAs share an SM.
 constexpr int kThreads = 64;
 constexpr int kMinCtas = 8;
+// The dense mode: J's two slots in shared memory, at most 13.3 KB, and the
+// dof columns of a J^T f walk per thread.
+constexpr int kJRingFloats = 3400;
+constexpr int kJtCols = (kMaxN + kThreads - 1) / kThreads;
 
 __host__ __device__ inline int up4(int k) { return (k + 3) & ~3; }
 
@@ -150,15 +172,16 @@ __device__ unsigned long long g_stamps[kStamps];
 // tiles (before the factor, the staged sw and fq); jfr (before it, the
 // staged buf, cdof and lim1h); 6 row vectors; the limit-row tables; mu and
 // 1 + mu^2; 10 dof vectors; the reductions' two buffers and one flag. The
-// dense mode (nl = ns scalar rows) keeps J where jfr lies, each row js
-// floats apart, and stages buf and cdof in L's region.
+// dense mode (nl = ns scalar rows) keeps J's slots (j_panels.cuh) where jfr
+// lies and stages buf and cdof in L's region.
 struct Layout {
   int tiles, lreg, jfr, js, rows, lim, dofs, cons, total;
   __host__ __device__ Layout(int n, int nl, int nc, bool dense = false) {
     tiles = (int)tiles_floats(n);
     lreg = max(tiles, up4(dense ? 12 * n : 6 * n + 18 * nc));
-    js = n | 1;  // odd: neighbouring contacts' (dense: rows') rows in distinct banks
-    jfr = dense ? up4((nl + 3 * nc) * js) : up4(max(3 * nc * js, 12 * n + nl * n));
+    js = n | 1;  // odd: neighbouring contacts' rows in distinct banks
+    jfr = dense ? JPanels(n, nl + 3 * nc, nl, kJRingFloats).floats()
+                : up4(max(3 * nc * js, 12 * n + nl * n));
     rows = up4(nl + 3 * nc);
     lim = up4(nl);
     dofs = up4(n);
@@ -218,11 +241,12 @@ __device__ __forceinline__ float cone_cost(const Zone& z, float mu, float mu2p1)
 // One env's operands in shared memory. An item k < nl + nc is scalar row k
 // (k < nl) or the cone block of contact k - nl, rows nl + 3 (k - nl) + 0..2.
 // Compact: the scalar rows are limit rows, J the limit tables and jfr;
-// kDense: J is dense, jfr its rows js apart, the limit tables unused.
+// kDense: J is dense, walked in panels (j_panels.cuh, j_row_at), jfr its
+// slots; the limit tables unused.
 template <bool kDense>
 struct Env {
   Tiles M;
-  const float* jfr;    // [nc][3][js]: jfr0, jfr1, jfr2 of each contact (kDense: [nl + 3 nc][js])
+  const float* jfr;    // [nc][3][js]: jfr0, jfr1, jfr2 of each contact
   const float *D, *sq, *mu, *mu2p1;
   const int* ldof;     // limit row -> its dof
   const float* lval;   // limit row -> its J value
@@ -257,21 +281,31 @@ struct Env {
     return s;
   }
 
+  // kDense: out[r] = (J x)[r] - sub[r] (sub may be null) for row r, at row
+  // in shared memory, summed in increasing d; where kTwo also out2[r] = (J
+  // x2)[r] - sub[r] in the same loop.
+  template <bool kTwo>
+  __device__ __forceinline__ void j_row_at(const float* row, const float* x, const float* x2,
+                                           const float* sub, int r, float* out, float* out2) const {
+    float s = 0.f, t = 0.f;
+    for (int d = 0; d < n; ++d) {
+      s += row[d] * x[d];
+      if constexpr (kTwo) t += row[d] * x2[d];
+    }
+    out[r] = sub ? s - sub[r] : s;
+    if constexpr (kTwo) out2[r] = sub ? t - sub[r] : t;
+  }
+
   // out[r] = (J x)[r] - sub[r] (sub may be null) for item k's rows, each
-  // row summed in increasing d.
+  // row summed in increasing d (compact).
   __device__ __forceinline__ void j_item(const float* x, const float* sub, int k, float* out) const {
     if (k < nl) {
       float s = 0.f;
-      if constexpr (kDense) {
-        const float* row = jfr + k * js;
-        for (int d = 0; d < n; ++d) s += row[d] * x[d];
-      } else {
-        s += lval[k] * x[ldof[k]];
-      }
+      s += lval[k] * x[ldof[k]];
       out[k] = sub ? s - sub[k] : s;
     } else {
       const int c = k - nl, r = nl + 3 * c;
-      const float* j0 = jfr + (kDense ? r : 3 * c) * js;
+      const float* j0 = jfr + 3 * c * js;
       float s0 = 0.f, s1 = 0.f, s2 = 0.f;
       for (int d = 0; d < n; ++d) {
         s0 += j0[d] * x[d];
@@ -285,21 +319,16 @@ struct Env {
   }
 
   // base[d] - (J^T f)[d] (base may be null: (J^T f)[d]): d's limit rows in
-  // row order, then every contact's three rows in order (kDense: every row
-  // in order).
+  // row order, then every contact's three rows in order (compact).
   __device__ __forceinline__ float jt_col(const float* f, const float* base, int d) const {
     float s = 0.f;
-    if constexpr (kDense) {
-      for (int r = 0; r < nl + 3 * nc; ++r) s += jfr[r * js + d] * f[r];
-    } else {
-      for (int r = lfirst[d]; r >= 0; r = lnext[r]) s += lval[r] * f[r];
-      for (int c = 0; c < nc; ++c) {
-        const float* j0 = jfr + 3 * c * js + d;
-        const float* fr = f + nl + 3 * c;
-        s += j0[0] * fr[0];
-        s += j0[js] * fr[1];
-        s += j0[2 * js] * fr[2];
-      }
+    for (int r = lfirst[d]; r >= 0; r = lnext[r]) s += lval[r] * f[r];
+    for (int c = 0; c < nc; ++c) {
+      const float* j0 = jfr + 3 * c * js + d;
+      const float* fr = f + nl + 3 * c;
+      s += j0[0] * fr[0];
+      s += j0[js] * fr[1];
+      s += j0[2 * js] * fr[2];
     }
     return base ? base[d] - s : s;
   }
@@ -509,9 +538,58 @@ ell_cg_solve_kernel(const float* __restrict__ g_buf, const float* __restrict__ g
   const float* qfs = g_qfs + b * n;
   const float* hd = g_hd + b * n;
   const float tolscale = g_tolscale[b];
+  // the dense mode: J in device memory, its panels' stream (j_panels.cuh)
+  const JPanels jpan(n, e, nl, kJRingFloats);
+  const float* gj = kDense ? g_j + b * e * n : nullptr;
+  JPanels::Stream jst{};
+  // a dense walk of the row passes, backward or forward (`next_backward`:
+  // the next walk's way). Each walk starts where the last one ended but the
+  // J p walk, which follows the solo warp's solve: the first panel's copy
+  // has that long to land. m_row(i) for each of the M rows that go with a
+  // panel (JPanels::m_rows), j_row(r, row r in shared memory) for each row
+  // of the panel: a thread a row, not a cone block (a block's three rows
+  // are three sums of their own; a thread a block left 50 of 64 threads
+  // idle in a panel of blocks)
+  const auto row_walk = [&](bool backward, bool next_backward, auto m_row, auto j_row) {
+    jpan.walk<NT>(jfr, gj, jst, backward, next_backward, [&](int k, int r0, int r1, const float* rows) {
+      const int2 mr = jpan.m_rows(k);
+      const int m = mr.y - mr.x;
+      for (int t = tid; t < m + r1 - r0; t += NT) {
+        if (t < m) {
+          m_row(mr.x + t);
+        } else {
+          j_row(r0 + t - m, rows + (t - m) * n);
+        }
+      }
+    });
+  };
+  // J^T f of the dense walks: out[d] = base[d] - (J^T f)[d], and (J^T f)[d]
+  // into o_qfrc (the last pass's is qfrc)
+  const auto jt_walk = [&](const float* base, float* out) {
+    float s[kJtCols];
+#pragma unroll
+    for (int q = 0; q < kJtCols; ++q) s[q] = 0.f;
+    jpan.walk<NT>(jfr, gj, jst, false, false, [&](int, int r0, int r1, const float* rows) {
+#pragma unroll
+      for (int q = 0; q < kJtCols; ++q) {
+        const int d = tid + q * NT;
+        if (d < n)
+          for (int r = r0; r < r1; ++r) s[q] += rows[(r - r0) * n + d] * f[r];
+      }
+    });
+#pragma unroll
+    for (int q = 0; q < kJtCols; ++q) {
+      const int d = tid + q * NT;
+      if (d < n) {
+        out[d] = base[d] - s[q];
+        o_qfrc[b * n + d] = s[q];
+      }
+    }
+  };
 
-  // 1. the per-env operands and lim1h (kDense: J, row by row) into shared
-  // memory, all copies in flight at once (warm into x, ll into lval)
+  // 1. the per-env operands and lim1h into shared memory, all copies in
+  // flight at once (warm into x, ll into lval); kDense: then J's first
+  // panel
   {
     auto copy = [&](float* dst, const float* src, int count) {
       for (int t = tid; t < count; t += NT) cp_async4(dst + t, src + t);
@@ -523,14 +601,12 @@ ell_cg_solve_kernel(const float* __restrict__ g_buf, const float* __restrict__ g
     copy(x, g_warm + b * n, n);
     copy(s_buf, g_buf + b * 6 * n, 6 * n);
     copy(s_cdof, g_cdof + b * 6 * n, 6 * n);
-    if constexpr (kDense) {
-      const float* gj = g_j + b * e * n;
-      for (int t = tid; t < e * n; t += NT) cp_async4(jfr + (t / n) * lay.js + t % n, gj + t);
-    } else {
+    if constexpr (!kDense) {
       copy(s_sw, g_sw + b * 6 * n, 6 * n);
       copy(s_fq, g_fq + b * 18 * nc, 18 * nc);
       copy(s_lim1h, lim1h, nl * n);
     }
+    if constexpr (kDense) jst = jpan.start<NT>(jfr, gj, true);
     asm volatile("cp.async.wait_all;\n" ::: "memory");
   }
   __syncthreads();
@@ -633,12 +709,12 @@ ell_cg_solve_kernel(const float* __restrict__ g_buf, const float* __restrict__ g
   STAMP(3);
 
   // 2. factor qM; the solo warp solves qacc_smooth while the others take
-  // jar of the warm start
+  // jar of the warm start (dense: in step 3's walk)
   tiled_factor<NT>(L, n, solo);
   STAMP(4);
   if (warp == solo) {
     warp_exact_solve<true>(L, qfs, smooth, y, n);
-  } else {
+  } else if constexpr (!kDense) {
     const int other = ((warp - solo - 1 + NT / 32) % (NT / 32)) * 32 + lane;
     for (int k = other; k < items; k += NT - 32) env.j_item(x, aref, k, jar);
   }
@@ -647,11 +723,16 @@ ell_cg_solve_kernel(const float* __restrict__ g_buf, const float* __restrict__ g
 
   // 3. warm start vs smooth start, the cheaper per env; cost(smooth) has no
   // quadratic term. mdx = M (warm - smooth), jp = jar of smooth.
-  for (int t = tid; t < n + items; t += NT) {
-    if (t < n) {
-      mdx[t] = env.m_row(x, smooth, t);
-    } else {
-      env.j_item(smooth, aref, t - n, jp);
+  if constexpr (kDense) {  // jar and jp of each row at once
+    row_walk(true, false, [&](int i) { mdx[i] = env.m_row(x, smooth, i); },
+             [&](int r, const float* row) { env.template j_row_at<true>(row, x, smooth, aref, r, jar, jp); });
+  } else {
+    for (int t = tid; t < n + items; t += NT) {
+      if (t < n) {
+        mdx[t] = env.m_row(x, smooth, t);
+      } else {
+        env.j_item(smooth, aref, t - n, jp);
+      }
     }
   }
   __syncthreads();
@@ -683,7 +764,11 @@ ell_cg_solve_kernel(const float* __restrict__ g_buf, const float* __restrict__ g
   __syncthreads();
   STAMP(7);
   // grad = M dx - J^T force; mgrad = (L L^T)^-1 grad; p = -mgrad
-  for (int d = tid; d < n; d += NT) grad[d] = env.jt_col(f, mdx, d);
+  if constexpr (kDense) {
+    jt_walk(mdx, grad);
+  } else {
+    for (int d = tid; d < n; d += NT) grad[d] = env.jt_col(f, mdx, d);
+  }
   __syncthreads();
   STAMP(8);
   if (warp == solo) {
@@ -696,11 +781,18 @@ ell_cg_solve_kernel(const float* __restrict__ g_buf, const float* __restrict__ g
 
   // 4. PR-CG; converged envs take zero-length steps
   for (int it = 0; it < iterations; ++it) {
-    for (int t = tid; t < n + items; t += NT) {
-      if (t < n) {
-        mp[t] = env.m_row(p, nullptr, t);
-      } else {
-        env.j_item(p, nullptr, t - n, jp);
+    if constexpr (kDense) {
+      row_walk(false, true, [&](int i) { mp[i] = env.m_row(p, nullptr, i); },
+               [&](int r, const float* row) {
+                 env.template j_row_at<false>(row, p, nullptr, nullptr, r, jp, nullptr);
+               });
+    } else {
+      for (int t = tid; t < n + items; t += NT) {
+        if (t < n) {
+          mp[t] = env.m_row(p, nullptr, t);
+        } else {
+          env.j_item(p, nullptr, t - n, jp);
+        }
       }
     }
     __syncthreads();
@@ -763,17 +855,30 @@ ell_cg_solve_kernel(const float* __restrict__ g_buf, const float* __restrict__ g
     STAMP(13);
     // jar and M (x - smooth) afresh from x, not by increments; the force of
     // each item
-    for (int t = tid; t < n + items; t += NT) {
-      if (t < n) {
-        mdx[t] = env.m_row(v0, nullptr, t);
-      } else {
-        env.j_item(x, aref, t - n, jar);
-        env.force_item(jar, t - n, f);
+    if constexpr (kDense) {  // the rows' forces once every row's jar is in
+      row_walk(true, false, [&](int i) { mdx[i] = env.m_row(v0, nullptr, i); },
+               [&](int r, const float* row) {
+                 env.template j_row_at<false>(row, x, nullptr, aref, r, jar, nullptr);
+               });
+      __syncthreads();
+      for (int k = tid; k < items; k += NT) env.force_item(jar, k, f);
+    } else {
+      for (int t = tid; t < n + items; t += NT) {
+        if (t < n) {
+          mdx[t] = env.m_row(v0, nullptr, t);
+        } else {
+          env.j_item(x, aref, t - n, jar);
+          env.force_item(jar, t - n, f);
+        }
       }
     }
     __syncthreads();
     STAMP(14);
-    for (int d = tid; d < n; d += NT) v0[d] = env.jt_col(f, mdx, d);  // new gradient
+    if constexpr (kDense) {  // new gradient
+      jt_walk(mdx, v0);
+    } else {
+      for (int d = tid; d < n; d += NT) v0[d] = env.jt_col(f, mdx, d);
+    }
     __syncthreads();
     STAMP(15);
     // the solo warp: the new preconditioned gradient, beta and p
@@ -800,17 +905,24 @@ ell_cg_solve_kernel(const float* __restrict__ g_buf, const float* __restrict__ g
     STAMP(16);
   }
 
-  // 5. force (f = force of jar since its last change), qfrc = J^T force;
-  // Euler: factor M + diag(hd), solve qacc_eff from qfrc_smooth + qfrc
+  // 5. force (f = force of jar since its last change), qfrc = J^T force
+  // (dense: the last walk's, written to o_qfrc by this thread; the stream's
+  // copies beyond it end); Euler: factor M + diag(hd), solve qacc_eff from
+  // qfrc_smooth + qfrc
+  if constexpr (kDense) asm volatile("cp.async.wait_all;\n" ::: "memory");
   for (int r = tid; r < e; r += NT) o_force[b * e + r] = f[r];
   for (int t = tid; t < lay.tiles / 4; t += NT)
     reinterpret_cast<float4*>(L_s)[t] = reinterpret_cast<const float4*>(M_s)[t];
   for (int d = tid; d < n; d += NT) {
-    v0[d] = env.jt_col(f, nullptr, d);
+    if constexpr (kDense) {
+      v0[d] = o_qfrc[b * n + d];
+    } else {
+      v0[d] = env.jt_col(f, nullptr, d);
+    }
     v1[d] = qfs[d] + v0[d];
     o_smooth[b * n + d] = smooth[d];
     o_qacc[b * n + d] = x[d];
-    o_qfrc[b * n + d] = v0[d];
+    if constexpr (!kDense) o_qfrc[b * n + d] = v0[d];
   }
   if (!with_euler) return;  // the same for every thread of the CTA
   __syncthreads();
@@ -896,6 +1008,17 @@ extern "C" int ell_cg_solve_kernel_info(int n, int nl, int nc, int* info) {
 extern "C" int ell_cg_solve_dense_kernel_info(int n, int ns, int nc, int* info) {
   if (n <= 0 || n > kMaxN || ns < 0 || nc < 0 || ns + 3 * nc <= 0) return (int)cudaErrorInvalidValue;
   return kernel_info<true>(ell_cg_solve_dense_smem_bytes(n, ns, nc), info);
+}
+
+// out[0..2] = rows per panel, panels per pass and 1 if J is copied once,
+// whole, of ell_cg_solve_dense's walks over J (j_panels.cuh) at n, ns and nc.
+extern "C" int ell_cg_solve_dense_panels(int n, int ns, int nc, int* out) {
+  if (n <= 0 || n > kMaxN || ns < 0 || nc < 0 || ns + 3 * nc <= 0) return (int)cudaErrorInvalidValue;
+  const JPanels p(n, ns + 3 * nc, ns, kJRingFloats);
+  out[0] = p.rows;
+  out[1] = p.np;
+  out[2] = p.resident;
+  return 0;
 }
 
 // out[0..kStamps) = the phase stamps' cycles summed over every CTA since the

@@ -203,19 +203,27 @@ def save_reference_clip_data(
             group.create_dataset(key, data=getattr(clip, key).detach().cpu().numpy())
 
 
+def draw_test_indices(num_clips: int, test_ratio: float = 0.1, seed: Optional[int] = None) -> np.ndarray:
+    """The test clips of generate_train_test_split, unsorted: the JAX
+    package's numpy draw (numpy's global stream without a seed)."""
+    rng = np.random if seed is None else np.random.RandomState(seed)
+    return rng.choice(np.arange(num_clips), size=int(num_clips * test_ratio), replace=False)
+
+
+def split_at(data: ReferenceClip, test_idx) -> Tuple[ReferenceClip, ReferenceClip]:
+    """(train, test): the clips not in test_idx and those in it, each in
+    increasing order."""
+    indices = np.arange(data.position.shape[0])
+    test_idx = np.sort(np.asarray(test_idx))
+    return select_clips(data, indices[~np.isin(indices, test_idx)]), select_clips(data, test_idx)
+
+
 def generate_train_test_split(
     data: ReferenceClip, test_ratio: float = 0.1, seed: Optional[int] = None
 ) -> Tuple[ReferenceClip, ReferenceClip]:
     """Random clip-level split; returns (train, test) with sorted indices.
     The draw is the JAX package's numpy one, so a seed gives its indices."""
-    num_clips = data.position.shape[0]
-    indices = np.arange(num_clips)
-    rng = np.random if seed is None else np.random.RandomState(seed)
-    test_idx = rng.choice(indices, size=int(num_clips * test_ratio), replace=False)
-    train_idx = indices[~np.isin(indices, test_idx)]
-    train_idx.sort()
-    test_idx.sort()
-    return select_clips(data, train_idx), select_clips(data, test_idx)
+    return split_at(data, draw_test_indices(data.position.shape[0], test_ratio, seed))
 
 
 def load_clips_metadata(traj_data_path: Union[str, Path]) -> list:

@@ -51,7 +51,10 @@ contacts. `ell_cg_solve_dense` (csrc/ell_cg_solve.cu built with kDense)
 replaces `_ell_cg_kernel` with jb None: K3's solve over a dense J whose
 first `ns` rows are unilateral scalar rows of any content (limits, condim-1
 contacts) and the rest cone blocks, the rows of elliptic plans with
-condim-1 contacts. Without `with_euler` (RK4 and implicit plans, the TPU
+condim-1 contacts. Both dense modes leave J in device memory and walk it in
+panels of rows through two slots of shared memory (csrc/j_panels.cuh;
+`j_panels` gives the panels), with the resident J's float operations in
+their order. Without `with_euler` (RK4 and implicit plans, the TPU
 kernels' hd=None) all four skip the Euler solve.
 
 `cg_solve`, `cg_solve_dense`, `ell_cg_solve` and `ell_cg_solve_dense` are
@@ -88,6 +91,38 @@ _EPS = 1e-12
 # equality rows are bilateral (never clamped). Well under the float32
 # maximum, so no product overflows.
 BIG_FORCE = 1e30
+
+
+# The dense modes' walks over J (csrc/j_panels.cuh): the slots in shared
+# memory and the floats they may take in each kernel (cg_solve.cu's and
+# ell_cg_solve.cu's kJRingFloats).
+J_SLOTS = 2
+J_RING_FLOATS = {"cg_solve_dense": 10240, "ell_cg_solve_dense": 3400}
+
+
+class JPanels(NamedTuple):
+    rows: int  # the most rows a panel holds
+    cuts: tuple  # panel k holds rows cuts[k] .. cuts[k + 1] - 1
+    resident: bool  # J copied once, whole (no more panels than slots)
+
+
+def j_panels(op: str, n: int, e: int, ns: int | None = None) -> JPanels:
+    """The panels in which `op` (cg_solve_dense, ell_cg_solve_dense) walks a
+    dense J of e rows of n, the first ns of one row each and the rest cone
+    blocks of 3 (ns None: every row its own), as csrc/j_panels.cuh cuts
+    them: at most `rows` rows a panel (a slot holds rows x n floats and 3
+    more), a multiple of 3 where there are cone blocks, each
+    boundary at min(e, k rows) rounded down to the start of a cone block."""
+    ns = e if ns is None else ns
+    step = 3 if ns < e else 1
+    rows = max(step, (J_RING_FLOATS[op] // J_SLOTS - 4) // n // step * step)
+    count = -(-e // rows)
+
+    def cut(k):
+        r = min(e, k * rows)
+        return r if r <= ns else ns + (r - ns) // 3 * 3
+
+    return JPanels(rows, tuple(cut(k) for k in range(count + 1)), count <= J_SLOTS)
 
 
 class CGOut(NamedTuple):
@@ -782,7 +817,8 @@ def cg_solve_dense(
     float32 and contiguous on one device. Without `with_euler` M + diag(hd)
     is not factored and qacc_eff is None. CPU tensors run
     `cg_solve_dense_plain` (in float64 too, as a reference); CUDA tensors
-    launch the kernel (n <= MAX_N, J in shared memory: e n <= about 50,000)
+    launch the kernel (n <= MAX_N; J is walked in panels, `j_panels`, and
+    the rows' vectors in shared memory bound e, about 8,000 rows at n = 73)
     or raise."""
     args = (buf, cdof, J, aref, D, qfrc_smooth, warm, hd, tolscale, anc, arm)
     bsz, dims, e = _check("cg_solve_dense", _DENSE_ARG_NAMES, args, _dense_shapes)
@@ -842,7 +878,8 @@ def ell_cg_solve_dense(
     float32 and contiguous on one device. Without `with_euler` M + diag(hd)
     is not factored and qacc_eff is None. CPU tensors run
     `ell_cg_solve_dense_plain` (in float64 too, as a reference); CUDA tensors
-    launch the kernel (n <= MAX_N, J in shared memory) or raise."""
+    launch the kernel (n <= MAX_N; J is walked in panels of whole cone
+    blocks, `j_panels`) or raise."""
     args = (buf, cdof, J, aref, D, mu, qfrc_smooth, warm, hd, tolscale, anc, arm)
     bsz, dims, e = _check("ell_cg_solve_dense", _ELL_DENSE_ARG_NAMES, args,
                           lambda named: _ell_dense_shapes(named, ns))

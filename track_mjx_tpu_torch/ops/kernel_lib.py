@@ -122,6 +122,8 @@ def open_library(path: str) -> ctypes.CDLL:
     _bind(lib.ell_cg_solve_dense_f32, [ptr] * 17 + [i32] * 7 + [ptr], i32)
     _bind(lib.ell_cg_solve_dense_smem_bytes, [i32] * 3, i64)
     _bind(lib.ell_cg_solve_dense_kernel_info, [i32] * 3 + [ptr], i32)
+    _bind(lib.cg_solve_dense_panels, [i32, i32, ptr], i32)
+    _bind(lib.ell_cg_solve_dense_panels, [i32] * 3 + [ptr], i32)
     _bind(lib.cholesky_f32, [ptr, ptr, i32, i32, ptr], i32)
     _bind(lib.cho_solve_f32, [ptr, ptr, ptr, i32, i32, ptr], i32)
     _bind(lib.solve_spd_f32, [ptr, ptr, ptr, i32, i32, ptr], i32)

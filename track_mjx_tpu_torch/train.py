@@ -84,6 +84,8 @@ import sys
 from datetime import datetime
 from pathlib import Path
 
+import torch
+
 from track_mjx_tpu_torch import workload
 from track_mjx_tpu_torch.agent import checkpointing, preemption, wandb_logging
 from track_mjx_tpu_torch.agent.lstm_ppo import ppo as lstm_ppo
@@ -147,6 +149,32 @@ def main(cfg: ConfigDict, progress_fn=None, batch_callback=None, policy_params_f
             mesh_lib.destroy(mesh)
 
 
+def split_clips(all_clips: load.ReferenceClip, train_setup, mesh=None):
+    """(train clips, test clips or None) as `train_setup` asks: the indices
+    of a `train_test_split_info` file, a random split leaving
+    `train_subset_ratio` of the clips for training, or every clip for
+    training. The random split is the JAX CLI's numpy draw; under a mesh
+    every rank draws and then takes rank 0's test clips, so that the ranks
+    train on one set of clips and rank 0 evaluates on clips none of them
+    trains on."""
+    if train_setup.get("train_test_split_info") is not None:
+        with open(train_setup["train_test_split_info"], "r") as f:
+            split_info = json.load(f)
+        if train_setup.get("train_subset_ratio") is None:
+            train_idx = split_info["train"]
+        else:
+            train_idx = split_info["train_subset"][f"{train_setup['train_subset_ratio']:.2f}"]
+        return load.select_clips(all_clips, train_idx), load.select_clips(all_clips, split_info["test"])
+    if train_setup.get("train_subset_ratio") is None:
+        return all_clips, None
+    test_idx = load.draw_test_indices(all_clips.position.shape[0], test_ratio=1 - train_setup["train_subset_ratio"])
+    if mesh is not None:
+        drawn = torch.as_tensor(test_idx, dtype=torch.int64)
+        mesh_lib.replicate([drawn], mesh)
+        test_idx = drawn.numpy()
+    return load.split_at(all_clips, test_idx)
+
+
 def _main(cfg: ConfigDict, device: str, mesh, progress_fn, batch_callback, policy_params_fn):
     main_rank = mesh_lib.is_main(mesh)
     freeze_decoder = bool(cfg["train_setup"].get("freeze_decoder", False))
@@ -197,22 +225,7 @@ def _main(cfg: ConfigDict, device: str, mesh, progress_fn, batch_callback, polic
     phys_forward.set_full_f32()
     logging.info("Loading data: %s", cfg["data_path"])
     all_clips = load.load_data(cfg["data_path"], device=device)
-    test_clips = None
-    if train_setup.get("train_test_split_info") is not None:
-        with open(train_setup["train_test_split_info"], "r") as f:
-            split_info = json.load(f)
-        if train_setup.get("train_subset_ratio") is None:
-            train_idx = split_info["train"]
-        else:
-            train_idx = split_info["train_subset"][f"{train_setup['train_subset_ratio']:.2f}"]
-        test_clips = load.select_clips(all_clips, split_info["test"])
-        train_clips = load.select_clips(all_clips, train_idx)
-    elif train_setup.get("train_subset_ratio") is not None:
-        train_clips, test_clips = load.generate_train_test_split(
-            all_clips, test_ratio=1 - train_setup["train_subset_ratio"]
-        )
-    else:
-        train_clips = all_clips
+    train_clips, test_clips = split_clips(all_clips, train_setup, mesh)
     env = workload.make_env(cfg, train_clips, device=device)
     test_env = None if test_clips is None else workload.make_env(cfg, test_clips, device=device)
 
