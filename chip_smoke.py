@@ -4,8 +4,8 @@ pipelines) and on the fly, the rest of the physics (RK4 and implicit
 integrators, condim-1/4/6 contacts, frictionloss and equality rows, on
 pyramidal and on elliptic cones), the third workload config with the
 trainer's options, the CLI's run management and per-eval logging, the
-analysis of a trained checkpoint, and data-parallel training over
-torch.distributed.
+analysis of a trained checkpoint, data-parallel training over
+torch.distributed, and domain randomization of the Model's leaves.
 
 Usage (from the repository root, on a machine with a CUDA device and nvcc):
 
@@ -159,7 +159,8 @@ It imports nothing of JAX. Phases, each of which raises on failure:
    phase 2's recipe, printed only), timed beside the plain version and the
    bound, with its registers, shared memory, CTAs per SM and waves; phase
    8's training through train.main at 8192 envs and full width (clips of
-   80 frames, one epoch of 2 training steps, one eval; the learning half
+   80 frames, one epoch of 2 training steps, one eval of 10 control steps
+   (20 until phase 16 was added); the learning half
    held against the CPU step by step); one epoch with freeze_decoder from
    its checkpoint (a new run, the decoder bitwise the checkpoint's, the
    encoder moved); one unroll of the rollout with the trained policy in
@@ -190,7 +191,7 @@ It imports nothing of JAX. Phases, each of which raises on failure:
    11c's profile_dir check follows it).
 13. The CLI's run management and per-eval logging (runs after 11c, before
    12): train.main on rodent-full-clips at the config's widths, cut in
-   depth (LOG_*: 4 synthetic clips of 30 frames, 256 envs, one training
+   depth (LOG_*: 4 synthetic clips of 15 frames, 256 envs, one training
    step of one unroll, 2 evals, a video every eval, SLURM_JOB_ID set). A
    first run stopped right after its first checkpoint (a BaseException
    raised once the checkpoint callback has updated the record, as a
@@ -201,9 +202,9 @@ It imports nothing of JAX. Phases, each of which raises on failure:
    exactly the trainer's count plus 1 + 20 x 10 for the logging rollout at
    B = 1; metrics.jsonl must hold eval/episode_reward, the latents/* keys
    and eval/rollout_pos_reward, and the video 20 non-constant frames of 512
-   x 512 x 3 (clips of 20 frames: 30 before phase 14 was added, cut to
-   make room for it). Then the LSTM rodent's and the fly's logging rollouts, 10
-   control steps each through collect_rollout (exact launches of cg_solve
+   x 512 x 3 (clips of 15 frames: 30 before phase 14 was added, 20 before
+   phase 16, cut to make room for them). Then the LSTM rodent's and the fly's logging rollouts, 5
+   control steps each (10 until phase 16 was added) through collect_rollout (exact launches of cg_solve
    and ell_cg_solve at B = 1) and one frame rendered each; cg_solve and
    ell_cg_solve at B = 1 on those rollouts' last states against their plain
    versions (KERNEL_REL at the plan's 5/5, FLY_KERNEL_REL at 1/0, and the
@@ -213,12 +214,12 @@ It imports nothing of JAX. Phases, each of which raises on failure:
 14. Analysis from a checkpoint (runs after 13, before 12): phase 8's
    full-width rodent-full-clips checkpoint loaded by
    load_checkpoint_for_eval, its config pointed at ANALYSIS_CLIPS (256)
-   synthetic clips of 30 frames; create_environment, load_inference_fn
+   synthetic clips of 20 frames (30 until phase 16 was added); create_environment, load_inference_fn
    with get_activation and create_rollout_generator's rollout of all 256
-   clips as one batch (29 control steps) with every channel logged: the
+   clips as one batch (19 control steps) with every channel logged: the
    JAX tests' shapes, every channel finite on the envs that the NaN guard
    did not flag, a nonzero contact wrench wherever a contact penetrates,
-   cg_solve launched exactly 1 + 29 x 10 times and no other kernel;
+   cg_solve launched exactly 1 + 19 x 10 times and no other kernel;
    cfrc_ext of the last step's Data on the card against the CPU's for 64
    envs within CFRC_REL. The LSTM rodent (phase 10's checkpoint) and the
    fly (phase 9's) the same way at 8 clips and 10 control steps (cg_solve,
@@ -263,17 +264,39 @@ It imports nothing of JAX. Phases, each of which raises on failure:
    rank's cg_solve launches exact; a gradient-sized gloo all-reduce timed.
    Prints every run's training sps, the all-reduce ms per training step
    and the phase's seconds.
-16. Prints the seconds of each phase and the total, the kernels' JSON line
+16. Domain randomization of the Model's leaves (runs after 15, before 12):
+   a randomizer in the manner of MuJoCo Playground's locomotion randomizers
+   (DR_SCALES: geom friction, dof frictionloss, armature and damping, body
+   mass with inertia, body_ipos offsets, hinge qpos0 jitter, actuator gain),
+   per env. The rodent at 4096 envs: cg_solve with its per-env armature
+   against the plain version on contact-rich states of that model
+   (KERNEL_REL and the float64 rule), how far each env's armature moves its
+   qacc (the largest must pass the qacc bar), timed beside the plain
+   version and the bound; then a reset (qpos at the shared qpos0 plus
+   noise, as the env resets it from a clip) and 2 control steps with exact
+   launches and no plain version, every state finite, and
+   64 envs against the CPU on their own leaves at phase 3's bars. The fly
+   (no offsets): ell_cg_solve with its per-env armature against the plain
+   version at 1/0 (FLY_KERNEL_REL and the float64 rule), moved and timed
+   alike, then one control step with exact launches and 64 envs against the
+   CPU (the substep's solve outputs printed ungated, as in 11b). Then one
+   MLP training step of the rodent at full width through ppo.train with the
+   randomizer as its randomization_fn, cut in depth as phase 15's
+   in-process run (256 envs, one unroll of 2, one eval of 1 control step):
+   cg_solve's launches exact, every loss finite.
+17. Prints the seconds of each phase and the total, the kernels' JSON line
    (each kernel's launches on every path that runs it under
-   "launches_by_path", phases 14's and 15's among them; cg_solve's and
-   ell_cg_solve's B = 1 records under "b1") and, last, {"ok": true,
-   "device": {...}}.
+   "launches_by_path", phases 14's, 15's and 16's among them; cg_solve's
+   and ell_cg_solve's B = 1 records under "b1", their per-env armature
+   records under "per_env_armature") and, last, {"ok": true, "device":
+   {...}}.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -532,14 +555,17 @@ KERNEL_F64_FLOOR = 1e-6
 SPS_CONFIG = "rodent-sps-per-actor"
 SPS_CONTROL_STEPS = 2  # timed, after one warm-up control step
 # training cut in depth only, as phase 8: clips of 80 frames (episodes of
-# 10 frames, 20 control steps), num_timesteps = eval_every = 655,360: one epoch of 2
-# training steps of 16 x 1024 / 8192 = 2 unrolls each, then one eval (the
+# 5 frames, 10 control steps: random_init_range 70, 65 until phase 16 was
+# added, cut to make room for it), num_timesteps = eval_every = 655,360: one
+# epoch of 2 training steps of 16 x 1024 / 8192 = 2 unrolls each (the
+# learning half held against the CPU is the second's: the first, from a fresh
+# Adam state, moves parameters by up to lr on roundoff), then one eval (the
 # config's reset_every, 50M, leaves eval_every // reset_every = 0: no reset
 # between evals); the decoder-transfer run, one training step and an eval of
 # 10 control steps
 SPS_CUTS = [
     f"reference_config.clip_length={TRAIN_CLIP_LENGTH}",
-    f"reference_config.random_init_range={TRAIN_RANDOM_INIT}",
+    "reference_config.random_init_range=70",
     "train_setup.eval_every=655360",
     "train_setup.train_config.num_timesteps=655360",
 ]
@@ -564,17 +590,17 @@ SPS_FOREIGN_ENVS = 1024
 
 # --- phase 13: the CLI's run management and per-eval logging
 # Clips of LOG_CLIP_LENGTH frames make a logging rollout of that many control
-# steps (the rodent: one per frame) and evals of 20 - 5 - 5 = 10. LOG_ENVS
+# steps (the rodent: one per frame) and evals of 15 - 5 - 5 = 5. LOG_ENVS
 # envs, batch_size LOG_ENVS and 1 minibatch make a training step one unroll
 # of 20; num_timesteps = 2 x eval_every = 20 x LOG_ENVS make 2 evals (the
 # initial one and one after one training step), a logging rollout and a
 # video after the second.
-LOG_CLIP_LENGTH = 20  # 30 before phase 14 was added, cut to make room for it
+LOG_CLIP_LENGTH = 15  # 30 before phase 14 was added, 20 before phase 16, cut to make room for them
 LOG_ENVS = 256
 LOG_EVAL_ENVS = 128
 LOG_CLIPS = 4
 LOG_JOB = "chip_smoke_13"  # SLURM_JOB_ID: the second run finds the first one's record
-LOG_OTHER_STEPS = 10  # the LSTM and fly logging rollouts' control steps
+LOG_OTHER_STEPS = 5  # the LSTM and fly logging rollouts' control steps (10 until phase 16 was added)
 LOG_FRAME = (512, 512)  # the JAX make_rollout_renderer's
 
 
@@ -610,7 +636,7 @@ class Preempted(BaseException):
 # and ANALYSIS_OTHER_STEPS control steps, the wrappers on the rodent's
 # analysis env, the stick at STICK_CLIPS clips of STICK_FRAMES frames.
 ANALYSIS_CLIPS = 256
-ANALYSIS_FRAMES = 30
+ANALYSIS_FRAMES = 20  # 30 until phase 16 was added, cut to make room for it
 ANALYSIS_OTHER_CLIPS = 8
 ANALYSIS_OTHER_STEPS = 10
 ANALYSIS_CPU = 64  # envs whose cfrc_ext is held against the CPU's
@@ -656,6 +682,23 @@ ADAM_B1, ADAM_EPS = 0.9, 1e-8  # agent/gradients.make_optimizer's
 DP_ACTION_REL = 1e-4
 DP_EXTRA: list = []  # more overrides (none: the cuts above are depth only)
 DP_ALLREDUCE_REPS = 5  # all-reduces of a gradient-sized buffer timed on the gloo ranks
+
+
+# --- phase 16: domain randomization of the Model's leaves
+# A randomizer in the manner of MuJoCo Playground's locomotion randomizers
+# (its Go1 randomize.py), per env: every geom's friction x U(0.6, 1.4) (one
+# factor an env), dof_frictionloss x U(0.9, 1.1), dof_armature x U(1.0,
+# 1.05), body_mass x U(0.9, 1.1) with body_inertia scaled alike, body_ipos
+# offsets up to DR_IPOS, hinge qpos0 jitter +-DR_QPOS0 rad, dof_damping x
+# U(0.8, 1.2), actuator_gainprm[:, 0] x U(0.9, 1.1). The rodent's
+# frictionloss is zero, so its plan has no frictionloss rows and the leaf
+# stays zero. The fly (K3's path) takes the same scales without the ipos
+# offsets and the qpos0 jitter (its lengths are in cm, its body 0.3 cm).
+DR_SCALES = {"geom_friction": (0.6, 1.4), "dof_frictionloss": (0.9, 1.1), "dof_armature": (1.0, 1.05),
+             "body_mass": (0.9, 1.1), "dof_damping": (0.8, 1.2), "actuator_gainprm": (0.9, 1.1)}
+DR_IPOS = 1e-3  # m, the rodent's
+DR_QPOS0 = 0.05
+DR_CONTROL_STEPS = 1  # timed, after one warm-up control step from the reset
 
 
 def dp_overrides(device: str, root: str) -> list:
@@ -1160,11 +1203,21 @@ class Phases:
               f"{active / n_envs / (1 + control_steps):.2f}; peak memory {peak} B ({self.card})")
         return start, ctrls, after_warmup, data, launches
 
-    def cpu_warmup(self, snap, start, ctrl0, substeps=SUBSTEPS):
+    def first_envs(self, model, n: int):
+        """`model` with each per-env leaf cut to its first n envs."""
+        tm = self.tm
+        return dataclasses.replace(model, **{f: getattr(model, f)[:n] for f in tm.LEAF_RANK if tm.is_per_env(model, f)})
+
+    def cpu_warmup(self, snap, start, ctrl0, substeps=SUBSTEPS, model=None):
         """The warm-up control step of the first N_CPU envs on the CPU, from
-        the model snapshot `snap`."""
+        the model snapshot `snap` (with the first N_CPU envs' leaves of
+        `model`'s per-env ones)."""
         tf, tm = self.tf, self.tm
         cpu_plan, cpu_model = tm.put_model(snap, device="cpu")
+        if model is not None:
+            cut = self.first_envs(model, N_CPU)
+            cpu_model = dataclasses.replace(cpu_model, **{
+                f: getattr(cut, f).cpu() for f in tm.LEAF_RANK if tm.is_per_env(cut, f)})
         cpu = tm.make_data(cpu_plan, cpu_model, N_CPU).replace(
             **{k: getattr(start, k)[:N_CPU].cpu() for k in ("time", "qpos", "qvel", "act", "qacc_warmstart")},
             ctrl=ctrl0[:N_CPU].cpu(),
@@ -1185,7 +1238,7 @@ class Phases:
         taken apart (`solve_split`). With `qpos_by_f64` the control step's
         worst-env qpos is held by that float64 rule instead of
         step_rel["qpos_max"]. `substeps` per control step."""
-        cpu_plan, cpu_model, cpu = self.cpu_warmup(snap, start, ctrls[0], substeps)
+        cpu_plan, cpu_model, cpu = self.cpu_warmup(snap, start, ctrls[0], substeps, model)
         errs = {}
         for name in ("qpos", "qvel"):
             per_env = _per_env(getattr(after_warmup, name)[:N_CPU].cpu(), getattr(cpu, name))
@@ -1264,6 +1317,7 @@ class Phases:
         and the two float64 solves' split (what the exact solve makes of the
         rows' roundoff)."""
         tf, ts = self.tf, self.ts
+        model = self.first_envs(model, N_CPU)
         card_d, card_efc = self.pre_solve(plan, model, tf.expand_slim(plan, model, slim))
         cpu_slim = tf.SlimData(**{f: getattr(slim, f).cpu() for f in tf._CARRY_FIELDS})
         cpu_d, cpu_efc = self.pre_solve(cpu_plan, cpu_model, tf.expand_slim(cpu_plan, cpu_model, cpu_slim))
@@ -1311,6 +1365,7 @@ class Phases:
     def one_substep(self, plan, model, cpu_plan, cpu_model, after_warmup):
         tf = self.tf
         slim = tf.SlimData(**{f: getattr(after_warmup, f)[:N_CPU] for f in tf._CARRY_FIELDS})
+        model = self.first_envs(model, N_CPU)
         card_sub = tf.step(plan, model, tf.expand_slim(plan, model, slim))
         cpu_sub = tf.step(cpu_plan, cpu_model, tf.expand_slim(
             cpu_plan, cpu_model, tf.SlimData(**{f: getattr(slim, f).cpu() for f in tf._CARRY_FIELDS})))
@@ -2085,7 +2140,7 @@ class Phases:
         the CPU's over seeds of phase 6's own path; PERF.md, Findings).
         Those paths' solves are held on 4096 contact-rich states instead
         (phase 11b's kernels against plain)."""
-        cpu_plan, cpu_model, cpu = self.cpu_warmup(snap, start, ctrls[0])
+        cpu_plan, cpu_model, cpu = self.cpu_warmup(snap, start, ctrls[0], model=model)
         cpu64, sub64 = self.cpu_float64(cpu_plan, cpu_model, start, ctrls[0], after_warmup)
         for name in ("qpos", "qvel"):
             self.versus_f64(f"{what}, one control step", name, getattr(after_warmup, name)[:N_CPU],
@@ -3745,6 +3800,202 @@ class Phases:
             **{f"gloo rank {r} of {DP_RANKS} (phase 15)": rank["launches"]["cg_solve"] for r, rank in enumerate(ranks)},
         }
 
+    # -----------------------------------------------------------------------
+    # phase 16: domain randomization of the Model's leaves
+    # -----------------------------------------------------------------------
+
+    def dr_model(self, plan, model, n_envs: int, uniform, offsets: bool = True):
+        """The per-env model of DR_SCALES (phase 16's randomizer), drawn by
+        `uniform(shape, lo, hi)`; `offsets` adds the body_ipos offsets and
+        the hinge qpos0 jitter. Returns (model, the randomized leaves'
+        names)."""
+        tm = self.tm
+        mass = uniform((n_envs, plan.nbody), *DR_SCALES["body_mass"])
+        gain = model.actuator_gainprm.expand((n_envs,) + model.actuator_gainprm.shape).clone()
+        gain[..., 0] *= uniform((n_envs, plan.nu), *DR_SCALES["actuator_gainprm"])
+        leaves = dict(
+            geom_friction=model.geom_friction * uniform((n_envs, 1, 1), *DR_SCALES["geom_friction"]),
+            dof_frictionloss=model.dof_frictionloss * uniform((n_envs, plan.nv), *DR_SCALES["dof_frictionloss"]),
+            dof_armature=model.dof_armature * uniform((n_envs, plan.nv), *DR_SCALES["dof_armature"]),
+            body_mass=model.body_mass * mass,
+            body_inertia=model.body_inertia * mass[..., None],
+            dof_damping=model.dof_damping * uniform((n_envs, plan.nv), *DR_SCALES["dof_damping"]),
+            actuator_gainprm=gain,
+        )
+        if offsets:
+            leaves["body_ipos"] = model.body_ipos + uniform((n_envs, plan.nbody, 3), -DR_IPOS, DR_IPOS)
+            hinge = torch.as_tensor(plan.jnt_qposadr[plan.jnt_type == tm.JNT_HINGE], device=model.qpos0.device)
+            qpos0 = model.qpos0.expand(n_envs, plan.nq).clone()
+            qpos0[:, hinge] += uniform((n_envs, len(hinge)), -DR_QPOS0, DR_QPOS0)
+            leaves["qpos0"] = qpos0
+        return dataclasses.replace(model, **leaves), tuple(leaves)
+
+    def dr_kernel(self, op, plain, inputs, shared_arm, what, its, ls, bars, flops) -> dict:
+        """The fused solve `op` with a per-env armature against its plain
+        version (fused_kernel_vs_plain, `bars` gated), the per-env envs'
+        qacc moved by their armature (the same launch with the shared one,
+        per env relative to max(1, max |qacc|): the largest must pass the
+        kernel's qacc bar), and its times beside the plain version's and the
+        bound."""
+        assert inputs["arm"].dim() == 2, "the armature is not per env"
+        kernel, max_abs = self.fused_kernel_vs_plain(op, plain, inputs, what, its, ls, True, gate=True, bars=bars)
+        shared = op(**dict(inputs, arm=shared_arm.contiguous()), iterations=its, ls_iterations=ls)
+        moved = _per_env(kernel.qacc, shared.qacc)
+        print(f"{op.__name__} on {what}: each env's armature against the shared one moves qacc per env by up to "
+              f"{float(moved.max()):.3e} (env {int(moved.argmax())}), median {float(moved.median()):.3e} "
+              f"(the kernel's qacc bar {bars['qacc']:.0e})")
+        assert float(moved.max()) > bars["qacc"], f"{op.__name__}: the per-env armature moved no env's qacc"
+        ms, plain_ms, b_ms, b_by = self.time_fused(op, plain, inputs, its, ls, True,
+                                                   tensor_bytes([*inputs.values(), *kernel]), flops)
+        return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": max_abs}
+
+    def dr_rodent(self) -> tuple[dict, int]:
+        """rodent-full-clips at N_ENVS envs on DR_SCALES' model: K2 with the
+        per-env armature against its plain version on contact-rich states,
+        then a reset (qpos at the shared qpos0 plus main_path's noise, as the
+        tracking env's reset puts it at its clip's frame) and DR_CONTROL_STEPS
+        + 1 control steps with exact launches and no plain version, every
+        state finite, N_CPU envs against the CPU on their own leaves at phase
+        3's bars."""
+        tk, tm = self.tk, self.tm
+        snap = tm.load_snapshot("rodent-full-clips")
+        plan, model = tm.put_model(snap, device=self.dev)
+        its, ls = plan.iterations, plan.ls_iterations
+        model_v, names = self.dr_model(plan, model, N_ENVS, self.uniform)
+        print(f"rodent randomized: {N_ENVS} envs, per env {', '.join(names)}; frictionloss rows in the plan: "
+              f"{plan.nf} (the rodent has no frictionloss, so that leaf stays zero)")
+        inputs = self.rodent_states(plan, model_v, N_ENVS)
+        nc, nl = inputs["fq"].shape[1], inputs["lim1h"].shape[0]
+        record = self.dr_kernel(tk.cg_solve, tk.cg_solve_plain, inputs, model.dof_armature,
+                                f"{N_ENVS} randomized rodent states", its, ls, KERNEL_REL,
+                                solve_flops(plan.nv, nl, nc, 4, its, ls))
+        del inputs
+        # the reset: the randomized model's Data with qpos at the shared qpos0
+        # plus main_path's noise, as the tracking env resets qpos from its
+        # clip; each env's jittered qpos0 moves its hinges' zero, not qpos.
+        # At qpos = its own qpos0 the joints' limits move against the pose:
+        # on 32 envs on the CPU, float32 against float64 parts the control
+        # step's qpos by 2.5e-4 on the median env from there, 1.5e-7 from here.
+        reset = tm.make_data(plan, model_v, N_ENVS)
+        qpos = model.qpos0.expand(N_ENVS, plan.nq).clone()
+        qpos[:, 7:] += self.uniform((N_ENVS, plan.nq - 7), -0.001, 0.001)
+        calls, restore = self.no_plain_calls()
+        try:
+            start, ctrls, after_warmup, final, launches = self.main_path(
+                plan, model_v, {tk.cg_solve: 1}, DR_CONTROL_STEPS, RODENT_CTRL_SCALE, data=reset.replace(qpos=qpos),
+                n_envs=N_ENVS)
+        finally:
+            restore()
+        assert not any(calls.values()), f"a plain version ran on the card: {calls}"
+        self.versus_cpu("rodent randomized: ", snap, plan, model_v, start, ctrls, after_warmup, STEP_REL,
+                        SUBSTEP_REL)
+        return record, launches["cg_solve"]
+
+    def dr_fly(self) -> tuple[dict, int]:
+        """fly-mc-intention at N_ENVS envs on DR_SCALES' model (no offsets):
+        K3 with the per-env armature against its plain version at 1/0
+        (FLY_KERNEL_REL and the float64 rule, as phase 11b), then one control
+        step with exact launches and N_CPU envs against the CPU, the
+        substep's solve outputs printed ungated (phase 11b's rule)."""
+        tk, tm = self.tk, self.tm
+        snap = tm.load_snapshot("fly-mc-intention")
+        plan, model = tm.put_model(snap, device=self.dev)
+        its, ls = plan.iterations, plan.ls_iterations
+        model_v, names = self.dr_model(plan, model, N_ENVS, self.uniform, offsets=False)
+        print(f"fly randomized: {N_ENVS} envs, per env {', '.join(names)}")
+        inputs = self.fly_states(plan, model_v)
+        record = self.dr_kernel(tk.ell_cg_solve, tk.ell_cg_solve_plain, inputs, model.dof_armature,
+                                f"{N_ENVS} randomized fly states at 1/0", 1, 0, FLY_KERNEL_REL,
+                                solve_flops(plan.nv, plan.nlimit, plan.ncon, 3, 1, 0))
+        del inputs
+        calls, restore = self.no_plain_calls()
+        try:
+            start, ctrls, after_warmup, _, launches = self.main_path(
+                plan, model_v, {tk.ell_cg_solve: 1}, 0, FLY_CTRL_SCALE, n_envs=N_ENVS)
+        finally:
+            restore()
+        assert not any(calls.values()), f"a plain version ran on the card: {calls}"
+        self.fly_versus_cpu("fly randomized", snap, plan, model_v, start, ctrls, after_warmup, gate_solve=False)
+        return record, launches["ell_cg_solve"]
+
+    def dr_training(self) -> int:
+        """One MLP training step of rodent-full-clips at the config's widths
+        through ppo.train with phase 16's randomizer as its
+        randomization_fn (train.main's call, the argument added), cut in
+        depth as phase 15's in-process run (DP_*): cg_solve's launches
+        exact, no plain version, every loss finite. Returns the launches."""
+        from track_mjx_tpu_torch import train as ttrain
+        from track_mjx_tpu_torch.agent.mlp_ppo import ppo as mlp_ppo
+        from track_mjx_tpu_torch.io import load
+        from track_mjx_tpu_torch.io.synthetic import synthesize_clips
+        from track_mjx_tpu_torch.utils.config import load_config
+
+        tk = self.tk
+        root = os.path.join(REPO, "build", "chip_smoke_dr")
+        shutil.rmtree(root, ignore_errors=True)
+        os.makedirs(root)
+        clips = synthesize_clips(self.tm.load_snapshot("rodent-full-clips"), n_clips=DP_CLIPS,
+                                 n_frames=DP_CLIP_LENGTH, mocap_hz=50, seed=SEED, device=self.dev)
+        load.save_npz(clips, os.path.join(root, "clips.npz"))
+        cfg = load_config("rodent-full-clips", dp_overrides(self.dev.type, os.path.join(root, "run")))
+        net = cfg.network_config
+        assert (net.encoder_layer_sizes, net.decoder_layer_sizes, net.critic_layer_sizes,
+                net.intention_size) == TRAIN_WIDTHS["rodent-full-clips"]
+        substeps = cfg.env_config.env_args.physics_steps_per_control_step
+        expected = self.dp_launches(substeps, DP_CLIP_LENGTH - DP_RANDOM_INIT - cfg.reference_config.traj_length)
+        drawn = {}
+        plan = self.tm.put_model(self.tm.load_snapshot("rodent-full-clips"), device="cpu")[0]
+
+        def randomize(model, generator, num_envs):
+            def uniform(shape, lo, hi):
+                return lo + (hi - lo) * torch.rand(shape, generator=generator, device=model.qpos0.device)
+
+            model_v, names = self.dr_model(plan, model, num_envs, uniform)
+            drawn[num_envs] = names
+            return model_v, names
+
+        train = mlp_ppo.train
+        mlp_ppo.train = functools.partial(train, randomization_fn=randomize)
+        calls, restore = self.no_plain_calls()
+        progress = []
+        tk.cg_solve.launches = 0
+        t0 = time.perf_counter()
+        try:
+            ttrain.main(cfg, progress_fn=lambda s, m: progress.append(m), policy_params_fn=no_logging)
+            torch.cuda.synchronize()
+        finally:
+            mlp_ppo.train = train
+            restore()
+        launches = tk.cg_solve.launches
+        assert not any(calls.values()), f"a plain version ran on the card: {calls}"
+        losses = {k: v for k, v in progress[-1].items() if k.startswith("training/") and k.endswith("loss")}
+        print(f"rodent randomized training: ppo.train with randomization_fn at {DP_ENVS} envs (full width) in "
+              f"{time.perf_counter() - t0:.1f} s; randomized for {sorted(drawn)} envs (training, eval); cg_solve "
+              f"launches {launches} (expected {expected['one']}: reset, {DP_UNROLL} x {substeps}, reset, eval); "
+              f"losses {json.dumps(losses)}")
+        assert launches == expected["one"], f"cg_solve launched {launches} times, expected {expected['one']}"
+        assert len(losses) == 5 and all(math.isfinite(v) for v in losses.values()), losses
+        eval_envs = cfg.train_setup.train_config.get("num_eval_envs", 128)  # ppo.train's default
+        assert sorted(drawn) == sorted({DP_ENVS, eval_envs}), drawn
+        return launches
+
+    def domain_randomization(self) -> dict:
+        """Phase 16: returns each fused solve's per-env-armature record and
+        the launches by path."""
+        t0 = time.perf_counter()
+        rodent, rodent_launches = self.dr_rodent()
+        torch.cuda.empty_cache()
+        fly, fly_launches = self.dr_fly()
+        torch.cuda.empty_cache()
+        train_launches = self.dr_training()
+        torch.cuda.empty_cache()
+        print(f"phase 16: {time.perf_counter() - t0:.1f} s ({self.card})")
+        return {
+            "cg_solve": (rodent, {"rodent randomized control steps (phase 16)": rodent_launches,
+                                  "rodent randomized training, ppo.train (phase 16)": train_launches}),
+            "ell_cg_solve": (fly, {"fly randomized control step (phase 16)": fly_launches}),
+        }
+
     def sps_profile_dir(self) -> None:
         """Phase 11c's profile_dir check, after every rate of the script: a
         small run of the config through train.main with profile_dir (two
@@ -3841,6 +4092,7 @@ def main() -> None:
     logging_record = timed("13 run management and logging", phases.run_logging)
     analysis_record = timed("14 analysis from a checkpoint", phases.analysis)
     dp_launches = timed("15 data parallel", phases.data_parallel)
+    randomized = timed("16 domain randomization", phases.domain_randomization)
     kernels += timed("12 standalone linalg", phases.newton_kernels, *newton)
     timed("11c profile_dir", phases.sps_profile_dir)
     for k in kernels:  # each kernel's launches on every path that runs it, as counted there
@@ -3867,6 +4119,9 @@ def main() -> None:
             k["launches_by_path"].update(logging_record[k["name"]]["launches_by_path"])
             k["b1"] = logging_record[k["name"]]["b1"]
         k["launches_by_path"].update(analysis_record["launches"].get(k["name"], {}))  # phase 14
+        if k["name"] in randomized:  # phase 16: the launches, and the kernel with an armature per env
+            k["per_env_armature"], by_path = randomized[k["name"]]
+            k["launches_by_path"].update(by_path)
     print("seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
           + f"; total since start {time.perf_counter() - T_START:.1f} s")
     print(card)

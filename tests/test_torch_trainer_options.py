@@ -4,9 +4,11 @@ profiler trace.
 
 - `DomainRandomizationVmapWrapper` on the toy walker against the JAX one
   (tests/test_env.py's case: the floor's friction per env; here with
-  dof_damping per env too), each env against the port's own unbatched run on
-  that env's model, and a named error for a leaf the port does not
-  randomize;
+  dof_damping per env too), each env against the port's own run on that
+  env's model for every group of leaves (tests/test_torch_domain_
+  randomization.py holds every group against the JAX package), and the
+  wrapper's errors: a name that is no Model field, leaves that disagree on
+  the env count, a wrong shape;
 - the bf16 policy forward (`compute_dtype`) against the JAX package's
   `compute_dtype=bfloat16`, feed-forward and recurrent, with float32 master
   parameters; both trainers with `rollout_bf16` and with `randomization_fn`;
@@ -115,12 +117,12 @@ def test_domain_randomization_matches_jax(toy):
 def test_each_randomized_env_is_its_own_model(toy):
     """Env i of a randomized batch steps bit for bit as a batch of env i's
     state does on env i's model, unrandomized (the same batch size: torch's
-    float32 reductions change order with it), and two envs that differ only
-    in friction differ in qacc."""
+    float32 reductions change order with it): for friction and damping, and
+    for each group of leaves (torch_parity.DR_GROUPS, every Model field);
+    and two envs that differ only in friction differ in qacc."""
     _, tenv = toy
     tf.set_full_f32()
     plan, shared = tenv.plan, tenv.model
-    model_v, _ = _randomize_port(shared)
     rng = np.random.RandomState(4)
     qpos = np.tile(tenv._mj_model.qpos0, (N_ENVS, 1)).astype(np.float32)
     qpos[:, 2] -= 0.01  # in contact with the floor
@@ -128,13 +130,19 @@ def test_each_randomized_env_is_its_own_model(toy):
         qpos=torch.as_tensor(qpos), qvel=torch.as_tensor(rng.uniform(-0.3, 0.3, (N_ENVS, plan.nv)).astype(np.float32)),
         ctrl=torch.as_tensor(rng.uniform(-0.5, 0.5, (N_ENVS, plan.nu)).astype(np.float32)),
     )
-    batched = tf.n_step(plan, model_v, tm.make_data(plan, model_v, N_ENVS).replace(**start), 2)
-    for i in range(N_ENVS):
-        one = dataclasses.replace(shared, geom_friction=model_v.geom_friction[i], dof_damping=model_v.dof_damping[i])
-        alone = tf.n_step(plan, one, tm.make_data(plan, one, N_ENVS).replace(
-            **{k: v[[i] * N_ENVS] for k, v in start.items()}), 2)
-        for name in ("qpos", "qvel", "qacc", "efc_force"):
-            assert torch.equal(getattr(batched, name)[i], getattr(alone, name)[i]), (i, name)
+    leaves = {f.name: getattr(shared, f.name).numpy() for f in dataclasses.fields(shared)}
+    cases = {"friction and damping": _randomize_port(shared)}
+    for group, names in torch_parity.DR_GROUPS.items():
+        per_env = torch_parity.randomized_leaves(leaves, names, N_ENVS, 6, torch_parity.scalar_qpos_ids(plan))
+        cases[group] = dataclasses.replace(shared, **{k: torch.as_tensor(v) for k, v in per_env.items()}), names
+    for case, (model_v, names) in cases.items():
+        batched = tf.n_step(plan, model_v, tm.make_data(plan, model_v, N_ENVS).replace(**start), 2)
+        for i in range(N_ENVS):
+            one = dataclasses.replace(shared, **{n: getattr(model_v, n)[i] for n in names})
+            alone = tf.n_step(plan, one, tm.make_data(plan, one, N_ENVS).replace(
+                **{k: v[[i] * N_ENVS] for k, v in start.items()}), 2)
+            for name in ("qpos", "qvel", "qacc", "efc_force"):
+                assert torch.equal(getattr(batched, name)[i], getattr(alone, name)[i]), (case, i, name)
     # friction alone, from one state: a contact takes the larger of its two
     # geoms' frictions, so the floor's goes past the body geoms' 1.0 here
     frictions = shared.geom_friction.repeat(N_ENVS, 1, 1)
@@ -146,13 +154,37 @@ def test_each_randomized_env_is_its_own_model(toy):
 
 
 def test_unsupported_leaf_raises(toy):
+    """Every Model field may be randomized; a name that is no Model field
+    raises ValueError, as do leaves that disagree on the number of envs and a
+    batch of another size than the randomized one."""
     _, tenv = toy
+    every = tuple(tm.LEAF_RANK)
 
     def randomize(model):
-        return dataclasses.replace(model, body_mass=model.body_mass.repeat(N_ENVS, 1)), ("body_mass",)
+        return dataclasses.replace(model, **{
+            n: getattr(model, n).expand((N_ENVS,) + getattr(model, n).shape).clone() for n in every}), every
 
-    with pytest.raises(NotImplementedError, match="body_mass"):
-        wrappers.DomainRandomizationVmapWrapper(tenv, randomize)
+    wrapped = wrappers.DomainRandomizationVmapWrapper(tenv, randomize)
+    assert wrapped.randomized == every and len(every) == 71 and wrapped.num_envs == N_ENVS
+
+    def unknown(model):
+        return dataclasses.replace(model, body_mass=model.body_mass.repeat(N_ENVS, 1)), ("body_mass", "body_masses")
+
+    with pytest.raises(ValueError, match="body_masses"):
+        wrappers.DomainRandomizationVmapWrapper(tenv, unknown)
+
+    def disagree(model):
+        return dataclasses.replace(model, body_mass=model.body_mass.repeat(N_ENVS, 1),
+                                   dof_armature=model.dof_armature.repeat(N_ENVS + 1, 1)), ("body_mass", "dof_armature")
+
+    with pytest.raises(ValueError, match="disagree"):
+        wrappers.DomainRandomizationVmapWrapper(tenv, disagree)
+
+    def wrong_shape(model):
+        return dataclasses.replace(model, body_mass=model.body_mass.repeat(N_ENVS, 2)), ("body_mass",)
+
+    with pytest.raises(ValueError, match="body_mass"):
+        wrappers.DomainRandomizationVmapWrapper(tenv, wrong_shape)
     with pytest.raises(ValueError, match="envs"):
         wrappers.DomainRandomizationVmapWrapper(tenv, _randomize_port).reset(torch.Generator().manual_seed(0), 2)
 

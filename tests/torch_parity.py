@@ -398,3 +398,99 @@ def fed_reset(env, draws):
             return self.env.reset_from_clip(start.long(), qn, vn, clip_idx=clip.long())
 
     return FedReset(env)
+
+
+# ---------------------------------------------------------------------------
+# domain randomization: every Model leaf per env, by group
+# ---------------------------------------------------------------------------
+
+# The Model's 71 fields in the groups that the domain randomization tests
+# randomize together (each group's leaves per env, the others equal)
+DR_GROUPS = {
+    "kinematic": ("body_pos", "body_quat", "jnt_pos", "jnt_axis", "qpos0", "body_ipos", "body_iquat", "geom_pos",
+                  "geom_quat", "site_pos", "site_quat"),
+    "inertial": ("body_mass", "body_inertia", "dof_armature", "body_subtreemass", "body_invweight0",
+                 "dof_invweight0", "tendon_invweight0"),
+    "joint_dof": ("jnt_range", "jnt_stiffness", "jnt_solref", "jnt_solimp", "jnt_margin", "qpos_spring", "dof_damping",
+                  "dof_frictionloss", "dof_solref_fri", "dof_solimp_fri"),
+    "geom_contact": ("geom_size", "geom_friction", "geom_solref", "geom_solimp", "geom_solmix", "geom_margin",
+                     "geom_gap", "geom_priority"),
+    "actuator": ("actuator_gear0", "actuator_len_mat", "actuator_len_const", "actuator_moment", "actuator_dynprm",
+                 "actuator_gainprm", "actuator_biasprm", "actuator_ctrlrange", "actuator_forcerange",
+                 "actuator_actrange", "actuator_ctrllimited", "actuator_forcelimited", "actuator_actlimited",
+                 "actuator_acc0"),
+    "tendon_equality": ("tendon_moment", "tendon_length_mat", "tendon_length0_const", "tendon_length0",
+                        "tendon_frictionloss", "tendon_solref_fri", "tendon_solimp_fri", "tendon_stiffness",
+                        "tendon_damping", "tendon_lengthspring", "eq_data", "eq_solref", "eq_solimp"),
+    "opt": ("opt_timestep", "opt_gravity", "opt_tolerance", "opt_ls_tolerance", "opt_impratio", "opt_density",
+            "opt_viscosity", "opt_wind"),
+}
+
+
+def randomized_leaves(shared: dict, names, n_envs: int, seed: int, scalar_qpos) -> dict:
+    """Per-env numpy leaves [n_envs] + shape for `names` from the shared
+    leaves `shared` (name -> array), drawn from `seed`: scales of U(0.9,
+    1.1) and the like, in the manner of sim-to-real randomizers, each leaf
+    kept valid (unit quaternions and joint axes, ordered ranges, solimp in
+    (0, 1)). `scalar_qpos` are the qpos indices of hinge and slide joints,
+    the only ones whose qpos0 and qpos_spring are jittered."""
+    rng = np.random.RandomState(seed)
+
+    def u(lo, hi, shape):
+        return rng.uniform(lo, hi, (n_envs,) + tuple(shape))
+
+    def unit(x):
+        return x / np.maximum(np.linalg.norm(x, axis=-1, keepdims=True), 1e-12)
+
+    out = {}
+    for name in names:
+        x = np.asarray(shared[name], np.float64)
+        rows = x.shape[:1]
+        tiled = np.broadcast_to(x, (n_envs,) + x.shape).copy()
+        if name in ("body_quat", "body_iquat", "geom_quat", "site_quat"):
+            v = tiled + np.concatenate([np.zeros((n_envs,) + rows + (1,)), u(-0.02, 0.02, rows + (3,))], -1)
+            y = unit(v)
+        elif name == "jnt_axis":
+            y = unit(tiled + u(-0.02, 0.02, x.shape))
+        elif name in ("body_pos", "body_ipos", "jnt_pos", "geom_pos", "site_pos"):
+            y = tiled * u(0.98, 1.02, x.shape) + u(-1e-4, 1e-4, x.shape)
+        elif name in ("qpos0", "qpos_spring"):
+            y = tiled
+            y[:, scalar_qpos] += u(-0.05, 0.05, (len(scalar_qpos),))
+        elif name == "body_inertia":
+            y = tiled * u(0.9, 1.1, rows + (1,))  # the three moments alike: the triangle inequality holds
+        elif name == "dof_armature":
+            y = tiled * u(1.0, 1.05, x.shape) + u(0.0, 0.05, x.shape) * max(float(x.max()), 1e-3)
+        elif name in ("jnt_range", "actuator_ctrlrange", "actuator_forcerange", "actuator_actrange",
+                      "tendon_lengthspring"):
+            y = tiled * u(0.9, 1.1, rows + (1,))  # both ends alike: the range stays ordered
+        elif name.endswith("solimp") or name.endswith("solimp_fri"):
+            y = tiled.copy()
+            y[..., :2] *= u(0.97, 1.0, rows + (1,))  # dmin <= dmax < 1
+            y[..., 2] *= u(0.9, 1.1, rows)
+        elif name in ("jnt_margin", "geom_margin"):
+            y = tiled + u(0.0, 1e-4, x.shape)
+        elif name == "geom_priority":
+            y = tiled + (u(0, 1, x.shape) < 0.3)
+        elif name in ("actuator_ctrllimited", "actuator_forcelimited", "actuator_actlimited"):
+            y = np.where(u(0, 1, x.shape) < 0.3, 1.0 - tiled, tiled)
+        elif name in ("actuator_len_mat", "actuator_moment", "actuator_gear0"):
+            y = tiled * u(0.9, 1.1, rows + (1,) * (x.ndim - 1))
+        elif name == "eq_data":
+            y = tiled + u(-0.01, 0.01, x.shape)
+        elif name == "opt_gravity":
+            y = tiled * u(0.9, 1.1, ()) [..., None] + np.concatenate([u(-0.3, 0.3, (2,)), np.zeros((n_envs, 1))], -1)
+        elif name == "opt_wind":
+            y = tiled + u(-0.1, 0.1, x.shape)
+        elif name == "opt_tolerance":
+            y = tiled * 10.0 ** u(-1.0, 1.0, x.shape)
+        else:  # positive scales: masses, damping, stiffness, frictionloss, solref, invweights, gains, ...
+            y = tiled * u(0.9, 1.1, x.shape)
+        out[name] = y.astype(np.float32)
+    return out
+
+
+def scalar_qpos_ids(plan) -> np.ndarray:
+    """qpos indices of the plan's hinge and slide joints."""
+    scalar = (plan.jnt_type == 2) | (plan.jnt_type == 3)
+    return np.asarray(plan.jnt_qposadr[scalar], np.int64)

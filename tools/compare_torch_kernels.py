@@ -48,6 +48,12 @@ directly:
   phase (stamps builds of both trees); each build's registers (with
   ptxas's spills), shared memory, CTAs per SM and waves, and this tree's
   panels (rows per panel, panels per pass);
+- the four fused modes (K2 and K3, compact and dense) with an armature per
+  env, this tree's build alone: against their plain versions (K2 at its
+  path's iterations within chip_smoke.KERNEL_REL, K3 at 1/0 within
+  FLY_KERNEL_REL), how far the per-env armature moves qacc, and whether a
+  launch whose every env's row is the shared armature equals the shared
+  (stride 0) launch bit for bit;
 - cho_solve (K4b): whether this tree's output equals the parent's bit for
   bit on the Newton path's qM factor, on a ragged batch of 4095 envs and
   with the factor's strict upper triangle NaN; both times; each build's
@@ -147,6 +153,11 @@ def ctas_per_sm(regs: int, threads: int, smem: int) -> int:
     return min(by_regs, SM_THREADS // threads, SM_CTAS, SM_SMEM // (smem + CTA_RESERVED))
 
 
+def _arm_stride(a: dict) -> int:
+    """The armature's stride between envs: 0 shared (n,), n per env [B, n]."""
+    return a["arm"].shape[-1] if a["arm"].dim() == 2 else 0
+
+
 def call_cg(lib, op: str, a: dict, its: int, ls: int) -> tk.CGOut:
     """One launch of `{op}_f32` from `lib` on the inputs `a` (cg_solve's
     keyword arguments, tk._ARG_NAMES order)."""
@@ -156,12 +167,13 @@ def call_cg(lib, op: str, a: dict, its: int, ls: int) -> tk.CGOut:
     e = a["aref"].shape[1]
     out = tk.CGOut(*(torch.empty(bsz, m, device="cuda") for m in (n, n, e, n, n)))
     fn = getattr(lib, f"{op}_f32")
-    # a build whose cg_solve_f32 takes with_euler (after ls_iterations) runs with it
-    with_euler = (1,) if len(fn.argtypes) == 29 else ()
+    # a build whose cg_solve_f32 takes with_euler (after ls_iterations) runs
+    # with it, and one that takes arm_stride after it with the armature's
+    extra = {28: (), 29: (1,), 30: (1, _arm_stride(a))}[len(fn.argtypes)]
     err = fn(
         *[t.data_ptr() for t in args], out.qacc_smooth.data_ptr(), out.qacc.data_ptr(),
         out.qfrc_constraint.data_ptr(), out.qacc_eff.data_ptr(), out.efc_force.data_ptr(),
-        bsz, n, nl, nc, its, ls, *with_euler, torch.cuda.current_stream().cuda_stream,
+        bsz, n, nl, nc, its, ls, *extra, torch.cuda.current_stream().cuda_stream,
     )
     assert err == 0, f"{op}_f32 failed with cudaError {err}"
     return out
@@ -220,10 +232,15 @@ def call_dense(lib, op: str, a: dict, its: int, ls: int, with_euler: bool = True
     e = a["J"].shape[1]
     dims = (n, e) if op == "cg_solve_dense" else (n, a["ns"], (e - a["ns"]) // 3)
     out = tk.CGOut(*(torch.empty(bsz, m, device="cuda") for m in (n, n, e, n, n)))
-    err = getattr(lib, f"{op}_f32")(
+    fn = getattr(lib, f"{op}_f32")
+    # a build whose entry point takes arm_stride after with_euler: the inputs,
+    # 5 outputs, batch, dims, iterations, ls_iterations, with_euler, arm_stride
+    # and the stream
+    stride = (_arm_stride(a),) if len(fn.argtypes) == len(names) + 5 + 1 + len(dims) + 5 else ()
+    err = fn(
         *[a[k].data_ptr() for k in names], out.qacc_smooth.data_ptr(), out.qacc.data_ptr(),
         out.qfrc_constraint.data_ptr(), out.qacc_eff.data_ptr() if with_euler else None, out.efc_force.data_ptr(),
-        bsz, *dims, its, ls, int(with_euler), torch.cuda.current_stream().cuda_stream,
+        bsz, *dims, its, ls, int(with_euler), *stride, torch.cuda.current_stream().cuda_stream,
     )
     assert err == 0, f"{op}_f32 failed with cudaError {err}"
     return out
@@ -333,6 +350,65 @@ def dense_modes(libs: dict, built: dict, stamps_libs: dict, args, card: str) -> 
     return report
 
 
+def per_env_armature(lib, card: str) -> dict:
+    """This tree's four fused solve modes with an armature per env against
+    their plain versions on the same inputs (an armature [B, n]: the
+    model's times U(1, 1.05) per env and dof, plus up to 5% of its largest
+    entry; K2 at its path's iterations within chip_smoke.KERNEL_REL, K3 at
+    1/0 within chip_smoke.FLY_KERNEL_REL), and each launch with every env's
+    row the shared armature bitwise its launch with the shared (n,) one.
+    Its states come from a generator of their own (chip_smoke.py's, seed 2)."""
+    from track_mjx_tpu_torch.physics import model as tm
+
+    phases = chip_smoke.Phases(card)
+    phases.gen.manual_seed(2)
+    ts = phases.ts
+    rodent = tm.put_model(tm.load_snapshot("rodent-full-clips"), device="cuda")
+    mixed = tm.put_model(chip_smoke.mixed_condim(tm.load_snapshot("rodent-full-clips")), device="cuda")
+    fly = tm.put_model(tm.load_snapshot("fly-mc-intention"), device="cuda")
+    fly1 = tm.put_model(chip_smoke.fly_condim1(tm.load_snapshot("fly-mc-intention")), device="cuda")
+    cases = {
+        "cg_solve": (rodent, lambda p, m: phases.rodent_states(*rodent), chip_smoke.KERNEL_REL, None),
+        "cg_solve_dense": (mixed, lambda p, m: phases.solver_inputs(p, m, *phases.rodent_drop(p, m),
+                                                                     ts.dense_solve_inputs), chip_smoke.KERNEL_REL,
+                           None),
+        "ell_cg_solve": (fly, lambda p, m: phases.fly_states(p, m), chip_smoke.FLY_KERNEL_REL, (1, 0)),
+        "ell_cg_solve_dense": (fly1, lambda p, m: phases.fly_states(p, m, dense=True), chip_smoke.FLY_KERNEL_REL,
+                               (1, 0)),
+    }
+    report = {}
+    for op, ((plan, model), states, bars, steps) in cases.items():
+        its, ls = steps or (plan.iterations, plan.ls_iterations)
+        a = states(plan, model)
+        bsz, n = a["qfrc_smooth"].shape
+        arm = a["arm"]
+        per_env = (arm * phases.uniform((bsz, n), 1.0, 1.05)
+                   + phases.uniform((bsz, n), 0.0, 0.05) * float(arm.max())).contiguous()
+
+        def launch(inputs):
+            if op in ("cg_solve", "ell_cg_solve"):
+                return call_cg(lib, op, inputs, its, ls)
+            return call_dense(lib, op, inputs, its, ls)
+
+        a_v = dict(a, arm=per_env)
+        out = launch(a_v)
+        plain = getattr(tk, f"{op}_plain")(**a_v, iterations=its, ls_iterations=ls, with_euler=True)
+        shared, rows = launch(a), launch(dict(a, arm=arm.expand(bsz, n).contiguous()))
+        torch.cuda.synchronize()
+        errs = {name: chip_smoke._rel(getattr(out, name), getattr(plain, name)) for name in bars}
+        moved = float(chip_smoke._per_env(out.qacc, shared.qacc).max())
+        same = all(torch.equal(getattr(rows, name), getattr(shared, name)) for name in OUTS)
+        report[op] = {"iterations": its, "ls_iterations": ls, "errors_vs_plain": errs,
+                      "within_bars": all(e < bars[k] for k, e in errs.items()), "qacc_moved_max": moved,
+                      "equal_rows_bitwise_shared": same}
+        print(f"{op} with an armature per env at B={bsz}, {its}/{ls}, vs plain: "
+              + ", ".join(f"{k} {e:.3e} (bar {bars[k]:.0e})" for k, e in errs.items())
+              + f"; qacc moved by the per-env armature up to {moved:.3e} per env; every env's row the shared "
+              f"armature bitwise the shared launch: {same} ({card})")
+        del a, a_v, out, plain, shared, rows
+    return report
+
+
 def _print_occ(name: str, k: str, o: dict, n_envs: int, card: str) -> None:
     print(f"{name} {k}: {o['threads']} threads per CTA (one env), {o['registers']} registers"
           + (f" (ptxas: {o['ptxas']})" if "ptxas" in o else "")
@@ -405,6 +481,9 @@ def main() -> None:
     for op, r in report["dense"].items():
         report["same_as_parent"][op] = all(r["bitwise_parent"].values())
         report["ms"][op] = r["ms"]
+
+    # the four modes with an armature per env, this tree's build
+    report["per_env_armature"] = per_env_armature(libs["change"], card)
 
     # K2: occupancy
     occ = {k: _kernel_occupancy(lib, built[k][2], "cg_solve", (plan.nv, nl, nc), n_envs)

@@ -20,10 +20,10 @@ device, with the same structure:
   (with 0, as the rodent-sps-per-actor config gives, one epoch per eval
   and no reset);
 - the options: `freeze_decoder` (with `checkpoint_to_restore`: the
-  decoder transfer below), `randomization_fn` (per-env model leaves,
-  `wrappers.DomainRandomizationVmapWrapper`: `randomization_fn(model,
-  generator, num_envs)`, one generator for the training envs and one for
-  the eval envs), `rollout_bf16` (the rollout's policy forward in bf16,
+  decoder transfer below), `randomization_fn` (per-env model leaves, any
+  of the Model's fields, `wrappers.DomainRandomizationVmapWrapper`:
+  `randomization_fn(model, generator, num_envs)`, one generator for the
+  training envs and one for the eval envs), `rollout_bf16` (the rollout's policy forward in bf16,
   agent/intention.py), a foreign env (`wrappers.wrap_external`, the whole
   observation feeding the encoder where the env gives no split), and
   `profile_dir` (a torch.profiler trace of the second epoch, the first
@@ -300,7 +300,8 @@ def bind_randomization(
     """`randomization_fn(model, generator, num_envs)` bound to one generator
     stream and env count, as the wrappers take it (None stays None). With a
     mesh of more than one rank it randomizes all `num_envs` envs and keeps
-    this rank's env_slice of each randomized leaf."""
+    this rank's env_slice of each randomized leaf, whichever leaves they
+    are."""
     if randomization_fn is None:
         return None
     bound = functools.partial(randomization_fn, generator=generator, num_envs=num_envs)

@@ -92,6 +92,8 @@
 // panels of its walks over J; cg_solve_stamps the phase stamps of a build
 // with CG_SOLVE_STAMPS.
 
+#include <climits>
+
 #include <cuda_runtime.h>
 
 #include "cholesky.cuh"
@@ -326,11 +328,11 @@ __device__ __forceinline__ void row_dot(const float* row, const float* x, const 
       const float *__restrict__ lim1h, float *__restrict__ o_smooth,                             \
       float *__restrict__ o_qacc, float *__restrict__ o_qfrc, float *__restrict__ o_eff,         \
       float *__restrict__ o_force, int n, int nl, int nc, int e_dense, int iterations,           \
-      int ls_iterations, int with_euler
+      int ls_iterations, int with_euler, int arm_stride
 #define CG_SOLVE_ARGS                                                                            \
   g_buf, g_cdof, g_fq, g_sw, g_ll, g_mu, g_j, g_aref, g_D, g_qfs, g_warm, g_hd, g_tolscale, anc, \
       arm, dm, lim1h, o_smooth, o_qacc, o_qfrc, o_eff, o_force, n, nl, nc, e_dense, iterations,  \
-      ls_iterations, with_euler
+      ls_iterations, with_euler, arm_stride
 
 // One env's solve, the body of both kernels below. kDense: J is g_j
 // [B][e_dense][n] (the compact operands fq, sw, ll, mu, dm and lim1h are not
@@ -463,7 +465,9 @@ __device__ __forceinline__ void cg_solve_body(CG_SOLVE_PARAMS) {
   }
   // qM = anc-masked buf cdof^T mirrored + diag(arm), into the lower tiles
   // (the diagonal tiles whole; padding zero), each entry as the first
-  // design's dense build; a thread per tile row, its 4 entries stored at once
+  // design's dense build; a thread per tile row, its 4 entries stored at once.
+  // arm is this env's armature: arm_stride 0 where every env shares one
+  // (an int product: the launch refuses batch * arm_stride past INT_MAX).
   for (int t = tid; t < 4 * tri(M.nt); t += NT) {
     const int2 ct = untri(t >> 2);  // tile t / 4 in Tiles' order
     const int i = 4 * (M.nt - 1 - ct.y) + (t & 3), j0 = 4 * (M.nt - 1 - ct.x);
@@ -487,7 +491,7 @@ __device__ __forceinline__ void cg_solve_body(CG_SOLVE_PARAMS) {
           for (int k = 0; k < 6; ++k) s += s_buf[lo * 6 + k] * s_cdof[hi * 6 + k];
           v[c] = s;
         }
-        if (i == j) v[c] += arm[i];
+        if (i == j) v[c] += arm[blockIdx.x * arm_stride + i];
       }
     }
     M.row(t >> 2, t & 3) = make_float4(v[0], v[1], v[2], v[3]);
@@ -812,9 +816,10 @@ int launch(const float* buf, const float* cdof, const float* fq, const float* sw
            const float* anc, const float* arm, const float* dm, const float* lim1h,
            float* qacc_smooth, float* qacc, float* qfrc_constraint, float* qacc_eff,
            float* efc_force, int batch, int n, int nl, int nc, int e_dense, int iterations,
-           int ls_iterations, int with_euler, void* stream) {
+           int ls_iterations, int with_euler, int arm_stride, void* stream) {
   if (batch <= 0 || n <= 0 || n > kMaxN || nl < 0 || nc < 0 || iterations < 0 ||
-      ls_iterations < 0 || (kDense && e_dense <= 0) || (with_euler && !qacc_eff))
+      ls_iterations < 0 || (kDense && e_dense <= 0) || (with_euler && !qacc_eff) ||
+      (arm_stride != 0 && arm_stride != n) || (long)batch * arm_stride > INT_MAX)
     return (int)cudaErrorInvalidValue;
   const long smem = kDense ? cg_solve_dense_smem_bytes(n, e_dense) : cg_solve_smem_bytes(n, nl, nc);
   const auto kernel = kernel_of<kDense>();
@@ -823,7 +828,7 @@ int launch(const float* buf, const float* cdof, const float* fq, const float* sw
   kernel<<<batch, kThreads, smem, (cudaStream_t)stream>>>(
       buf, cdof, fq, sw, ll, mu, j, aref, D, qfrc_smooth, warm, hd, tolscale, anc, arm, dm,
       lim1h, qacc_smooth, qacc, qfrc_constraint, qacc_eff, efc_force, n, nl, nc, e_dense,
-      iterations, ls_iterations, with_euler);
+      iterations, ls_iterations, with_euler, arm_stride);
   return (int)cudaGetLastError();
 }
 
@@ -877,11 +882,11 @@ extern "C" int cg_solve_f32(const float* buf, const float* cdof, const float* fq
                             const float* lim1h, float* qacc_smooth, float* qacc,
                             float* qfrc_constraint, float* qacc_eff, float* efc_force,
                             int batch, int n, int nl, int nc, int iterations,
-                            int ls_iterations, int with_euler, void* stream) {
+                            int ls_iterations, int with_euler, int arm_stride, void* stream) {
   return launch<false>(buf, cdof, fq, sw, ll, mu, nullptr, aref, D, qfrc_smooth, warm, hd,
                        tolscale, anc, arm, dm, lim1h, qacc_smooth, qacc, qfrc_constraint,
                        qacc_eff, efc_force, batch, n, nl, nc, -1, iterations, ls_iterations,
-                       with_euler, stream);
+                       with_euler, arm_stride, stream);
 }
 
 // The dense mode: J [batch][e][n], no compact operands.
@@ -891,9 +896,10 @@ extern "C" int cg_solve_dense_f32(const float* buf, const float* cdof, const flo
                                   const float* anc, const float* arm, float* qacc_smooth,
                                   float* qacc, float* qfrc_constraint, float* qacc_eff,
                                   float* efc_force, int batch, int n, int e, int iterations,
-                                  int ls_iterations, int with_euler, void* stream) {
+                                  int ls_iterations, int with_euler, int arm_stride,
+                                  void* stream) {
   return launch<true>(buf, cdof, nullptr, nullptr, nullptr, nullptr, j, aref, D, qfrc_smooth,
                       warm, hd, tolscale, anc, arm, nullptr, nullptr, qacc_smooth, qacc,
                       qfrc_constraint, qacc_eff, efc_force, batch, n, 0, 0, e, iterations,
-                      ls_iterations, with_euler, stream);
+                      ls_iterations, with_euler, arm_stride, stream);
 }

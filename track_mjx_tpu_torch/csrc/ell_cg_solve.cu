@@ -121,6 +121,7 @@
 // CG_SOLVE_STAMPS.
 
 #include <cfloat>
+#include <climits>
 #include <cuda_runtime.h>
 
 #include "cholesky.cuh"
@@ -479,7 +480,7 @@ ell_cg_solve_kernel(const float* __restrict__ g_buf, const float* __restrict__ g
                     float* __restrict__ o_smooth, float* __restrict__ o_qacc,
                     float* __restrict__ o_qfrc, float* __restrict__ o_eff,
                     float* __restrict__ o_force, int n, int nl, int nc, int iterations,
-                    int ls_iterations, int with_euler) {
+                    int ls_iterations, int with_euler, int arm_stride) {
   constexpr int NT = kThreads;
   extern __shared__ __align__(16) float smem[];
   const Layout lay(n, nl, nc, kDense);
@@ -613,7 +614,9 @@ ell_cg_solve_kernel(const float* __restrict__ g_buf, const float* __restrict__ g
   STAMP(0);
   // qM = anc-masked buf cdof^T mirrored + diag(arm), into the lower tiles
   // (the diagonal tiles whole; padding zero), each entry as the first
-  // design's dense build; a thread per tile row, its 4 entries stored at once
+  // design's dense build; a thread per tile row, its 4 entries stored at once.
+  // arm is this env's armature: arm_stride 0 where every env shares one
+  // (an int product: the launch refuses batch * arm_stride past INT_MAX).
   for (int t = tid; t < 4 * tri(M.nt); t += NT) {
     const int2 ct = untri(t >> 2);  // tile t / 4 in Tiles' order
     const int i = 4 * (M.nt - 1 - ct.y) + (t & 3), j0 = 4 * (M.nt - 1 - ct.x);
@@ -637,7 +640,7 @@ ell_cg_solve_kernel(const float* __restrict__ g_buf, const float* __restrict__ g
           for (int k = 0; k < 6; ++k) s += s_buf[lo * 6 + k] * s_cdof[hi * 6 + k];
           v[c] = s;
         }
-        if (i == j) v[c] += arm[i];
+        if (i == j) v[c] += arm[blockIdx.x * arm_stride + i];
       }
     }
     M.row(t >> 2, t & 3) = make_float4(v[0], v[1], v[2], v[3]);
@@ -979,9 +982,10 @@ int launch(const float* buf, const float* cdof, const float* fq, const float* sw
            const float* anc, const float* arm, const float* dm, const float* lim1h,
            float* qacc_smooth, float* qacc, float* qfrc_constraint, float* qacc_eff,
            float* efc_force, int batch, int n, int nl, int nc, int iterations, int ls_iterations,
-           int with_euler, void* stream) {
+           int with_euler, int arm_stride, void* stream) {
   if (batch <= 0 || n <= 0 || n > kMaxN || nl < 0 || nc < 0 || iterations < 0 ||
-      ls_iterations < 0 || (kDense && nl + 3 * nc <= 0) || (with_euler && !qacc_eff))
+      ls_iterations < 0 || (kDense && nl + 3 * nc <= 0) || (with_euler && !qacc_eff) ||
+      (arm_stride != 0 && arm_stride != n) || (long)batch * arm_stride > INT_MAX)
     return (int)cudaErrorInvalidValue;
   const long smem = kDense ? ell_cg_solve_dense_smem_bytes(n, nl, nc) : ell_cg_solve_smem_bytes(n, nl, nc);
   const auto kernel = ell_cg_solve_kernel<kDense>;
@@ -990,7 +994,7 @@ int launch(const float* buf, const float* cdof, const float* fq, const float* sw
   kernel<<<batch, kThreads, smem, (cudaStream_t)stream>>>(
       buf, cdof, fq, sw, ll, mu, j, aref, D, qfrc_smooth, warm, hd, tolscale, anc, arm, dm, lim1h,
       qacc_smooth, qacc, qfrc_constraint, qacc_eff, efc_force, n, nl, nc, iterations, ls_iterations,
-      with_euler);
+      with_euler, arm_stride);
   return (int)cudaGetLastError();
 }
 
@@ -1044,11 +1048,12 @@ extern "C" int ell_cg_solve_f32(const float* buf, const float* cdof, const float
                                 const float* lim1h, float* qacc_smooth, float* qacc,
                                 float* qfrc_constraint, float* qacc_eff, float* efc_force,
                                 int batch, int n, int nl, int nc, int iterations,
-                                int ls_iterations, int with_euler, void* stream) {
+                                int ls_iterations, int with_euler, int arm_stride,
+                                void* stream) {
   return launch<false>(buf, cdof, fq, sw, ll, mu, nullptr, aref, D, qfrc_smooth, warm, hd,
                        tolscale, anc, arm, dm, lim1h, qacc_smooth, qacc, qfrc_constraint,
                        qacc_eff, efc_force, batch, n, nl, nc, iterations, ls_iterations,
-                       with_euler, stream);
+                       with_euler, arm_stride, stream);
 }
 
 // The dense mode: J [batch][ns + 3 nc][n], its first ns rows the scalar rows;
@@ -1060,9 +1065,9 @@ extern "C" int ell_cg_solve_dense_f32(const float* buf, const float* cdof, const
                                       float* qacc_smooth, float* qacc, float* qfrc_constraint,
                                       float* qacc_eff, float* efc_force, int batch, int n, int ns,
                                       int nc, int iterations, int ls_iterations, int with_euler,
-                                      void* stream) {
+                                      int arm_stride, void* stream) {
   return launch<true>(buf, cdof, nullptr, nullptr, nullptr, mu, j, aref, D, qfrc_smooth, warm, hd,
                       tolscale, anc, arm, nullptr, nullptr, qacc_smooth, qacc, qfrc_constraint,
                       qacc_eff, efc_force, batch, n, ns, nc, iterations, ls_iterations, with_euler,
-                      stream);
+                      arm_stride, stream);
 }

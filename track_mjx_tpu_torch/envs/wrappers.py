@@ -22,11 +22,14 @@ randomization wrapper stands there).
   model and the names of its randomized leaves, where the JAX one returns
   vmap's `in_axes`; the trainers bind the port's signature
   `randomization_fn(model, generator, num_envs)` to one generator stream
-  for the training envs and one for the eval envs. The stages that read a
-  randomized leaf broadcast it per env: `geom_friction` (contact friction,
-  which reaches the CG kernels through the contact rows) and `dof_damping`
-  (passive damping and the Euler implicit-damping solve). Any other leaf
-  raises NotImplementedError naming it.
+  for the training envs and one for the eval envs. Any of the 71 Model
+  fields may be randomized: each such leaf is [num_envs] + its shared shape
+  (physics/model.py's convention), and every stage reads each env's own
+  value (the fused CG kernels each env's armature, contact rows, damping,
+  tolerance and timestep). A name that is no Model field raises ValueError.
+  The constraint rows stay the plan's: a randomized dof_frictionloss acts on
+  the dofs whose frictionloss is positive in the shared model, as in the JAX
+  package.
 - ``ExternalEnvAdapter``, ``AutoResetWrapper`` and ``wrap_external`` train a
   foreign env (not a port `Env`): duck-typed and batch-first, `reset(generator,
   batch_size)` and `step(state, action)` on a state with obs, reward, done,
@@ -79,9 +82,7 @@ from typing import Callable, Optional
 from track_mjx_tpu_torch.envs.base import Env, State, Wrapper
 from track_mjx_tpu_torch.physics import forward as phys_forward
 from track_mjx_tpu_torch.physics import kinematics as phys_kinematics
-
-# Model leaves that the physics reads per env when they carry a leading env axis
-RANDOMIZABLE = ("geom_friction", "dof_damping")
+from track_mjx_tpu_torch.physics.model import LEAF_RANK
 
 
 def wrap(
@@ -210,11 +211,9 @@ class DomainRandomizationVmapWrapper(Wrapper):
         base = self.env.unwrapped.model
         self._model_v, names = randomization_fn(base)
         self.randomized = tuple(names)
-        unsupported = sorted(set(self.randomized) - set(RANDOMIZABLE))
-        if unsupported:
-            raise NotImplementedError(
-                f"randomizing {unsupported}: the port's physics reads only {list(RANDOMIZABLE)} per env"
-            )
+        unknown = sorted(set(self.randomized) - set(LEAF_RANK))
+        if unknown:
+            raise ValueError(f"randomizing {unknown}: not fields of the physics Model")
         sizes = set()
         for name in self.randomized:
             leaf, shared = getattr(self._model_v, name), getattr(base, name)

@@ -141,10 +141,12 @@ class CGOut(NamedTuple):
 def assemble_qm(buf, cdof, anc, armature) -> torch.Tensor:
     """qM[i, j] = buf[i] . cdof[j] for j ancestor-or-self of i, mirrored to
     the upper triangle, plus diag(armature). buf/cdof [B, n, 6], anc (n, n)
-    0/1 float, armature (n,) -> [B, n, n]."""
+    0/1 float, armature (n,) shared or [B, n] per env -> [B, n, n]."""
     lower = (buf @ cdof.transpose(-1, -2)) * anc
     diag = torch.diagonal(lower, dim1=-2, dim2=-1)
-    return lower + lower.transpose(-1, -2) - torch.diag_embed(diag) + torch.diag(armature)
+    return lower + lower.transpose(-1, -2) - torch.diag_embed(diag) + (
+        torch.diag(armature) if armature.dim() == 1 else torch.diag_embed(armature)
+    )
 
 
 def _jfr(fq, sw, dm) -> torch.Tensor:
@@ -327,9 +329,9 @@ def scalar_cg(qm, chosolve, j, aref, D, smooth, warm, tolscale, *, iterations: i
     fresh from x: the batched form of the reference's per-env
     `_scalar_cg_single` (track_mjx_tpu/physics/solver.py). qm [B, n, n],
     chosolve(b) = qm^-1 b, j [B, e, n], aref and D [B, e], smooth and warm
-    [B, n], tolscale [B] (tolerance times trace qm). fmin and fmax [e] bound
-    the rows' forces (equality and frictionloss rows); None leaves them
-    unilateral. The cheaper of warm and smooth starts; an env whose gradient
+    [B, n], tolscale [B] (tolerance times trace qm). fmin and fmax [e] (or
+    [B, e], a frictionloss randomized per env) bound the rows' forces
+    (equality and frictionloss rows); None leaves them unilateral. The cheaper of warm and smooth starts; an env whose gradient
     at the start of an iteration is under tolscale keeps its state from then
     on. Returns (qacc, force, qfrc_constraint)."""
 
@@ -599,15 +601,15 @@ def elliptic_cg(qm, chosolve, J, aref, D, fmin, fmax, mu_t, smooth, warm, tolsca
     `solve` for elliptic plans with equality or frictionloss rows). qm
     [B, n, n], chosolve(b) = qm^-1 b, J [B, ns + 3 nc, n] (ns scalar rows:
     equality, frictionloss, limits, condim-1 contacts; then the cone
-    blocks), aref and D [B, e], fmin and fmax [e] (the scalar rows' force
-    bounds, `scalar_zone`), mu_t [B, nc] or [nc] (mu_1 / sqrt(impratio)),
+    blocks), aref and D [B, e], fmin and fmax [e] or [B, e] (the scalar
+    rows' force bounds, `scalar_zone`), mu_t [B, nc] or [nc] (mu_1 / sqrt(impratio)),
     smooth and warm [B, n], tolscale [B] (tolerance times trace qm). The
     cheaper of warm and smooth by the full cost;
     the safeguarded linesearch over both row kinds; an env whose gradient at
     the start of an iteration is under tolscale keeps its state from then
     on. Returns (qacc, force, qfrc_constraint)."""
     nc = (J.shape[1] - ns) // 3
-    d_s, fmin_s, fmax_s = D[:, :ns], fmin[:ns], fmax[:ns]
+    d_s, fmin_s, fmax_s = D[:, :ns], fmin[..., :ns], fmax[..., :ns]
     cones = _cones(D, mu_t, ns)
     split = _ell_split(ns, nc)
 
@@ -680,7 +682,7 @@ def _compact_shapes(named: dict, rows_per_con: int):
     e = nl + rows_per_con * nc
     per_env = dict(buf=(n, 6), cdof=(n, 6), fq=(nc, 3, 6), sw=(n, 6), ll=(nl,),
                    mu=(nc, 2) if rows_per_con == 4 else (nc,))
-    static = dict(anc=(n, n), arm=(n,), dm=(nc, n), lim1h=(nl, n))
+    static = dict(anc=(n, n), dm=(nc, n), lim1h=(nl, n))
     return per_env, static, (n, nl, nc), e
 
 
@@ -691,7 +693,7 @@ def _dense_shapes(named: dict):
     e = j.shape[1] if j.dim() == 3 else -1
     if e == 0:
         raise ValueError("cg_solve_dense: empty row set")
-    return dict(buf=(n, 6), cdof=(n, 6), J=(e, n)), dict(anc=(n, n), arm=(n,)), (n, e), e
+    return dict(buf=(n, 6), cdof=(n, 6), J=(e, n)), dict(anc=(n, n)), (n, e), e
 
 
 def _ell_dense_shapes(named: dict, ns: int):
@@ -702,15 +704,15 @@ def _ell_dense_shapes(named: dict, ns: int):
     e = ns + 3 * nc
     if ns < 0 or nc < 0 or e == 0:
         raise ValueError(f"ell_cg_solve_dense: bad row counts ns = {ns}, mu {tuple(mu.shape)}")
-    return dict(buf=(n, 6), cdof=(n, 6), J=(e, n), mu=(nc,)), dict(anc=(n, n), arm=(n,)), (n, ns, nc), e
+    return dict(buf=(n, 6), cdof=(n, 6), J=(e, n), mu=(nc,)), dict(anc=(n, n)), (n, ns, nc), e
 
 
 def _check(op: str, names, args, shapes):
     """Validates a solve's arguments (in `names` order): contiguous tensors
     on one device, float32 (float64 too on the CPU, a reference solve),
     of the shapes `shapes(named)` gives (per env and static, besides aref
-    and D [B, e], qfrc_smooth, warm and hd [B, n], tolscale [B]). Returns
-    (B, dims, e)."""
+    and D [B, e], qfrc_smooth, warm and hd [B, n], tolscale [B], and arm
+    (n,) shared by every env or [B, n] per env). Returns (B, dims, e)."""
     named = dict(zip(names, args))
     for name, t in named.items():
         if not isinstance(t, torch.Tensor):
@@ -719,7 +721,8 @@ def _check(op: str, names, args, shapes):
     per_env, static, dims, e = shapes(named)
     n = dims[0]
     want = dict(static, aref=(bsz, e), D=(bsz, e), qfrc_smooth=(bsz, n), warm=(bsz, n), hd=(bsz, n),
-                tolscale=(bsz,), **{k: (bsz, *v) for k, v in per_env.items()})
+                tolscale=(bsz,), arm=(bsz, n) if named["arm"].dim() == 2 else (n,),
+                **{k: (bsz, *v) for k, v in per_env.items()})
     device = named["buf"].device
     dtype = torch.float64 if device.type == "cpu" and named["buf"].dtype == torch.float64 else torch.float32
     for name, t in named.items():
@@ -738,13 +741,20 @@ def _check(op: str, names, args, shapes):
     return bsz, dims, e
 
 
+_NAMES = {"cg_solve": _ARG_NAMES, "ell_cg_solve": _ARG_NAMES, "cg_solve_dense": _DENSE_ARG_NAMES,
+          "ell_cg_solve_dense": _ELL_DENSE_ARG_NAMES}
+
+
 def _launch(op: str, args, bsz, dims, e, iterations, ls_iterations, with_euler: bool = True) -> CGOut:
     """Launches `{op}_f32` on the current stream of the tensors' card, with
     dims (n, nl, nc), for cg_solve_dense (n, e), for ell_cg_solve_dense (n,
-    ns, nc); raises for a model the kernel does not take (n > MAX_N, or more
-    shared memory per env than a CTA has, `{op}_smem_bytes(*dims)`) or if
-    the launch fails. Without `with_euler` qacc_eff is None."""
+    ns, nc), and the armature's stride between envs (0 for one armature (n,)
+    shared by every env, n for one per env [B, n]); raises for a model the
+    kernel does not take (n > MAX_N, or more shared memory per env than a
+    CTA has, `{op}_smem_bytes(*dims)`) or if the launch fails. Without
+    `with_euler` qacc_eff is None."""
     n = dims[0]
+    arm = args[_NAMES[op].index("arm")]
     if n > MAX_N:
         raise ValueError(f"{op}: n = {n}, the CUDA kernel takes n <= {MAX_N}")
     lib = load_library()
@@ -768,7 +778,7 @@ def _launch(op: str, args, bsz, dims, e, iterations, ls_iterations, with_euler: 
             out.qacc_smooth.data_ptr(), out.qacc.data_ptr(),
             out.qfrc_constraint.data_ptr(), out.qacc_eff.data_ptr() if with_euler else None,
             out.efc_force.data_ptr(),
-            bsz, *dims, iterations, ls_iterations, int(with_euler), stream,
+            bsz, *dims, iterations, ls_iterations, int(with_euler), n if arm.dim() == 2 else 0, stream,
         )
     if err != 0:
         raise RuntimeError(f"{op}: CUDA kernel launch failed with cudaError {err}")
@@ -783,8 +793,9 @@ def cg_solve(
 
     Per env: buf, cdof, sw [B, n, 6]; fq [B, nc, 3, 6]; ll [B, nl];
     mu [B, nc, 2]; aref, D [B, nl + 4 nc]; qfrc_smooth, warm, hd [B, n];
-    tolscale [B]. Static: anc (n, n) 0/1, arm (n,), dm (nc, n),
-    lim1h (nl, n) one-hot rows (each limit row's dof). All float32 and
+    tolscale [B]; arm [B, n], or (n,) shared by every env. Static: anc (n,
+    n) 0/1, dm (nc, n), lim1h (nl, n) one-hot rows (each limit row's dof).
+    All float32 and
     contiguous on one device. Without `with_euler` (plans on RK4 or an
     implicit integrator) M + diag(hd) is not factored and qacc_eff is None.
     CPU tensors run `cg_solve_plain` (in float64 too, as a reference); CUDA
@@ -813,10 +824,10 @@ def cg_solve_dense(
     (condim-1, -4 or -6 contacts beside the limits), in efc order.
 
     Per env: buf, cdof [B, n, 6]; J [B, e, n]; aref, D [B, e]; qfrc_smooth,
-    warm, hd [B, n]; tolscale [B]. Static: anc (n, n) 0/1, arm (n,). All
-    float32 and contiguous on one device. Without `with_euler` M + diag(hd)
-    is not factored and qacc_eff is None. CPU tensors run
-    `cg_solve_dense_plain` (in float64 too, as a reference); CUDA tensors
+    warm, hd [B, n]; tolscale [B]; arm [B, n], or (n,) shared by every env.
+    Static: anc (n, n) 0/1. All float32 and contiguous on one device.
+    Without `with_euler` M + diag(hd) is not factored and qacc_eff is None.
+    CPU tensors run `cg_solve_dense_plain` (in float64 too, as a reference); CUDA tensors
     launch the kernel (n <= MAX_N; J is walked in panels, `j_panels`, and
     the rows' vectors in shared memory bound e, about 8,000 rows at n = 73)
     or raise."""
@@ -842,8 +853,9 @@ def ell_cg_solve(
 
     Per env: buf, cdof, sw [B, n, 6]; fq [B, nc, 3, 6]; ll [B, nl];
     mu [B, nc] (mu_1 / sqrt(impratio) of each block); aref, D
-    [B, nl + 3 nc]; qfrc_smooth, warm, hd [B, n]; tolscale [B]. Static: anc
-    (n, n) 0/1, arm (n,), dm (nc, n), lim1h (nl, n). All float32 and
+    [B, nl + 3 nc]; qfrc_smooth, warm, hd [B, n]; tolscale [B]; arm [B, n],
+    or (n,) shared by every env. Static: anc (n, n) 0/1, dm (nc, n), lim1h
+    (nl, n). All float32 and
     contiguous on one device. Without `with_euler` (plans on RK4 or an
     implicit integrator) M + diag(hd) is not factored and qacc_eff is None.
     CPU tensors run `ell_cg_solve_plain` (in float64 too, as a reference);
@@ -874,10 +886,10 @@ def ell_cg_solve_dense(
 
     Per env: buf, cdof [B, n, 6]; J [B, ns + 3 nc, n]; aref, D [B, ns + 3
     nc]; mu [B, nc] (mu_1 / sqrt(impratio) of each block); qfrc_smooth,
-    warm, hd [B, n]; tolscale [B]. Static: anc (n, n) 0/1, arm (n,). All
-    float32 and contiguous on one device. Without `with_euler` M + diag(hd)
-    is not factored and qacc_eff is None. CPU tensors run
-    `ell_cg_solve_dense_plain` (in float64 too, as a reference); CUDA tensors
+    warm, hd [B, n]; tolscale [B]; arm [B, n], or (n,) shared by every env.
+    Static: anc (n, n) 0/1. All float32 and contiguous on one device.
+    Without `with_euler` M + diag(hd) is not factored and qacc_eff is None.
+    CPU tensors run `ell_cg_solve_dense_plain` (in float64 too, as a reference); CUDA tensors
     launch the kernel (n <= MAX_N; J is walked in panels of whole cone
     blocks, `j_panels`) or raise."""
     args = (buf, cdof, J, aref, D, mu, qfrc_smooth, warm, hd, tolscale, anc, arm)

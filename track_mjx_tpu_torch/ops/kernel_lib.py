@@ -112,14 +112,15 @@ def open_library(path: str) -> ctypes.CDLL:
     point's C signature set."""
     lib = ctypes.CDLL(path)
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
-    # the fused solves take with_euler after ls_iterations
+    # the fused solves take with_euler after ls_iterations, then arm_stride
+    # (0: one armature for every env; n: an armature per env)
     for op in ("cg_solve", "ell_cg_solve"):
-        _bind(getattr(lib, f"{op}_f32"), [ptr] * 21 + [i32] * 7 + [ptr], i32)
+        _bind(getattr(lib, f"{op}_f32"), [ptr] * 21 + [i32] * 8 + [ptr], i32)
         _bind(getattr(lib, f"{op}_smem_bytes"), [i32] * 3, i64)
-    _bind(lib.cg_solve_dense_f32, [ptr] * 16 + [i32] * 6 + [ptr], i32)
+    _bind(lib.cg_solve_dense_f32, [ptr] * 16 + [i32] * 7 + [ptr], i32)
     _bind(lib.cg_solve_dense_smem_bytes, [i32] * 2, i64)
     _bind(lib.cg_solve_dense_kernel_info, [i32, i32, ptr], i32)
-    _bind(lib.ell_cg_solve_dense_f32, [ptr] * 17 + [i32] * 7 + [ptr], i32)
+    _bind(lib.ell_cg_solve_dense_f32, [ptr] * 17 + [i32] * 8 + [ptr], i32)
     _bind(lib.ell_cg_solve_dense_smem_bytes, [i32] * 3, i64)
     _bind(lib.ell_cg_solve_dense_kernel_info, [i32] * 3 + [ptr], i32)
     _bind(lib.cg_solve_dense_panels, [i32, i32, ptr], i32)

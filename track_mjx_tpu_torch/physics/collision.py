@@ -27,23 +27,23 @@ from track_mjx_tpu_torch.physics.model import (
     Model,
     PhysicsPlan,
     static_tensor,
+    take,
 )
 
 
 @dataclasses.dataclass(frozen=True)
 class Contact:
     """Static-shape contact set, [B, ncon, ...] (friction, solref, solimp and
-    includemargin depend only on the model and are [ncon, ...]; friction is
-    [B, ncon, 5] where the model's geom_friction has a leading env axis,
-    envs/wrappers.DomainRandomizationVmapWrapper)."""
+    includemargin depend only on the model and are [ncon, ...], or [B, ncon,
+    ...] where a geom leaf they come from is per env: physics/model.py)."""
 
     dist: torch.Tensor  # [B, ncon]
     pos: torch.Tensor  # [B, ncon, 3]
     frame: torch.Tensor  # [B, ncon, 3, 3], rows = [normal, tangent1, tangent2]
     friction: torch.Tensor  # [ncon, 5] or [B, ncon, 5]
-    solref: torch.Tensor  # [ncon, 2]
-    solimp: torch.Tensor  # [ncon, 5]
-    includemargin: torch.Tensor  # [ncon]
+    solref: torch.Tensor  # [ncon, 2] or [B, ncon, 2]
+    solimp: torch.Tensor  # [ncon, 5] or [B, ncon, 5]
+    includemargin: torch.Tensor  # [ncon] or [B, ncon]
 
 
 def _norm(x: torch.Tensor) -> torch.Tensor:
@@ -63,31 +63,31 @@ def make_frame(n: torch.Tensor) -> torch.Tensor:
 
 
 def _combine_params(model: Model, g1: torch.Tensor, g2: torch.Tensor):
-    """Contact parameter mixing (mj_contactParam equal/priority rules)."""
-    p1, p2 = model.geom_priority[g1], model.geom_priority[g2]
-    s1, s2 = model.geom_solmix[g1], model.geom_solmix[g2]
+    """Contact parameter mixing (mj_contactParam equal/priority rules), per
+    pair [npair, ...], or [B, npair, ...] where a geom leaf is per env."""
+    p1, p2 = take(model, "geom_priority", g1), take(model, "geom_priority", g2)
+    s1, s2 = take(model, "geom_solmix", g1), take(model, "geom_solmix", g2)
     denom = s1 + s2
     mix = torch.where(denom > 1e-12, s1 / torch.clamp(denom, min=1e-12), 0.5)
     mix = torch.where((s1 < 1e-12) & (s2 >= 1e-12), 0.0, mix)
     mix = torch.where((s2 < 1e-12) & (s1 >= 1e-12), 1.0, mix)
-    mix = torch.where(p1 > p2, 1.0, torch.where(p2 > p1, 0.0, mix))[:, None]
+    mix = torch.where(p1 > p2, 1.0, torch.where(p2 > p1, 0.0, mix))[..., None]
 
-    ref1, ref2 = model.geom_solref[g1], model.geom_solref[g2]
+    ref1, ref2 = take(model, "geom_solref", g1), take(model, "geom_solref", g2)
     solref = torch.where(
-        (ref1[:, :1] > 0) & (ref2[:, :1] > 0),
+        (ref1[..., :1] > 0) & (ref2[..., :1] > 0),
         mix * ref1 + (1 - mix) * ref2,
         torch.minimum(ref1, ref2),
     )
-    solimp = mix * model.geom_solimp[g1] + (1 - mix) * model.geom_solimp[g2]
+    solimp = mix * take(model, "geom_solimp", g1) + (1 - mix) * take(model, "geom_solimp", g2)
 
-    # geom_friction [ngeom, 3], or [B, ngeom, 3] randomized per env
-    f1, f2 = model.geom_friction[..., g1, :], model.geom_friction[..., g2, :]
-    fri_pri = torch.where((p1 > p2)[:, None], f1, f2)
-    fri3 = torch.where((p1 == p2)[:, None], torch.maximum(f1, f2), fri_pri)
+    f1, f2 = take(model, "geom_friction", g1), take(model, "geom_friction", g2)
+    fri_pri = torch.where((p1 > p2)[..., None], f1, f2)
+    fri3 = torch.where((p1 == p2)[..., None], torch.maximum(f1, f2), fri_pri)
     friction = torch.stack(
         [fri3[..., 0], fri3[..., 0], fri3[..., 1], fri3[..., 2], fri3[..., 2]], dim=-1
     )
-    includemargin = model.geom_margin[g1] + model.geom_margin[g2]
+    includemargin = take(model, "geom_margin", g1) + take(model, "geom_margin", g2)
     return friction, solref, solimp, includemargin
 
 
@@ -112,18 +112,18 @@ def collide(plan: PhysicsPlan, model: Model, data: Data) -> tuple[Data, Contact]
         fri, ref, imp, inc = _combine_params(model, g1, g2)
         x1, m1 = data.geom_xpos[:, g1], data.geom_xmat[:, g1]
         x2, m2 = data.geom_xpos[:, g2], data.geom_xmat[:, g2]
-        sz1, sz2 = model.geom_size[g1], model.geom_size[g2]
+        sz1, sz2 = take(model, "geom_size", g1), take(model, "geom_size", g2)
 
         if (t1, t2) == (GEOM_PLANE, GEOM_SPHERE):
             n = m1[..., :, 2]
-            d_, p_ = _plane_sphere(n, x1, x2, sz2[:, 0])
+            d_, p_ = _plane_sphere(n, x1, x2, sz2[..., 0])
             con = [(d_, p_, make_frame(n))]
         elif (t1, t2) == (GEOM_PLANE, GEOM_CAPSULE):
             n = m1[..., :, 2]
             axis = m2[..., :, 2]
-            hl, r = sz2[:, 1], sz2[:, 0]
-            d1, p1 = _plane_sphere(n, x1, x2 + axis * hl[:, None], r)
-            d2, p2 = _plane_sphere(n, x1, x2 - axis * hl[:, None], r)
+            hl, r = sz2[..., 1], sz2[..., 0]
+            d1, p1 = _plane_sphere(n, x1, x2 + axis * hl[..., None], r)
+            d2, p2 = _plane_sphere(n, x1, x2 - axis * hl[..., None], r)
             # mjc_PlaneCapsule frame: tangent1 = capsule axis projected onto
             # the plane (mju_makeFrame when near-vertical)
             proj = axis - n * dot(n, axis)[..., None]
@@ -147,8 +147,8 @@ def collide(plan: PhysicsPlan, model: Model, data: Data) -> tuple[Data, Contact]
             corners = like.new_tensor(
                 [[sx, sy, sz] for sx in (-1, 1) for sy in (-1, 1) for sz in (-1, 1)]
             )  # (8, 3)
-            corner_l = corners[None] * sz2[:, None, :]  # (npair, 8, 3)
-            corner_w = x2[:, :, None, :] + (m2[:, :, None, :, :] * corner_l[None, :, :, None, :]).sum(-1)
+            corner_l = corners[None] * sz2[..., None, :]  # (npair, 8, 3), or [B, npair, 8, 3]
+            corner_w = x2[:, :, None, :] + (m2[:, :, None, :, :] * corner_l[..., None, :]).sum(-1)
             hs = (n[:, :, None, :] * (corner_w - x1[:, :, None, :])).sum(-1)  # [B, npair, 8]
             negd, sel = torch.topk(-hs, 4, dim=-1)
             d4 = -negd
@@ -160,22 +160,22 @@ def collide(plan: PhysicsPlan, model: Model, data: Data) -> tuple[Data, Contact]
             d12 = x2 - x1
             ln = torch.clamp(_norm(d12), min=1e-12)
             n = d12 / ln[..., None]
-            dist = ln - (sz1[:, 0] + sz2[:, 0])
-            pos = x1 + n * (sz1[:, 0] + 0.5 * dist)[..., None]
+            dist = ln - (sz1[..., 0] + sz2[..., 0])
+            pos = x1 + n * (sz1[..., 0] + 0.5 * dist)[..., None]
             con = [(dist, pos, make_frame(n))]
         elif (t1, t2) == (GEOM_SPHERE, GEOM_CAPSULE):
             axis = m2[..., :, 2]
-            hl = sz2[:, 1]
+            hl = sz2[..., 1]
             t = torch.minimum(torch.maximum(dot(x1 - x2, axis), -hl), hl)
             d12 = x2 + axis * t[..., None] - x1
             ln = torch.clamp(_norm(d12), min=1e-12)
             n = d12 / ln[..., None]
-            dist = ln - (sz1[:, 0] + sz2[:, 0])
-            pos = x1 + n * (sz1[:, 0] + 0.5 * dist)[..., None]
+            dist = ln - (sz1[..., 0] + sz2[..., 0])
+            pos = x1 + n * (sz1[..., 0] + 0.5 * dist)[..., None]
             con = [(dist, pos, make_frame(n))]
         elif (t1, t2) == (GEOM_CAPSULE, GEOM_CAPSULE):
             a_ax, b_ax = m1[..., :, 2], m2[..., :, 2]
-            a_hl, b_hl = sz1[:, 1], sz2[:, 1]
+            a_hl, b_hl = sz1[..., 1], sz2[..., 1]
             d0 = x2 - x1
             a_dot_b = dot(a_ax, b_ax)
             a_dot_d = dot(a_ax, d0)
@@ -193,8 +193,8 @@ def collide(plan: PhysicsPlan, model: Model, data: Data) -> tuple[Data, Contact]
             d12 = pb - pa
             ln = torch.clamp(_norm(d12), min=1e-12)
             n = d12 / ln[..., None]
-            dist = ln - (sz1[:, 0] + sz2[:, 0])
-            pos = pa + n * (sz1[:, 0] + 0.5 * dist)[..., None]
+            dist = ln - (sz1[..., 0] + sz2[..., 0])
+            pos = pa + n * (sz1[..., 0] + 0.5 * dist)[..., None]
             con = [(dist, pos, make_frame(n))]
         else:
             raise NotImplementedError((t1, t2))
@@ -213,7 +213,7 @@ def collide(plan: PhysicsPlan, model: Model, data: Data) -> tuple[Data, Contact]
             dist=like.new_zeros((bsz, 0)),
             pos=like.new_zeros((bsz, 0, 3)),
             frame=like.new_zeros((bsz, 0, 3, 3)),
-            friction=like.new_zeros(model.geom_friction.shape[:-2] + (0, 5)),
+            friction=like.new_zeros((0, 5)),
             solref=like.new_zeros((0, 2)),
             solimp=like.new_zeros((0, 5)),
             includemargin=like.new_zeros((0,)),
@@ -223,9 +223,9 @@ def collide(plan: PhysicsPlan, model: Model, data: Data) -> tuple[Data, Contact]
         pos=torch.cat(poss, dim=1),
         frame=torch.cat(frames, dim=1),
         friction=torch.cat(fris, dim=-2),
-        solref=torch.cat(refs),
-        solimp=torch.cat(imps),
-        includemargin=torch.cat(margins),
+        solref=torch.cat(refs, dim=-2),
+        solimp=torch.cat(imps, dim=-2),
+        includemargin=torch.cat(margins, dim=-1),
     )
     data = data.replace(
         contact_dist=contact.dist, contact_pos=contact.pos, contact_frame=contact.frame

@@ -43,10 +43,10 @@ def com_pos(plan: PhysicsPlan, model: Model, data: Data) -> Data:
         return static_tensor(plan, ("com",) + key, like, build)
 
     mask = idx(("subtree_mask",), lambda: subtree_mask(plan))
-    mass = model.body_mass
-    weighted = mass[:, None] * data.xipos
-    subtree_mass = torch.clamp(mask @ mass, min=1e-12)
-    subtree_com = (mask @ weighted) / subtree_mass[:, None]
+    mass = model.body_mass  # [nbody], or [B, nbody] per env
+    weighted = mass[..., None] * data.xipos
+    subtree_mass = torch.clamp(mass @ mask.T if mass.dim() > 1 else mask @ mass, min=1e-12)
+    subtree_com = (mask @ weighted) / subtree_mass[..., None]
 
     root_com = subtree_com[:, idx(("rootid",), lambda: plan.body_rootid)]
     cinert = spatial.inertia_in_com_frame(

@@ -19,6 +19,14 @@ pyramid groups by ascending condim, 2 (condim - 1) rows per contact, the
 rotational (torsional, rolling) directions of condim 4 and 6 included, or,
 elliptic, one (normal, t1, t2) cone block per condim-3 contact.
 
+Any Model leaf may be per env (physics/model.py): the rows' terms then
+carry the env axis first ([B, r] where [r] would be shared), and so may
+the force bounds fmin/fmax. The rows themselves are fixed by the plan: a
+frictionloss row exists for each dof and tendon whose frictionloss is
+positive in the model the plan was built from, so a per-env
+dof_frictionloss acts on those dofs only (the JAX package's rows are fixed
+alike).
+
 Impedance/reference math follows MuJoCo's soft-constraint model
 (mj_makeImpedance / mj_referenceConstraint); elliptic friction rows reuse
 the normal row's impedance, aref_fric = -b jv, and D_fric_i = D_normal
@@ -46,7 +54,11 @@ from track_mjx_tpu_torch.physics.model import (
     Data,
     Model,
     PhysicsPlan,
+    env_lined,
+    env_view,
+    is_per_env,
     static_tensor,
+    take,
 )
 
 @dataclasses.dataclass(frozen=True)
@@ -74,10 +86,10 @@ class EfcData:
     jb_fq: torch.Tensor | None = None  # [B, ncon, 3, 6] (ncon may be 0)
     jb_ll: torch.Tensor | None = None  # [B, nlimit] side * active
     jb_mu: torch.Tensor | None = None  # [ncon, 2] (or [B, ncon, 2]) tangential friction (pyramidal, and models without contacts)
-    ell_mu: torch.Tensor | None = None  # [ncon] mu_1 of each cone block (elliptic)
+    ell_mu: torch.Tensor | None = None  # [ncon] (or [B, ncon]) mu_1 of each cone block (elliptic)
     J: torch.Tensor | None = None  # [B, nefc, nv] off the compact layouts
-    fmin: torch.Tensor | None = None  # [nefc] off the compact layouts
-    fmax: torch.Tensor | None = None  # [nefc]
+    fmin: torch.Tensor | None = None  # [nefc] (or [B, nefc]) off the compact layouts
+    fmax: torch.Tensor | None = None  # [nefc] (or [B, nefc])
 
 
 def _jb_supported(plan: PhysicsPlan) -> bool:
@@ -107,8 +119,10 @@ def _jb_supported_ell(plan: PhysicsPlan) -> bool:
     )
 
 
-def _kbi(model: Model, solref, solimp, pos):
-    """Stiffness/damping/impedance from solver parameters (mj_makeImpedance)."""
+def _kbi(model: Model, solref, solimp, pos, ndim: int | None = None):
+    """Stiffness/damping/impedance from solver parameters (mj_makeImpedance).
+    A per-env timestep is lined up against batch-first rows of `ndim` dims
+    (default: pos's)."""
     timeconst, dampratio = solref[..., 0], solref[..., 1]
     dmin = torch.clamp(solimp[..., 0], 0.0001, 0.9999)
     dmax = torch.clamp(solimp[..., 1], 0.0001, 0.9999)
@@ -117,7 +131,7 @@ def _kbi(model: Model, solref, solimp, pos):
     power = torch.clamp(solimp[..., 4], min=1.0)
 
     # C floors the time constant at 2*timestep (mj_assignRef)
-    tc_eff = torch.maximum(timeconst, 2.0 * model.opt_timestep)
+    tc_eff = torch.maximum(timeconst, 2.0 * env_view(model, "opt_timestep", pos.dim() if ndim is None else ndim))
     k_std = 1.0 / torch.clamp(
         dmax * dmax * tc_eff * tc_eff * dampratio * dampratio, min=1e-12
     )
@@ -178,8 +192,9 @@ def _body_point_jac(plan: PhysicsPlan, data: Data, body: int, point: torch.Tenso
 
 def _poly(coef: torch.Tensor, x: torch.Tensor):
     """MuJoCo's quartic coupling polynomial and its derivative."""
-    val = coef[0] + x * (coef[1] + x * (coef[2] + x * (coef[3] + x * coef[4])))
-    deriv = coef[1] + x * (2 * coef[2] + x * (3 * coef[3] + x * 4 * coef[4]))
+    c = [coef[..., i] for i in range(5)]
+    val = c[0] + x * (c[1] + x * (c[2] + x * (c[3] + x * c[4])))
+    deriv = c[1] + x * (2 * c[2] + x * (3 * c[3] + x * 4 * c[4]))
     return val, deriv
 
 
@@ -204,8 +219,9 @@ def _qpos_tangent(plan: PhysicsPlan, qpos: torch.Tensor, qvel: torch.Tensor) -> 
 
 
 def _connect_weld_blocks(plan: PhysicsPlan, model: Model, data: Data):
-    """(eq_id, J [B, r, nv], pos [B, r], invweight [r]) of each connect (3
-    rows) and weld (6 rows) constraint, from kinematics-complete `data`."""
+    """(eq_id, J [B, r, nv], pos [B, r], invweight [r] or [B, r]) of each
+    connect (3 rows) and weld (6 rows) constraint, from kinematics-complete
+    `data`."""
     blocks = []
 
     def anchor(o, is_site, eq_anchor):
@@ -214,44 +230,52 @@ def _connect_weld_blocks(plan: PhysicsPlan, model: Model, data: Data):
         (eq_data ignored, as C does)."""
         if is_site:
             return int(plan.site_bodyid[o]), data.site_xpos[:, o]
+        if eq_anchor.dim() > 1:  # per env, [B, 3]
+            return o, data.xpos[:, o] + (data.xmat[:, o] @ eq_anchor[..., None])[..., 0]
         return o, data.xpos[:, o] + data.xmat[:, o] @ eq_anchor
 
+    def invweight(b, k):
+        return take(model, "body_invweight0", b)[..., k]
+
     for e, o1, o2, is_site in plan.eq_connect:
-        b1, p1 = anchor(o1, is_site, model.eq_data[e, 0:3])
-        b2, p2 = anchor(o2, is_site, model.eq_data[e, 3:6])
+        eq_data = take(model, "eq_data", e)
+        b1, p1 = anchor(o1, is_site, eq_data[..., 0:3])
+        b2, p2 = anchor(o2, is_site, eq_data[..., 3:6])
         jacp1, _ = _body_point_jac(plan, data, b1, p1)
         jacp2, _ = _body_point_jac(plan, data, b2, p2)
-        iw_t = model.body_invweight0[b1, 0] + model.body_invweight0[b2, 0]
-        blocks.append((e, (jacp1 - jacp2).transpose(-1, -2), p1 - p2, torch.stack([iw_t] * 3)))
+        iw_t = invweight(b1, 0) + invweight(b2, 0)
+        blocks.append((e, (jacp1 - jacp2).transpose(-1, -2), p1 - p2, torch.stack([iw_t] * 3, dim=-1)))
 
     for e, o1, o2, is_site in plan.eq_weld:
-        ts = model.eq_data[e, 10]
-        b1, p1 = anchor(o1, is_site, model.eq_data[e, 3:6])
-        b2, p2 = anchor(o2, is_site, model.eq_data[e, 0:3])
+        eq_data = take(model, "eq_data", e)
+        ts = eq_data[..., 10]
+        b1, p1 = anchor(o1, is_site, eq_data[..., 3:6])
+        b2, p2 = anchor(o2, is_site, eq_data[..., 0:3])
         jacp1, jacr1 = _body_point_jac(plan, data, b1, p1)
         jacp2, jacr2 = _body_point_jac(plan, data, b2, p2)
         # rotation residual ts vec(conj(q2) q1 relq); its jacobian 0.5 ts A
         # (jacr1 - jacr2) with A e_i = vec(conj(q2) e_i q1r). Site mode: the
         # site frames, relpose identity (C derives the rest pose from them).
         if is_site:
-            q1 = quat.mul(data.xquat[:, b1], model.site_quat[o1])
-            q2 = quat.mul(data.xquat[:, b2], model.site_quat[o2])
+            q1 = quat.mul(data.xquat[:, b1], take(model, "site_quat", o1))
+            q2 = quat.mul(data.xquat[:, b2], take(model, "site_quat", o2))
             q1r = q1
         else:
-            q1r = quat.mul(data.xquat[:, o1], model.eq_data[e, 6:10])
+            q1r = quat.mul(data.xquat[:, o1], eq_data[..., 6:10])
             q2 = data.xquat[:, o2]
         q2inv = quat.inv(q2)
-        pos_r = ts * quat.mul(q2inv, q1r)[..., 1:]
+        eq_per_env = is_per_env(model, "eq_data")
+        pos_r = env_lined(ts, eq_per_env, 2) * quat.mul(q2inv, q1r)[..., 1:]
         basis = torch.eye(4, dtype=q2.dtype, device=q2.device)[1:]
         a = torch.stack([quat.mul(q2inv, quat.mul(bq, q1r))[..., 1:] for bq in basis], dim=-1)
-        jr = 0.5 * ts * (a @ (jacr1 - jacr2).transpose(-1, -2))
-        iw_t = model.body_invweight0[b1, 0] + model.body_invweight0[b2, 0]
-        iw_r = model.body_invweight0[b1, 1] + model.body_invweight0[b2, 1]
+        jr = 0.5 * env_lined(ts, eq_per_env, 3) * (a @ (jacr1 - jacr2).transpose(-1, -2))
+        iw_t = invweight(b1, 0) + invweight(b2, 0)
+        iw_r = invweight(b1, 1) + invweight(b2, 1)
         blocks.append((
             e,
             torch.cat([(jacp1 - jacp2).transpose(-1, -2), jr], dim=1),
             torch.cat([p1 - p2, pos_r], dim=1),
-            torch.stack([iw_t] * 3 + [iw_r] * 3),
+            torch.stack([iw_t] * 3 + [iw_r] * 3, dim=-1),
         ))
     return blocks
 
@@ -290,7 +314,7 @@ def _equality_rows(plan: PhysicsPlan, model: Model, data: Data):
 
     def kbi_norm(e, res):
         norm = torch.sqrt(torch.clamp((res * res).sum(-1), min=1e-30))
-        return _kbi(model, model.eq_solref[e], model.eq_solimp[e], norm)
+        return _kbi(model, take(model, "eq_solref", e), take(model, "eq_solimp", e), norm)
 
     cw_blocks = _connect_weld_blocks(plan, model, data)
     if cw_blocks:
@@ -302,24 +326,25 @@ def _equality_rows(plan: PhysicsPlan, model: Model, data: Data):
             vel = (j * data.qvel[:, None, :]).sum(-1)
             jdot = jdot_qvel[:, row0 : row0 + nrow]
             row0 += nrow
-            aref = -b * vel - (k * imp)[:, None] * pos - jdot
+            aref = -env_lined(b, b.dim() > 0, 2) * vel - (k * imp)[:, None] * pos - jdot
             imp = imp[:, None]
             out.append((e, j, aref, imp / torch.clamp((1.0 - imp) * iw, min=1e-12), pos))
 
     for e, j1, j2 in plan.eq_joint:
         d1, q1adr = int(plan.jnt_dofadr[j1]), int(plan.jnt_qposadr[j1])
-        pos1 = data.qpos[:, q1adr] - model.qpos0[q1adr]
+        pos1 = data.qpos[:, q1adr] - take(model, "qpos0", q1adr)
         j = like.new_zeros((bsz, nv))
         j[:, d1] = 1.0
+        eq_data = take(model, "eq_data", e)
         if j2 >= 0:
             d2, q2adr = int(plan.jnt_dofadr[j2]), int(plan.jnt_qposadr[j2])
-            val, deriv = _poly(model.eq_data[e], data.qpos[:, q2adr] - model.qpos0[q2adr])
+            val, deriv = _poly(eq_data, data.qpos[:, q2adr] - take(model, "qpos0", q2adr))
             pos = pos1 - val
             j[:, d2] = -deriv
-            invweight = model.dof_invweight0[d1] + model.dof_invweight0[d2]
+            invweight = take(model, "dof_invweight0", d1) + take(model, "dof_invweight0", d2)
         else:
-            pos = pos1 - model.eq_data[e, 0]
-            invweight = model.dof_invweight0[d1]
+            pos = pos1 - eq_data[..., 0]
+            invweight = take(model, "dof_invweight0", d1)
         k, b, imp = kbi_norm(e, pos[:, None])
         aref = -b * (j * data.qvel).sum(-1) - k * imp * pos
         d = imp / torch.clamp((1.0 - imp) * invweight, min=1e-12)
@@ -328,16 +353,17 @@ def _equality_rows(plan: PhysicsPlan, model: Model, data: Data):
     if plan.eq_tendon:
         lengths = (model.tendon_length_mat * data.qpos[:, None, :]).sum(-1) + model.tendon_length0_const
         for e, t1, t2 in plan.eq_tendon:
-            pos1 = lengths[:, t1] - model.tendon_length0[t1]
-            j = model.tendon_moment[t1].expand(bsz, nv)
+            pos1 = lengths[:, t1] - take(model, "tendon_length0", t1)
+            j = take(model, "tendon_moment", t1).expand(bsz, nv)
+            eq_data = take(model, "eq_data", e)
             if t2 >= 0:
-                val, deriv = _poly(model.eq_data[e], lengths[:, t2] - model.tendon_length0[t2])
+                val, deriv = _poly(eq_data, lengths[:, t2] - take(model, "tendon_length0", t2))
                 pos = pos1 - val
-                j = j - deriv[:, None] * model.tendon_moment[t2]
-                invweight = model.tendon_invweight0[t1] + model.tendon_invweight0[t2]
+                j = j - deriv[:, None] * take(model, "tendon_moment", t2)
+                invweight = take(model, "tendon_invweight0", t1) + take(model, "tendon_invweight0", t2)
             else:
-                pos = pos1 - model.eq_data[e, 0]
-                invweight = model.tendon_invweight0[t1]
+                pos = pos1 - eq_data[..., 0]
+                invweight = take(model, "tendon_invweight0", t1)
             k, b, imp = kbi_norm(e, pos[:, None])
             aref = -b * (j * data.qvel).sum(-1) - k * imp * pos
             d = imp / torch.clamp((1.0 - imp) * invweight, min=1e-12)
@@ -349,26 +375,28 @@ def _equality_rows(plan: PhysicsPlan, model: Model, data: Data):
 
 def _friction_rows(plan: PhysicsPlan, model: Model, data: Data):
     """Dof, then tendon frictionloss rows: [(J [r, nv], aref [B, r], D [r],
-    frictionloss [r]), ...]. pos is 0 and K is 0 (aref = -B vel); the solver
-    clamps their force to +-frictionloss."""
+    frictionloss [r]), ...] (J, D and frictionloss [B, ...] where the leaves
+    they come from are per env). pos is 0 and K is 0 (aref = -B vel); the
+    solver clamps their force to +-frictionloss. The rows are the plan's
+    (module docstring)."""
     like = data.qpos
     out = []
     ids = plan.friction_dof_ids
     if len(ids):
         ids_t = static_tensor(plan, ("con", "fri_dof"), like, lambda: ids)
         j = static_tensor(plan, ("con", "fri_dof_J"), like, lambda: np.eye(plan.nv)[ids])
-        _, b, imp = _kbi(model, model.dof_solref_fri[ids_t], model.dof_solimp_fri[ids_t],
-                         like.new_zeros(len(ids)))
-        d = imp / torch.clamp((1.0 - imp) * model.dof_invweight0[ids_t], min=1e-12)
-        out.append((j, -b * data.qvel[:, ids_t], d, model.dof_frictionloss[ids_t]))
+        _, b, imp = _kbi(model, take(model, "dof_solref_fri", ids_t), take(model, "dof_solimp_fri", ids_t),
+                         like.new_zeros(len(ids)), ndim=2)
+        d = imp / torch.clamp((1.0 - imp) * take(model, "dof_invweight0", ids_t), min=1e-12)
+        out.append((j, -b * data.qvel[:, ids_t], d, take(model, "dof_frictionloss", ids_t)))
     tids = plan.friction_tendon_ids
     if len(tids):
         tids_t = static_tensor(plan, ("con", "fri_ten"), like, lambda: tids)
-        j = model.tendon_moment[tids_t]
-        _, b, imp = _kbi(model, model.tendon_solref_fri[tids_t], model.tendon_solimp_fri[tids_t],
-                         like.new_zeros(len(tids)))
-        d = imp / torch.clamp((1.0 - imp) * model.tendon_invweight0[tids_t], min=1e-12)
-        out.append((j, -b * (j * data.qvel[:, None, :]).sum(-1), d, model.tendon_frictionloss[tids_t]))
+        j = take(model, "tendon_moment", tids_t)
+        _, b, imp = _kbi(model, take(model, "tendon_solref_fri", tids_t), take(model, "tendon_solimp_fri", tids_t),
+                         like.new_zeros(len(tids)), ndim=2)
+        d = imp / torch.clamp((1.0 - imp) * take(model, "tendon_invweight0", tids_t), min=1e-12)
+        out.append((j, -b * (j * data.qvel[:, None, :]).sum(-1), d, take(model, "tendon_frictionloss", tids_t)))
     return out
 
 
@@ -389,18 +417,21 @@ def _limit_rows(plan: PhysicsPlan, model: Model, data: Data):
     qadr = st("qadr", lambda: plan.jnt_qposadr[jids])
     dadr = st("dadr", lambda: plan.jnt_dofadr[jids])
     qpos = data.qpos[:, qadr]
-    r0, r1 = model.jnt_range[jids_t, 0], model.jnt_range[jids_t, 1]
+    if is_per_env(model, "jnt_range"):
+        r0, r1 = model.jnt_range[:, jids_t, 0], model.jnt_range[:, jids_t, 1]
+    else:
+        r0, r1 = model.jnt_range[jids_t, 0], model.jnt_range[jids_t, 1]
     dist_min = qpos - r0
     dist_max = r1 - qpos
     dist = torch.minimum(dist_min, dist_max)
     side = torch.where(dist_min < dist_max, 1.0, -1.0).to(like.dtype)
-    margin = model.jnt_margin[jids_t]
+    margin = take(model, "jnt_margin", jids_t)
     active = dist < margin
     pos = dist - margin
-    k, b, imp = _kbi(model, model.jnt_solref[jids_t], model.jnt_solimp[jids_t], pos)
+    k, b, imp = _kbi(model, take(model, "jnt_solref", jids_t), take(model, "jnt_solimp", jids_t), pos)
     jv = side * data.qvel[:, dadr]
     aref = -b * jv - k * imp * pos
-    invweight = model.dof_invweight0[dadr]
+    invweight = take(model, "dof_invweight0", dadr)
     D = imp / torch.clamp((1.0 - imp) * invweight, min=1e-12)
     return torch.where(active, aref, 0.0), D, pos, active, torch.where(active, side, 0.0)
 
@@ -415,7 +446,7 @@ class _ContactTerms(NamedTuple):
     wv: torch.Tensor  # [B, ncon, 3] diff-masked w qvel
     pos: torch.Tensor  # [B, ncon]
     active: torch.Tensor  # [B, ncon]
-    k: torch.Tensor  # [ncon]
+    k: torch.Tensor  # [ncon] (or [B, ncon] from per-env leaves, as b and invweight_n)
     b: torch.Tensor  # [ncon]
     imp: torch.Tensor  # [B, ncon]
     invweight_n: torch.Tensor  # [ncon]
@@ -449,7 +480,7 @@ def _contact_terms(plan: PhysicsPlan, model: Model, data: Data, contact: Contact
 
     pos = contact.dist - contact.includemargin
     k, b, imp = _kbi(model, contact.solref, contact.solimp, pos)
-    invweight_n = model.body_invweight0[body1, 0] + model.body_invweight0[body2, 0]
+    invweight_n = take(model, "body_invweight0", body1)[..., 0] + take(model, "body_invweight0", body2)[..., 0]
     return _ContactTerms(s, w, q, jv3, wv, pos, contact.dist < contact.includemargin, k, b, imp,
                          invweight_n, diff_mask)
 
@@ -460,14 +491,15 @@ def _cone_blocks(model: Model, active, jv3, pos, k, b, imp, invweight_n, mu):
     no position term and reuse the normal row's impedance, D_f = D_n
     impratio (mu_i / mu_1)^2. The contacts' per-contact terms come in
     indexed alike: active, pos, imp [B, n3], jv3 [B, n3, 3], k, b,
-    invweight_n [n3], tangential friction mu [n3, 2] (or [B, n3, 2])."""
+    invweight_n [n3] (or [B, n3]), tangential friction mu [n3, 2] (or [B, n3,
+    2])."""
     jv = torch.where(active[..., None], jv3, 0.0)
     aref = -b[..., None] * jv
     aref = torch.cat([aref[..., :1] - (k * imp * pos)[..., None], aref[..., 1:]], dim=-1)
     aref = torch.where(active[..., None], aref, 0.0)
     d_n = imp / torch.clamp((1.0 - imp) * invweight_n, min=1e-12)
     mu1 = torch.clamp(mu[..., 0], min=1e-12)
-    d_f = d_n[..., None] * model.opt_impratio * (mu / mu1[..., None]) ** 2
+    d_f = d_n[..., None] * env_view(model, "opt_impratio", 3) * (mu / mu1[..., None]) ** 2
     return aref, torch.cat([d_n[..., None], d_f], dim=-1), mu1
 
 
@@ -525,7 +557,7 @@ def _compact_rows(plan, model, data, contact, elliptic: bool) -> EfcData:
         aref = torch.where(active[..., None], aref, 0.0)
         # C regularizes every pyramid row with the first friction coefficient
         mu0 = mu[..., 0:1]
-        invweight_pyr = invweight_n[:, None] * (1.0 + mu0**2) * 2.0 * mu0**2 / model.opt_impratio
+        invweight_pyr = invweight_n[..., None] * (1.0 + mu0**2) * 2.0 * mu0**2 / env_view(model, "opt_impratio", 3)
         impg = imp[..., None]
         D = (impg / torch.clamp((1.0 - impg) * invweight_pyr, min=1e-12)).expand(-1, -1, 4)
         rows_pos = pos.repeat_interleave(4, dim=1)
@@ -556,11 +588,10 @@ def _dense_rows(plan, model, data, contact) -> EfcData:
     block per condim-3 contact (elliptic, `ell_mu` set)."""
     like = data.qpos
     bsz, nv = like.shape[0], plan.nv
-    rows = []  # (J [B, r, nv], aref, D, pos [B, r], active [B, r], fmin, fmax [r])
+    rows = []  # (J [B, r, nv], aref, D, pos [B, r], active [B, r], fmin, fmax [r] or [B, r])
 
     def push(j, aref, D, pos, active, fmin, fmax):
-        r = aref.shape[1]
-        rows.append((j, aref, D, pos, active, torch.broadcast_to(fmin, (r,)), torch.broadcast_to(fmax, (r,))))
+        rows.append((j, aref, D, pos, active, fmin, fmax))
 
     big = like.new_tensor(BIG_FORCE)
     zero = like.new_tensor(0.0)
@@ -598,8 +629,8 @@ def _dense_rows(plan, model, data, contact) -> EfcData:
         if len(cd1):
             c = static_tensor(plan, ("con", "cd1"), like, lambda: cd1)
             act = active[:, c]
-            aref = torch.where(act, -b[c] * jv3[:, c, 0] - k[c] * imp[:, c] * pos[:, c], 0.0)
-            D = imp[:, c] / torch.clamp((1.0 - imp[:, c]) * t.invweight_n[c], min=1e-12)
+            aref = torch.where(act, -b[..., c] * jv3[:, c, 0] - k[..., c] * imp[:, c] * pos[:, c], 0.0)
+            D = imp[:, c] / torch.clamp((1.0 - imp[:, c]) * t.invweight_n[..., c], min=1e-12)
             push(torch.where(act[..., None], jn[:, c], 0.0), aref, D, pos[:, c], act, zero, big)
 
         cd3 = np.nonzero(plan.contact_condim >= 3)[0]
@@ -607,8 +638,8 @@ def _dense_rows(plan, model, data, contact) -> EfcData:
             # condim-3 only: elliptic condim 4 and 6 are refused by put_model
             c = static_tensor(plan, ("con", "cd3"), like, lambda: cd3)
             act = active[:, c]
-            aref, D, ell_mu = _cone_blocks(model, act, jv3[:, c], pos[:, c], k[c], b[c], imp[:, c],
-                                           t.invweight_n[c], contact.friction[..., c, :2])
+            aref, D, ell_mu = _cone_blocks(model, act, jv3[:, c], pos[:, c], k[..., c], b[..., c], imp[:, c],
+                                           t.invweight_n[..., c], contact.friction[..., c, :2])
             j = torch.where(act[..., None, None], jfr[:, c], 0.0)
             zc = torch.zeros_like(pos[:, c])
             nr = 3 * len(cd3)
@@ -633,18 +664,25 @@ def _dense_rows(plan, model, data, contact) -> EfcData:
                 for i in range(nfr):
                     jv += [jvn + mu[..., i] * jv_dirs[..., i], jvn - mu[..., i] * jv_dirs[..., i]]
                 jv = torch.where(act[..., None], torch.stack(jv, dim=2), 0.0)  # [B, ng, 2 nfr]
-                aref = -b[g, None] * jv - (k[g] * imp[:, g] * pos[:, g])[..., None]
+                aref = -b[..., g, None] * jv - (k[..., g] * imp[:, g] * pos[:, g])[..., None]
                 aref = torch.where(act[..., None], aref, 0.0)
                 # C regularizes every pyramid row with the first friction
                 # coefficient; per-direction mu appears only in J
                 mu0 = mu[..., 0:1]
-                invweight_pyr = t.invweight_n[g, None] * (1.0 + mu0**2) * 2.0 * mu0**2 / model.opt_impratio
+                invweight_pyr = (t.invweight_n[..., g, None] * (1.0 + mu0**2) * 2.0 * mu0**2
+                                 / env_view(model, "opt_impratio", 3))
                 impg = imp[:, g, None]
                 D = (impg / torch.clamp((1.0 - impg) * invweight_pyr, min=1e-12)).expand(-1, -1, 2 * nfr)
                 nr = len(grp) * 2 * nfr
                 push(j.reshape(bsz, nr, nv), aref.reshape(bsz, nr), D.reshape(bsz, nr),
                      pos[:, g].repeat_interleave(2 * nfr, dim=1), act.repeat_interleave(2 * nfr, dim=1), zero, big)
 
-    j, aref, D, pos, active, fmin, fmax = (torch.cat(parts, dim=1 if i < 5 else 0) for i, parts in
-                                           enumerate(zip(*rows)))
+    j, aref, D, pos, active = (torch.cat(parts, dim=1) for parts in list(zip(*rows))[:5])
+    # the force bounds [nefc], or [B, nefc] where a bound comes per env
+    per_env = any(bound.dim() > 1 for row in rows for bound in row[5:])
+    fmin, fmax = (
+        torch.cat([torch.broadcast_to(row[i], (bsz, row[1].shape[1]) if per_env else (row[1].shape[1],))
+                   for row in rows], dim=-1)
+        for i in (5, 6)
+    )
     return EfcData(aref=aref, D=D, pos=pos, active_row=active, J=j, fmin=fmin, fmax=fmax, ell_mu=ell_mu)

@@ -44,6 +44,8 @@ from track_mjx_tpu_torch.physics.model import (
     Data,
     Model,
     PhysicsPlan,
+    env_lined,
+    env_view,
     make_data,
     static_tensor,
 )
@@ -113,16 +115,18 @@ def forward(plan: PhysicsPlan, model: Model, data: Data) -> Data:
 
 
 def _integrate_pos(plan: PhysicsPlan, qpos: torch.Tensor, qvel: torch.Tensor, dt):
-    """mj_integratePos: joint-type-aware position integration, [B, nq]."""
+    """mj_integratePos: joint-type-aware position integration, [B, nq];
+    dt is the model's timestep, 0-d, or [B] per env."""
     out = qpos.clone()
+    dt_col = env_lined(dt, dt.dim() > 0, 2)  # against [B, k]
     scalar = np.nonzero((plan.jnt_type == JNT_HINGE) | (plan.jnt_type == JNT_SLIDE))[0]
     if len(scalar):
         qadr = static_tensor(plan, ("int", "qadr"), qpos, lambda: plan.jnt_qposadr[scalar])
         dadr = static_tensor(plan, ("int", "dadr"), qpos, lambda: plan.jnt_dofadr[scalar])
-        out[:, qadr] = qpos[:, qadr] + dt * qvel[:, dadr]  # in place on the clone
+        out[:, qadr] = qpos[:, qadr] + dt_col * qvel[:, dadr]  # in place on the clone
     for j in np.nonzero(plan.jnt_type == JNT_FREE)[0]:
         qadr, dadr = int(plan.jnt_qposadr[j]), int(plan.jnt_dofadr[j])
-        out[:, qadr : qadr + 3] = qpos[:, qadr : qadr + 3] + dt * qvel[:, dadr : dadr + 3]
+        out[:, qadr : qadr + 3] = qpos[:, qadr : qadr + 3] + dt_col * qvel[:, dadr : dadr + 3]
         out[:, qadr + 3 : qadr + 7] = quat.integrate(
             qpos[:, qadr + 3 : qadr + 7], qvel[:, dadr + 3 : dadr + 6], dt
         )
@@ -135,20 +139,21 @@ def _integrate_pos(plan: PhysicsPlan, qpos: torch.Tensor, qvel: torch.Tensor, dt
 
 
 def _advance_act(plan: PhysicsPlan, model: Model, data: Data, dt) -> torch.Tensor:
+    """act after a step of dt ([B, 1] where the timestep is per env)."""
     if plan.na == 0:
         return data.act
     act = data.act + dt * data.act_dot
     exact = static_tensor(
         plan, ("int", "exact"), data.act, lambda: plan.actuator_dyntype == DYN_FILTEREXACT
     ).bool()
-    tau = torch.clamp(model.actuator_dynprm[:, 0], min=1e-10)
+    tau = torch.clamp(model.actuator_dynprm[..., 0], min=1e-10)
     ctrl = data.ctrl
     act_exact = ctrl + (data.act - ctrl) * torch.exp(-dt / tau)
     return _clip_act(model, torch.where(exact, act_exact, act))
 
 
 def _clip_act(model: Model, act: torch.Tensor) -> torch.Tensor:
-    lo, hi = model.actuator_actrange[:, 0], model.actuator_actrange[:, 1]
+    lo, hi = model.actuator_actrange[..., 0], model.actuator_actrange[..., 1]
     return torch.where(model.actuator_actlimited > 0, torch.minimum(torch.maximum(act, lo), hi), act)
 
 
@@ -163,14 +168,15 @@ def euler(plan: PhysicsPlan, model: Model, data: Data) -> Data:
             f"integrator {plan.integrator} not supported by euler(): use "
             "step(), which dispatches Euler/RK4/implicit/implicitfast"
         )
-    dt = model.opt_timestep
+    dt = model.opt_timestep  # 0-d, or [B] per env
+    dt_col = env_view(model, "opt_timestep", 2)  # against [B, nv]
     if _solver.fused_euler(plan):
         qacc_eff = data.qacc_eff
     else:
-        mh = data.qM + torch.diag_embed((dt * model.dof_damping).expand_as(data.qvel))
+        mh = data.qM + torch.diag_embed((dt_col * model.dof_damping).expand_as(data.qvel))
         qacc_eff = batched_linalg.solve_spd(mh, data.qfrc_smooth + data.qfrc_constraint)
-    act = _advance_act(plan, model, data, dt)
-    qvel = data.qvel + dt * qacc_eff
+    act = _advance_act(plan, model, data, dt_col)
+    qvel = data.qvel + dt_col * qacc_eff
     qpos = _integrate_pos(plan, data.qpos, qvel, dt)
     return data.replace(
         qpos=qpos, qvel=qvel, act=act, time=data.time + dt, qacc_warmstart=data.qacc
@@ -190,7 +196,8 @@ def rk4(plan: PhysicsPlan, model: Model, data: Data) -> Data:
     (`_integrate_pos`). The stage solves warm-start from the step-initial
     qacc, as mj_step copies it to qacc_warmstart before them; the returned
     data keeps the first forward's derived stages."""
-    dt = model.opt_timestep
+    dt = model.opt_timestep  # 0-d, or [B] per env
+    dt_col = env_view(model, "opt_timestep", 2)  # against [B, n]
     time0, qpos0, qvel0, act0 = data.time, data.qpos, data.qvel, data.act
     has_act = plan.na > 0
     d = data.replace(qacc_warmstart=data.qacc)
@@ -202,22 +209,22 @@ def rk4(plan: PhysicsPlan, model: Model, data: Data) -> Data:
         d = d.replace(
             time=time0 + _RK4_C[i - 1] * dt,
             qpos=_integrate_pos(plan, qpos0, dqvel, dt),
-            qvel=qvel0 + dt * dqacc,
+            qvel=qvel0 + dt_col * dqacc,
         )
         if has_act:
             dact = sum(a[j] * derivs[j][2] for j in range(i) if a[j])
-            d = d.replace(act=act0 + dt * dact)
+            d = d.replace(act=act0 + dt_col * dact)
         d = forward(plan, model, d)
         derivs.append((d.qvel, d.qacc, d.act_dot))
     dqvel = sum(b * f[0] for b, f in zip(_RK4_B, derivs))
     dqacc = sum(b * f[1] for b, f in zip(_RK4_B, derivs))
     act = act0
     if has_act:
-        act = _clip_act(model, act0 + dt * sum(b * f[2] for b, f in zip(_RK4_B, derivs)))
+        act = _clip_act(model, act0 + dt_col * sum(b * f[2] for b, f in zip(_RK4_B, derivs)))
     return data.replace(
         time=time0 + dt,
         qpos=_integrate_pos(plan, qpos0, dqvel, dt),
-        qvel=qvel0 + dt * dqacc,
+        qvel=qvel0 + dt_col * dqacc,
         act=act,
         qacc_warmstart=data.qacc,
     )
@@ -275,17 +282,18 @@ def implicit(plan: PhysicsPlan, model: Model, data: Data) -> Data:
     leaves that general solve to its library. Both then advance as Euler
     does (act, qvel from the raw qfrc_smooth + qfrc_constraint, manifold
     positions); joint damping enters through qDeriv."""
-    dt = model.opt_timestep
+    dt = model.opt_timestep  # 0-d, or [B] per env
+    dt_col, dt_mat = env_view(model, "opt_timestep", 2), env_view(model, "opt_timestep", 3)
     fast = plan.integrator == INT_IMPLICITFAST
     qd = qderiv(plan, model, data, include_rne=not fast)
     rhs = data.qfrc_smooth + data.qfrc_constraint
     if fast:
         qd = 0.5 * (qd + qd.transpose(-1, -2))
-        qacc_eff = batched_linalg.solve_spd((data.qM - dt * qd).contiguous(), rhs.contiguous())
+        qacc_eff = batched_linalg.solve_spd((data.qM - dt_mat * qd).contiguous(), rhs.contiguous())
     else:
-        qacc_eff = torch.linalg.solve(data.qM - dt * qd, rhs)
-    act = _advance_act(plan, model, data, dt)
-    qvel = data.qvel + dt * qacc_eff
+        qacc_eff = torch.linalg.solve(data.qM - dt_mat * qd, rhs)
+    act = _advance_act(plan, model, data, dt_col)
+    qvel = data.qvel + dt_col * qacc_eff
     qpos = _integrate_pos(plan, data.qpos, qvel, dt)
     return data.replace(
         qpos=qpos, qvel=qvel, act=act, time=data.time + dt, qacc_warmstart=data.qacc

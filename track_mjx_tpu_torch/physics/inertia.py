@@ -1,7 +1,8 @@
 """Joint-space inertia: composite rigid body -> dense qM, Cholesky factor.
 
 Port of track_mjx_tpu/physics/inertia.py. `crb`: qM = anc-masked buf @
-cdof^T, symmetrized, plus diag(armature); `crb_buf` is exported so the fused
+cdof^T, symmetrized, plus diag(armature) (each env's own where the armature
+is per env); `crb_buf` is exported so the fused
 CG solves can rebuild qM from the (nv, 6) factors themselves. `factor_m`,
 `solve_m` and `mul_m` serve the plans that are not fused (Newton): the
 factor and the solve are the standalone kernels of ops/batched_linalg.

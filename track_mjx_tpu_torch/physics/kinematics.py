@@ -21,6 +21,7 @@ from track_mjx_tpu_torch.physics.model import (
     PhysicsPlan,
     plan_cache,
     static_tensor,
+    take,
 )
 
 
@@ -76,8 +77,8 @@ def kinematics(plan: PhysicsPlan, model: Model, data: Data) -> Data:
             ids_t = idx((li, gi, "ids"), lambda: ids)
             p_pos = cat_pos[:, parents]
             p_quat = cat_quat[:, parents]
-            b_pos = p_pos + quat.rotate(model.body_pos[ids_t], p_quat)
-            b_quat = quat.mul(p_quat, model.body_quat[ids_t])
+            b_pos = p_pos + quat.rotate(take(model, "body_pos", ids_t), p_quat)
+            b_quat = quat.mul(p_quat, take(model, "body_quat", ids_t))
 
             for k, jt in enumerate(sig):
                 j_np = plan.body_jntadr[ids] + k
@@ -89,25 +90,25 @@ def kinematics(plan: PhysicsPlan, model: Model, data: Data) -> Data:
                     new_pos = qpos[:, q3]
                     new_quat = quat.normalize(qpos[:, q4])
                     anchor = new_pos
-                    axis = model.jnt_axis[j_sel].expand(bsz, -1, 3)
+                    axis = take(model, "jnt_axis", j_sel).expand(bsz, -1, 3)
                 else:
                     qadr = idx((li, gi, k, "q"), lambda: qadr_np)
-                    anchor = b_pos + quat.rotate(model.jnt_pos[j_sel], b_quat)
-                    axis = quat.rotate(model.jnt_axis[j_sel], b_quat)
+                    anchor = b_pos + quat.rotate(take(model, "jnt_pos", j_sel), b_quat)
+                    axis = quat.rotate(take(model, "jnt_axis", j_sel), b_quat)
                     if jt == JNT_SLIDE:
-                        disp = (qpos[:, qadr] - model.qpos0[qadr])[..., None]
+                        disp = (qpos[:, qadr] - take(model, "qpos0", qadr))[..., None]
                         new_pos = b_pos + axis * disp
                         new_quat = b_quat
                     elif jt == JNT_BALL:
                         q4 = idx((li, gi, k, "q4"), lambda: qadr_np[:, None] + np.arange(4))
                         qloc = quat.normalize(qpos[:, q4])
                         new_quat = quat.mul(b_quat, qloc)
-                        new_pos = anchor - quat.rotate(model.jnt_pos[j_sel], new_quat)
+                        new_pos = anchor - quat.rotate(take(model, "jnt_pos", j_sel), new_quat)
                     else:  # hinge
-                        angle = qpos[:, qadr] - model.qpos0[qadr]
-                        qloc = quat.from_axis_angle(model.jnt_axis[j_sel], angle)
+                        angle = qpos[:, qadr] - take(model, "qpos0", qadr)
+                        qloc = quat.from_axis_angle(take(model, "jnt_axis", j_sel), angle)
                         new_quat = quat.mul(b_quat, qloc)
-                        new_pos = anchor - quat.rotate(model.jnt_pos[j_sel], new_quat)
+                        new_pos = anchor - quat.rotate(take(model, "jnt_pos", j_sel), new_quat)
                 b_pos, b_quat = new_pos, new_quat
                 anchor_parts.append(anchor)
                 axis_parts.append(axis)

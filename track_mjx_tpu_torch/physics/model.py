@@ -2,8 +2,19 @@
 
 Port of track_mjx_tpu/physics/model.py. The plan compile is the same host-side
 numpy code; `Model` and `Data` are dataclasses of torch tensors instead of JAX
-pytrees. `Model` leaves are unbatched and shared by every env; `Data` leaves
-are batch-first, [B, ...].
+pytrees. `Data` leaves are batch-first, [B, ...]. A `Model` leaf has the
+shape that `put_model` gives it (its rank is `LEAF_RANK`'s) and is shared by
+every env, or it is per env: one more dimension, [B] + that shape, as the
+domain randomization wrapper sets it (envs/wrappers.py). Any of the 71
+leaves may be per env, each on its own. A stage reads a leaf through the
+helpers below, which leave a shared leaf's arithmetic as it was:
+`take(model, name, ids)` indexes its first own axis (`leaf[ids]`, per env
+`leaf[:, ids]`), `env_view(model, name, ndim)` lines it up against a
+batch-first tensor of `ndim` dims ending in its own shape (a per-env scalar
+[B] becomes [B, 1] against [B, n]), and `mat_vec` / `vec_mat` apply a
+matrix leaf to a batch of vectors (a per-env matrix by a batched product).
+Quantities derived from per-env leaves carry the env axis first and are
+indexed from the end (`x[..., ids]`).
 
 `put_model` reads either a live `mujoco.MjModel` or a compiled-model
 snapshot that `tools/export_torch_model.py` writes (`load_snapshot`; one per
@@ -153,7 +164,8 @@ class PhysicsPlan:
 
 @dataclasses.dataclass(frozen=True)
 class Model:
-    """Numeric model parameters, unbatched torch tensors on one device."""
+    """Numeric model parameters, torch tensors on one device: each shared by
+    every env, or per env with a leading env axis (module docstring)."""
 
     opt_timestep: torch.Tensor
     opt_gravity: torch.Tensor
@@ -226,6 +238,72 @@ class Model:
     actuator_forcelimited: torch.Tensor
     actuator_actlimited: torch.Tensor
     actuator_acc0: torch.Tensor
+
+
+# Each Model leaf's rank as put_model makes it, shared by every env; a leaf
+# with one more dimension is per env, [B] + that shape
+LEAF_RANK = {
+    "opt_timestep": 0, "opt_gravity": 1, "opt_tolerance": 0, "opt_ls_tolerance": 0, "opt_impratio": 0,
+    "opt_density": 0, "opt_viscosity": 0, "opt_wind": 1, "qpos0": 1, "qpos_spring": 1,
+    "body_pos": 2, "body_quat": 2, "body_ipos": 2, "body_iquat": 2, "body_mass": 1, "body_inertia": 2,
+    "body_subtreemass": 1, "body_invweight0": 2,
+    "jnt_pos": 2, "jnt_axis": 2, "jnt_range": 2, "jnt_stiffness": 1, "jnt_solref": 2, "jnt_solimp": 2,
+    "jnt_margin": 1,
+    "dof_damping": 1, "dof_armature": 1, "dof_invweight0": 1, "dof_frictionloss": 1, "dof_solref_fri": 2,
+    "dof_solimp_fri": 2,
+    "eq_data": 2, "eq_solref": 2, "eq_solimp": 2,
+    "geom_pos": 2, "geom_quat": 2, "geom_size": 2, "geom_friction": 2, "geom_solref": 2, "geom_solimp": 2,
+    "geom_solmix": 1, "geom_margin": 1, "geom_gap": 1, "geom_priority": 1,
+    "site_pos": 2, "site_quat": 2,
+    "tendon_moment": 2, "tendon_length_mat": 2, "tendon_length0_const": 1, "tendon_length0": 1,
+    "tendon_invweight0": 1, "tendon_frictionloss": 1, "tendon_solref_fri": 2, "tendon_solimp_fri": 2,
+    "tendon_stiffness": 1, "tendon_damping": 1, "tendon_lengthspring": 2,
+    "actuator_gear0": 1, "actuator_len_mat": 2, "actuator_len_const": 1, "actuator_moment": 2,
+    "actuator_dynprm": 2, "actuator_gainprm": 2, "actuator_biasprm": 2, "actuator_ctrlrange": 2,
+    "actuator_forcerange": 2, "actuator_actrange": 2, "actuator_ctrllimited": 1, "actuator_forcelimited": 1,
+    "actuator_actlimited": 1, "actuator_acc0": 1,
+}
+
+
+def is_per_env(model: Model, name: str) -> bool:
+    """True when leaf `name` carries a leading env axis (module docstring)."""
+    return getattr(model, name).dim() > LEAF_RANK[name]
+
+
+def take(model: Model, name: str, ids) -> torch.Tensor:
+    """Leaf `name` at `ids` (an index tensor or an int) along its first own
+    axis: `leaf[ids]` shared, `leaf[:, ids]` per env."""
+    leaf = getattr(model, name)
+    return leaf[:, ids] if leaf.dim() > LEAF_RANK[name] else leaf[ids]
+
+
+def env_lined(x: torch.Tensor, per_env: bool, ndim: int) -> torch.Tensor:
+    """`x` as it is, or, per env ([B] + its own shape), with ones between
+    the env axis and its own shape to `ndim` dims: it then broadcasts
+    against a batch-first tensor whose trailing dims are its own shape."""
+    if not per_env:
+        return x
+    return x.reshape(x.shape[:1] + (1,) * (ndim - x.dim()) + x.shape[1:])
+
+
+def env_view(model: Model, name: str, ndim: int) -> torch.Tensor:
+    """Leaf `name` lined up against a batch-first tensor of `ndim` dims
+    (`env_lined`): a per-env scalar [B] against [B, n] becomes [B, 1]."""
+    return env_lined(getattr(model, name), is_per_env(model, name), ndim)
+
+
+def mat_vec(model: Model, name: str, x: torch.Tensor) -> torch.Tensor:
+    """Matrix leaf `name` [rows, cols] (or [B, rows, cols] per env) times a
+    batch of vectors x [B, cols] -> [B, rows]."""
+    mat = getattr(model, name)
+    return (mat @ x[..., None])[..., 0] if mat.dim() > LEAF_RANK[name] else x @ mat.T
+
+
+def vec_mat(x: torch.Tensor, model: Model, name: str) -> torch.Tensor:
+    """A batch of vectors x [B, rows] times matrix leaf `name` [rows, cols]
+    (or [B, rows, cols] per env) -> [B, cols]."""
+    mat = getattr(model, name)
+    return (x[:, None, :] @ mat)[:, 0] if mat.dim() > LEAF_RANK[name] else x @ mat
 
 
 @dataclasses.dataclass(frozen=True)
@@ -687,7 +765,8 @@ def put_model(m, device: torch.device | str = "cuda") -> tuple[PhysicsPlan, Mode
 
 def make_data(plan: PhysicsPlan, model: Model, batch_size: int) -> Data:
     """Zero-initialized batch of `batch_size` envs at qpos0 (mj_makeData
-    defaults), on the model's device."""
+    defaults), on the model's device: each env at its own qpos0 where qpos0
+    is per env ([batch_size, nq])."""
     dtype, device = model.qpos0.dtype, model.qpos0.device
     b = batch_size
 

@@ -26,7 +26,13 @@ from track_mjx_tpu_torch.physics.model import (
     Data,
     Model,
     PhysicsPlan,
+    env_lined,
+    env_view,
+    is_per_env,
+    mat_vec,
     static_tensor,
+    take,
+    vec_mat,
 )
 
 
@@ -36,20 +42,20 @@ _MINVAL = 1e-15
 def fluid(plan: PhysicsPlan, model: Model, data: Data) -> torch.Tensor:
     """Inertia-box fluid forces -> qfrc contribution [B, nv]."""
     mass = model.body_mass
-    inert = model.body_inertia  # (nbody, 3) principal moments
+    inert = model.body_inertia  # (nbody, 3) principal moments, or [B, nbody, 3] per env
 
-    # equivalent inertia box: full side lengths, (nbody, 3)
+    # equivalent inertia box: full side lengths, (nbody, 3) (or [B, nbody, 3])
     safe_mass = torch.clamp(mass, min=_MINVAL)
     box = torch.stack(
         [
             torch.sqrt(
-                torch.clamp(inert[:, (i + 1) % 3] + inert[:, (i + 2) % 3] - inert[:, i], min=_MINVAL)
+                torch.clamp(inert[..., (i + 1) % 3] + inert[..., (i + 2) % 3] - inert[..., i], min=_MINVAL)
                 / safe_mass
                 * 6.0
             )
             for i in range(3)
         ],
-        dim=1,
+        dim=-1,
     )
 
     # body 6D velocity at xipos, in the inertia (ximat) frame
@@ -60,21 +66,22 @@ def fluid(plan: PhysicsPlan, model: Model, data: Data) -> torch.Tensor:
     # local = R^T world (ximat columns are the local axes in world coordinates)
     lw = (data.ximat * w_world[..., :, None]).sum(-2)
     lv = (data.ximat * v_world[..., :, None]).sum(-2)
-    lv = lv - (data.ximat * model.opt_wind[:, None]).sum(-2)  # wind: a linear velocity field
+    wind = env_view(model, "opt_wind", 3)[..., None]  # a linear velocity field
+    lv = lv - (data.ximat * wind).sum(-2)
 
     # viscous drag (sphere of equivalent mean diameter)
-    diam = box.mean(dim=1, keepdim=True)
-    visc = model.opt_viscosity
+    diam = box.mean(dim=-1, keepdim=True)
+    visc = env_view(model, "opt_viscosity", 3)
     lfrc_ang = -math.pi * diam**3 * visc * lw
     lfrc_lin = -3.0 * math.pi * diam * visc * lv
 
     # quadratic (density) drag against the box faces
-    dens = model.opt_density
-    b0, b1, b2 = box[:, 0:1], box[:, 1:2], box[:, 2:3]
-    face = torch.cat([b1 * b2, b0 * b2, b0 * b1], dim=1)
+    dens = env_view(model, "opt_density", 3)
+    b0, b1, b2 = box[..., 0:1], box[..., 1:2], box[..., 2:3]
+    face = torch.cat([b1 * b2, b0 * b2, b0 * b1], dim=-1)
     lfrc_lin = lfrc_lin - 0.5 * dens * face * torch.abs(lv) * lv
     ang_coef = (
-        torch.cat([b0 * (b1**4 + b2**4), b1 * (b0**4 + b2**4), b2 * (b0**4 + b1**4)], dim=1)
+        torch.cat([b0 * (b1**4 + b2**4), b1 * (b0**4 + b2**4), b2 * (b0**4 + b1**4)], dim=-1)
         / 64.0
     )
     lfrc_ang = lfrc_ang - dens * ang_coef * torch.abs(lw) * lw
@@ -85,7 +92,7 @@ def fluid(plan: PhysicsPlan, model: Model, data: Data) -> torch.Tensor:
     torque_com = torque_w + quat.cross(arm, force_w)
     wrench = torch.cat([torque_com, force_w], dim=-1)  # [B, nbody, 6]
     # massless bodies contribute nothing (MuJoCo skips them)
-    wrench = torch.where(mass[:, None] > _MINVAL, wrench, 0.0)
+    wrench = torch.where(mass[..., None] > _MINVAL, wrench, 0.0)
 
     # qfrc[i] = sum_b mask[b, i] cdof[i] . wrench[b]
     mask = static_tensor(plan, ("passive", "body_dof_mask"), data.qpos, lambda: dof_body_mask(plan))
@@ -103,36 +110,39 @@ def passive(plan: PhysicsPlan, model: Model, data: Data) -> Data:
         jids = static_tensor(plan, ("passive", "jids"), like, lambda: scalar)
         qadr = static_tensor(plan, ("passive", "qadr"), like, lambda: plan.jnt_qposadr[scalar])
         dadr = static_tensor(plan, ("passive", "dadr"), like, lambda: plan.jnt_dofadr[scalar])
-        frc = -model.jnt_stiffness[jids] * (data.qpos[:, qadr] - model.qpos_spring[qadr])
+        frc = -take(model, "jnt_stiffness", jids) * (data.qpos[:, qadr] - take(model, "qpos_spring", qadr))
         qfrc_spring[:, dadr] = frc  # in place on the fresh zeros above
 
+    # a free or ball joint's stiffness, [B, 1] per env against [B, 3]
+    stiff_per_env = is_per_env(model, "jnt_stiffness")
+    spring = model.qpos_spring
     for j in np.nonzero(plan.jnt_type == JNT_FREE)[0]:
-        stiff = model.jnt_stiffness[j]
+        stiff = env_lined(take(model, "jnt_stiffness", j), stiff_per_env, 2)
         qadr, dadr = int(plan.jnt_qposadr[j]), int(plan.jnt_dofadr[j])
-        dif = data.qpos[:, qadr : qadr + 3] - model.qpos_spring[qadr : qadr + 3]
+        dif = data.qpos[:, qadr : qadr + 3] - spring[..., qadr : qadr + 3]
         qfrc_spring[:, dadr : dadr + 3] = -stiff * dif
         rot = quat.subtract(
-            data.qpos[:, qadr + 3 : qadr + 7], model.qpos_spring[qadr + 3 : qadr + 7]
+            data.qpos[:, qadr + 3 : qadr + 7], spring[..., qadr + 3 : qadr + 7]
         )
         qfrc_spring[:, dadr + 3 : dadr + 6] = -stiff * rot
 
     for j in np.nonzero(plan.jnt_type == JNT_BALL)[0]:
-        stiff = model.jnt_stiffness[j]
+        stiff = env_lined(take(model, "jnt_stiffness", j), stiff_per_env, 2)
         qadr, dadr = int(plan.jnt_qposadr[j]), int(plan.jnt_dofadr[j])
-        rot = quat.subtract(data.qpos[:, qadr : qadr + 4], model.qpos_spring[qadr : qadr + 4])
+        rot = quat.subtract(data.qpos[:, qadr : qadr + 4], spring[..., qadr : qadr + 4])
         qfrc_spring[:, dadr : dadr + 3] = -stiff * rot
 
     qfrc_damper = -model.dof_damping * data.qvel
 
     if plan.tendon_passive_active:
-        length = data.qpos @ model.tendon_length_mat.T + model.tendon_length0_const
-        lo = model.tendon_lengthspring[:, 0]
-        hi = model.tendon_lengthspring[:, 1]
+        length = mat_vec(model, "tendon_length_mat", data.qpos) + model.tendon_length0_const
+        lo = model.tendon_lengthspring[..., 0]
+        hi = model.tendon_lengthspring[..., 1]
         zero = torch.zeros_like(length)
         disp = torch.where(length > hi, hi - length, torch.where(length < lo, lo - length, zero))
-        qfrc_spring = qfrc_spring + (model.tendon_stiffness * disp) @ model.tendon_moment
-        ten_vel = data.qvel @ model.tendon_moment.T
-        qfrc_damper = qfrc_damper - (model.tendon_damping * ten_vel) @ model.tendon_moment
+        qfrc_spring = qfrc_spring + vec_mat(model.tendon_stiffness * disp, model, "tendon_moment")
+        ten_vel = mat_vec(model, "tendon_moment", data.qvel)
+        qfrc_damper = qfrc_damper - vec_mat(model.tendon_damping * ten_vel, model, "tendon_moment")
 
     qfrc_passive = qfrc_spring + qfrc_damper
     if plan.fluid_active:

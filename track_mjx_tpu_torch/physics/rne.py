@@ -21,7 +21,11 @@ def body_acc(plan: PhysicsPlan, model: Model, data: Data, qacc=None) -> torch.Te
     mj_rnePostConstraint)."""
     like = data.qpos
     bsz = like.shape[0]
-    world = torch.cat([like.new_zeros(3), -model.opt_gravity]).expand(bsz, 1, 6)
+    gravity = model.opt_gravity
+    if gravity.dim() > 1:  # per env, [B, 3]
+        world = torch.cat([like.new_zeros((bsz, 3)), -gravity], dim=-1)[:, None, :]
+    else:
+        world = torch.cat([like.new_zeros(3), -gravity]).expand(bsz, 1, 6)
     # level-order accumulation like kinematics: each level reads its
     # parents from the levels before it and is appended; one gather restores
     # body order at the end

@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from track_mjx_tpu_torch.ops.quaternion import cross
-from track_mjx_tpu_torch.physics.model import Data, Model, PhysicsPlan, static_tensor
+from track_mjx_tpu_torch.physics.model import Data, Model, PhysicsPlan, static_tensor, take
 from track_mjx_tpu_torch.physics.rne import body_acc
 
 SENS_ACCELEROMETER = 1
@@ -83,10 +83,10 @@ def sensor(plan: PhysicsPlan, model: Model, data: Data) -> Data:
             roots = static_tensor(
                 plan, ("sensor", i, "root"), like, lambda: plan.body_rootid[bodies_np]
             )
-            mass = model.body_mass[bodies]
+            mass = take(model, "body_mass", bodies)
             cvel = data.cvel[:, bodies]
             w = cvel[..., :3]
             v = cvel[..., 3:] + cross(w, data.xipos[:, bodies] - data.subtree_com[:, roots])
-            out = (mass[:, None] * v).sum(1) / torch.clamp(mass.sum(), min=1e-12)
+            out = (mass[..., None] * v).sum(1) / torch.clamp(mass.sum(-1), min=1e-12)[..., None]
             sensordata[:, adr : adr + 3] = out
     return data.replace(sensordata=sensordata)

@@ -43,6 +43,7 @@ from track_mjx_tpu_torch.physics.model import (
     Data,
     Model,
     PhysicsPlan,
+    env_view,
     plan_cache,
     static_tensor,
 )
@@ -102,12 +103,13 @@ def _jb_static(plan: PhysicsPlan):
 
 def _common_inputs(plan: PhysicsPlan, model: Model, data: Data, efc: EfcData, compact: bool = True) -> dict:
     """The operands every fused solve takes, and the compact layout's J
-    operands except the friction `mu` where `compact`."""
+    operands except the friction `mu` where `compact`. The armature is (nv,)
+    or, per env, [B, nv]; hd and tolscale are per env either way."""
     like = data.qpos
     bsz, nv = like.shape[0], plan.nv
     arm = model.dof_armature.contiguous()
     # convergence threshold tol * trace(M), trace from the CRB factors
-    scale = torch.clamp((data.crb_buf * data.cdof).sum((-2, -1)) + arm.sum(), min=_EPS)
+    scale = torch.clamp((data.crb_buf * data.cdof).sum((-2, -1)) + arm.sum(-1), min=_EPS)
     out = dict(
         buf=data.crb_buf.contiguous(),
         cdof=data.cdof.contiguous(),
@@ -115,7 +117,7 @@ def _common_inputs(plan: PhysicsPlan, model: Model, data: Data, efc: EfcData, co
         D=efc.D.contiguous(),
         qfrc_smooth=data.qfrc_smooth.contiguous(),
         warm=data.qacc_warmstart.contiguous(),
-        hd=(model.opt_timestep * model.dof_damping).expand(bsz, nv).contiguous(),
+        hd=(env_view(model, "opt_timestep", 2) * model.dof_damping).expand(bsz, nv).contiguous(),
         tolscale=(model.opt_tolerance * scale).contiguous(),
         anc=static_tensor(plan, ("solver", "anc"), like, lambda: plan.ancestry_mask),
         arm=arm,
@@ -143,8 +145,9 @@ def solve_inputs(plan: PhysicsPlan, model: Model, data: Data, efc: EfcData) -> d
 
 
 def _mu_t(model: Model, efc: EfcData) -> torch.Tensor:
-    """Each cone block's effective friction mu_1 / sqrt(impratio) [nc]."""
-    return efc.ell_mu * torch.rsqrt(torch.clamp(model.opt_impratio, min=_EPS))
+    """Each cone block's effective friction mu_1 / sqrt(impratio) [nc] (or
+    [B, nc])."""
+    return efc.ell_mu * torch.rsqrt(torch.clamp(env_view(model, "opt_impratio", 2), min=_EPS))
 
 
 def ell_solve_inputs(plan: PhysicsPlan, model: Model, data: Data, efc: EfcData) -> dict:
