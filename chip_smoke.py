@@ -5,7 +5,8 @@ integrators, condim-1/4/6 contacts, frictionloss and equality rows, on
 pyramidal and on elliptic cones), the third workload config with the
 trainer's options, the CLI's run management and per-eval logging, the
 analysis of a trained checkpoint, data-parallel training over
-torch.distributed, and domain randomization of the Model's leaves.
+torch.distributed, domain randomization of the Model's leaves, and the
+learning-check tool (tools/long_run_torch.py).
 
 Usage (from the repository root, on a machine with a CUDA device and nvcc):
 
@@ -69,8 +70,8 @@ It imports nothing of JAX. Phases, each of which raises on failure:
    track_mjx_tpu_torch.train.main(load_config("rodent-full-clips", ...)),
    without its per-eval logging rollout (phase 13 runs that; so in 9-11c),
    at the config's widths and 4096 envs, cut in depth only (TRAIN_OVERRIDES:
-   8 synthetic clips of 80 frames written to build/, episodes of 10 control
-   steps (25 until phase 15 was added), 4 minibatches of 1024 trajectories, one epoch of 2 training steps
+   8 synthetic clips of 80 frames written to build/, episodes of 5 control
+   steps (25 until phase 15 was added, 10 until phase 17), 4 minibatches of 1024 trajectories, one epoch of 2 training steps
    of one unroll each, 4 passes, one eval of 128 envs). cg_solve must launch
    exactly as often as the reset, the unrolls, the reset after the epoch and
    the eval need (the formula is printed), the plain version and the other
@@ -222,8 +223,8 @@ It imports nothing of JAX. Phases, each of which raises on failure:
    cg_solve launched exactly 1 + 19 x 10 times and no other kernel;
    cfrc_ext of the last step's Data on the card against the CPU's for 64
    envs within CFRC_REL. The LSTM rodent (phase 10's checkpoint) and the
-   fly (phase 9's) the same way at 8 clips and 10 control steps (cg_solve,
-   ell_cg_solve, each exactly 1 + 10 x 10). On the rodent's analysis env:
+   fly (phase 9's) the same way at 8 clips and 5 control steps (10 until
+   phase 17 was added; cg_solve, ell_cg_solve, each exactly 1 + 5 x 10). On the rodent's analysis env:
    AutoAlignWrapperTracking for 10 control steps under 0.2 x U(-1, 1)
    controls (the envs that end done sit at their reference frame's qpos and
    qvel bit for bit, the others equal the unwrapped step bit for bit in
@@ -284,9 +285,21 @@ It imports nothing of JAX. Phases, each of which raises on failure:
    randomizer as its randomization_fn, cut in depth as phase 15's
    in-process run (256 envs, one unroll of 2, one eval of 1 control step):
    cg_solve's launches exact, every loss finite.
-17. Prints the seconds of each phase and the total, the kernels' JSON line
+17. The learning-check tool (runs after 16, before 12):
+   tools/long_run_torch.py's main, as a user runs it, at 4096 envs and full
+   width with the JAX tool's settings, cut in depth only (LONG_RUN_*: one
+   training step of one unroll of 20 steps, batch 256 x 16 minibatches, 1
+   pass; 4 synthetic clips of 62 frames; 2 evals of 7 control steps,
+   checkpointed with --ckpt-dir): one record per eval with the JAX tool's
+   keys, every number finite; cg_solve's launches exact (reset + 20 x 10 +
+   2 evals x (1 + 7 x 10), no other kernel, no plain version), the records'
+   kernel_launches equal to the wrappers' counts; the last checkpoint loads
+   for eval and its stored config rebuilds the run's env over its clips
+   (analysis.rollout.create_environment). Prints the records and the
+   phase's seconds.
+18. Prints the seconds of each phase and the total, the kernels' JSON line
    (each kernel's launches on every path that runs it under
-   "launches_by_path", phases 14's, 15's and 16's among them; cg_solve's
+   "launches_by_path", phases 14's to 17's among them; cg_solve's
    and ell_cg_solve's B = 1 records under "b1", their per-env armature
    records under "per_env_armature") and, last, {"ok": true, "device":
    {...}}.
@@ -423,9 +436,10 @@ REWARD_TERMS = ("pos_reward", "quat_reward", "joint_reward", "angvel_reward", "b
 # --- rodent training: the trainer through train.main, at full width
 TRAIN_CLIPS = 8
 TRAIN_CLIP_LENGTH = 80
-# random_init_range 65 (the config's 50 until phase 15 was added, cut to make
-# room for it): episodes (and the eval's) of 80 - 65 - 5 = 10 control steps
-TRAIN_RANDOM_INIT = 65
+# random_init_range 70 (the config's 50 until phase 15 was added, 65 until
+# phase 17, cut to make room for them): episodes (and the eval's) of
+# 80 - 70 - 5 = 5 control steps
+TRAIN_RANDOM_INIT = 70
 # The cuts are depth only: the config's widths and N_ENVS envs, batch_size
 # 1024 (a minibatch is the reference's [1024, 20]); 4 minibatches (16 in the
 # config) make one unroll per training step; num_timesteps = eval_every =
@@ -638,7 +652,7 @@ class Preempted(BaseException):
 ANALYSIS_CLIPS = 256
 ANALYSIS_FRAMES = 20  # 30 until phase 16 was added, cut to make room for it
 ANALYSIS_OTHER_CLIPS = 8
-ANALYSIS_OTHER_STEPS = 10
+ANALYSIS_OTHER_STEPS = 5  # 10 until phase 17 was added, cut to make room for it
 ANALYSIS_CPU = 64  # envs whose cfrc_ext is held against the CPU's
 CFRC_REL = 1e-5  # cfrc_ext, card against CPU on the same Data: float32 roundoff of products and sums
 ALIGN_STEPS = 10
@@ -699,6 +713,19 @@ DR_SCALES = {"geom_friction": (0.6, 1.4), "dof_frictionloss": (0.9, 1.1), "dof_a
 DR_IPOS = 1e-3  # m, the rodent's
 DR_QPOS0 = 0.05
 DR_CONTROL_STEPS = 1  # timed, after one warm-up control step from the reset
+
+# --- phase 17: the learning-check tool, tools/long_run_torch.py, at
+# N_ENVS envs and full width, cut in depth only: one training step of one
+# unroll of the config's 20 steps (batch 256 x the reference's 16 minibatches
+# = N_ENVS trajectories, 1 pass), 4 clips of LONG_RUN_CLIP_LENGTH frames,
+# so evals of 62 - 50 - 5 = 7 control steps, and 2 evals (the initial one
+# and one after the epoch), each checkpointed.
+LONG_RUN_CLIP_LENGTH = 62
+LONG_RUN_BATCH = 256
+LONG_RUN_ARGS = ["--num-envs", str(N_ENVS), "--num-evals", "2", "--batch-size", str(LONG_RUN_BATCH),
+                 "--num-minibatches", "16", "--updates-per-batch", "1",
+                 "--clip-length", str(LONG_RUN_CLIP_LENGTH),
+                 "--num-timesteps", str(LONG_RUN_BATCH * 20 * 16)]
 
 
 def dp_overrides(device: str, root: str) -> list:
@@ -3996,6 +4023,65 @@ class Phases:
             "ell_cg_solve": (fly, {"fly randomized control step (phase 16)": fly_launches}),
         }
 
+    def learning_check(self) -> int:
+        """Phase 17: tools/long_run_torch.py's main, as a user runs it, at
+        N_ENVS envs and full width, cut in depth (LONG_RUN_*). Returns
+        cg_solve's launches."""
+        import importlib.util
+
+        from track_mjx_tpu_torch import train as ttrain
+        from track_mjx_tpu_torch.agent import checkpointing
+        from track_mjx_tpu_torch.analysis import rollout as arollout
+        from track_mjx_tpu_torch.utils.config import load_config
+
+        t0 = time.perf_counter()
+        root = os.path.join(REPO, "build", "chip_smoke_long_run")
+        shutil.rmtree(root, ignore_errors=True)
+        spec = importlib.util.spec_from_file_location("long_run_torch", os.path.join(REPO, "tools", "long_run_torch.py"))
+        tool = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(tool)
+        cfg = load_config("rodent-full-clips")
+        substeps = cfg.env_config.env_args.physics_steps_per_control_step
+        episode = LONG_RUN_CLIP_LENGTH - cfg.reference_config.random_init_range - cfg.reference_config.traj_length
+        unroll = cfg.train_setup.train_config.unroll_length
+        # the reset, one unroll, and two evals of a reset and an episode each
+        expected = 1 + unroll * substeps + 2 * (1 + episode * substeps)
+        calls, restore = self.no_plain_calls()
+        for fn in ttrain.KERNELS:
+            fn.launches = 0
+        ckpt = os.path.join(root, "ckpt")
+        try:
+            history = tool.main([*LONG_RUN_ARGS, "--device", self.dev.type,
+                                   "--out", os.path.join(root, "records.json"), "--ckpt-dir", ckpt])
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        launches = ttrain.kernel_launches()
+        keys = {"wall_s", "env_steps_k", "eval_reward", "eval_reward_std", "avg_episode_length", "training_sps",
+                "eval_sps"}
+        for rec in history:
+            print(f"learning check record: {json.dumps(rec)}")
+        assert len(history) == 2, history
+        for i, rec in enumerate(history):
+            assert set(rec) == {*keys, "kernel_launches", *(("step_sps",) if i else ())}, sorted(rec)
+            numbers = [v for k, v in rec.items() if k in keys and v is not None]
+            assert all(math.isfinite(v) for v in numbers), rec
+            assert rec["eval_reward"] is not None and rec["eval_sps"] > 0, rec
+        assert history[1]["training_sps"] > 0
+        print(f"learning check: tools/long_run_torch.py at {N_ENVS} envs (full width) in "
+              f"{time.perf_counter() - t0:.1f} s; kernel launches {json.dumps(launches)}, cg_solve expected 1 (reset) "
+              f"+ {unroll} x {substeps} + 2 evals x (1 + {episode} x {substeps}) = {expected}; plain calls {calls}")
+        assert history[-1]["kernel_launches"] == launches, "the records' launches are not the wrappers' counts"
+        assert launches == {**dict.fromkeys(launches, 0), "cg_solve": expected}, launches
+        assert not any(calls.values()), f"a plain version ran on the card: {calls}"
+        bundle = checkpointing.load_checkpoint_for_eval(ckpt, device=self.dev)
+        env = arollout.create_environment(bundle["cfg"], device=self.dev)
+        print(f"learning check: checkpoint PPONetwork_{checkpointing.CheckpointStore(ckpt).resolve_step(None)} "
+              f"loaded for eval; its config's env over {env._n_clips} clips of {env._clip_frames} frames")
+        assert (env._n_clips, env._clip_frames) == (4, LONG_RUN_CLIP_LENGTH)
+        print(f"phase 17: {time.perf_counter() - t0:.1f} s ({self.card})")
+        return launches["cg_solve"]
+
     def sps_profile_dir(self) -> None:
         """Phase 11c's profile_dir check, after every rate of the script: a
         small run of the config through train.main with profile_dir (two
@@ -4093,6 +4179,7 @@ def main() -> None:
     analysis_record = timed("14 analysis from a checkpoint", phases.analysis)
     dp_launches = timed("15 data parallel", phases.data_parallel)
     randomized = timed("16 domain randomization", phases.domain_randomization)
+    learning_launches = timed("17 learning check", phases.learning_check)
     kernels += timed("12 standalone linalg", phases.newton_kernels, *newton)
     timed("11c profile_dir", phases.sps_profile_dir)
     for k in kernels:  # each kernel's launches on every path that runs it, as counted there
@@ -4103,7 +4190,8 @@ def main() -> None:
                                      "rodent rollout, reset + one unroll (phase 4)": rollout_launches,
                                      "rodent training, train.main (phase 8)": training_launches,
                                      "rodent LSTM training, train.main (phase 10)": lstm_training_launches,
-                                     **sps_launches, **dp_launches}
+                                     **sps_launches, **dp_launches,
+                                     "learning check, tools/long_run_torch.py (phase 17)": learning_launches}
         elif k["name"] == "ell_cg_solve":
             k["no_euler"] = ell_no_euler
             k["launches_by_path"] = {"fly control steps (phase 6)": k["launches"],
